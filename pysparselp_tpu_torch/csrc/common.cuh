@@ -1,0 +1,41 @@
+// Shared helpers of the port's hand-written Hopper kernels.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define PSLP_EXPORT extern "C" __attribute__((visibility("default")))
+
+namespace pslp {
+
+constexpr int kBlock = 256;
+
+inline int grid_for(long long n) {
+  return static_cast<int>((n + kBlock - 1) / kBlock);
+}
+
+// One row of a DIA product: sum_k vals[k, r] * v[r + offs[k]], diagonals in
+// ascending-offset order, out-of-range reads contributing zero (the JAX
+// kernels' zero padding).  Every product and sum is rounded separately
+// (built with --fmad=false), exactly as the PyTorch twin's
+// ``y = y + vals[k] * v_shifted`` sequence.
+template <typename T>
+__device__ __forceinline__ T dia_row(const T* __restrict__ vals,
+                                     const int* __restrict__ offs, int ndiag,
+                                     long long stride, const T* v, int nv,
+                                     int r) {
+  T acc = T(0);
+  for (int k = 0; k < ndiag; ++k) {
+    const long long c = static_cast<long long>(r) + offs[k];
+    const T xv = (c >= 0 && c < nv) ? v[c] : T(0);
+    acc = acc + vals[k * stride + r] * xv;
+  }
+  return acc;
+}
+
+template <typename T>
+__device__ __forceinline__ T clamp(T v, T lo, T hi) {
+  v = v > lo ? v : lo;
+  return v < hi ? v : hi;
+}
+
+}  // namespace pslp

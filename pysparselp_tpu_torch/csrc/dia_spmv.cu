@@ -1,0 +1,56 @@
+// H-DIA: DIA sparse matrix-vector product y[r] = sum_d vals[d, r] * x[r + off_d].
+//
+// Replaces pysparselp_tpu/ops/dia_pallas.py::_dia_matvec_pallas (K4) and
+// computes the function of _dia_matvec_pallas_dyn (K5): the offsets are a
+// runtime int32 device array, so one compiled kernel serves every operator.
+//
+// Bound on the H100: memory.  A call moves ndiag * n_out * itemsize bytes of
+// values, plus |x| and |y|; the arithmetic is one multiply-add per value.
+// Design: one thread per output row walks the diagonals in ascending-offset
+// order, so for every diagonal neighbouring threads read neighbouring values
+// and neighbouring x entries (one coalesced stream per diagonal, x reused
+// from L1/L2 across diagonals).  The TPU kernel's lane rotations, 128-lane
+// padding and VMEM residency of x have no counterpart: a bounds check that
+// yields zero stands in for the zero padding.
+#include "common.cuh"
+
+namespace {
+
+template <typename T>
+__global__ void dia_spmv_kernel(const T* __restrict__ vals,
+                                const int* __restrict__ offs, int ndiag,
+                                const T* __restrict__ x, int n_in,
+                                T* __restrict__ y, int n_out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_out) return;
+  y[r] = pslp::dia_row<T>(vals, offs, ndiag, n_out, x, n_in, r);
+}
+
+template <typename T>
+int launch(const T* vals, const int* offs, int ndiag, const T* x, int n_in,
+           T* y, int n_out, void* stream) {
+  if (n_out > 0) {
+    dia_spmv_kernel<T><<<pslp::grid_for(n_out), pslp::kBlock, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        vals, offs, ndiag, x, n_in, y, n_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+PSLP_EXPORT int pslp_dia_spmv_f32(const float* vals, const int* offs,
+                                  int ndiag, const float* x, int n_in,
+                                  float* y, int n_out, void* stream) {
+  return launch<float>(vals, offs, ndiag, x, n_in, y, n_out, stream);
+}
+
+PSLP_EXPORT int pslp_dia_spmv_f64(const double* vals, const int* offs,
+                                  int ndiag, const double* x, int n_in,
+                                  double* y, int n_out, void* stream) {
+  return launch<double>(vals, offs, ndiag, x, n_in, y, n_out, stream);
+}
+
+PSLP_EXPORT const char* pslp_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,130 @@
+"""Build and load the port's CUDA kernels on first use.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into ONE shared library with a plain C interface under the repository's
+``build/`` directory, cached by a hash of the sources and flags, and loaded
+with ``ctypes``.  Pointers and the CUDA stream travel as ``c_void_p``; each
+C entry returns ``cudaGetLastError()`` after its launches, and
+:func:`check` raises on a nonzero code.  Nothing is built when the package
+is imported or when the kernels' plain twins run on the CPU.
+
+``--fmad=false`` keeps every multiply and add separately rounded, so the
+DIA kernels round exactly like their PyTorch twins' separate operations.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pysparselp_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
+              "-Xptxas", "-v")
+
+_lib = None
+_functions: dict = {}
+build_info: dict = {}   # {"seconds", "path", "cached", "log"} after the build
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); the port's "
+                       "kernels are built from source on first use")
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on the first call."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    sources = sorted(SRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(SRC_DIR.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    so = BUILD_DIR / f"libpysparselp_kernels_{digest.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    log = ""
+    cached = so.exists()
+    if not cached:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+            capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, so)   # atomic: concurrent builders never see a torn file
+    lib = ctypes.CDLL(str(so))
+    lib.pslp_error_string.argtypes = [ctypes.c_int]
+    lib.pslp_error_string.restype = ctypes.c_char_p
+    build_info.update(seconds=time.perf_counter() - t0, path=str(so),
+                      cached=cached, log=log)
+    _lib = lib
+    return lib
+
+
+def function(name: str, argtypes):
+    """The C entry ``name`` with its ``argtypes`` declared (int result)."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
+    return fn
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = library().pslp_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """Device pointer of a tensor, or NULL for ``None``."""
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def suffix(dtype) -> str:
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.float64:
+        return "f64"
+    raise TypeError(f"kernels take float32 or float64, got {dtype}")
+
+
+def scalar(dtype):
+    """The ctypes type of a kernel scalar of the tensors' dtype."""
+    return ctypes.c_float if dtype == torch.float32 else ctypes.c_double
+
+
+def check_cuda(*tensors, dtype, device) -> None:
+    """Every tensor: on ``device``, of ``dtype`` (int32 for offsets passed
+    as such by the caller), contiguous."""
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"tensor on {t.device}, expected {device}")
+        if t.dtype not in (dtype, torch.int32):
+            raise TypeError(f"tensor of {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel arguments must be contiguous")

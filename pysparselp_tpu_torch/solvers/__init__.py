@@ -1,0 +1,160 @@
+"""Solver dispatch (mirrors ``pysparselp_tpu/solvers/__init__.py``).
+
+Only ``chambolle_pock_ppd`` is ported so far.  ``dispatch`` performs the
+same host-side conversions as the JAX package's — remove fixed variables,
+map warm starts into the reduced space, map every solution back with
+``x_original = m_change @ x_new + shift`` — and every other method raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+
+from .base import mirror_callback_attrs, to_np
+
+# methods of the JAX package not ported yet -> the ROADMAP.md item that ports them
+_NOT_PORTED = {
+    "mehrotra": "Queue 1, M7",
+    "admm": "Queue 1, M7",
+    "admm2": "Queue 1, M7",
+    "admm_blocks": "Queue 1, M7",
+    "dual_gradient_ascent": "Queue 1, M7",
+    "dual_coordinate_ascent": "Queue 1, M7",
+    "scipy_simplex": "Queue 1, M7 (host bridges)",
+    "scipy_interior_point": "Queue 1, M7 (host bridges)",
+    "osqp": "Queue 1, M7 (host bridges)",
+    "ECOS": "Queue 1, M7 (host bridges)",
+    "SCS": "Queue 1, M7 (host bridges)",
+    "CVXOPT": "Queue 1, M7 (host bridges)",
+}
+
+
+def _same_option(a, b) -> bool:
+    """Equality that tolerates arrays (identity) for option values."""
+    if a is b:
+        return True
+    if isinstance(a, (int, float, str, bool, type(None))) and isinstance(
+        b, (int, float, str, bool, type(None))
+    ):
+        return a == b
+    return False
+
+
+def _csr(blocked):
+    """BlockedCSR -> scipy csr, or None when it has no rows."""
+    if blocked is None or blocked.shape[0] == 0:
+        return None
+    return blocked.tocsr()
+
+
+def dispatch(
+    lp,
+    method,
+    x0,
+    nb_iter,
+    max_time,
+    callback_func,
+    nb_iter_plot,
+    start_time,
+    force_integer=False,
+    dtype=None,
+    device="cuda",
+    **solver_kwargs,
+):
+    from ..config import resolve_config
+    from ..modeling import solving_methods
+
+    if method not in solving_methods:
+        raise ValueError(
+            f"method {method!r} not valid; available methods are {solving_methods}"
+        )
+    if method in _NOT_PORTED:
+        raise NotImplementedError(
+            f"method {method!r} is not ported to PyTorch yet; see ROADMAP.md "
+            f"{_NOT_PORTED[method]}")
+
+    # typed per-solver config gate: unknown/typo'd options raise here with
+    # the valid field list instead of deep inside the solver
+    cfg = resolve_config(method, solver_kwargs)
+    if cfg is not None:
+        solver_kwargs = cfg.solver_kwargs()
+        # drop untouched optionals so the solver keeps its own defaults
+        defaults = type(cfg)()
+        solver_kwargs = {
+            k: v
+            for k, v in solver_kwargs.items()
+            if not _same_option(v, getattr(defaults, k))
+        }
+    if solver_kwargs.pop("mesh", None) is not None:
+        raise NotImplementedError(
+            "mesh= (multi-device CP) is not ported yet; see ROADMAP.md "
+            "Queue 1, M9")
+
+    # method == "chambolle_pock_ppd"
+    from .chambolle_pock import chambolle_pock_ppd
+
+    lp_reduced = copy.deepcopy(lp)
+    m_change, shift = lp_reduced.remove_fixed_variables()
+    # warm start: map into the reduced space (inverse of
+    # ``x = m_change @ x_r + shift``; m_change columns are unit vectors)
+    x0_r = None if x0 is None else m_change.T @ (np.asarray(x0) - shift)
+    x30 = solver_kwargs.pop("x30", None)
+    if x30 is not None:
+        solver_kwargs["x30"] = m_change.T @ (np.asarray(x30) - shift)
+
+    def back(niter, sol, e1, e2, dur, mveq, mvineq, state=None):
+        if state is not None:
+            state = dict(
+                state,
+                x=m_change @ state["x"] + shift,
+                x3=m_change @ state["x3"] + shift,
+            )
+        if not back.wants_solution:
+            # light-metrics contract: a solution-less callback must not
+            # trigger the device fetch the untransform would cost
+            xb = sol
+        else:
+            xb = m_change @ to_np(sol) + shift
+        callback_func(
+            niter, xb, e1, e2, dur, mveq, mvineq,
+            **(
+                {"state": state}
+                if getattr(callback_func, "wants_state", False)
+                else {}
+            ),
+        )
+
+    mirror_callback_attrs(back, callback_func)
+
+    a_ineq_r = _csr(lp_reduced.a_inequalities)
+    a_eq_r = _csr(lp_reduced.a_equalities)
+    x, _best = chambolle_pock_ppd(
+        lp_reduced.costsvector,
+        a_eq_r,
+        lp_reduced.b_equalities if a_eq_r is not None else None,
+        a_ineq_r,
+        lp_reduced.b_lower if a_ineq_r is not None else None,
+        lp_reduced.b_upper if a_ineq_r is not None else None,
+        lp_reduced.lower_bounds,
+        lp_reduced.upper_bounds,
+        x0=x0_r,
+        alpha=solver_kwargs.pop("alpha", 1.0),
+        theta=solver_kwargs.pop("theta", 1.0),
+        nb_max_iter=nb_iter,
+        callback_func=back,
+        max_time=max_time,
+        force_integer=force_integer,
+        nb_iter_plot=nb_iter_plot,
+        dtype=dtype,
+        start_time=start_time,
+        device=device,
+        **solver_kwargs,
+    )
+    if force_integer and _best is not None:
+        # return the best feasible integer-rounded iterate the solver
+        # tracked (``ChambollePockPPD.py:274-291``)
+        x = _best
+    return m_change @ x + shift

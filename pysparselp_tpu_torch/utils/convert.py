@@ -1,0 +1,99 @@
+"""Carry a lowered problem and solver state from the JAX package to the port.
+
+:func:`problem_from_jax_arrays` rebuilds the port's
+:class:`~pysparselp_tpu_torch.problem.LPProblem` from a JAX ``LPProblem``
+(read through ``numpy.asarray``; this module imports no jax): a JAX
+``DiaMatrix`` is stripped of its Pallas kernel-layout padding to
+``vals[:ndiag, :nrows]`` (``vals_t`` likewise), a ``DenseMatrix`` comes
+across whole and an ``EllMatrix`` through its CSR entries.
+:func:`state_from_numpy` carries the ``(x, x3, y_eq, y_ineq)`` state and the
+restart controller's ``rstate``; :func:`state_to_numpy` goes back.  Together
+they let both packages run on the same lowered problem.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse
+import torch
+
+from ..problem import (CsrMatrix, DenseMatrix, DiaMatrix, LPProblem,
+                       resolve_device, resolve_dtype)
+
+
+def _np(a):
+    return np.asarray(a).astype(np.float64)
+
+
+def operator_from_jax(op, dtype, device):
+    """The port's operator for a JAX ``DiaMatrix``/``DenseMatrix``/
+    ``EllMatrix`` (``None`` stays ``None``)."""
+    if op is None:
+        return None
+    kind = type(op).__name__
+    if kind == "DiaMatrix":
+        nd, ndt = len(op.offsets), len(op.offsets_t)
+        return DiaMatrix.from_planes(
+            _np(op.vals)[:nd, :op.nrows], op.offsets,
+            _np(op.vals_t)[:ndt, :op.ncols], op.offsets_t,
+            op.nrows, op.ncols, dtype, device)
+    if kind == "DenseMatrix":
+        return DenseMatrix(a=torch.as_tensor(_np(op.a), dtype=dtype,
+                                             device=device),
+                           nrows=op.nrows, ncols=op.ncols)
+    if kind == "EllMatrix":
+        vals, cols = _np(op.vals), np.asarray(op.cols)
+        rows = np.broadcast_to(np.arange(op.nrows)[:, None], cols.shape)
+        csr = scipy.sparse.csr_matrix(
+            (vals.ravel(), (rows.ravel(), cols.ravel())),
+            shape=(op.nrows, op.ncols))
+        csr.eliminate_zeros()
+        return CsrMatrix.from_scipy(csr, dtype, device)
+    raise TypeError(f"no port counterpart for a JAX {kind}")
+
+
+def problem_from_jax_arrays(jprob, dtype=None, device="cpu") -> LPProblem:
+    """The port's LPProblem with the JAX problem's arrays and operators."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype, dev)
+
+    def vec(v):
+        return None if v is None else torch.as_tensor(_np(v), dtype=dt,
+                                                      device=dev)
+
+    return LPProblem(
+        c=vec(jprob.c), lb=vec(jprob.lb), ub=vec(jprob.ub),
+        a_eq=operator_from_jax(jprob.a_eq, dt, dev), b_eq=vec(jprob.b_eq),
+        a_ineq=operator_from_jax(jprob.a_ineq, dt, dev),
+        b_lower=vec(jprob.b_lower), b_upper=vec(jprob.b_upper),
+        n=int(jprob.n), m_eq=int(jprob.m_eq), m_ineq=int(jprob.m_ineq))
+
+
+def _to_tensors(tree, dtype, device):
+    if isinstance(tree, dict):
+        return {k: _to_tensors(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_to_tensors(v, dtype, device) for v in tree)
+    return torch.as_tensor(_np(tree), dtype=dtype, device=device)
+
+
+def state_from_numpy(state, rstate=None, dtype=None, device="cpu"):
+    """``(x, x3, y_eq, y_ineq)`` (and, if given, the restart controller's
+    ``rstate`` dict: ``state``, ``omega``, ``mu_restart``, ``mu_last``,
+    ``zx``, ``zeq``, ``zineq``) as tensors.  Returns the state tuple, or
+    ``(state, rstate)`` when ``rstate`` is given."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype, dev)
+    st = _to_tensors(tuple(state), dt, dev)
+    if rstate is None:
+        return st
+    return st, _to_tensors(dict(rstate), dt, dev)
+
+
+def state_to_numpy(tree):
+    """float64 numpy copy of a state tuple / rstate dict of tensors."""
+    if isinstance(tree, dict):
+        return {k: state_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(state_to_numpy(v) for v in tree)
+    return tree.detach().to(device="cpu", dtype=torch.float64).numpy()

@@ -1,0 +1,95 @@
+"""The port stands alone: it imports torch and never jax, resolves its
+device and dtype explicitly, and names the ROADMAP item of what it does
+not port yet."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from pysparselp_tpu_torch import SparseLP
+from pysparselp_tpu_torch.modeling import solving_methods
+from pysparselp_tpu_torch.problem import resolve_device, resolve_dtype
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "pysparselp_tpu_torch")
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, pysparselp_tpu_torch, pysparselp_tpu_torch.solvers."
+            "chambolle_pock, pysparselp_tpu_torch.utils.convert, "
+            "pysparselp_tpu_torch.examples.potts, pysparselp_tpu_torch.io; "
+            "assert 'jax' not in sys.modules, 'jax imported'")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+def test_no_port_file_imports_jax():
+    for root, _dirs, files in os.walk(PKG):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh")):
+                with open(os.path.join(root, name)) as f:
+                    text = f.read()
+                assert "import jax" not in text, name
+                assert "from jax" not in text, name
+    for script in ("chip_smoke.py", os.path.join("scripts", "profile_port.py")):
+        with open(os.path.join(REPO, script)) as f:
+            text = f.read()
+        assert "import jax" not in text and "pysparselp_tpu." not in (
+            text.replace("pysparselp_tpu/", "")), script
+
+
+def test_device_and_dtype_resolution():
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_device("cuda")
+    assert resolve_dtype(None, "cpu") == torch.float64
+    assert resolve_dtype(None, "cuda") == torch.float32
+    assert resolve_dtype(np.float32, "cpu") == torch.float32
+    with pytest.raises(ValueError):
+        resolve_dtype(np.float16, "cpu")
+
+
+def _tiny_lp():
+    lp = SparseLP()
+    x = lp.add_variables_array(4, 0, 1, costs=np.array([1.0, -1, 2, -2]))
+    lp.add_inequality_constraints(x[None, :], np.ones((1, 4)),
+                                  upper_bounds=np.array([1.5]))
+    return lp
+
+
+def test_default_device_is_cuda():
+    lp = _tiny_lp()
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the default device works")
+    with pytest.raises(RuntimeError, match="cuda"):
+        lp.solve(method="chambolle_pock_ppd", nb_iter=10)
+
+
+@pytest.mark.parametrize("method", sorted(
+    set(solving_methods) - {"chambolle_pock_ppd"}))
+def test_unported_methods_name_their_roadmap_item(method):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        _tiny_lp().solve(method=method, nb_iter=10, device="cpu")
+
+
+@pytest.mark.parametrize("kwargs", [dict(permute="rcm"), dict(permute=True),
+                                    dict(mesh=object())])
+def test_unported_options_name_their_roadmap_item(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        _tiny_lp().solve(method="chambolle_pock_ppd", nb_iter=10,
+                         device="cpu", **kwargs)
+
+
+def test_tiny_solve_on_cpu():
+    lp = _tiny_lp()
+    x, _ = lp.solve(method="chambolle_pock_ppd", nb_iter=4000,
+                    nb_iter_plot=1000, device="cpu")
+    assert lp.max_constraint_violation(x) < 1e-6
+    np.testing.assert_allclose(lp.cost(x), -2.5, atol=1e-6)

@@ -1,0 +1,267 @@
+"""The ported slice as a whole, on the CPU in float64:
+``pysparselp_tpu_torch.SparseLP.solve(method="chambolle_pock_ppd",
+device="cpu")`` against the JAX package's goldens and live JAX solves, and
+the port's host-layer copies against their originals."""
+
+import copy
+import functools
+import json
+import os
+
+import numpy as np
+import pytest
+import scipy.sparse
+import torch
+
+import pysparselp_tpu.examples.potts as jpotts
+import pysparselp_tpu.io.netlib as jnetlib
+import pysparselp_tpu.problem as jproblem
+import pysparselp_tpu_torch.examples.potts as ppotts
+import pysparselp_tpu_torch.io.netlib as pnetlib
+import pysparselp_tpu_torch.problem as pproblem
+from pysparselp_tpu_torch.modeling import SparseLP as TorchLP
+from torch_port_helpers import host_system, sc105_lp
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
+CP = "chambolle_pock_ppd"
+
+
+def _port_lp(jax_lp):
+    """The same model as a port SparseLP (host state copied over)."""
+    lp = TorchLP.__new__(TorchLP)
+    lp.__dict__ = copy.deepcopy(jax_lp).__dict__
+    return lp
+
+
+@functools.lru_cache(maxsize=None)
+def _potts(size):
+    return ppotts.build_linear_program(size, 0.5, 500, seed=1)[:3]
+
+
+def _curves(lp, keys):
+    return {k: [float(v) for v in getattr(lp, k)] for k in keys}
+
+
+# ----------------------------------------------------------------------
+# the JAX package's golden curves (rtol 1e-7, atol 1e-9 as in
+# tests/test_golden_curves.py and tests/test_golden_potts.py)
+# ----------------------------------------------------------------------
+
+
+def test_reproduces_sc105_golden():
+    lp = _port_lp(sc105_lp()[0])
+    lp.solve(method=CP, nb_iter=2000, nb_iter_plot=500, device="cpu")
+    with open(os.path.join(GOLDEN_DIR, "sc105_curves.json")) as f:
+        ref = json.load(f)[CP]
+    assert [int(i) for i in lp.itrn_curve] == ref["itrn"]
+    for key, attr in (("pobj", "pobj_curve"),
+                      ("viol_eq", "max_violated_equality"),
+                      ("viol_ineq", "max_violated_inequality")):
+        np.testing.assert_allclose([float(v) for v in getattr(lp, attr)],
+                                   ref[key], rtol=1e-7, atol=1e-9,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("size", [20, 50])
+def test_reproduces_potts_golden(size):
+    lp, gt, idx = _potts(size)
+    lp.solve(method=CP, nb_iter=3000, nb_iter_plot=1000, ground_truth=gt,
+             ground_truth_indices=idx, device="cpu")
+    with open(os.path.join(GOLDEN_DIR, f"potts{size}_curves.json")) as f:
+        ref = json.load(f)[CP]
+    assert [int(i) for i in lp.itrn_curve] == ref["itrn"]
+    np.testing.assert_allclose(lp.distance_to_ground_truth, ref["dist"],
+                               rtol=1e-7, atol=1e-9)
+    np.testing.assert_allclose(lp.pobj_curve, ref["pobj"], rtol=1e-7,
+                               atol=1e-9)
+
+
+# ----------------------------------------------------------------------
+# live JAX solves, curve by curve (rtol 1e-9)
+# ----------------------------------------------------------------------
+
+KEYS = ("itrn_curve", "pobj_curve", "dobj_curve", "max_violated_equality",
+        "max_violated_inequality", "max_violated_constraint")
+
+
+def _sc105():
+    return sc105_lp()[0], {}
+
+
+def _potts20():
+    lp, gt, idx, _ = jpotts.build_linear_program(20, 0.5, 500, seed=1)
+    return lp, dict(ground_truth=gt, ground_truth_indices=idx)
+
+
+def _multilabel():
+    lp, _idx = jpotts.build_multilabel_linear_program(16, 3, seed=2)
+    return lp, {}
+
+
+def _potts8():
+    lp, gt, idx, _ = jpotts.build_linear_program(8, 0.5, 500, seed=3)
+    return lp, dict(ground_truth=gt, ground_truth_indices=idx)
+
+
+LIVE = {
+    "restart_sc105": (_sc105, dict(nb_iter=3000, nb_iter_plot=1000,
+                                   restart="average", restart_period=250)),
+    "restart_align_multilabel": (_multilabel, dict(
+        nb_iter=600, nb_iter_plot=300, restart="average", restart_period=100,
+        permute="align")),
+    "align_potts20": (_potts20, dict(nb_iter=600, nb_iter_plot=200,
+                                     permute="align")),
+    "light_sc105": (_sc105, dict(nb_iter=1000, nb_iter_plot=250,
+                                 light_metrics=True)),
+    "force_integer_potts8": (_potts8, dict(nb_iter=1500, nb_iter_plot=100,
+                                           force_integer=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIVE))
+def test_matches_live_jax_solve(case):
+    make, kwargs = LIVE[case]
+    jlp, extra = make()
+    plp = _port_lp(jlp)
+    x_j, _ = jlp.solve(method=CP, **kwargs, **extra)
+    x_p, _ = plp.solve(method=CP, device="cpu", **kwargs, **extra)
+    keys = KEYS + (("distance_to_ground_truth",) if extra else ())
+    cj, cp_ = _curves(jlp, keys), _curves(plp, keys)
+    assert cp_["itrn_curve"] == cj["itrn_curve"]
+    for key in keys:
+        np.testing.assert_allclose(cp_[key], cj[key], rtol=1e-9, atol=1e-12,
+                                   err_msg=f"{case}:{key}")
+    np.testing.assert_allclose(x_p, x_j, rtol=1e-9, atol=1e-9)
+
+
+def test_light_metrics_skips_solution_fetch():
+    """light_metrics: the recorder never asks the solver for the solution,
+    and the curves are floats after the solve."""
+    lp = _port_lp(sc105_lp()[0])
+    seen = []
+
+    def cb(niter, x, *rest):
+        seen.append(type(x))
+
+    lp.solve(method=CP, nb_iter=400, nb_iter_plot=200, light_metrics=True,
+             device="cpu")
+    assert all(isinstance(v, float) for v in lp.pobj_curve)
+    lp.solve(method=CP, nb_iter=400, nb_iter_plot=200, light_metrics=True,
+             callback_func=cb, device="cpu")
+    assert seen == [np.ndarray, np.ndarray]
+
+
+def test_warm_start_resumes_exactly():
+    """Full-state resume (x0 + x30 + duals) continues a run bit for bit."""
+    lp = _port_lp(sc105_lp()[0])
+    states = []
+
+    def cb(niter, x, *rest, state=None):
+        states.append(state)
+
+    cb.wants_state = True
+    x_full, _ = lp.solve(method=CP, nb_iter=600, nb_iter_plot=300,
+                         device="cpu")
+    lp.solve(method=CP, nb_iter=300, nb_iter_plot=300, callback_func=cb,
+             device="cpu")
+    s = states[-1]
+    x_res, _ = lp.solve(method=CP, nb_iter=300, nb_iter_plot=300,
+                        x0=s["x"], x30=s["x3"], y_eq0=s["y_eq"],
+                        y_ineq0=s["y_ineq"], device="cpu")
+    np.testing.assert_allclose(x_res, x_full, rtol=1e-12, atol=1e-12)
+
+
+# ----------------------------------------------------------------------
+# host-layer copies
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rel", ["sparse_host.py", "config.py",
+                                 os.path.join("io", "mps.py")])
+def test_verbatim_host_copies(rel):
+    """Copies kept verbatim: the port's file is the original plus one
+    header line naming it."""
+    with open(os.path.join(REPO, "pysparselp_tpu", rel)) as f:
+        original = f.read()
+    with open(os.path.join(REPO, "pysparselp_tpu_torch", rel)) as f:
+        header, copy_ = f.read().split("\n", 1)
+    assert header.startswith("# Verbatim copy of pysparselp_tpu/")
+    assert copy_ == original
+
+
+def _same_lp(a, b):
+    for attr in ("costsvector", "lower_bounds", "upper_bounds", "b_lower",
+                 "b_upper", "b_equalities", "is_integer"):
+        np.testing.assert_array_equal(getattr(a, attr), getattr(b, attr))
+    for attr in ("a_inequalities", "a_equalities"):
+        ma, mb = getattr(a, attr).tocsr(), getattr(b, attr).tocsr()
+        assert ma.shape == mb.shape
+        assert (ma != mb).nnz == 0
+        assert getattr(a, attr).blocks == getattr(b, attr).blocks
+
+
+def test_potts_builders_match():
+    pj = jpotts.build_linear_program(12, 0.5, 500, seed=4)
+    pp = ppotts.build_linear_program(12, 0.5, 500, seed=4)
+    _same_lp(pj[0], pp[0])
+    for a, b in zip(pj[1:], pp[1:]):
+        np.testing.assert_array_equal(a, b)
+    mj = jpotts.build_multilabel_linear_program(10, 3, seed=5)
+    mp = ppotts.build_multilabel_linear_program(10, 3, seed=5)
+    _same_lp(mj[0], mp[0])
+    np.testing.assert_array_equal(mj[1], mp[1])
+
+
+def test_sc105_parser_matches():
+    dj, dp = jnetlib.get_problem("SC105"), pnetlib.get_problem("SC105")
+    assert dj.keys() == dp.keys()
+    for k in dj:
+        if scipy.sparse.issparse(dj[k]):
+            assert (dj[k] != dp[k]).nnz == 0
+        elif isinstance(dj[k], np.ndarray):
+            np.testing.assert_array_equal(dj[k], dp[k])
+        else:
+            assert dj[k] == dp[k], k
+
+
+def test_modeling_conversions_match():
+    lj = sc105_lp()[0]
+    lp_ = _port_lp(lj)
+    lj.upper_bounds[:3] = lj.lower_bounds[:3]   # some fixed variables
+    lp_.upper_bounds[:3] = lp_.lower_bounds[:3]
+    for a, b in zip(lj.remove_fixed_variables(), lp_.remove_fixed_variables()):
+        assert (scipy.sparse.csr_matrix(a) != scipy.sparse.csr_matrix(b)).nnz == 0
+    _same_lp(lj, lp_)
+    for a, b in zip(lj.convert_to_slack_form(), lp_.convert_to_slack_form()):
+        assert (scipy.sparse.csr_matrix(a) != scipy.sparse.csr_matrix(b)).nnz == 0
+    _same_lp(lj, lp_)
+
+
+@pytest.mark.parametrize("make", [_sc105, _potts20, _multilabel])
+def test_layout_helpers_match(make):
+    sys_ = host_system(make()[0])
+    mats = [sys_["a_eq"], sys_["a_ineq"]]
+    pj = jproblem.aligned_offset_count(mats, return_plan=True,
+                                       return_spans=True)
+    pp = pproblem.aligned_offset_count(mats, return_plan=True,
+                                       return_spans=True)
+    assert pj[:4] == pp[:4]
+    (rj, cj, mj, nj), (rp, cp_, mp, np_) = pj[4], pp[4]
+    np.testing.assert_array_equal(cj, cp_)
+    assert (mj, nj) == (mp, np_)
+    for a, b in zip(rj, rp):
+        assert (a is None and b is None) or np.array_equal(a, b)
+    ej = jproblem.apply_align_embedding(pj[4], sys_)
+    ep = pproblem.apply_align_embedding(pp[4], sys_)
+    for k in ej[0]:
+        a, b = ej[0][k], ep[0][k]
+        if scipy.sparse.issparse(a):
+            assert (a != b).nnz == 0
+            np.testing.assert_array_equal(jproblem.dia_offsets(a),
+                                          pproblem.dia_offsets(b))
+        elif a is not None:
+            np.testing.assert_array_equal(a, b)
+    assert pproblem.ALIGN_PAD_RHS == jproblem.ALIGN_PAD_RHS

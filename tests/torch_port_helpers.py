@@ -1,0 +1,162 @@
+"""Shared inputs for the PyTorch-port parity tests (``tests/test_torch_*.py``).
+
+Host systems are built with numpy/scipy host code, so both packages receive
+the same arrays: a JAX ``LPProblem`` is lowered from them and carried to the
+port with ``pysparselp_tpu_torch.utils.convert``, or the port lowers them
+itself.  This module imports no jax at import time: the ``cuda``-marked
+tests run on a machine without JAX (``python -m pytest --noconftest -m
+cuda`` over the three kernel test files), where only the port-side helpers
+are used.
+"""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from pysparselp_tpu_torch import problem as ppr
+from pysparselp_tpu_torch.solvers.chambolle_pock import (_fold_one_sided,
+                                                         host_preconditioners)
+
+
+def cuda_or_skip():
+    """Skip the calling test when this machine has no CUDA device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def sc105_lp(port=False):
+    """Netlib SC105 as the JAX tests build it (``tests/test_netlib.py``),
+    as a JAX-package SparseLP or, with ``port=True``, a port SparseLP."""
+    if port:
+        from pysparselp_tpu_torch.io.netlib import get_problem
+        from pysparselp_tpu_torch.modeling import SparseLP
+    else:
+        from pysparselp_tpu.io.netlib import get_problem
+        from pysparselp_tpu.modeling import SparseLP
+    d = get_problem("SC105")
+    gt = d["solution"]
+    lp = SparseLP()
+    lp.add_variables_array(
+        len(d["cost_vector"]), lower_bounds=d["lower_bounds"],
+        upper_bounds=np.minimum(d["upper_bounds"], np.max(gt) * 2),
+        costs=d["cost_vector"])
+    lp.add_equality_constraints_sparse(d["a_eq"], d["b_eq"])
+    lp.add_inequality_constraints_sparse(d["a_ineq"], d["b_lower"],
+                                         d["b_upper"])
+    lp2 = copy.deepcopy(lp)
+    lp2.convert_to_one_sided_inequality_system()
+    return lp2, gt
+
+
+def host_system(lp, align=False):
+    """The solver's host-side system for ``lp``: fixed variables removed,
+    inequalities folded one-sided, optionally anchor-aligned.  Returns a
+    dict with ``a_eq, beq, a_ineq, b_ineq, c, lb, ub`` (absent systems
+    None)."""
+    lp = copy.deepcopy(lp)
+    lp.remove_fixed_variables()
+    a_eq = lp.a_equalities.tocsr() if lp.a_equalities.shape[0] else None
+    a_in = lp.a_inequalities.tocsr() if lp.a_inequalities.shape[0] else None
+    a_one, b_one = _fold_one_sided(
+        a_in, lp.b_lower if a_in is not None else None,
+        lp.b_upper if a_in is not None else None)
+    sys_ = dict(a_eq=a_eq, beq=lp.b_equalities if a_eq is not None else None,
+                a_ineq=a_one, b_ineq=b_one, c=lp.costsvector,
+                lb=lp.lower_bounds, ub=lp.upper_bounds)
+    if align:
+        plan = ppr.anchor_align([a_eq, a_one])
+        sys_ = ppr.apply_align_embedding(plan, sys_)[0]
+    return sys_
+
+
+def _preconditioners(sys_):
+    diag_t, s_eq, s_in = host_preconditioners(sys_["a_eq"], sys_["a_ineq"])
+    pre = {"diag_t": diag_t}
+    if s_eq is not None:
+        pre["sigma_eq"] = s_eq
+    if s_in is not None:
+        pre["sigma_ineq"] = s_in
+    return pre
+
+
+def port_problem(sys_, backend, dtype, device="cpu"):
+    """The port's ``LPProblem`` + preconditioners for a host system, every
+    present system lowered to ``backend`` ("dia", "dense" or "csr")."""
+    def op(a):
+        return None if a is None else ppr.ell_from_scipy(a, dtype, device,
+                                                         prefer=backend)
+
+    def vec(v):
+        return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
+                               device=device)
+
+    a_eq, a_in = op(sys_["a_eq"]), op(sys_["a_ineq"])
+    prob = ppr.LPProblem(
+        c=vec(sys_["c"]), lb=vec(sys_["lb"]), ub=vec(sys_["ub"]),
+        a_eq=a_eq, b_eq=vec(sys_["beq"]) if a_eq is not None else None,
+        a_ineq=a_in, b_lower=None,
+        b_upper=vec(sys_["b_ineq"]) if a_in is not None else None,
+        n=len(sys_["c"]),
+        m_eq=a_eq.nrows if a_eq is not None else 0,
+        m_ineq=a_in.nrows if a_in is not None else 0)
+    return prob, torch_pre(_preconditioners(sys_), dtype, device)
+
+
+def jax_problem(sys_, backend, dtype):
+    """JAX ``LPProblem`` + preconditioner dict for a host system, every
+    present system lowered to ``backend`` ("dia", "dense" or "ell")."""
+    import jax.numpy as jnp
+
+    from pysparselp_tpu import problem as jpr
+
+    def op(a):
+        if a is None:
+            return None
+        if backend == "dia":
+            return jpr.DiaMatrix.from_scipy(a, dtype=dtype, allow_bf16=False)
+        return jpr.ell_from_scipy(a, dtype=dtype, prefer=backend)
+
+    def vec(v):
+        return None if v is None else jnp.asarray(np.asarray(v, np.float64),
+                                                  dtype)
+
+    a_eq, a_in = op(sys_["a_eq"]), op(sys_["a_ineq"])
+    prob = jpr.LPProblem(
+        c=vec(sys_["c"]), lb=vec(sys_["lb"]), ub=vec(sys_["ub"]),
+        a_eq=a_eq, b_eq=vec(sys_["beq"]) if a_eq is not None else None,
+        a_ineq=a_in, b_lower=None,
+        b_upper=vec(sys_["b_ineq"]) if a_in is not None else None,
+        n=len(sys_["c"]),
+        m_eq=a_eq.nrows if a_eq is not None else 0,
+        m_ineq=a_in.nrows if a_in is not None else 0)
+    pre = {k: vec(v) for k, v in _preconditioners(sys_).items()}
+    pre["theta"] = jnp.asarray(1.0, dtype)
+    return prob, pre
+
+
+def torch_pre(pre, dtype, device="cpu"):
+    """The same preconditioner dict as torch tensors."""
+    return {k: torch.as_tensor(np.array(v, np.float64), dtype=dtype,
+                               device=device) for k, v in pre.items()}
+
+
+def start_point(sys_, seed):
+    """Seeded start ``(x, y_eq, y_ineq)`` for a host system, as numpy
+    float64 arrays."""
+    rng = np.random.RandomState(seed)
+    x = np.clip(rng.rand(len(sys_["c"])), sys_["lb"], sys_["ub"])
+    m_eq = sys_["a_eq"].shape[0] if sys_["a_eq"] is not None else 0
+    m_in = sys_["a_ineq"].shape[0] if sys_["a_ineq"] is not None else 0
+    return x, rng.rand(m_eq) * 0.1, rng.rand(m_in) * 0.1
+    return x, rng.rand(prob.m_eq) * 0.1, rng.rand(prob.m_ineq) * 0.1
+
+
+def assert_close(got, want, rtol, atol=0.0, what=""):
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.detach().cpu().numpy() if isinstance(g, torch.Tensor) else g
+        np.testing.assert_allclose(np.asarray(g, np.float64),
+                                   np.asarray(w, np.float64), rtol=rtol,
+                                   atol=atol, err_msg=f"{what} output {i}")
