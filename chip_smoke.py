@@ -3,26 +3,35 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one JSON line; any failure raises and the exit code is
+Phases (each prints JSON lines; any failure raises and the exit code is
 nonzero):
 
 1. environment: torch version, the card's name and power limit, the time
    to build the kernels from ``pysparselp_tpu_torch/csrc`` with nvcc;
 2. every hand-written kernel against its plain PyTorch twin on the card, at
    the main path's shapes (Potts-300, multi-label Potts 64x64 K=4, netlib
-   SC105), float32 and float64, with times;
+   SC105; for H-CSR the transport, unstructured and k-medians systems of
+   ``bench.py``), float32 and float64, with times, each kernel's bound and
+   the time of the one PyTorch call that computes the same function, where
+   there is one;
 3. the main path, ``SparseLP.solve(method="chambolle_pock_ppd")`` on the
    Potts-300 segmentation LP in float32, held checkpoint by checkpoint
    against the port's own float64 CPU run;
-4. convergence: Potts-50 to the graph-cut optimum and SC105 to the perPlex
+4. the four non-grid workloads of ``bench.py`` at its sizes (transport,
+   unstructured, k-medians, L1-SVM), float32 on the card: the operators
+   each system lowered to, the host lowering time, a 200-iteration run held
+   against the port's own float64 CPU run, and the steady rate over 2,000
+   ``light_metrics`` iterations with its kernel launches;
+5. convergence: Potts-50 to the graph-cut optimum and SC105 to the perPlex
    optimum with restart-to-average.
 
 The launch counters are set to 0 just before each solve and read just
 after it; the kernel table takes H-DIA's and H-CPDIA's counts from the
-Potts-300 solve and H-CPDENSE's from the SC105 solve (``launches_run``
-names the solve).  Then the kernel table as one JSON line and, last, the
-device line ``{"ok": true, "device": {...}}``.  Without CUDA, or without
-the package beside this script, it exits nonzero and prints no result.
+Potts-300 solve, H-CPDENSE's from the SC105 solve and H-CSR's from the
+transport solve (``launches_run`` names the solve).  Then the kernel table
+as one JSON line and, last, the device line ``{"ok": true, "device":
+{...}}``.  Without CUDA, or without the package beside this script, it
+exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -32,16 +41,26 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 # tolerance of a kernel against its twin, per output:
-# max|kernel - twin| <= RTOL * max(1, max|twin|)
+# max|kernel - twin| <= RTOL * max(1, max|twin|); H-CSR per row:
+# |kernel - twin| <= RTOL * (|A| |x|)_row (the twin adds in another order)
 RTOL = {"float32": 1e-5, "float64": 1e-12}
 # the Potts-300 f32 CUDA solve against the f64 CPU solve, at every
 # checkpoint: objectives within MAIN_RTOL relative, violations within
 # MAIN_RTOL * max(1, |f64 value|)
 MAIN_RTOL = 1e-5
+# the same check for the non-grid workloads, whose random-sign data rounds
+# worse: measured at most 1.1e-6 (the transport equality violation; NVIDIA
+# H100 80GB HBM3, 700 W), the limit about ten times that
+NONGRID_RTOL = 1e-5
+# the card's published peaks (NVIDIA H100 SXM, 700 W): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 KERNELS = {
     "H-DIA": dict(source="pysparselp_tpu_torch/csrc/dia_spmv.cu",
                   replaces="pysparselp_tpu/ops/dia_pallas.py:168",
@@ -53,6 +72,10 @@ KERNELS = {
     "H-CPDENSE": dict(source="pysparselp_tpu_torch/csrc/cp_dense.cu",
                       replaces="pysparselp_tpu/ops/cp_fused.py:381",
                       launches_run="converge_sc105"),
+    "H-CSR": dict(source="pysparselp_tpu_torch/csrc/csr_spmv.cu",
+                  replaces="pysparselp_tpu/ops/ell_routed.py:1040; "
+                           "pysparselp_tpu/ops/ell_routed.py:1132",
+                  launches_run="main_path_transport"),
 }
 
 
@@ -75,6 +98,14 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes, ops):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the HBM rate
+    and the operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def compare(torch, got, want, dtype_name, what):
     """Max abs error over paired outputs; raises when an output is past
     its tolerance, ``RTOL * max(1, max|twin output|)``."""
@@ -92,6 +123,22 @@ def compare(torch, got, want, dtype_name, what):
     return worst
 
 
+def folded(lp):
+    """The host system the solver lowers ``lp`` to: fixed variables
+    removed, inequalities folded one-sided."""
+    from pysparselp_tpu_torch.solvers.chambolle_pock import _fold_one_sided
+
+    lp = copy.deepcopy(lp)
+    lp.remove_fixed_variables()
+    a_eq = lp.a_equalities.tocsr() if lp.a_equalities.shape[0] else None
+    a_in = lp.a_inequalities.tocsr() if lp.a_inequalities.shape[0] else None
+    a_one, b_one = _fold_one_sided(a_in, lp.b_lower if a_in is not None else None,
+                                   lp.b_upper if a_in is not None else None)
+    return dict(a_eq=a_eq, beq=lp.b_equalities if a_eq is not None else None,
+                a_ineq=a_one, b_ineq=b_one, c=lp.costsvector,
+                lb=lp.lower_bounds, ub=lp.upper_bounds)
+
+
 def lowered(lp, dtype, device):
     """The problem and preconditioners the solver lowers ``lp`` to on
     ``device`` (fixed variables removed, inequalities folded, the automatic
@@ -100,20 +147,12 @@ def lowered(lp, dtype, device):
     import torch
 
     from pysparselp_tpu_torch.problem import (LPProblem, apply_align_embedding,
-                                              ell_from_scipy)
+                                              lower_systems)
     from pysparselp_tpu_torch.solvers.chambolle_pock import (
-        _auto_layout, _fold_one_sided, host_preconditioners)
+        _auto_layout, host_preconditioners)
 
-    lp = copy.deepcopy(lp)
-    lp.remove_fixed_variables()
-    a_eq = lp.a_equalities.tocsr() if lp.a_equalities.shape[0] else None
-    a_in = lp.a_inequalities.tocsr() if lp.a_inequalities.shape[0] else None
-    a_one, b_one = _fold_one_sided(a_in, lp.b_lower if a_in is not None else None,
-                                   lp.b_upper if a_in is not None else None)
-    sys_ = dict(a_eq=a_eq, beq=lp.b_equalities if a_eq is not None else None,
-                a_ineq=a_one, b_ineq=b_one, c=lp.costsvector,
-                lb=lp.lower_bounds, ub=lp.upper_bounds)
-    plan = _auto_layout([a_eq, a_one])
+    sys_ = folded(lp)
+    plan = _auto_layout([sys_["a_eq"], sys_["a_ineq"]])
     if plan is not None:
         sys_ = apply_align_embedding(plan, sys_)[0]
 
@@ -121,8 +160,7 @@ def lowered(lp, dtype, device):
         return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
                                device=device)
 
-    ops = [ell_from_scipy(a, dtype, device) if a is not None else None
-           for a in (sys_["a_eq"], sys_["a_ineq"])]
+    ops = lower_systems([sys_["a_eq"], sys_["a_ineq"]], dtype, device)
     prob = LPProblem(
         c=vec(sys_["c"]), lb=vec(sys_["lb"]), ub=vec(sys_["ub"]),
         a_eq=ops[0], b_eq=vec(sys_["beq"]) if ops[0] is not None else None,
@@ -137,6 +175,19 @@ def lowered(lp, dtype, device):
     if s_in is not None:
         pre["sigma_ineq"] = vec(s_in)
     return prob, pre
+
+
+def describe(op):
+    """The backend an operator lowered to, with its shape; a column-block
+    composite lists its blocks."""
+    if op is None:
+        return None
+    from pysparselp_tpu_torch.problem import ColBlockMatrix
+
+    if isinstance(op, ColBlockMatrix):
+        return {"ColBlockMatrix": list(op.col_starts),
+                "blocks": [describe(b) for b in op.blocks]}
+    return f"{type(op).__name__}{list(op.shape)}"
 
 
 def sc105_lp():
@@ -159,8 +210,174 @@ def sc105_lp():
     return lp, gt
 
 
+# ----------------------------------------------------------------------
+# bench.py's four non-grid workloads, built on the port's SparseLP
+# ----------------------------------------------------------------------
+
+
+def transport_lp(n_sources=50_000, n_sinks=50_000, n_arcs=1_000_000,
+                 seed=11):
+    """Copy of ``bench.py::_transport_lp`` (bench.py:559-599): uniformly
+    random arcs, flow conservation at every source and sink as an equality
+    row (column degree exactly 2), plus one never-binding inequality
+    row."""
+    import numpy as np
+    import scipy.sparse
+
+    from pysparselp_tpu_torch import SparseLP
+
+    rng = np.random.RandomState(seed)
+    src = rng.randint(0, n_sources, n_arcs)
+    dst = rng.randint(0, n_sinks, n_arcs)
+    rows = np.concatenate([src, n_sources + dst])
+    cols = np.concatenate([np.arange(n_arcs), np.arange(n_arcs)])
+    a = scipy.sparse.csr_matrix(
+        (np.ones(2 * n_arcs), (rows, cols)),
+        shape=(n_sources + n_sinks, n_arcs))
+    x0 = rng.rand(n_arcs)
+    b = np.asarray(a @ x0)
+    c = rng.rand(n_arcs)
+    lp = SparseLP()
+    lp.add_variables_array(n_arcs, lower_bounds=0, upper_bounds=2,
+                           costs=c)
+    lp.add_equality_constraints_sparse(a, b)
+    lp.add_inequality_constraints(
+        np.array([[0, 1]]), np.array([[1.0, 1.0]]), lower_bounds=None,
+        upper_bounds=np.array([4.0]))
+    return lp
+
+
+def unstructured_lp(m=150_000, n=100_000, avg=13, seed=5):
+    """Copy of ``bench.py::_unstructured_matrix`` (bench.py:414-432) and
+    the LP ``measure_unstructured`` builds on it (bench.py:457-461):
+    uniform random sparsity, ``Ax <= b`` from a feasible interior point,
+    ``0 <= x <= 1``."""
+    import numpy as np
+    import scipy.sparse
+
+    from pysparselp_tpu_torch import SparseLP
+
+    rng = np.random.RandomState(seed)
+    nnz = m * avg
+    rows = rng.randint(0, m, nnz)
+    cols = rng.randint(0, n, nnz)
+    vals = rng.randn(nnz)
+    a = scipy.sparse.csr_matrix((vals, (rows, cols)), shape=(m, n))
+    a.sum_duplicates()
+    x0 = rng.rand(n)
+    b = np.asarray(a @ x0) + 1.0
+    c = rng.rand(n)
+    lp = SparseLP()
+    lp.add_variables_array(n, lower_bounds=0, upper_bounds=1, costs=c)
+    lp.add_inequality_constraints_sparse(a, None, b)
+    return lp
+
+
+def kmedians_lp(n_points=5_000, n_candidates=30, seed=3):
+    """Copy of ``bench.py::_kmedians_lp`` (bench.py:484-512): the
+    k-medians facility-location relaxation (per-point simplex rows,
+    2-entry linking rows, hot ``used[c]`` columns)."""
+    import numpy as np
+
+    from pysparselp_tpu_torch import SparseLP
+
+    rng = np.random.RandomState(seed)
+    points = rng.randn(n_points, 2)
+    centers = points[rng.choice(n_points, n_candidates), :]
+    dist = np.sqrt(((points[:, None, :] - centers[None, :, :]) ** 2
+                    ).sum(axis=2))
+    lp = SparseLP()
+    labeling = lp.add_variables_array(dist.shape, 0, 1, dist)
+    used = lp.add_variables_array(n_candidates, 0, 1, 0)
+    lp.add_inequality_constraints(
+        used[None, :], np.ones((1, n_candidates)), lower_bounds=0,
+        upper_bounds=5)
+    lp.add_inequality_constraints(
+        labeling, np.ones((n_points, n_candidates)), lower_bounds=1,
+        upper_bounds=1)
+    id_cols = np.ones((n_points, 1)).dot(used[None, :])
+    cols = np.column_stack((labeling.reshape(-1, 1),
+                            id_cols.reshape(-1, 1))).astype(int)
+    vals = np.column_stack((np.ones(labeling.size), -np.ones(labeling.size)))
+    lp.add_inequality_constraints(cols, vals, lower_bounds=None,
+                                  upper_bounds=0)
+    return lp
+
+
+def l1svm_lp(nb_examples=30_000, nf=30, nb_classes=3):
+    """The L1-SVM of ``bench.py::measure_l1svm`` (its data, bench.py:
+    377-385) on the port's ``examples/l1_svm.py``: a dense weight head
+    beside diagonal epsilon/aux tails."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.examples.l1_svm import L1SVM
+
+    rng = np.random.RandomState(1)
+    x = rng.rand(nb_examples, nf)
+    w = rng.randn(nb_classes, nf)
+    w = w / np.sum(w**2, axis=1)[:, None]
+    wh = np.hstack((w, -0.5 * np.sum(w, axis=1)[:, None]))
+    xh = np.hstack((x, np.ones((nb_examples, 1))))
+    classes = np.argmax((wh @ xh.T).T, axis=1)
+    svm = L1SVM()
+    svm.set_data(x, classes, nb_classes)
+    return svm
+
+
+WORKLOADS = {"transport": transport_lp, "unstructured": unstructured_lp,
+             "kmedians": kmedians_lp, "l1svm": l1svm_lp}
+
+
+def timings(torch, kern, plain, reps, per=1):
+    """Kernel and twin in turns (plain, kernel, kernel, plain); ms per
+    ``per`` iterations."""
+    t = [cuda_ms(torch, f, reps) for f in (plain, kern, kern, plain)]
+    return dict(ms=(t[1] + t[2]) / 2 / per, plain_ms=(t[0] + t[3]) / 2 / per)
+
+
+def chunk_bound(prob, planes):
+    """Bound of one CP iteration with running sums (f32): the operator's
+    ``planes`` entries, and per iteration c, diag_t, lb, ub, x read and x,
+    x3 written, the x sum read and written; b, sigma, y read, y written
+    and the y sum read and written per system."""
+    rows = prob.m_eq + prob.m_ineq
+    return bound(4 * (planes + 9 * prob.n + 6 * rows),
+                 2 * planes + 10 * (prob.n + rows))
+
+
+def sparse_tensor(torch, a, dtype, device):
+    """``a`` (scipy) as a ``torch.sparse_csr_tensor`` for the library
+    call."""
+    import numpy as np
+
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(a.indptr.astype(np.int64), device=device),
+        torch.as_tensor(a.indices.astype(np.int64), device=device),
+        torch.as_tensor(a.data, dtype=dtype, device=device), size=a.shape,
+        check_invariants=False)
+
+
+def dia_scipy(op):
+    """The matrix of a DiaMatrix's planes, as scipy CSR."""
+    import numpy as np
+    import scipy.sparse
+
+    vals = op.vals.double().cpu().numpy()
+    r = np.arange(op.nrows)
+    rows, cols, data = [], [], []
+    for d, off in enumerate(op.offsets):
+        keep = (r + off >= 0) & (r + off < op.ncols) & (vals[d] != 0)
+        rows.append(r[keep])
+        cols.append(r[keep] + off)
+        data.append(vals[d][keep])
+    return scipy.sparse.csr_matrix(
+        (np.concatenate(data), (np.concatenate(rows), np.concatenate(cols))),
+        shape=op.shape)
+
+
 def phase_kernels(torch, problems, table):
-    """Phase 2: each kernel against its twin on the card."""
+    """Phase 2 for the DIA and dense kernels: each against its twin on the
+    card."""
     import numpy as np
 
     from pysparselp_tpu_torch.ops import cp_dense, cp_dia, dia_spmv
@@ -187,7 +404,13 @@ def phase_kernels(torch, problems, table):
                 torch, lambda: dia_spmv.dia_spmv(op.vals, op.offs, x, op.nrows),
                 lambda: dia_spmv.dia_spmv_reference(op.vals, op.offs, x,
                                                     op.nrows), 200))
-            table["H-DIA"].update(ms=rec["ms"], plain_ms=rec["plain_ms"])
+            lib = sparse_tensor(torch, dia_scipy(op), dt, dev)
+            rec["library_ms"] = cuda_ms(torch, lambda: torch.mv(lib, x), 200)
+            nbytes = 4 * (op.vals.numel() + op.ndiag + op.ncols + op.nrows)
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes,
+                                                     2 * op.vals.numel())
+            table["H-DIA"].update({k: rec[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
         table["H-DIA"]["max_abs_err"] = max(table["H-DIA"]["max_abs_err"], err)
         emit("kernels", **rec)
 
@@ -217,9 +440,13 @@ def phase_kernels(torch, problems, table):
                        nsteps=nsteps, max_abs_err=err)
             if dt == torch.float32:
                 rec.update(timings(torch, kern, plain, 3, per=nsteps))
+                planes = sum(o.vals.numel() + o.vals_t.numel()
+                             for o in (prob.a_eq, prob.a_ineq)
+                             if o is not None)
+                rec["bound_ms"], rec["bound_by"] = chunk_bound(prob, planes)
                 if key == "potts300":
-                    table["H-CPDIA"].update(ms=rec["ms"],
-                                            plain_ms=rec["plain_ms"])
+                    table["H-CPDIA"].update({k: rec[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by")})
             table["H-CPDIA"]["max_abs_err"] = max(
                 table["H-CPDIA"]["max_abs_err"], err)
             emit("kernels", **rec)
@@ -246,17 +473,191 @@ def phase_kernels(torch, problems, table):
                    max_abs_err=err)
         if dt == torch.float32:
             rec.update(timings(torch, kern_d, plain_d, 3, per=1000))
-            table["H-CPDENSE"].update(ms=rec["ms"], plain_ms=rec["plain_ms"])
+            # each dense system read once per iteration (twice in the
+            # products, once by the bound's count)
+            planes = sum(o.a.numel() for o in (prob.a_eq, prob.a_ineq)
+                         if o is not None)
+            rec["bound_ms"], rec["bound_by"] = chunk_bound(prob, planes)
+            table["H-CPDENSE"].update({k: rec[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")})
         table["H-CPDENSE"]["max_abs_err"] = max(
             table["H-CPDENSE"]["max_abs_err"], err)
         emit("kernels", **rec)
 
 
-def timings(torch, kern, plain, reps, per=1):
-    """Kernel and twin in turns (plain, kernel, kernel, plain); ms per
-    ``per`` iterations."""
-    t = [cuda_ms(torch, f, reps) for f in (plain, kern, kern, plain)]
-    return dict(ms=(t[1] + t[2]) / 2 / per, plain_ms=(t[0] + t[3]) / 2 / per)
+def csr_matrices(workloads):
+    """The unstructured systems H-CSR serves on the main path, as host
+    scipy CSR: the transport equalities (100,000 x 1,000,000), the
+    unstructured inequalities (150,000 x 100,000) and the column block of
+    the k-medians folded inequalities that the chooser leaves to CSR (its
+    Aᵀ rows are the ~5,000-entry used[c] columns)."""
+    from pysparselp_tpu_torch.problem import choose_layout
+
+    out = {"transport": workloads["transport"]["a_eq"],
+           "unstructured": workloads["unstructured"]["a_ineq"]}
+    km = workloads["kmedians"]["a_ineq"]
+    backend, cuts = choose_layout(km)
+    if backend != "split":
+        raise AssertionError(f"k-medians folded system lowered to {backend}")
+    out["kmedians_block"] = km.tocsc()[:, cuts[-1]:].tocsr()
+    return out
+
+
+def phase_csr(torch, matrices, table):
+    """Phase 2 for H-CSR: both orientations of each matrix against the
+    twin, per row within RTOL * (|A| |x|)_row; in float32 the kernel, twin
+    and library call (cuSPARSE through ``torch.mv``) timed."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.ops import csr_spmv as ops
+    from pysparselp_tpu_torch.problem import CsrMatrix
+
+    rng = np.random.RandomState(1)
+    dev = torch.device("cuda")
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[1]
+        for key, a in matrices.items():
+            op = CsrMatrix.from_scipy(a, dt, dev)
+            for side, (ptr, idx, vals, long, n_in, n_out, host) in (
+                    ("A", (op.indptr, op.indices, op.vals, op.long,
+                           op.ncols, op.nrows, a)),
+                    ("At", (op.indptr_t, op.indices_t, op.vals_t, op.long_t,
+                            op.nrows, op.ncols, None))):
+                x = torch.as_tensor(rng.randn(n_in), dtype=dt, device=dev)
+
+                def kern(ptr=ptr, idx=idx, vals=vals, x=x, n_out=n_out,
+                         long=long):
+                    return ops.csr_spmv(ptr, idx, vals, x, n_out, long)
+
+                def plain(ptr=ptr, idx=idx, vals=vals, x=x, n_out=n_out):
+                    return ops.csr_spmv_reference(ptr, idx, vals, x, n_out)
+
+                got, want = kern(), plain()
+                scale = ops.csr_spmv_reference(ptr, idx, vals.abs(), x.abs(),
+                                               n_out)
+                err = (got - want).abs()
+                if not bool((err <= RTOL[name] * scale).all()):
+                    raise AssertionError(
+                        f"H-CSR {key} {side} ({name}): |kernel - twin| past "
+                        f"{RTOL[name]:.0e} * (|A||x|)_row, max {float(err.max()):.3e}")
+                nnz = vals.numel()
+                rec = dict(kernel="H-CSR", problem=key, side=side,
+                           dtype=name, shape=[n_out, n_in], nnz=nnz,
+                           width=ops.vector_width(nnz, n_out),
+                           long_rows=int(long.numel()),
+                           max_abs_err=float(err.max()))
+                if dt == torch.float32:
+                    rec.update(timings(torch, kern, plain, 50))
+                    host = host if host is not None else a.T.tocsr()
+                    lib = sparse_tensor(torch, host, dt, dev)
+                    rec["library_ms"] = cuda_ms(
+                        torch, lambda lib=lib, x=x: torch.mv(lib, x), 50)
+                    nbytes = nnz * 8 + (n_out + 1) * 4 + n_out * 4 + n_in * 4
+                    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * nnz)
+                    rec["achieved_tb_s"] = nbytes / (rec["ms"] * 1e-3) / 1e12
+                    if (key, side) == ("transport", "A"):
+                        table["H-CSR"].update({k: rec[k] for k in (
+                            "ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by")})
+                table["H-CSR"]["max_abs_err"] = max(
+                    table["H-CSR"]["max_abs_err"], rec["max_abs_err"])
+                emit("kernels", **rec)
+
+
+CURVES = ("pobj_curve", "dobj_curve", "max_violated_equality",
+          "max_violated_inequality")
+
+
+def checkpoint_diffs(got, want):
+    """Worst difference per curve: objectives relative to |f64|,
+    violations relative to max(1, |f64|).  Equal values, infinities
+    included (the dual bound of an LP with free variables), and two NaNs
+    differ by 0."""
+    worst = {}
+    for k in CURVES:
+        rel = [0.0 if g == w or (g != g and w != w)
+               else abs(g - w) / (abs(w) if k.endswith("obj_curve")
+                                  else max(1.0, abs(w)))
+               for g, w in zip(got[k], want[k])]
+        worst[k] = max(rel)
+    return worst
+
+
+def curves(lp):
+    return {k: [float(v) for v in getattr(lp, k)] for k in CURVES}
+
+
+def steady_rate(lp):
+    return ((lp.itrn_curve[-1] - lp.itrn_curve[0])
+            / (lp.opttime_curve[-1] - lp.opttime_curve[0]))
+
+
+def count_ops(op, kind):
+    """How many operators of ``kind`` ``op`` holds (blocks included)."""
+    from pysparselp_tpu_torch.problem import ColBlockMatrix
+
+    if op is None:
+        return 0
+    if isinstance(op, ColBlockMatrix):
+        return sum(count_ops(b, kind) for b in op.blocks)
+    return int(isinstance(op, kind))
+
+
+def phase_nongrid(torch, name, lp, counted_solve):
+    """Phase 4 for one workload; returns its launch counts."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.problem import (CsrMatrix, DiaMatrix,
+                                              lower_systems,
+                                              operator_cost_bytes)
+    from pysparselp_tpu_torch.solvers.chambolle_pock import _auto_layout
+
+    sys_ = folded(lp)
+    mats = [sys_["a_eq"], sys_["a_ineq"]]
+    t0 = time.perf_counter()
+    plan = _auto_layout(mats)
+    align_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ops = lower_systems(mats, torch.float32, "cuda")
+    torch.cuda.synchronize()
+    lower_s = time.perf_counter() - t0
+    run = dict(method="chambolle_pock_ppd", nb_iter=200, nb_iter_plot=100)
+    lp.solve(dtype=np.float32, device="cuda", **run)
+    got, itrn = curves(lp), list(lp.itrn_curve)
+    t0 = time.perf_counter()
+    lp.solve(dtype=np.float64, device="cpu", **run)
+    cpu_wall = time.perf_counter() - t0
+    want = curves(lp)
+    if lp.itrn_curve != itrn:
+        raise AssertionError(f"checkpoints {itrn} vs {lp.itrn_curve}")
+    worst = checkpoint_diffs(got, want)
+    nb_iter, plot = 2000, 1000
+    wall, launches = counted_solve(
+        lp, method="chambolle_pock_ppd", nb_iter=nb_iter, nb_iter_plot=plot,
+        light_metrics=True, dtype=np.float32, device="cuda")
+    # the per-operator path: one rmatvec and one matvec per iteration and
+    # four products in each checkpoint's metrics, per operator
+    per_op = 2 * nb_iter + 4 * (nb_iter // plot)
+    predicted = {"H-CSR": per_op * sum(count_ops(o, CsrMatrix) for o in ops),
+                 "H-DIA": per_op * sum(count_ops(o, DiaMatrix) for o in ops)}
+    emit(f"main_path_{name}", n=len(sys_["c"]),
+         nnz=[None if a is None else int(a.nnz) for a in mats],
+         lowered={"a_eq": describe(ops[0]), "a_ineq": describe(ops[1])},
+         aligned=plan is not None, auto_layout_s=align_s, lower_s=lower_s,
+         bytes_per_spmv_pair=sum(operator_cost_bytes(o) for o in ops),
+         itrn=itrn, f32_cuda=got, f64_cpu=want, worst_rel_diff=worst,
+         rel_limit=NONGRID_RTOL, cpu_wall_s=cpu_wall, wall_s=wall,
+         iters_per_s_steady=steady_rate(lp), launches=launches,
+         launches_predicted=predicted)
+    if not all(v <= NONGRID_RTOL for v in worst.values()):
+        raise AssertionError(f"{name} f32 CUDA vs f64 CPU: {worst}")
+    for key, want_n in predicted.items():
+        if launches[key] != want_n:
+            raise AssertionError(f"{name}: {key} launched {launches[key]} "
+                                 f"times, predicted {want_n}")
+    if name in ("transport", "unstructured") and not launches["H-CSR"]:
+        raise AssertionError(f"{name} ran no H-CSR launch")
+    return launches
 
 
 def main() -> int:
@@ -278,10 +679,13 @@ def main() -> int:
 
     from pysparselp_tpu_torch.examples.potts import (
         build_linear_program, build_multilabel_linear_program)
-    from pysparselp_tpu_torch.ops import _build, cp_dense, cp_dia, dia_spmv
+    from pysparselp_tpu_torch.ops import (_build, cp_dense, cp_dia, csr_spmv,
+                                          dia_spmv)
 
+    warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
     counters = {"H-DIA": dia_spmv.dia_spmv, "H-CPDIA": cp_dia.cp_dia_chunk,
-                "H-CPDENSE": cp_dense.cp_dense_chunk}
+                "H-CPDENSE": cp_dense.cp_dense_chunk,
+                "H-CSR": csr_spmv.csr_spmv}
 
     def counted_solve(lp, **kw):
         """``lp.solve(**kw)`` with every launch counter set to 0 just
@@ -313,37 +717,32 @@ def main() -> int:
         "multilabel64": build_multilabel_linear_program(64, 4)[0],
         "sc105": sc105_lp()[0],
     }
+    workloads = {k: make() for k, make in WORKLOADS.items()}
     emit("problems", build_seconds=time.perf_counter() - t0)
 
     table = {k: dict(name=k, route="cuda", **v, launches=None,
-                     max_abs_err=0.0, ms=None, plain_ms=None)
+                     max_abs_err=0.0, ms=None, plain_ms=None, bound_ms=None,
+                     bound_by=None, library_ms=None)
              for k, v in KERNELS.items()}
     phase_kernels(torch, problems, table)
+    phase_csr(torch, csr_matrices({k: folded(lp)
+                                   for k, lp in workloads.items()}), table)
 
     # phase 3: the main path on Potts-300
     lp300 = build_linear_program(300, 0.5, 500)[0]
     run = dict(method="chambolle_pock_ppd", nb_iter=2000, nb_iter_plot=1000,
                light_metrics=True)
     wall, n300 = counted_solve(lp300, dtype=np.float32, device="cuda", **run)
-    its = ((lp300.itrn_curve[-1] - lp300.itrn_curve[0])
-           / (lp300.opttime_curve[-1] - lp300.opttime_curve[0]))
-    names = ("pobj_curve", "dobj_curve", "max_violated_equality",
-             "max_violated_inequality")
-    got = {k: [float(v) for v in getattr(lp300, k)] for k in names}
+    its = steady_rate(lp300)
+    got = curves(lp300)
     itrn = list(lp300.itrn_curve)
     t0 = time.perf_counter()
     lp300.solve(dtype=np.float64, device="cpu", **run)
     cpu_wall = time.perf_counter() - t0
-    want = {k: [float(v) for v in getattr(lp300, k)] for k in names}
+    want = curves(lp300)
     if lp300.itrn_curve != itrn:
         raise AssertionError(f"checkpoints {itrn} vs {lp300.itrn_curve}")
-    # worst difference per curve, relative to its limit's scale
-    worst = {}
-    for k in names:
-        rel = [abs(g - w) / (abs(w) if k.endswith("obj_curve")
-                             else max(1.0, abs(w)))
-               for g, w in zip(got[k], want[k])]
-        worst[k] = max(rel)
+    worst = checkpoint_diffs(got, want)
     emit("main_path_potts300", n=lp300.nb_variables, wall_s=wall,
          iters_per_s_steady=its, itrn=itrn, f32_cuda=got, f64_cpu=want,
          worst_rel_diff=worst, rel_limit=MAIN_RTOL, cpu_wall_s=cpu_wall,
@@ -353,7 +752,13 @@ def main() -> int:
     for key in ("H-DIA", "H-CPDIA"):
         table[key]["launches"] = n300[key]
 
-    # phase 4: convergence with restart-to-average
+    # phase 4: bench.py's non-grid workloads at its sizes
+    for name, lp in workloads.items():
+        launches = phase_nongrid(torch, name, lp, counted_solve)
+        if name == "transport":
+            table["H-CSR"]["launches"] = launches["H-CSR"]
+
+    # phase 5: convergence with restart-to-average
     lp50, gt50, idx50, _ = build_linear_program(50, 0.5, 500)
     wall, n50 = counted_solve(
         lp50, method="chambolle_pock_ppd", nb_iter=36000, nb_iter_plot=12000,
@@ -365,6 +770,8 @@ def main() -> int:
          launches=n50)
     if not d50 < 1e-2:
         raise AssertionError(f"Potts-50 reached dist {d50} (need < 1e-2)")
+    if not n50["H-CPDIA"]:
+        raise AssertionError("Potts-50 did not run H-CPDIA")
     lp105, gt105 = sc105_lp()
     wall, n105 = counted_solve(
         lp105, method="chambolle_pock_ppd", nb_iter=72000, nb_iter_plot=72000,

@@ -2,22 +2,29 @@
 ``pysparselp_tpu/problem.py``).
 
 ``solve()`` lowers the finished host model once into an :class:`LPProblem`
-of torch tensors on one device.  Each constraint system becomes one of
-three operators, chosen by :func:`ell_from_scipy`:
+of torch tensors on one device.  :func:`ell_from_scipy` lowers each
+constraint system to one of these operators:
 
-* :class:`DenseMatrix` — small systems; ``A @ x`` is a plain ``matmul``
-  (the JAX package leaves this product to XLA as well);
-* :class:`DiaMatrix` — systems with few distinct ``(col - row)`` diagonals
-  (the anchor-aligned grid LPs); both SpMV directions run the hand-written
+* :class:`DenseMatrix` — ``A @ x`` is a plain ``matmul`` (the JAX package
+  leaves this product to XLA as well);
+* :class:`DiaMatrix` — few distinct ``(col - row)`` diagonals (the
+  anchor-aligned grid LPs); both SpMV directions run the hand-written
   H-DIA kernel (:mod:`pysparselp_tpu_torch.ops.dia_spmv`) on CUDA;
-* :class:`CsrMatrix` — everything else, in plain torch (gather plus
-  ``index_add_``), standing in for the JAX package's XLA-only
-  ``EllMatrix``/``SegmentedEllMatrix``.
+* :class:`PartitionMatrix` — assignment/simplex rows (one contiguous
+  column run per row on a fixed stride): a strided window of ``x`` times a
+  dense value table, plain torch;
+* :class:`CsrMatrix` — unstructured systems; both directions run the
+  hand-written H-CSR kernel (:mod:`pysparselp_tpu_torch.ops.csr_spmv`) on
+  CUDA, over the CSR of ``A`` and of ``Aᵀ``;
+* :class:`ColBlockMatrix` — contiguous column blocks, each lowered by the
+  same chooser (a dense head beside a sparse tail, ``[A | ±I]`` shapes).
 
 The numpy layout helpers (:func:`anchor_align`, :func:`aligned_offset_count`,
-:func:`embed_matrix`, :func:`apply_align_embedding`, :func:`dia_offsets`)
-are copies of the JAX package's, which the port cannot import (importing
-any ``pysparselp_tpu`` module imports jax).
+:func:`embed_matrix`, :func:`apply_align_embedding`, :func:`dia_offsets`,
+:func:`partition_geometry`, :func:`_candidate_cuts`, :func:`col_split_plan`,
+:func:`effective_stream_bytes`) are copies of the JAX package's, which the
+port cannot import (importing any ``pysparselp_tpu`` module imports jax).
+The cost model (:func:`estimate_stream_bytes`) is this card's own.
 """
 
 from __future__ import annotations
@@ -27,16 +34,35 @@ import dataclasses
 import numpy as np
 import scipy.sparse
 import torch
+import torch.nn.functional as F
 
+from .ops import csr_spmv as _csr
+from .ops.cp_dense import DENSE_FUSED_BUDGET, _pad128
 from .ops.dia_spmv import dia_spmv
 
-# ell_from_scipy's rule (plain, not calibrated; to be re-derived from H100
-# measurements): a system whose dense form has at most DENSE_MAX_ENTRIES
-# entries (4 MB of float32, the dense fused kernel's budget) is dense; a
-# larger one with at most DIA_AUTO_MAX_OFFSETS distinct diagonals is DIA
-# (the anchor-aligned grid LPs land on 8-15); the rest is CSR.
-DENSE_MAX_ENTRIES = 1 << 20
+# The layout chooser (estimate_stream_bytes) prices each candidate by the
+# bytes one SpMV pair (A x and Aᵀ y) moves, counted from the shapes: each
+# value, index and vector read once, each output written once.  These byte
+# counts are a model, to be calibrated against H100 times in the port's
+# benchmark (ROADMAP M4) with scripts/probe_csr_spmv.py and the kernel
+# times chip_smoke.py records; none of the JAX package's TPU calibrations
+# (ELL_GATHER_BYTES_PER_NNZ, DIA_PALLAS_COST_PER_ENTRY, ...) carries over.
+DENSE_AUTO_MAX_ENTRIES = 64 * 1024 * 1024   # the dense operator limit
 DIA_AUTO_MAX_OFFSETS = 32
+# one gathered x entry of a CSR product: a whole 32-byte sector, since
+# unstructured column indices share no sector
+CSR_GATHER_BYTES = 32
+# An LP whose every system is DIA runs H-CPDIA: two launches per iteration
+# for the whole LP, where the per-operator iteration launches ~2 SpMVs per
+# system and ~15 elementwise kernels.  A launch is priced at the bytes the
+# card streams while the host issues it: ~4.5 us per launch (the Potts-50
+# restart solve of scripts/profile_port.py: ~8.9 us of host time per
+# two-launch iteration, NVIDIA H100 80GB HBM3, 700 W) at 3.35 TB/s.  DIA is
+# credited with the launches it saves.
+LAUNCH_BYTES = 15_000_000
+PER_OP_LAUNCHES = 17
+FUSED_LAUNCHES = 2
+FUSED_CREDIT_BYTES = (PER_OP_LAUNCHES - FUSED_LAUNCHES) * LAUNCH_BYTES
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -66,11 +92,23 @@ def resolve_dtype(dtype, device) -> torch.dtype:
     return out
 
 
+def default_dtype() -> torch.dtype:
+    """The dtype the layout chooser prices with: float32, the card's
+    working dtype, whatever the run's dtype, so a float64 run lowers to the
+    same operators as the float32 card run it is checked against."""
+    return torch.float32
+
+
 def abs_pow0(v, p):
     """``|v|**p`` with ``0**0 == 0`` (stored zeros never count toward the
     preconditioner sums; mirrors the JAX helper)."""
     av = v.abs()
     return torch.where(av > 0, av ** p, torch.zeros_like(av))
+
+
+def _tensor(v, dtype, device):
+    return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
+                           device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +125,14 @@ class DenseMatrix:
             # precision=HIGHEST (TF32 keeps ~3 decimal digits)
             torch.backends.cuda.matmul.allow_tf32 = False
 
+    @property
+    def shape(self):
+        return (self.nrows, self.ncols)
+
+    @property
+    def nnz_padded(self):
+        return self.a.numel()
+
     def matvec(self, x):
         return self.a @ x
 
@@ -102,9 +148,8 @@ class DenseMatrix:
     @staticmethod
     def from_scipy(a, dtype, device) -> "DenseMatrix":
         csr = scipy.sparse.csr_matrix(a)
-        return DenseMatrix(
-            a=torch.as_tensor(csr.toarray(), dtype=dtype, device=device),
-            nrows=csr.shape[0], ncols=csr.shape[1])
+        return DenseMatrix(a=_tensor(csr.toarray(), dtype, device),
+                           nrows=csr.shape[0], ncols=csr.shape[1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +172,14 @@ class DiaMatrix:
     offs_t: torch.Tensor   # int32 (ndiag_t,)
     nrows: int
     ncols: int
+
+    @property
+    def shape(self):
+        return (self.nrows, self.ncols)
+
+    @property
+    def nnz_padded(self):
+        return self.vals.numel() + self.vals_t.numel()
 
     @property
     def ndiag(self):
@@ -153,11 +206,9 @@ class DiaMatrix:
                                    device=device)
 
         return DiaMatrix(
-            vals=torch.as_tensor(np.asarray(vals, np.float64), dtype=dtype,
-                                 device=device).reshape(len(offsets), nrows),
-            vals_t=torch.as_tensor(np.asarray(vals_t, np.float64),
-                                   dtype=dtype, device=device
-                                   ).reshape(len(offsets_t), ncols),
+            vals=_tensor(vals, dtype, device).reshape(len(offsets), nrows),
+            vals_t=_tensor(vals_t, dtype, device).reshape(len(offsets_t),
+                                                          ncols),
             offsets=tuple(int(o) for o in offsets),
             offsets_t=tuple(int(o) for o in offsets_t),
             offs=i32(offsets), offs_t=i32(offsets_t),
@@ -184,89 +235,517 @@ class DiaMatrix:
 
 @dataclasses.dataclass(frozen=True)
 class CsrMatrix:
-    """Plain-torch sparse operator: ``A @ x`` is a gather of ``x`` and an
-    ``index_add_`` into the rows; ``Aᵀ @ y`` runs over a second copy of
-    the entries sorted by column."""
+    """Unstructured operator: the CSR of ``A`` serves ``A @ x`` and the CSR
+    of ``Aᵀ`` (the CSC of ``A``) serves ``Aᵀ @ y``, both through
+    :func:`~pysparselp_tpu_torch.ops.csr_spmv.csr_spmv` (H-CSR on CUDA).
+    ``long``/``long_t`` list the rows each launch leaves to a thread block
+    of their own (:func:`~pysparselp_tpu_torch.ops.csr_spmv.long_rows`)."""
 
-    rows: torch.Tensor     # int64 (nnz,), row-major order
-    cols: torch.Tensor
-    vals: torch.Tensor
-    rows_t: torch.Tensor   # the same entries in column-major order
-    cols_t: torch.Tensor
+    indptr: torch.Tensor     # int32 (nrows + 1,)
+    indices: torch.Tensor    # int32 (nnz,)
+    vals: torch.Tensor       # (nnz,)
+    long: torch.Tensor       # int32
+    indptr_t: torch.Tensor   # int32 (ncols + 1,)
+    indices_t: torch.Tensor
     vals_t: torch.Tensor
+    long_t: torch.Tensor
     nrows: int
     ncols: int
 
-    def _zeros(self, size):
-        return torch.zeros(size, dtype=self.vals.dtype,
-                           device=self.vals.device)
+    @property
+    def shape(self):
+        return (self.nrows, self.ncols)
+
+    @property
+    def nnz_padded(self):
+        return self.vals.numel()
 
     def matvec(self, x):
-        return self._zeros(self.nrows).index_add_(
-            0, self.rows, self.vals * x[self.cols])
+        return _csr.csr_spmv(self.indptr, self.indices, self.vals, x,
+                             self.nrows, self.long)
 
     def rmatvec(self, y):
-        return self._zeros(self.ncols).index_add_(
-            0, self.cols_t, self.vals_t * y[self.rows_t])
+        return _csr.csr_spmv(self.indptr_t, self.indices_t, self.vals_t, y,
+                             self.ncols, self.long_t)
+
+    @staticmethod
+    def _row_sum(indptr, v, n):
+        rows = torch.repeat_interleave(torch.arange(n, device=v.device),
+                                       indptr.diff().long())
+        return torch.zeros(n, dtype=v.dtype, device=v.device).index_add_(
+            0, rows, v)
 
     def abs_power_rowsum(self, p):
-        return self._zeros(self.nrows).index_add_(
-            0, self.rows, abs_pow0(self.vals, p))
+        return self._row_sum(self.indptr, abs_pow0(self.vals, p), self.nrows)
 
     def abs_power_colsum(self, p):
-        return self._zeros(self.ncols).index_add_(
-            0, self.cols_t, abs_pow0(self.vals_t, p))
+        return self._row_sum(self.indptr_t, abs_pow0(self.vals_t, p),
+                             self.ncols)
 
     @staticmethod
     def from_scipy(a, dtype, device) -> "CsrMatrix":
-        csr = scipy.sparse.csr_matrix(a)
+        csr = scipy.sparse.csr_matrix(a, dtype=np.float64)
         csr.sum_duplicates()
+        if csr.nnz > _csr.MAX_NNZ:
+            raise ValueError(f"{csr.nnz} entries do not fit int32 indices")
         csc = csr.tocsc()
+
+        def i32(v):
+            return torch.as_tensor(np.asarray(v, np.int32), device=device)
+
+        def long_of(indptr, n_out):
+            width = _csr.vector_width(int(indptr[-1]), n_out)
+            return i32(_csr.long_rows(indptr, width))
+
         m, n = csr.shape
-
-        def t(v, dt=torch.int64):
-            return torch.as_tensor(np.asarray(v), dtype=dt, device=device)
-
-        rows = np.repeat(np.arange(m), np.diff(csr.indptr))
-        cols_t = np.repeat(np.arange(n), np.diff(csc.indptr))
         return CsrMatrix(
-            rows=t(rows), cols=t(csr.indices), vals=t(csr.data, dtype),
-            rows_t=t(csc.indices), cols_t=t(cols_t),
-            vals_t=t(csc.data, dtype), nrows=m, ncols=n)
+            indptr=i32(csr.indptr), indices=i32(csr.indices),
+            vals=_tensor(csr.data, dtype, device), long=long_of(csr.indptr, m),
+            indptr_t=i32(csc.indptr), indices_t=i32(csc.indices),
+            vals_t=_tensor(csc.data, dtype, device),
+            long_t=long_of(csc.indptr, n), nrows=m, ncols=n)
+
+
+# partition_geometry: verbatim copy of pysparselp_tpu/problem.py:316-343
+def partition_geometry(csr):
+    """``(col0, stride, width)`` if every row's nonzeros occupy a
+    contiguous column run of one fixed ``width``, with the runs advancing
+    by one fixed ``stride >= width`` (so the runs never overlap) from a
+    base column ``col0`` — the assignment/partition pattern: simplex rows
+    of assignment LPs (one row per point over its candidate block, e.g.
+    the k-medians LP, ``reference/pysparselp/examples/
+    example_kmedians.py:40-44``), transport-LP source equalities over
+    arc blocks, one-hot label sums.  Returns ``None`` otherwise."""
+    m, n = csr.shape
+    if m == 0 or csr.nnz == 0:
+        return None
+    cnt = np.diff(csr.indptr)
+    w = int(cnt[0])
+    if w <= 0 or not np.all(cnt == w):
+        return None
+    if not csr.has_sorted_indices:
+        csr = csr.sorted_indices()
+    idx = csr.indices.reshape(m, w)
+    starts = idx[:, 0].astype(np.int64)
+    if not np.all(idx == starts[:, None] + np.arange(w)[None, :]):
+        return None
+    if m == 1:
+        return int(starts[0]), w, w
+    stride = int(starts[1] - starts[0])
+    if stride < w or not np.all(np.diff(starts) == stride):
+        return None
+    return int(starts[0]), stride, w
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionMatrix:
+    """Partition/assignment operator: SpMV as reshape + multiply-reduce
+    (mirrors the JAX ``PartitionMatrix``, ``problem.py:352-453``).
+
+    Rows whose nonzeros are one contiguous ``width``-column run advancing
+    by a fixed ``stride`` (:func:`partition_geometry`) need no gathers:
+    ``A @ x`` is a strided window of ``x`` reshaped to ``(m, stride)``
+    against the dense ``(m, width)`` value table, and ``Aᵀ @ y`` is the
+    same reshape run backwards (every slot owns a distinct column, so the
+    scatter is a flatten).  No TPU kernel stands behind it in the JAX
+    package; plain torch serves both directions here too.
+    """
+
+    vals: torch.Tensor   # (nrows, width)
+    col0: int
+    stride: int
+    width: int
+    nrows: int
+    ncols: int
+
+    @property
+    def shape(self):
+        return (self.nrows, self.ncols)
+
+    @property
+    def nnz_padded(self):
+        return self.vals.numel()
+
+    @property
+    def _span(self):
+        return (self.nrows - 1) * self.stride + self.width
+
+    def _window(self, x):
+        """The ``(m, width)`` view of ``x`` each row multiplies."""
+        m, w, s = self.nrows, self.width, self.stride
+        xs = x[self.col0:self.col0 + self._span]
+        if s > w:
+            xs = F.pad(xs, (0, m * s - self._span))
+            return xs.reshape(m, s)[:, :w]
+        return xs.reshape(m, w)
+
+    def matvec(self, x):
+        return torch.sum(self.vals * self._window(x), dim=1)
+
+    def _scatter(self, contrib):
+        """Place ``(m, width)`` per-slot values at their columns."""
+        s, w = self.stride, self.width
+        if s > w:
+            contrib = F.pad(contrib, (0, s - w))
+        flat = contrib.reshape(-1)[:self._span]
+        return F.pad(flat, (self.col0, self.ncols - self.col0 - self._span))
+
+    def rmatvec(self, y):
+        return self._scatter(self.vals * y[:, None])
+
+    def abs_power_rowsum(self, p):
+        return torch.sum(abs_pow0(self.vals, p), dim=1)
+
+    def abs_power_colsum(self, p):
+        return self._scatter(abs_pow0(self.vals, p))
+
+    @staticmethod
+    def from_scipy(a, dtype, device) -> "PartitionMatrix":
+        csr = scipy.sparse.csr_matrix(a)
+        if not csr.has_sorted_indices:
+            csr = csr.sorted_indices()
+        geo = partition_geometry(csr)
+        if geo is None:
+            raise ValueError("matrix rows are not a fixed-width "
+                             "contiguous-column partition pattern")
+        col0, stride, w = geo
+        return PartitionMatrix(
+            vals=_tensor(csr.data.reshape(csr.shape[0], w), dtype, device),
+            col0=col0, stride=stride, width=w, nrows=csr.shape[0],
+            ncols=csr.shape[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class ColBlockMatrix:
+    """Composite operator: contiguous column blocks, each lowered by the
+    chooser on its own (mirrors the JAX ``ColBlockMatrix``,
+    ``problem.py:635-701``).  ``matvec`` sums the block products (every
+    block yields a full-height output); ``rmatvec`` concatenates the block
+    results in column order.  The cuts come from :func:`col_split_plan`.
+    """
+
+    blocks: tuple       # lowered sub-operators, in column order
+    col_starts: tuple   # block b covers cols [starts[b], starts[b+1])
+    nrows: int
+    ncols: int
+
+    @property
+    def shape(self):
+        return (self.nrows, self.ncols)
+
+    @property
+    def nnz_padded(self):
+        return sum(b.nnz_padded for b in self.blocks)
+
+    def _slices(self, x):
+        s = self.col_starts
+        return [x[s[b]:s[b + 1]] for b in range(len(self.blocks))]
+
+    def matvec(self, x):
+        parts = self._slices(x)
+        out = self.blocks[0].matvec(parts[0])
+        for blk, xs in zip(self.blocks[1:], parts[1:]):
+            out = out + blk.matvec(xs)
+        return out
+
+    def rmatvec(self, y):
+        return torch.cat([b.rmatvec(y) for b in self.blocks])
+
+    def abs_power_rowsum(self, p):
+        out = self.blocks[0].abs_power_rowsum(p)
+        for blk in self.blocks[1:]:
+            out = out + blk.abs_power_rowsum(p)
+        return out
+
+    def abs_power_colsum(self, p):
+        return torch.cat([b.abs_power_colsum(p) for b in self.blocks])
+
+
+# ----------------------------------------------------------------------
+# the layout chooser
+# ----------------------------------------------------------------------
+
+
+def fits_dense_chunk(m, n) -> bool:
+    """A system small enough for H-CPDENSE's budget (and under the dense
+    limit) is dense: that kernel runs a whole chunk in one launch, where
+    any per-operator layout pays ~17 launches per iteration, which bound
+    it at this size rather than its bytes."""
+    return (0 < m * n <= DENSE_AUTO_MAX_ENTRIES
+            and _pad128(m) * _pad128(n) * 4 <= DENSE_FUSED_BUDGET)
+
+
+def _dense_bytes(m, n, s):
+    return 2 * m * n * s + 2 * (m + n) * s
+
+
+def _dia_bytes(ndiag, m, n, s):
+    return ndiag * (m + n) * s + 2 * (m + n) * s
+
+
+def _csr_bytes(nnz, m, n, s):
+    # values and int32 indices per direction, the two row-pointer arrays,
+    # one sector per gathered entry, both outputs
+    return (2 * nnz * (s + 4) + (m + n + 2) * 4 + 2 * nnz * CSR_GATHER_BYTES
+            + (m + n) * s)
+
+
+def _partition_bytes(m, n, stride, width, s):
+    # the value table per direction, the window of x, y in and out, and
+    # the full-width Aᵀ y output
+    return 2 * m * width * s + m * stride * s + 2 * m * s + n * s
+
+
+def _shape_candidates(m, n, ndiag, nnz, s):
+    """Bytes per SpMV pair of the candidates that shapes alone price."""
+    out = {"csr": _csr_bytes(nnz, m, n, s)}
+    if m * n <= DENSE_AUTO_MAX_ENTRIES:
+        out["dense"] = _dense_bytes(m, n, s)
+    if 0 < ndiag <= DIA_AUTO_MAX_OFFSETS:
+        out["dia"] = _dia_bytes(ndiag, m, n, s)
+    return out
+
+
+def _candidates(csr, dtype):
+    """``{backend: bytes per SpMV pair}`` of the streaming candidates."""
+    m, n = csr.shape
+    s = torch.empty((), dtype=dtype).element_size()
+    cands = _shape_candidates(m, n, int(dia_offsets(csr).size), csr.nnz, s)
+    geo = partition_geometry(csr)
+    if geo is not None:
+        _, stride, w = geo
+        cands["partition"] = _partition_bytes(m, n, stride, w, s)
+    return cands
+
+
+def estimate_stream_bytes(csr, dtype=None):
+    """``(backend, bytes)`` the chooser would pick for this matrix, by the
+    bytes one SpMV pair moves (see the constants above).  Candidates:
+    dense (≤ ``DENSE_AUTO_MAX_ENTRIES`` entries; always, when the system
+    fits H-CPDENSE's budget), DIA (≤ ``DIA_AUTO_MAX_OFFSETS`` diagonals),
+    partition (:func:`partition_geometry`) and CSR.  The JAX package's
+    block-sparse candidate (``"bsr"``) is absent until its kernel (K6) is
+    ported."""
+    dtype = dtype or default_dtype()
+    csr = scipy.sparse.csr_matrix(csr)
+    m, n = csr.shape
+    if csr.nnz == 0:
+        return "csr", 0
+    if fits_dense_chunk(m, n):
+        s = torch.empty((), dtype=dtype).element_size()
+        return "dense", _dense_bytes(m, n, s)
+    cands = _candidates(csr, dtype)
+    best = min(cands, key=cands.get)
+    return best, cands[best]
+
+
+def operator_cost_bytes(op) -> int:
+    """Bytes per SpMV pair of a LOWERED operator, by the chooser's model at
+    the operator's own dtype."""
+    if op is None:
+        return 0
+    if isinstance(op, ColBlockMatrix):
+        return sum(operator_cost_bytes(b) for b in op.blocks)
+    m, n = op.shape
+    if isinstance(op, DenseMatrix):
+        return _dense_bytes(m, n, op.a.element_size())
+    if isinstance(op, DiaMatrix):
+        return _dia_bytes(op.ndiag, m, n, op.vals.element_size())
+    if isinstance(op, PartitionMatrix):
+        return _partition_bytes(m, n, op.stride, op.width,
+                                op.vals.element_size())
+    return _csr_bytes(op.nnz_padded, m, n, op.vals.element_size())
+
+
+# _candidate_cuts, col_split_plan, effective_stream_bytes and their
+# constants: verbatim copy of pysparselp_tpu/problem.py:1154-1238
+# column-split search: accept a split only when it beats the best whole-
+# matrix layout by this factor (slicing + extra matvec dispatch overhead
+# must not eat a marginal win)
+COL_SPLIT_MIN_GAIN = 0.7
+COL_SPLIT_MAX_DEPTH = 2
+COL_SPLIT_TILE = 128          # candidate cuts at lane-tile boundaries
+_COL_SPLIT_DENSITY_JUMP = 4.0  # adjacent-tile nnz ratio marking a boundary
+
+
+def _candidate_cuts(csr, max_cands=6):
+    """Column indices where the per-column nnz density changes character
+    (tile-summed, ratio > _COL_SPLIT_DENSITY_JUMP), largest jumps first.
+
+    Each tile-boundary candidate is refined to the EXACT per-column jump
+    inside its two neighboring tiles when one exists: structural
+    boundaries (e.g. the labeling|used split of the k-medians LP at
+    column 150 000) rarely fall on a 128 multiple, and a cut 112 columns
+    short of the boundary glues diagonal stragglers onto the hot dense
+    block — the mixed block then lowers 10× worse than either side
+    alone (advisor r5 finding: 5.4× k-medians came from exactly this)."""
+    n = csr.shape[1]
+    tile = COL_SPLIT_TILE
+    nt = -(-n // tile)
+    if nt < 2:
+        return []
+    colnnz = np.bincount(csr.indices, minlength=nt * tile)
+    tnnz = colnnz.reshape(nt, tile).sum(axis=1).astype(np.float64) + 1.0
+    ratio = np.maximum(tnnz[1:] / tnnz[:-1], tnnz[:-1] / tnnz[1:])
+    order = np.argsort(-ratio)
+    cuts = []
+    for i in order[:max_cands]:
+        if ratio[i] < _COL_SPLIT_DENSITY_JUMP:
+            continue
+        c = (int(i) + 1) * tile
+        lo, hi = max(c - tile, 0), min(c + tile, n)
+        seg = colnnz[lo:hi].astype(np.float64) + 1.0
+        if seg.size >= 2:
+            r = np.maximum(seg[1:] / seg[:-1], seg[:-1] / seg[1:])
+            j = int(np.argmax(r))
+            exact = lo + j + 1
+            if r[j] >= _COL_SPLIT_DENSITY_JUMP and exact != c:
+                cuts.append(exact)
+        cuts.append(c)
+    return [c for c in dict.fromkeys(cuts) if 0 < c < n]
+
+
+def col_split_plan(csr, dtype=None, depth=COL_SPLIT_MAX_DEPTH):
+    """Best contiguous column split of ``csr`` under the bytes-streamed
+    model: returns ``(effective_bytes, cuts)`` where ``cuts`` is a sorted
+    tuple of interior split columns (empty = no split helps).  Recursive
+    bisection over density-change candidates; each piece is priced by
+    :func:`estimate_stream_bytes`, so a split is kept exactly when the
+    per-block layouts (dense head / diagonal tail / …) stream fewer
+    effective bytes than any whole-matrix layout."""
+    dtype = dtype or default_dtype()
+    csr = scipy.sparse.csr_matrix(csr)
+    _, whole = estimate_stream_bytes(csr, dtype)
+    best = (whole, ())
+    if depth <= 0:
+        return best
+    cands = _candidate_cuts(csr)
+    csc = csr.tocsc() if cands else None
+    for cut in cands:
+        left = csc[:, :cut].tocsr()
+        right = csc[:, cut:].tocsr()
+        cl, cuts_l = col_split_plan(left, dtype, depth - 1)
+        cr, cuts_r = col_split_plan(right, dtype, depth - 1)
+        tot = cl + cr
+        if tot < best[0]:
+            best = (tot, cuts_l + (cut,) + tuple(c + cut for c in cuts_r))
+    return best
+
+
+def effective_stream_bytes(csr, dtype=None) -> int:
+    """Effective bytes per SpMV pair including the column-split option —
+    the quantity the layout presolve compares across permutations."""
+    dtype = dtype or default_dtype()
+    _, whole = estimate_stream_bytes(csr, dtype)
+    split, cuts = col_split_plan(csr, dtype)
+    # same acceptance gate as the lowering (ell_from_scipy): pricing a
+    # split the selector would reject lets the permutation chooser pick a
+    # layout whose realized operator streams `whole` bytes
+    if cuts and split < COL_SPLIT_MIN_GAIN * whole:
+        return split
+    return whole
+
+
+def choose_layout(csr):
+    """``(backend, cuts)``: the backend :func:`ell_from_scipy` lowers
+    ``csr`` to, priced at :func:`default_dtype`; ``cuts`` are
+    the column cuts when the backend is ``"split"``."""
+    m, n = csr.shape
+    if fits_dense_chunk(m, n):
+        return "dense", ()
+    best, cost = estimate_stream_bytes(csr)
+    if csr.nnz:
+        # composite column blocks: [structured | ±I | …] matrices move
+        # fewer bytes when the head and the tails get their own layouts
+        split_cost, cuts = col_split_plan(csr)
+        if cuts and split_cost < COL_SPLIT_MIN_GAIN * cost:
+            return "split", cuts
+    return best, ()
+
+
+_GATHER_LAYOUTS = ("ell", "segmented", "routed")
 
 
 def ell_from_scipy(a, dtype, device, prefer=None):
     """Lower a scipy sparse matrix to one of the port's operators.
 
-    The rule (see the constants above): dense when the dense form has at
-    most ``DENSE_MAX_ENTRIES`` entries; else DIA when it has at most
-    ``DIA_AUTO_MAX_OFFSETS`` distinct diagonals; else CSR.  ``prefer``
-    ("dense", "dia" or "csr") forces a backend.
+    The backend comes from :func:`choose_layout` on every device, so the
+    CPU runs take the branches the card does.  ``prefer`` forces one:
+    "dense", "dia", "partition", "split" or "csr"; the JAX package's
+    gather layouts ("ell", "segmented", "routed") map to "csr".
     """
     csr = scipy.sparse.csr_matrix(a)
-    m, n = csr.shape
+    if prefer in _GATHER_LAYOUTS:
+        prefer = "csr"
+    cuts = ()
     if prefer is None:
-        if m * n <= DENSE_MAX_ENTRIES:
-            prefer = "dense"
-        elif csr.nnz and dia_offsets(csr).size <= DIA_AUTO_MAX_OFFSETS:
-            prefer = "dia"
-        else:
-            prefer = "csr"
+        prefer, cuts = choose_layout(csr)
+    elif prefer == "split":
+        cuts = col_split_plan(csr)[1]
     if prefer == "dense":
         return DenseMatrix.from_scipy(csr, dtype, device)
     if prefer == "dia":
         return DiaMatrix.from_scipy(csr, dtype, device)
+    if prefer == "partition":
+        return PartitionMatrix.from_scipy(csr, dtype, device)
     if prefer == "csr":
         return CsrMatrix.from_scipy(csr, dtype, device)
+    if prefer == "split":
+        return _lower_col_split(csr, cuts, dtype, device)
     raise ValueError(f"prefer={prefer!r}: the port's backends are 'dense', "
-                     "'dia' and 'csr'")
+                     "'dia', 'partition', 'split' and 'csr'")
 
 
-def lowers_to_dia(nrows, ncols, ndiag) -> bool:
-    """Whether :func:`ell_from_scipy`'s rule picks DIA for a system of this
-    size with ``ndiag`` distinct diagonals."""
-    return (nrows * ncols > DENSE_MAX_ENTRIES
-            and 0 < ndiag <= DIA_AUTO_MAX_OFFSETS)
+def _lower_col_split(csr, cuts, dtype, device):
+    """Lower each contiguous column block independently (each through the
+    same chooser) into a :class:`ColBlockMatrix`."""
+    n = csr.shape[1]
+    starts = (0,) + tuple(cuts) + (n,)
+    csc = csr.tocsc()
+    blocks = tuple(
+        ell_from_scipy(csc[:, starts[b]:starts[b + 1]].tocsr(), dtype,
+                       device)
+        for b in range(len(starts) - 1))
+    return ColBlockMatrix(blocks=blocks, col_starts=starts,
+                          nrows=csr.shape[0], ncols=n)
+
+
+def _dia_pays(cands) -> bool:
+    """DIA within the fused-iteration credit of the cheapest candidate."""
+    return ("dia" in cands
+            and cands["dia"] <= min(cands.values()) + FUSED_CREDIT_BYTES)
+
+
+def fused_dia_pays(csr) -> bool:
+    """Whether this system takes DIA when the whole LP can run H-CPDIA:
+    DIA is a candidate and streams no more than the cheapest layout plus
+    the launches the fused iteration saves (``FUSED_CREDIT_BYTES``)."""
+    csr = scipy.sparse.csr_matrix(csr)
+    if csr.nnz == 0 or fits_dense_chunk(*csr.shape):
+        return False
+    return _dia_pays(_candidates(csr, default_dtype()))
+
+
+def lowers_to_dia(nrows, ncols, ndiag, nnz) -> bool:
+    """:func:`fused_dia_pays` for a system known by its shape, diagonal
+    count and entries (the anchor-alignment preview; a partition candidate
+    is not previewed)."""
+    if nnz == 0 or fits_dense_chunk(nrows, ncols):
+        return False
+    s = torch.empty((), dtype=default_dtype()).element_size()
+    return _dia_pays(_shape_candidates(nrows, ncols, ndiag, nnz, s))
+
+
+def lower_systems(mats, dtype, device):
+    """Lower an LP's constraint systems (``None`` stays ``None``).  When
+    DIA pays for every present system (:func:`fused_dia_pays`), all are
+    DIA and H-CPDIA runs the whole iteration; otherwise each system gets
+    :func:`ell_from_scipy`'s layout."""
+    present = [a for a in mats if a is not None]
+    prefer = ("dia" if present and all(fused_dia_pays(a) for a in present)
+              else None)
+    return [None if a is None else ell_from_scipy(a, dtype, device, prefer)
+            for a in mats]
 
 
 @dataclasses.dataclass(frozen=True)

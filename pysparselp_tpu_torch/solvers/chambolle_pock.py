@@ -12,7 +12,10 @@ of three paths, chosen from the lowered operators (not from the device):
   the H-CPDIA kernel (:mod:`..ops.cp_dia`), eq+ineq included;
 * ``"dense"`` — every present system is a dense operator within the dense
   kernel's budget: the H-CPDENSE kernel (:mod:`..ops.cp_dense`);
-* otherwise the per-operator iteration :func:`_cp_iteration`.
+* otherwise the per-operator iteration :func:`_cp_iteration`, whose
+  products go through each operator's ``matvec``/``rmatvec`` (H-CSR for
+  CSR systems and blocks, H-DIA for DIA ones, plain torch for dense,
+  partition and column-block composites).
 
 On CUDA tensors each kernel wrapper launches its kernel; on CPU tensors it
 runs its plain PyTorch twin, so the CPU tests exercise the same branches.
@@ -27,7 +30,7 @@ import torch
 from ..ops.cp_dense import cp_dense_chunk, cp_dense_eligible
 from ..ops.cp_dia import cp_dia_chunk, cp_dia_eligible
 from ..problem import (LPProblem, aligned_offset_count, anchor_align,
-                       apply_align_embedding, ell_from_scipy, lowers_to_dia,
+                       apply_align_embedding, lower_systems, lowers_to_dia,
                        resolve_device, resolve_dtype)
 from .base import HostLoop, chunk_schedule, emit_callback, to_np
 
@@ -309,7 +312,8 @@ def _kkt_score(prob: LPProblem, x, y_eq, y_ineq):
 
 def _auto_layout(mats):
     """``"align"`` plan when the anchor-aligned embedding lowers every
-    present system to a DiaMatrix (the grid-LP class), else ``None``.
+    present system to a DiaMatrix (the grid-LP class; :func:`lowers_to_dia`
+    prices each aligned system), else ``None``.
 
     Alignment exists to feed the DIA kernels; a system it leaves dense-sized
     (netlib SC105: 105 rows become 272) would only be padded."""
@@ -318,7 +322,7 @@ def _auto_layout(mats):
                                                           return_plan=True)
     except ValueError:
         return None
-    if all(lowers_to_dia(mn, n_new, c_)
+    if all(lowers_to_dia(mn, n_new, c_, m.nnz)
            for c_, mn, m in zip(counts, m_new, mats) if m is not None):
         return plan
     return None
@@ -391,7 +395,8 @@ def chambolle_pock_ppd(
     if permute is True or permute == "rcm":
         raise NotImplementedError(
             "permute='rcm' serves the block-sparse (BSR) backend, which is "
-            "not ported yet; see ROADMAP.md Queue 1, M5")
+            "not ported yet: it comes with the BSR kernel (K6), the next "
+            "slice; see ROADMAP.md Queue 2")
     inv_cols = None          # orig col -> solved position (gather for x)
     pos_eq = pos_in = None   # orig row -> solved position (per system)
     if permute and (a_eq is not None or a_one is not None):
@@ -444,8 +449,7 @@ def chambolle_pock_ppd(
         return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
                                device=dev)
 
-    eq_m = ell_from_scipy(a_eq, dtype, dev) if a_eq is not None else None
-    in_m = ell_from_scipy(a_one, dtype, dev) if a_one is not None else None
+    eq_m, in_m = lower_systems([a_eq, a_one], dtype, dev)
     prob = LPProblem(
         c=vec(c),
         lb=vec(lb),

@@ -2,10 +2,13 @@
 
 :func:`problem_from_jax_arrays` rebuilds the port's
 :class:`~pysparselp_tpu_torch.problem.LPProblem` from a JAX ``LPProblem``
-(read through ``numpy.asarray``; this module imports no jax): a JAX
-``DiaMatrix`` is stripped of its Pallas kernel-layout padding to
-``vals[:ndiag, :nrows]`` (``vals_t`` likewise), a ``DenseMatrix`` comes
-across whole and an ``EllMatrix`` through its CSR entries.
+(read through ``numpy.asarray`` and matched by class name; this module
+imports no jax): a JAX ``DiaMatrix`` is stripped of its Pallas
+kernel-layout padding to ``vals[:ndiag, :nrows]`` (``vals_t`` likewise), a
+``DenseMatrix`` comes across whole, a ``PartitionMatrix`` as the port's
+``PartitionMatrix``, a ``ColBlockMatrix`` block by block, and the gather
+layouts (``EllMatrix``, ``SegmentedEllMatrix``, ``RoutedEllMatrix``) and
+``BsrMatrix`` through their entries as a ``CsrMatrix``.
 :func:`state_from_numpy` carries the ``(x, x3, y_eq, y_ineq)`` state and the
 restart controller's ``rstate``; :func:`state_to_numpy` goes back.  Together
 they let both packages run on the same lowered problem.
@@ -17,20 +20,50 @@ import numpy as np
 import scipy.sparse
 import torch
 
-from ..problem import (CsrMatrix, DenseMatrix, DiaMatrix, LPProblem,
-                       resolve_device, resolve_dtype)
+from ..problem import (ColBlockMatrix, CsrMatrix, DenseMatrix, DiaMatrix,
+                       LPProblem, PartitionMatrix, resolve_device,
+                       resolve_dtype)
 
 
 def _np(a):
     return np.asarray(a).astype(np.float64)
 
 
+def _ell_entries(vals, cols):
+    """``(rows, cols, vals)`` of an ELL table: row ``r`` holds
+    ``vals[r, k]`` at column ``cols[r, k]`` (padding slots hold zeros)."""
+    vals, cols = _np(vals), np.asarray(cols, np.int64)
+    rows = np.broadcast_to(np.arange(vals.shape[0])[:, None], vals.shape)
+    return rows.ravel(), cols.ravel(), vals.ravel()
+
+
+def _csr(rows, cols, vals, shape):
+    """The CSR of the given entries with the zero slots dropped."""
+    csr = scipy.sparse.csr_matrix((vals, (rows, cols)), shape=shape)
+    csr.eliminate_zeros()
+    return csr
+
+
+def _bsr_entries(op):
+    """``(rows, cols, vals)`` of a JAX ``BsrMatrix``: ``tiles[r, k]`` is
+    the transposed ``(tm, tn)`` block at tile row ``r``, tile column
+    ``cols[r, k]``."""
+    tiles = _np(op.tiles)
+    t_rows, k, tn, tm = tiles.shape
+    r, kk, j, i = np.meshgrid(np.arange(t_rows), np.arange(k),
+                              np.arange(tn), np.arange(tm), indexing="ij")
+    tcol = np.asarray(op.cols, np.int64)[r, kk]
+    rows, cols = r * tm + i, tcol * tn + j
+    keep = (rows < op.nrows) & (cols < op.ncols)
+    return rows[keep], cols[keep], tiles[keep]
+
+
 def operator_from_jax(op, dtype, device):
-    """The port's operator for a JAX ``DiaMatrix``/``DenseMatrix``/
-    ``EllMatrix`` (``None`` stays ``None``)."""
+    """The port's operator for a JAX operator (``None`` stays ``None``)."""
     if op is None:
         return None
     kind = type(op).__name__
+    shape = (op.nrows, op.ncols)
     if kind == "DiaMatrix":
         nd, ndt = len(op.offsets), len(op.offsets_t)
         return DiaMatrix.from_planes(
@@ -41,15 +74,38 @@ def operator_from_jax(op, dtype, device):
         return DenseMatrix(a=torch.as_tensor(_np(op.a), dtype=dtype,
                                              device=device),
                            nrows=op.nrows, ncols=op.ncols)
+    if kind == "PartitionMatrix":
+        return PartitionMatrix(
+            vals=torch.as_tensor(_np(op.vals), dtype=dtype, device=device),
+            col0=op.col0, stride=op.stride, width=op.width, nrows=op.nrows,
+            ncols=op.ncols)
+    if kind == "ColBlockMatrix":
+        return ColBlockMatrix(
+            blocks=tuple(operator_from_jax(b, dtype, device)
+                         for b in op.blocks),
+            col_starts=tuple(op.col_starts), nrows=op.nrows, ncols=op.ncols)
     if kind == "EllMatrix":
-        vals, cols = _np(op.vals), np.asarray(op.cols)
-        rows = np.broadcast_to(np.arange(op.nrows)[:, None], cols.shape)
-        csr = scipy.sparse.csr_matrix(
-            (vals.ravel(), (rows.ravel(), cols.ravel())),
-            shape=(op.nrows, op.ncols))
-        csr.eliminate_zeros()
-        return CsrMatrix.from_scipy(csr, dtype, device)
-    raise TypeError(f"no port counterpart for a JAX {kind}")
+        csr = _csr(*_ell_entries(op.vals, op.cols), shape)
+    elif kind == "SegmentedEllMatrix":
+        # the segments hold the rows in width order; row_inv maps each
+        # original row to its position in their concatenation
+        pos = np.argsort(np.asarray(op.row_inv))
+        rows, cols, vals, base = [], [], [], 0
+        for seg_vals, seg_cols in op.segs:
+            r, c, v = _ell_entries(seg_vals, seg_cols)
+            rows.append(pos[base + r])
+            cols.append(c)
+            vals.append(v)
+            base += seg_vals.shape[0]
+        csr = _csr(np.concatenate(rows), np.concatenate(cols),
+                   np.concatenate(vals), shape)
+    elif kind == "RoutedEllMatrix":
+        csr = op.to_scipy()
+    elif kind == "BsrMatrix":
+        csr = _csr(*_bsr_entries(op), shape)
+    else:
+        raise TypeError(f"no port counterpart for a JAX {kind}")
+    return CsrMatrix.from_scipy(csr, dtype, device)
 
 
 def problem_from_jax_arrays(jprob, dtype=None, device="cpu") -> LPProblem:

@@ -1,0 +1,116 @@
+#!/usr/bin/env python3
+"""Timing probe of the port's CSR SpMV kernel (H-CSR) on one NVIDIA GPU.
+
+    python3 scripts/probe_csr_spmv.py
+
+Over a row-length ladder (2, 13, 20 and 5,000 entries per row, about 2M
+entries each, 1M columns so that x stays in the L2 cache), float32: times
+H-CSR (``ops.csr_spmv.csr_spmv``), its plain PyTorch twin and the library
+call ``torch.mv`` on a ``torch.sparse_csr_tensor`` of the same matrix (one
+cuSPARSE SpMV), in turns (twin, kernel, kernel, twin) with CUDA events, and
+checks the kernel against the twin.  Prints one JSON line per rung with
+the bytes the product must move, its bound at 3.35 TB/s and the achieved
+rate; the same lines go to ``chiprun_out/probe_csr_spmv.json``.  Exits
+nonzero without CUDA.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import warnings
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+HBM_BYTES_PER_S = 3.35e12     # NVIDIA H100 SXM at 700 W
+NNZ = 2_000_000
+N_COLS = 1_000_000
+ROW_LENGTHS = (2, 13, 20, 5000)
+REPS = 50
+
+
+def events_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("probe_csr_spmv: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import scipy.sparse
+
+    from pysparselp_tpu_torch.ops import csr_spmv as ops
+    from pysparselp_tpu_torch.problem import CsrMatrix
+
+    warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(0)
+    lines = []
+    for length in ROW_LENGTHS:
+        m = NNZ // length
+        cols = rng.randint(0, N_COLS, (m, length))
+        a = scipy.sparse.csr_matrix(
+            (rng.randn(m * length), cols.ravel(),
+             np.arange(0, m * length + 1, length)), shape=(m, N_COLS))
+        a.sum_duplicates()
+        op = CsrMatrix.from_scipy(a, torch.float32, dev)
+        x = torch.as_tensor(rng.randn(N_COLS), dtype=torch.float32,
+                            device=dev)
+        lib = torch.sparse_csr_tensor(op.indptr, op.indices, op.vals,
+                                      size=(m, N_COLS),
+                                      check_invariants=False)
+
+        def kern(op=op, x=x):
+            return op.matvec(x)
+
+        def plain(op=op, x=x, m=m):
+            return ops.csr_spmv_reference(op.indptr, op.indices, op.vals, x,
+                                          m)
+
+        got, want = kern(), plain()
+        scale = ops.csr_spmv_reference(op.indptr, op.indices, op.vals.abs(),
+                                       x.abs(), m)
+        if not bool(((got - want).abs() <= 1e-5 * scale).all()):
+            raise AssertionError(f"H-CSR disagrees with its twin at row "
+                                 f"length {length}")
+        t = [events_ms(torch, f, REPS) for f in (plain, kern, kern, plain)]
+        lib_ms = events_ms(torch, lambda lib=lib, x=x: torch.mv(lib, x), REPS)
+        nnz = a.nnz
+        moved = nnz * 8 + (m + 1) * 4 + m * 4 + N_COLS * 4
+        ms = (t[1] + t[2]) / 2
+        rec = dict(row_length=length, rows=m, cols=N_COLS, nnz=nnz,
+                   width=ops.vector_width(nnz, m),
+                   long_rows=int(op.long.numel()), nvidia_smi=smi,
+                   ms=ms, plain_ms=(t[0] + t[3]) / 2, library_ms=lib_ms,
+                   bytes=moved, bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+                   achieved_tb_s=moved / (ms * 1e-3) / 1e12,
+                   max_abs_err=float((got - want).abs().max()))
+        print(json.dumps(rec), flush=True)
+        lines.append(rec)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "probe_csr_spmv.json").write_text(
+        "\n".join(json.dumps(r) for r in lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,13 +3,15 @@
 
     python3 scripts/profile_port.py
 
-Runs the three solves that ``chip_smoke.py`` drives (Potts-300 f32 with
+Runs four solves that ``chip_smoke.py`` drives (Potts-300 f32 with
 ``light_metrics``, 2000 iterations; Potts-50 and SC105 f32 with restart to
-average) once to build and warm up, then once each under
-``torch.profiler``.  For each solve it prints one JSON line: the wall time,
-the device time of each kernel (and memcpy) by name, the device busy share
-(device time / wall time), and for Potts-300 the device and wall time per
-iteration in the steady window between the two checkpoints.  The same
+average; the transport LP of ``bench.py`` f32 with ``light_metrics``, 2000
+iterations, on the per-operator path) once to build and warm up, then once
+each under ``torch.profiler``.  For each solve it prints one JSON line: the
+wall time, the device time and count of each kernel (and memcpy) by name,
+the device busy share (device time / wall time) and the device events per
+iteration, and for Potts-300 and the transport LP the device and wall time
+per iteration in the steady window between the two checkpoints.  The same
 lines go to ``chiprun_out/profile_port.json``.  Exits nonzero without CUDA.
 """
 
@@ -46,7 +48,7 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import sc105_lp
+    from chip_smoke import sc105_lp, transport_lp
     from pysparselp_tpu_torch.examples.potts import build_linear_program
 
     smi = subprocess.run(
@@ -62,6 +64,9 @@ def main() -> int:
         "sc105_restart": (lambda: sc105_lp()[0],
                           dict(nb_iter=72000, nb_iter_plot=72000,
                                restart="average", restart_period=4000)),
+        "transport": (transport_lp,
+                      dict(nb_iter=2000, nb_iter_plot=1000,
+                           light_metrics=True)),
     }
     lines = []
     for name, (make, kw) in runs.items():
@@ -84,14 +89,20 @@ def main() -> int:
                    itrn=[int(i) for i in lp.itrn_curve],
                    events={k: dict(count=c, us=us)
                            for k, (c, us) in sorted(events.items())})
-        if name == "potts300":
+        rec["events_per_iter"] = (sum(c for c, _ in events.values())
+                                  / lp.itrn_curve[-1])
+        if name in ("potts300", "transport"):
             iters = lp.itrn_curve[-1] - lp.itrn_curve[0]
+            rec["device_us_per_iter"] = device_us / lp.itrn_curve[-1]
+            rec["steady_wall_us_per_iter"] = (
+                (lp.opttime_curve[-1] - lp.opttime_curve[0]) / iters * 1e6)
+            rec["steady_busy_share"] = (rec["device_us_per_iter"]
+                                        / rec["steady_wall_us_per_iter"])
+        if name == "potts300":
             chunk_us = sum(us for k, (_, us) in events.items()
                            if "cp_primal_kernel" in k
                            or "cp_dual_kernel" in k)
             rec["cp_device_us_per_iter"] = chunk_us / lp.itrn_curve[-1]
-            rec["steady_wall_us_per_iter"] = (
-                (lp.opttime_curve[-1] - lp.opttime_curve[0]) / iters * 1e6)
             rec["steady_busy_share"] = (rec["cp_device_us_per_iter"]
                                         / rec["steady_wall_us_per_iter"])
         print(json.dumps(rec), flush=True)

@@ -5,43 +5,69 @@ controller and KKT score against JAX's on the carried problem (float64,
 
 import numpy as np
 import pytest
+import scipy.sparse
 import torch
 
 import jax.numpy as jnp
 
+import chip_smoke
+from pysparselp_tpu import problem as jpr
 from pysparselp_tpu.examples.potts import (build_linear_program,
                                            build_multilabel_linear_program)
 from pysparselp_tpu.solvers import chambolle_pock as jcp
-from pysparselp_tpu_torch.problem import CsrMatrix, DenseMatrix, DiaMatrix
+from pysparselp_tpu_torch.problem import (ColBlockMatrix, CsrMatrix,
+                                          DenseMatrix, DiaMatrix,
+                                          PartitionMatrix)
 from pysparselp_tpu_torch.solvers import chambolle_pock as pcp
-from pysparselp_tpu_torch.utils.convert import (problem_from_jax_arrays,
+from pysparselp_tpu_torch.utils.convert import (operator_from_jax,
+                                                problem_from_jax_arrays,
                                                 state_from_numpy,
                                                 state_to_numpy)
 from torch_port_helpers import (host_system, jax_problem, sc105_lp,
-                                      start_point, torch_pre)
+                                start_point, torch_pre)
 
 torch.set_num_threads(1)
 F64 = jnp.float64
 
+
+def _transport():
+    return host_system(chip_smoke.transport_lp(n_sources=60, n_sinks=60,
+                                               n_arcs=500))
+
+
+def _kmedians():
+    return host_system(chip_smoke.kmedians_lp(n_points=40, n_candidates=6))
+
+
+def _l1svm():
+    return host_system(chip_smoke.l1svm_lp(nb_examples=200))
+
+
 CASES = {
-    # (host system, JAX backend, port operator type)
+    # (host system, JAX backend(s), port operator type(s))
     "sc105_dense": (lambda: host_system(sc105_lp()[0]), "dense", DenseMatrix),
     "sc105_ell": (lambda: host_system(sc105_lp()[0]), "ell", CsrMatrix),
+    "sc105_bsr": (lambda: host_system(sc105_lp()[0]), "bsr", CsrMatrix),
     "potts_dia": (lambda: host_system(
         build_linear_program(10, 0.5, 500, seed=1)[0], align=True),
         "dia", DiaMatrix),
     "multilabel_dia": (lambda: host_system(
         build_multilabel_linear_program(6, 3, seed=2)[0], align=True),
         "dia", DiaMatrix),
+    "transport_segmented": (_transport, "segmented", CsrMatrix),
+    "kmedians_partition_split": (_kmedians, ("partition", "split"),
+                                 (PartitionMatrix, ColBlockMatrix)),
+    "l1svm_split": (_l1svm, "split", ColBlockMatrix),
 }
 
 
 def _carried(case):
-    make, backend, kind = CASES[case]
+    make, backend, kinds = CASES[case]
     sys_ = make()
     jprob, jpre = jax_problem(sys_, backend, F64)
     prob = problem_from_jax_arrays(jprob, device="cpu")
-    for op in (prob.a_eq, prob.a_ineq):
+    kinds = kinds if isinstance(kinds, tuple) else (kinds,) * 2
+    for op, kind in zip((prob.a_eq, prob.a_ineq), kinds):
         assert op is None or isinstance(op, kind)
     return sys_, jprob, jpre, prob, torch_pre(jpre, torch.float64)
 
@@ -121,3 +147,42 @@ def test_state_round_trip():
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
     assert back_r["omega"] == 2.0 and np.isinf(back_r["mu_last"])
+
+
+def test_segmented_ell_of_the_cpu_lowering():
+    """The JAX package lowers the transport equality system to a
+    SegmentedEllMatrix off the TPU; the port carries it as CSR."""
+    a = _transport()["a_eq"]
+    jop = jpr.ell_from_scipy(a, dtype=F64)
+    assert type(jop).__name__ == "SegmentedEllMatrix"
+    op = operator_from_jax(jop, torch.float64, "cpu")
+    assert isinstance(op, CsrMatrix)
+    x = np.random.RandomState(4).randn(a.shape[1])
+    np.testing.assert_allclose(op.matvec(torch.as_tensor(x)).numpy(), a @ x,
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_routed_ell_carries_its_entries():
+    """A RoutedEllMatrix (float32 only on the JAX side) comes across
+    through its decoded routes."""
+    from pysparselp_tpu.ops.ell_routed import RoutedEllMatrix
+
+    a = scipy.sparse.random(300, 200, density=0.03, format="csr",
+                            random_state=np.random.RandomState(9))
+    jop = RoutedEllMatrix.from_scipy(a, dtype=jnp.float32)
+    op = operator_from_jax(jop, torch.float32, "cpu")
+    assert isinstance(op, CsrMatrix) and op.shape == a.shape
+    y = np.random.RandomState(5).randn(300).astype(np.float32)
+    np.testing.assert_allclose(op.rmatvec(torch.as_tensor(y)).numpy(),
+                               np.asarray(jop.rmatvec(jnp.asarray(y))),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(op.rmatvec(torch.as_tensor(y)).numpy(),
+                               a.T @ y, rtol=2e-5, atol=2e-5)
+
+
+def test_unknown_operator_raises():
+    class Mystery:
+        nrows = ncols = 1
+
+    with pytest.raises(TypeError, match="no port counterpart"):
+        operator_from_jax(Mystery(), torch.float64, "cpu")

@@ -22,8 +22,15 @@ PKG = os.path.join(REPO, "pysparselp_tpu_torch")
 def test_import_leaves_jax_out():
     code = ("import sys, pysparselp_tpu_torch, pysparselp_tpu_torch.solvers."
             "chambolle_pock, pysparselp_tpu_torch.utils.convert, "
-            "pysparselp_tpu_torch.examples.potts, pysparselp_tpu_torch.io; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+            "pysparselp_tpu_torch.examples.potts, pysparselp_tpu_torch.io, "
+            "pysparselp_tpu_torch.ops.csr_spmv, "
+            "pysparselp_tpu_torch.examples.l1_svm, "
+            "pysparselp_tpu_torch.examples.kmedians, chip_smoke; "
+            "sys.path.insert(0, 'scripts'); import probe_csr_spmv, "
+            "profile_port; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not any(m.startswith('pysparselp_tpu.') or "
+            "m == 'pysparselp_tpu' for m in sys.modules), 'JAX package'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
 
@@ -36,7 +43,8 @@ def test_no_port_file_imports_jax():
                     text = f.read()
                 assert "import jax" not in text, name
                 assert "from jax" not in text, name
-    for script in ("chip_smoke.py", os.path.join("scripts", "profile_port.py")):
+    for script in ("chip_smoke.py", os.path.join("scripts", "profile_port.py"),
+                   os.path.join("scripts", "probe_csr_spmv.py")):
         with open(os.path.join(REPO, script)) as f:
             text = f.read()
         assert "import jax" not in text and "pysparselp_tpu." not in (

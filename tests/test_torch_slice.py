@@ -1,7 +1,8 @@
 """The ported slice as a whole, on the CPU in float64:
 ``pysparselp_tpu_torch.SparseLP.solve(method="chambolle_pock_ppd",
-device="cpu")`` against the JAX package's goldens and live JAX solves, and
-the port's host-layer copies against their originals."""
+device="cpu")`` against the JAX package's goldens and live JAX solves (the
+Potts grids, SC105 and small cases of ``bench.py``'s four non-grid
+workloads), and the port's host-layer copies against their originals."""
 
 import copy
 import functools
@@ -13,12 +14,16 @@ import pytest
 import scipy.sparse
 import torch
 
+import bench
+import chip_smoke
 import pysparselp_tpu.examples.potts as jpotts
 import pysparselp_tpu.io.netlib as jnetlib
 import pysparselp_tpu.problem as jproblem
 import pysparselp_tpu_torch.examples.potts as ppotts
 import pysparselp_tpu_torch.io.netlib as pnetlib
 import pysparselp_tpu_torch.problem as pproblem
+import pysparselp_tpu_torch.solvers.chambolle_pock as pcp
+from pysparselp_tpu.examples.l1_svm import L1SVM as JaxL1SVM
 from pysparselp_tpu_torch.modeling import SparseLP as TorchLP
 from torch_port_helpers import host_system, sc105_lp
 
@@ -137,6 +142,96 @@ def test_matches_live_jax_solve(case):
     np.testing.assert_allclose(x_p, x_j, rtol=1e-9, atol=1e-9)
 
 
+# ----------------------------------------------------------------------
+# bench.py's four non-grid workloads, small: the port lowers them to CSR,
+# partition and column blocks (the dense limit patched down), the JAX
+# package to its CPU gather layouts; the curves agree through the math
+# ----------------------------------------------------------------------
+
+
+def _jax_l1svm(nb_examples, nf=30, nb_classes=3):
+    """The JAX package's L1-SVM on ``bench.py::measure_l1svm``'s data."""
+    rng = np.random.RandomState(1)
+    x = rng.rand(nb_examples, nf)
+    w = rng.randn(nb_classes, nf)
+    w = w / np.sum(w**2, axis=1)[:, None]
+    wh = np.hstack((w, -0.5 * np.sum(w, axis=1)[:, None]))
+    xh = np.hstack((x, np.ones((nb_examples, 1))))
+    classes = np.argmax((wh @ xh.T).T, axis=1)
+    svm = JaxL1SVM()
+    svm.set_data(x, classes, nb_classes)
+    return svm
+
+
+def _jax_unstructured(**kw):
+    """``bench.py::measure_unstructured``'s LP (bench.py:457-461)."""
+    from pysparselp_tpu import SparseLP
+
+    a, b, c = bench._unstructured_matrix(**kw)
+    lp = SparseLP()
+    lp.add_variables_array(a.shape[1], lower_bounds=0, upper_bounds=1,
+                           costs=c)
+    lp.add_inequality_constraints_sparse(a, None, b)
+    return lp
+
+
+# name: (JAX builder, port builder, sizes, the port operators expected)
+WORKLOADS = {
+    "transport": (bench._transport_lp, chip_smoke.transport_lp,
+                  dict(n_sources=300, n_sinks=300, n_arcs=4000),
+                  ("CsrMatrix", "DenseMatrix")),
+    "unstructured": (_jax_unstructured, chip_smoke.unstructured_lp,
+                     dict(m=2000, n=1500, avg=13),
+                     (None, "CsrMatrix")),
+    "kmedians": (bench._kmedians_lp, chip_smoke.kmedians_lp,
+                 dict(n_points=200, n_candidates=10),
+                 ("PartitionMatrix", ["DiaMatrix", "DenseMatrix"])),
+    "l1svm": (_jax_l1svm, chip_smoke.l1svm_lp, dict(nb_examples=300),
+              (None, ["DenseMatrix", "CsrMatrix"])),
+}
+
+
+def _describe(op):
+    if op is None:
+        return None
+    if isinstance(op, pproblem.ColBlockMatrix):
+        return [_describe(b) for b in op.blocks]
+    return type(op).__name__
+
+
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_workload_builders_match_bench(name):
+    """``chip_smoke.py``'s copies of the workload builders build the same
+    LP as ``bench.py``'s."""
+    make_j, make_p, kw, _ = WORKLOADS[name]
+    _same_lp(make_j(**kw), make_p(**kw))
+
+
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_workload_matches_live_jax_solve(name, monkeypatch):
+    make_j, _, kw, want_ops = WORKLOADS[name]
+    monkeypatch.setattr(pproblem, "DENSE_AUTO_MAX_ENTRIES", 100_000)
+    lowered = []
+
+    def recording(*args, **kwargs):
+        lowered.extend(pproblem.lower_systems(*args, **kwargs))
+        return lowered[-2:]
+
+    monkeypatch.setattr(pcp, "lower_systems", recording)
+    jlp = make_j(**kw)
+    plp = _port_lp(jlp)
+    run = dict(method=CP, nb_iter=300, nb_iter_plot=100)
+    x_j, _ = jlp.solve(**run)
+    x_p, _ = plp.solve(device="cpu", **run)
+    assert [_describe(op) for op in lowered] == list(want_ops)
+    cj, cp_ = _curves(jlp, KEYS), _curves(plp, KEYS)
+    assert cp_["itrn_curve"] == cj["itrn_curve"]
+    for key in KEYS:
+        np.testing.assert_allclose(cp_[key], cj[key], rtol=1e-9, atol=1e-12,
+                                   err_msg=f"{name}:{key}")
+    np.testing.assert_allclose(x_p, x_j, rtol=1e-9, atol=1e-9)
+
+
 def test_light_metrics_skips_solution_fetch():
     """light_metrics: the recorder never asks the solver for the solution,
     and the curves are floats after the solve."""
@@ -180,7 +275,9 @@ def test_warm_start_resumes_exactly():
 
 
 @pytest.mark.parametrize("rel", ["sparse_host.py", "config.py",
-                                 os.path.join("io", "mps.py")])
+                                 os.path.join("io", "mps.py"),
+                                 os.path.join("examples", "l1_svm.py"),
+                                 os.path.join("examples", "kmedians.py")])
 def test_verbatim_host_copies(rel):
     """Copies kept verbatim: the port's file is the original plus one
     header line naming it."""

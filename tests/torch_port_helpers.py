@@ -107,12 +107,14 @@ def port_problem(sys_, backend, dtype, device="cpu"):
 
 def jax_problem(sys_, backend, dtype):
     """JAX ``LPProblem`` + preconditioner dict for a host system, every
-    present system lowered to ``backend`` ("dia", "dense" or "ell")."""
+    present system lowered to ``backend`` (a ``prefer`` of the JAX
+    ``ell_from_scipy``: "dia", "dense", "ell", ...), or to the pair
+    ``(eq backend, ineq backend)``."""
     import jax.numpy as jnp
 
     from pysparselp_tpu import problem as jpr
 
-    def op(a):
+    def op(a, backend):
         if a is None:
             return None
         if backend == "dia":
@@ -123,7 +125,8 @@ def jax_problem(sys_, backend, dtype):
         return None if v is None else jnp.asarray(np.asarray(v, np.float64),
                                                   dtype)
 
-    a_eq, a_in = op(sys_["a_eq"]), op(sys_["a_ineq"])
+    be_eq, be_in = backend if isinstance(backend, tuple) else (backend,) * 2
+    a_eq, a_in = op(sys_["a_eq"], be_eq), op(sys_["a_ineq"], be_in)
     prob = jpr.LPProblem(
         c=vec(sys_["c"]), lb=vec(sys_["lb"]), ub=vec(sys_["ub"]),
         a_eq=a_eq, b_eq=vec(sys_["beq"]) if a_eq is not None else None,
@@ -151,7 +154,6 @@ def start_point(sys_, seed):
     m_eq = sys_["a_eq"].shape[0] if sys_["a_eq"] is not None else 0
     m_in = sys_["a_ineq"].shape[0] if sys_["a_ineq"] is not None else 0
     return x, rng.rand(m_eq) * 0.1, rng.rand(m_in) * 0.1
-    return x, rng.rand(prob.m_eq) * 0.1, rng.rand(prob.m_ineq) * 0.1
 
 
 def assert_close(got, want, rtol, atol=0.0, what=""):
