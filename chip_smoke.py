@@ -11,24 +11,39 @@ nonzero):
 2. every hand-written kernel against its plain PyTorch twin on the card, at
    the main path's shapes (Potts-300, multi-label Potts 64x64 K=4, netlib
    SC105; for H-CSR the transport, unstructured and k-medians systems of
-   ``bench.py``), float32 and float64, with times, each kernel's bound and
-   the time of the one PyTorch call that computes the same function, where
-   there is one;
+   ``bench.py``; for H-BSR the RCM-permuted CLIME system at p = 150),
+   float32 and float64, with times, each kernel's bound and the time of the
+   one PyTorch call that computes the same function, where there is one
+   (for H-BSR also H-CSR's time on the same matrix);
 3. the main path, ``SparseLP.solve(method="chambolle_pock_ppd")`` on the
    Potts-300 segmentation LP in float32, held checkpoint by checkpoint
    against the port's own float64 CPU run;
 4. the four non-grid workloads of ``bench.py`` at its sizes (transport,
-   unstructured, k-medians, L1-SVM), float32 on the card: the operators
-   each system lowered to, the host lowering time, a 200-iteration run held
+   unstructured, k-medians, L1-SVM), float32 on the card: the layout
+   presolve's choice (none of them is permuted) and its host time, the
+   operators each system lowered to, the host lowering time, a
+   200-iteration run held
    against the port's own float64 CPU run, and the steady rate over 2,000
    ``light_metrics`` iterations with its kernel launches;
-5. convergence: Potts-50 to the graph-cut optimum and SC105 to the perPlex
+5. CLIME sparse inverse covariance (``examples/sparse_inv_covariance.py``)
+   at p = 150 features, 300 samples, lambda = 0.15 (45,000 variables,
+   90,000 folded rows, 6.84M nonzeros), float32 on the card with
+   ``permute="auto"``, 2,000 ``light_metrics`` iterations: the layout
+   presolve's choice (RCM) and its host time, the operators the permuted
+   system lowers to (block-sparse) and the host lowering time, the
+   solve's first 200 iterations
+   held against the port's own float64 CPU run (unpermuted: CP-PPD with
+   diagonal preconditioners is permutation-equivariant), and the steady
+   rate with its H-BSR launches, beside the steady rate of the same solve
+   with ``permute=False`` (unpermuted, lowered to CSR);
+6. convergence: Potts-50 to the graph-cut optimum and SC105 to the perPlex
    optimum with restart-to-average.
 
 The launch counters are set to 0 just before each solve and read just
 after it; the kernel table takes H-DIA's and H-CPDIA's counts from the
-Potts-300 solve, H-CPDENSE's from the SC105 solve and H-CSR's from the
-transport solve (``launches_run`` names the solve).  Then the kernel table
+Potts-300 solve, H-CPDENSE's from the SC105 solve, H-CSR's from the
+transport solve and H-BSR's from the CLIME solve (``launches_run`` names
+the solve).  Then the kernel table
 as one JSON line and, last, the device line ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside this script, it
 exits nonzero and prints no result.
@@ -76,7 +91,13 @@ KERNELS = {
                   replaces="pysparselp_tpu/ops/ell_routed.py:1040; "
                            "pysparselp_tpu/ops/ell_routed.py:1132",
                   launches_run="main_path_transport"),
+    "H-BSR": dict(source="pysparselp_tpu_torch/csrc/bsr_spmv.cu",
+                  replaces="pysparselp_tpu/ops/bsr_pallas.py:168",
+                  launches_run="main_path_clime"),
 }
+# the CLIME configuration: p features, samples drawn from N(0, P^-1) with P
+# a seeded sparse SPD precision, the l-infinity radius lambda
+CLIME = dict(n_features=150, n_samples=300, lamb=0.15, seed=0)
 
 
 def emit(phase, **fields):
@@ -328,6 +349,16 @@ WORKLOADS = {"transport": transport_lp, "unstructured": unstructured_lp,
              "kmedians": kmedians_lp, "l1svm": l1svm_lp}
 
 
+def clime_lp(n_features=150, n_samples=300, lamb=0.15, seed=0):
+    """The CLIME LP of ``examples/sparse_inv_covariance.py`` on seeded
+    samples, one-sided."""
+    from pysparselp_tpu_torch.examples import sparse_inv_covariance as ex
+
+    x = ex.make_data(n_samples=n_samples, n_features=n_features,
+                     seed=seed)[0]
+    return ex.clime_lp(x, lamb)[0]
+
+
 def timings(torch, kern, plain, reps, per=1):
     """Kernel and twin in turns (plain, kernel, kernel, plain); ms per
     ``per`` iterations."""
@@ -496,7 +527,7 @@ def csr_matrices(workloads):
     out = {"transport": workloads["transport"]["a_eq"],
            "unstructured": workloads["unstructured"]["a_ineq"]}
     km = workloads["kmedians"]["a_ineq"]
-    backend, cuts = choose_layout(km)
+    backend, cuts, _bytes = choose_layout(km)
     if backend != "split":
         raise AssertionError(f"k-medians folded system lowered to {backend}")
     out["kmedians_block"] = km.tocsc()[:, cuts[-1]:].tocsr()
@@ -564,6 +595,129 @@ def phase_csr(torch, matrices, table):
                 emit("kernels", **rec)
 
 
+def bsr_library(torch, a, dtype, device, tm=128, tn=128):
+    """``(lib, n_padded)``: ``a`` (scipy) zero-padded to whole ``tm x tn``
+    blocks as a ``torch.sparse_bsr_tensor`` for the library call
+    ``torch.mv(lib, x_padded)`` (cuSPARSE bsrmv), and the padded column
+    count; only timed, the port never calls it."""
+    import numpy as np
+    import scipy.sparse
+
+    m, n = a.shape
+    mp, np_ = -(-m // tm) * tm, -(-n // tn) * tn
+    coo = scipy.sparse.coo_matrix(a)
+    b = scipy.sparse.bsr_matrix(
+        scipy.sparse.csr_matrix((coo.data, (coo.row, coo.col)),
+                                shape=(mp, np_)), blocksize=(tm, tn))
+    b.sort_indices()
+    lib = torch.sparse_bsr_tensor(
+        torch.as_tensor(b.indptr.astype(np.int64), device=device),
+        torch.as_tensor(b.indices.astype(np.int64), device=device),
+        torch.as_tensor(b.data, dtype=dtype, device=device), size=(mp, np_),
+        check_invariants=False)
+    return lib, np_
+
+
+def phase_bsr(torch, a, table):
+    """Phase 2 for H-BSR on ``a``, the RCM-permuted CLIME system: both
+    orientations against the twin, per row within RTOL * (|A| |x|)_row,
+    float32 and float64; in float32 the kernel, twin, the library call
+    (cuSPARSE BSR, 128x128 blocks) and H-CSR on the same matrix, timed per
+    call and per SpMV pair (A x then Aᵀ y), beside two bounds: the least
+    bytes of the product (the matrix's entries with their indices, as
+    H-CSR's bound counts them; the kernel line's ``bound_ms``) and the
+    bytes of the block format's nonzero tiles (``tile_bound_ms``)."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.ops import bsr_spmv as ops
+    from pysparselp_tpu_torch.ops import csr_spmv
+    from pysparselp_tpu_torch.problem import BsrMatrix, CsrMatrix
+
+    rng = np.random.RandomState(2)
+    dev = torch.device("cuda")
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[1]
+        t0 = time.perf_counter()
+        op = BsrMatrix.from_scipy(a, dt, dev)
+        build_s = time.perf_counter() - t0
+        sides = {"A": (op.tiles, op.cols, op.ncols, op.nrows, a),
+                 "At": (op.tiles_t, op.cols_t, op.nrows, op.ncols,
+                        a.T.tocsr())}
+        pair = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "csr_ms": 0.0, "bound_ms": 0.0, "bytes": 0,
+                "tile_bound_ms": 0.0, "tile_bytes": 0, "padded_bytes": 0}
+        for side, (tiles, cols, n_in, n_out, host) in sides.items():
+            x = torch.as_tensor(rng.randn(n_in), dtype=dt, device=dev)
+
+            def kern(tiles=tiles, cols=cols, x=x, n_in=n_in, n_out=n_out):
+                return ops.bsr_spmv(tiles, cols, x, n_in, n_out)
+
+            def plain(tiles=tiles, cols=cols, x=x, n_in=n_in, n_out=n_out):
+                return ops.bsr_spmv_reference(tiles, cols, x, n_in, n_out)
+
+            got, want = kern(), plain()
+            scale = ops.bsr_spmv_reference(tiles.abs(), cols, x.abs(), n_in,
+                                           n_out)
+            err = (got - want).abs()
+            if not bool((err <= RTOL[name] * scale).all()):
+                raise AssertionError(
+                    f"H-BSR clime {side} ({name}): |kernel - twin| past "
+                    f"{RTOL[name]:.0e} * (|A||x|)_row, max {float(err.max()):.3e}")
+            t_rows, k, tn, tm = tiles.shape
+            rec = dict(kernel="H-BSR", problem="clime150_rcm", side=side,
+                       dtype=name, shape=[n_out, n_in], nnz=int(host.nnz),
+                       tile_rows=t_rows, k=k, tile=[tm, tn],
+                       padded=tiles.numel(), host_build_s=build_s,
+                       max_abs_err=float(err.max()))
+            if dt == torch.float32:
+                rec.update(timings(torch, kern, plain, 50))
+                lib, n_pad = bsr_library(torch, host, dt, dev)
+                xpad = torch.nn.functional.pad(x, (0, n_pad - n_in))
+                rec["library_ms"] = cuda_ms(
+                    torch, lambda lib=lib, xpad=xpad: torch.mv(lib, xpad), 50)
+                rec["library_blocks"] = int(lib.values().shape[0])
+                rec["library_max_abs_err"] = float(
+                    (torch.mv(lib, xpad)[:n_out] - want).abs().max())
+                del lib
+                csr = CsrMatrix.from_scipy(host, dt, dev)
+                rec["csr_ms"] = cuda_ms(torch, lambda csr=csr, x=x: (
+                    csr_spmv.csr_spmv(csr.indptr, csr.indices, csr.vals, x,
+                                      n_out, csr.long)), 50)
+                # the least work for this y: the matrix's entries with
+                # their indices, as H-CSR's bound counts them
+                nnz = int(host.nnz)
+                nbytes = nnz * 8 + (n_out + 1) * 4 + n_out * 4 + n_in * 4
+                rec["bytes"] = nbytes
+                rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * nnz)
+                rec["achieved_tb_s"] = nbytes / (rec["ms"] * 1e-3) / 1e12
+                rec["bound_fraction"] = rec["bound_ms"] / rec["ms"]
+                # what the block format itself must read: its nonzero
+                # tiles with their ids and per-row counts, x and y
+                rec["nonzero_tiles"] = int(
+                    (tiles != 0).flatten(2).any(dim=2).sum())
+                rec["tile_bytes"] = 4 * (rec["nonzero_tiles"] * (tm * tn + 1)
+                                         + t_rows + n_in + n_out)
+                rec["tile_bound_ms"] = bound(rec["tile_bytes"], 0)[0]
+                rec["padded_bytes"] = 4 * (tiles.numel() + cols.numel()
+                                           + n_in + n_out)
+                for key in pair:
+                    pair[key] += rec[key]
+                if side == "A":
+                    table["H-BSR"].update({k_: rec[k_] for k_ in (
+                        "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by")})
+            table["H-BSR"]["max_abs_err"] = max(
+                table["H-BSR"]["max_abs_err"], rec["max_abs_err"])
+            emit("kernels", **rec)
+        if dt == torch.float32:
+            emit("kernels", kernel="H-BSR", problem="clime150_rcm",
+                 side="pair", dtype=name, **pair,
+                 bound_fraction=pair["bound_ms"] / pair["ms"],
+                 tile_bound_fraction=pair["tile_bound_ms"] / pair["ms"],
+                 csr_bound_fraction=pair["bound_ms"] / pair["csr_ms"])
+        del op
+
+
 CURVES = ("pobj_curve", "dobj_curve", "max_violated_equality",
           "max_violated_inequality")
 
@@ -610,15 +764,17 @@ def phase_nongrid(torch, name, lp, counted_solve):
     from pysparselp_tpu_torch.problem import (CsrMatrix, DiaMatrix,
                                               lower_systems,
                                               operator_cost_bytes)
-    from pysparselp_tpu_torch.solvers.chambolle_pock import _auto_layout
+    from pysparselp_tpu_torch.solvers.chambolle_pock import _choose_layout
 
     sys_ = folded(lp)
     mats = [sys_["a_eq"], sys_["a_ineq"]]
     t0 = time.perf_counter()
-    plan = _auto_layout(mats)
-    align_s = time.perf_counter() - t0
+    choice, _plan, layouts = _choose_layout(mats)
+    choose_s = time.perf_counter() - t0
+    if choice is not None:
+        raise AssertionError(f"{name}: the layout presolve chose {choice!r}")
     t0 = time.perf_counter()
-    ops = lower_systems(mats, torch.float32, "cuda")
+    ops = lower_systems(mats, torch.float32, "cuda", layouts=layouts)
     torch.cuda.synchronize()
     lower_s = time.perf_counter() - t0
     run = dict(method="chambolle_pock_ppd", nb_iter=200, nb_iter_plot=100)
@@ -643,7 +799,7 @@ def phase_nongrid(torch, name, lp, counted_solve):
     emit(f"main_path_{name}", n=len(sys_["c"]),
          nnz=[None if a is None else int(a.nnz) for a in mats],
          lowered={"a_eq": describe(ops[0]), "a_ineq": describe(ops[1])},
-         aligned=plan is not None, auto_layout_s=align_s, lower_s=lower_s,
+         permutation=choice, auto_layout_s=choose_s, lower_s=lower_s,
          bytes_per_spmv_pair=sum(operator_cost_bytes(o) for o in ops),
          itrn=itrn, f32_cuda=got, f64_cpu=want, worst_rel_diff=worst,
          rel_limit=NONGRID_RTOL, cpu_wall_s=cpu_wall, wall_s=wall,
@@ -657,6 +813,93 @@ def phase_nongrid(torch, name, lp, counted_solve):
                                  f"times, predicted {want_n}")
     if name in ("transport", "unstructured") and not launches["H-CSR"]:
         raise AssertionError(f"{name} ran no H-CSR launch")
+    return launches
+
+
+def phase_clime(torch, lp, counted_solve):
+    """Phase 5: the CLIME LP through ``permute="auto"`` on the card: the
+    layout presolve's choice and the lowering, each timed as the solver
+    calls them, then one solve of 2,000 ``light_metrics`` iterations with
+    a checkpoint every 100, whose first two checkpoints are held against
+    the port's own float64 CPU run of 200 iterations and whose launches
+    against those the lowered operators predict.  Returns the solve's
+    launch counts."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.problem import (BsrMatrix, CsrMatrix,
+                                              DiaMatrix, apply_rcm_permutation,
+                                              lower_systems,
+                                              operator_cost_bytes)
+    from pysparselp_tpu_torch.solvers.chambolle_pock import _choose_layout
+
+    sys_ = folded(lp)
+    mats = [sys_["a_eq"], sys_["a_ineq"]]
+    t0 = time.perf_counter()
+    choice, _plan, layouts = _choose_layout(mats)
+    choose_s = time.perf_counter() - t0
+    if choice == "rcm":
+        sys_ = apply_rcm_permutation(sys_)[0]
+    t0 = time.perf_counter()
+    ops = lower_systems([sys_["a_eq"], sys_["a_ineq"]], torch.float32,
+                        "cuda", layouts=layouts)
+    torch.cuda.synchronize()
+    lower_s = time.perf_counter() - t0
+    n_ops = {kind.__name__: sum(count_ops(o, kind) for o in ops)
+             for kind in (BsrMatrix, CsrMatrix, DiaMatrix)}
+    described = {"a_eq": describe(ops[0]), "a_ineq": describe(ops[1])}
+    bytes_pair = sum(operator_cost_bytes(o) for o in ops)
+    del ops, sys_
+    nb_iter, plot = 2000, 100
+    wall, launches = counted_solve(
+        lp, method="chambolle_pock_ppd", nb_iter=nb_iter,
+        nb_iter_plot=plot, light_metrics=True, permute="auto",
+        dtype=np.float32, device="cuda")
+    got, itrn = curves(lp), list(lp.itrn_curve)
+    its = steady_rate(lp)
+    # the same solve unpermuted (the chooser lowers it to CSR): what the
+    # presolve's pick costs or saves end to end
+    wall_csr, launches_csr = counted_solve(
+        lp, method="chambolle_pock_ppd", nb_iter=nb_iter, nb_iter_plot=plot,
+        light_metrics=True, permute=False, dtype=np.float32, device="cuda")
+    its_csr = steady_rate(lp)
+    t0 = time.perf_counter()
+    lp.solve(method="chambolle_pock_ppd", nb_iter=200, nb_iter_plot=plot,
+             dtype=np.float64, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    want = curves(lp)
+    if lp.itrn_curve != itrn[:2]:
+        raise AssertionError(f"checkpoints {itrn[:2]} vs {lp.itrn_curve}")
+    worst = checkpoint_diffs(got, want)
+    # per operator: one rmatvec and one matvec per iteration and four
+    # products in each checkpoint's metrics
+    per_op = 2 * nb_iter + 4 * (nb_iter // plot)
+    predicted = {"H-BSR": per_op * n_ops["BsrMatrix"],
+                 "H-CSR": per_op * n_ops["CsrMatrix"],
+                 "H-DIA": per_op * n_ops["DiaMatrix"]}
+    emit("main_path_clime", **CLIME, n=lp.nb_variables,
+         rows=[a.shape[0] for a in (lp.a_equalities, lp.a_inequalities)],
+         nnz=[None if a is None else int(a.nnz) for a in mats],
+         permutation=choice, lowered=described,
+         auto_layout_s=choose_s, lower_s=lower_s,
+         bytes_per_spmv_pair=bytes_pair, itrn=itrn,
+         f32_cuda={k: v[:2] for k, v in got.items()}, f64_cpu=want,
+         worst_rel_diff=worst, rel_limit=NONGRID_RTOL, cpu_wall_s=cpu_wall,
+         wall_s=wall, iters_per_s_steady=its, launches=launches,
+         launches_predicted=predicted, unpermuted_wall_s=wall_csr,
+         unpermuted_iters_per_s_steady=its_csr,
+         unpermuted_launches=launches_csr)
+    if not launches_csr["H-CSR"] or launches_csr["H-BSR"]:
+        raise AssertionError(f"CLIME unpermuted: launches {launches_csr}, "
+                             "expected H-CSR and no H-BSR")
+    if choice != "rcm" or not n_ops["BsrMatrix"]:
+        raise AssertionError(f"CLIME: presolve chose {choice!r}, lowered to "
+                             f"{described}; expected RCM and a BsrMatrix")
+    if not all(v <= NONGRID_RTOL for v in worst.values()):
+        raise AssertionError(f"CLIME f32 CUDA vs f64 CPU: {worst}")
+    for key, want_n in predicted.items():
+        if launches[key] != want_n:
+            raise AssertionError(f"CLIME: {key} launched {launches[key]} "
+                                 f"times, predicted {want_n}")
     return launches
 
 
@@ -679,13 +922,13 @@ def main() -> int:
 
     from pysparselp_tpu_torch.examples.potts import (
         build_linear_program, build_multilabel_linear_program)
-    from pysparselp_tpu_torch.ops import (_build, cp_dense, cp_dia, csr_spmv,
-                                          dia_spmv)
+    from pysparselp_tpu_torch.ops import (_build, bsr_spmv, cp_dense, cp_dia,
+                                          csr_spmv, dia_spmv)
 
-    warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
+    warnings.filterwarnings("ignore", message="Sparse (CSR|BSR) tensor support")
     counters = {"H-DIA": dia_spmv.dia_spmv, "H-CPDIA": cp_dia.cp_dia_chunk,
                 "H-CPDENSE": cp_dense.cp_dense_chunk,
-                "H-CSR": csr_spmv.csr_spmv}
+                "H-CSR": csr_spmv.csr_spmv, "H-BSR": bsr_spmv.bsr_spmv}
 
     def counted_solve(lp, **kw):
         """``lp.solve(**kw)`` with every launch counter set to 0 just
@@ -718,6 +961,7 @@ def main() -> int:
         "sc105": sc105_lp()[0],
     }
     workloads = {k: make() for k, make in WORKLOADS.items()}
+    clime = clime_lp(**CLIME)
     emit("problems", build_seconds=time.perf_counter() - t0)
 
     table = {k: dict(name=k, route="cuda", **v, launches=None,
@@ -727,6 +971,8 @@ def main() -> int:
     phase_kernels(torch, problems, table)
     phase_csr(torch, csr_matrices({k: folded(lp)
                                    for k, lp in workloads.items()}), table)
+    from pysparselp_tpu_torch.problem import apply_rcm_permutation
+    phase_bsr(torch, apply_rcm_permutation(folded(clime))[0]["a_ineq"], table)
 
     # phase 3: the main path on Potts-300
     lp300 = build_linear_program(300, 0.5, 500)[0]
@@ -758,7 +1004,11 @@ def main() -> int:
         if name == "transport":
             table["H-CSR"]["launches"] = launches["H-CSR"]
 
-    # phase 5: convergence with restart-to-average
+    # phase 5: CLIME through the RCM presolve and the block-sparse operator
+    table["H-BSR"]["launches"] = phase_clime(torch, clime,
+                                             counted_solve)["H-BSR"]
+
+    # phase 6: convergence with restart-to-average
     lp50, gt50, idx50, _ = build_linear_program(50, 0.5, 500)
     wall, n50 = counted_solve(
         lp50, method="chambolle_pock_ppd", nb_iter=36000, nb_iter_plot=12000,

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels on first use.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and the objects are linked
 into ONE shared library with a plain C interface under the repository's
 ``build/`` directory, cached by a hash of the sources and flags, and loaded
 with ``ctypes``.  Pointers and the CUDA stream travel as ``c_void_p``; each
@@ -27,8 +28,7 @@ import torch
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pysparselp_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 
 _lib = None
 _functions: dict = {}
@@ -60,13 +60,27 @@ def library() -> ctypes.CDLL:
     cached = so.exists()
     if not cached:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        tag = f"{so.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+        procs = {src.name: subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)}
+        for name, proc in procs.items():
+            log += f"== {name}\n{proc.communicate()[0]}"
+        failed = [name for name, proc in procs.items() if proc.returncode]
+        tmp = so.with_name(f"{tag}.tmp.so")
+        if not failed:
+            link = subprocess.run(
+                [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            log += link.stdout
+            if link.returncode != 0:
+                failed = ["link"]
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
         os.replace(tmp, so)   # atomic: concurrent builders never see a torn file
     lib = ctypes.CDLL(str(so))
     lib.pslp_error_string.argtypes = [ctypes.c_int]

@@ -16,15 +16,19 @@ constraint system to one of these operators:
 * :class:`CsrMatrix` — unstructured systems; both directions run the
   hand-written H-CSR kernel (:mod:`pysparselp_tpu_torch.ops.csr_spmv`) on
   CUDA, over the CSR of ``A`` and of ``Aᵀ``;
+* :class:`BsrMatrix` — clustered systems (after the RCM layout presolve):
+  an ELL of dense tiles; both directions run the hand-written H-BSR kernel
+  (:mod:`pysparselp_tpu_torch.ops.bsr_spmv`) on CUDA;
 * :class:`ColBlockMatrix` — contiguous column blocks, each lowered by the
   same chooser (a dense head beside a sparse tail, ``[A | ±I]`` shapes).
 
 The numpy layout helpers (:func:`anchor_align`, :func:`aligned_offset_count`,
 :func:`embed_matrix`, :func:`apply_align_embedding`, :func:`dia_offsets`,
 :func:`partition_geometry`, :func:`_candidate_cuts`, :func:`col_split_plan`,
-:func:`effective_stream_bytes`) are copies of the JAX package's, which the
-port cannot import (importing any ``pysparselp_tpu`` module imports jax).
-The cost model (:func:`estimate_stream_bytes`) is this card's own.
+:func:`rcm_permutation`, :func:`apply_rcm_permutation`) are copies of the
+JAX package's, which the port cannot import (importing any
+``pysparselp_tpu`` module imports jax).  The cost model
+(:func:`estimate_stream_bytes`, :func:`choose_layout`) is this card's own.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from .ops import csr_spmv as _csr
+from .ops.bsr_spmv import (DEFAULT_TM, DEFAULT_TN, bsr_padded_entries,
+                           bsr_spmv, build_tile_ell)
 from .ops.cp_dense import DENSE_FUSED_BUDGET, _pad128
 from .ops.dia_spmv import dia_spmv
 
@@ -49,6 +55,9 @@ from .ops.dia_spmv import dia_spmv
 # (ELL_GATHER_BYTES_PER_NNZ, DIA_PALLAS_COST_PER_ENTRY, ...) carries over.
 DENSE_AUTO_MAX_ENTRIES = 64 * 1024 * 1024   # the dense operator limit
 DIA_AUTO_MAX_OFFSETS = 32
+# the block-sparse candidate's limit on padded tile entries (both
+# orientations), the JAX package's value
+BSR_AUTO_MAX_ENTRIES = 128 * 1024 * 1024
 # one gathered x entry of a CSR product: a whole 32-byte sector, since
 # unstructured column indices share no sector
 CSR_GATHER_BYTES = 32
@@ -306,6 +315,66 @@ class CsrMatrix:
             long_t=long_of(csc.indptr, n), nrows=m, ncols=n)
 
 
+@dataclasses.dataclass(frozen=True)
+class BsrMatrix:
+    """Block-ELL operator (mirrors the JAX ``BsrMatrix``,
+    ``pysparselp_tpu/ops/bsr_pallas.py:236-346``): ``tiles`` ``(T_rows, K,
+    TN, TM)`` with ``tiles[r,k][t,m] = A[r·TM+m, cols[r,k]·TN+t]`` serve
+    ``A @ x``, and ``tiles_t`` / ``cols_t``, built the same way from ``Aᵀ``,
+    serve ``Aᵀ @ y``; both through
+    :func:`~pysparselp_tpu_torch.ops.bsr_spmv.bsr_spmv` (H-BSR on CUDA).
+    Padding slots are zero tiles, which the reductions count as zero."""
+
+    tiles: torch.Tensor     # (T_rows, K, TN, TM)
+    cols: torch.Tensor      # int32 (T_rows, K)
+    tiles_t: torch.Tensor   # (T_cols, K', TM, TN)
+    cols_t: torch.Tensor    # int32 (T_cols, K')
+    nrows: int
+    ncols: int
+    tm: int
+    tn: int
+
+    @property
+    def shape(self):
+        return (self.nrows, self.ncols)
+
+    @property
+    def nnz_padded(self):
+        return self.tiles.numel() + self.tiles_t.numel()
+
+    def matvec(self, x):
+        return bsr_spmv(self.tiles, self.cols, x, self.ncols, self.nrows)
+
+    def rmatvec(self, y):
+        return bsr_spmv(self.tiles_t, self.cols_t, y, self.nrows, self.ncols)
+
+    def abs_power_rowsum(self, p):
+        return abs_pow0(self.tiles, p).sum(dim=(1, 2)).reshape(-1)[
+            :self.nrows]
+
+    def abs_power_colsum(self, p):
+        return abs_pow0(self.tiles_t, p).sum(dim=(1, 2)).reshape(-1)[
+            :self.ncols]
+
+    @staticmethod
+    def from_scipy(a, dtype, device, tm=DEFAULT_TM,
+                   tn=DEFAULT_TN) -> "BsrMatrix":
+        csr = scipy.sparse.csr_matrix(a, dtype=np.float64)
+        csr.sum_duplicates()
+        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+
+        def ell(mat, tm_, tn_):
+            tiles, cols = build_tile_ell(mat, tm_, tn_, np_dtype)[:2]
+            return (torch.as_tensor(tiles, device=device),
+                    torch.as_tensor(cols, device=device))
+
+        tiles, cols = ell(csr, tm, tn)
+        tiles_t, cols_t = ell(csr.T.tocsr(), tn, tm)
+        return BsrMatrix(tiles=tiles, cols=cols, tiles_t=tiles_t,
+                         cols_t=cols_t, nrows=csr.shape[0],
+                         ncols=csr.shape[1], tm=tm, tn=tn)
+
+
 # partition_geometry: verbatim copy of pysparselp_tpu/problem.py:316-343
 def partition_geometry(csr):
     """``(col0, stride, width)`` if every row's nonzeros occupy a
@@ -490,6 +559,12 @@ def _csr_bytes(nnz, m, n, s):
             + (m + n) * s)
 
 
+def _bsr_bytes(padded, m, n, s, tile=DEFAULT_TM * DEFAULT_TN):
+    # the padded tiles of both orientations, their int32 tile ids, x in and
+    # y out per direction
+    return padded * s + padded // tile * 4 + 2 * (m + n) * s
+
+
 def _partition_bytes(m, n, stride, width, s):
     # the value table per direction, the window of x, y in and out, and
     # the full-width Aᵀ y output
@@ -506,11 +581,28 @@ def _shape_candidates(m, n, ndiag, nnz, s):
     return out
 
 
+def _diagonal_count(csr) -> int:
+    """``dia_offsets(csr).size`` where it is at most
+    ``DIA_AUTO_MAX_OFFSETS``, else some count above it.  Without the sort:
+    a row's distinct entries lie on distinct diagonals, so a longer row
+    answers at once; otherwise one flag per possible offset."""
+    m, n = csr.shape
+    row_nnz = np.diff(csr.indptr)
+    if (row_nnz.size and row_nnz.max() > DIA_AUTO_MAX_OFFSETS
+            and csr.has_canonical_format):
+        return int(row_nnz.max())
+    rows = np.repeat(np.arange(m, dtype=np.int64), row_nnz)
+    seen = np.zeros(m + n, bool)
+    seen[csr.indices + (m - rows)] = True
+    return int(np.count_nonzero(seen))
+
+
 def _candidates(csr, dtype):
-    """``{backend: bytes per SpMV pair}`` of the streaming candidates."""
+    """``{backend: bytes per SpMV pair}`` of the streaming candidates that
+    the column-split search prices for every piece."""
     m, n = csr.shape
     s = torch.empty((), dtype=dtype).element_size()
-    cands = _shape_candidates(m, n, int(dia_offsets(csr).size), csr.nnz, s)
+    cands = _shape_candidates(m, n, _diagonal_count(csr), csr.nnz, s)
     geo = partition_geometry(csr)
     if geo is not None:
         _, stride, w = geo
@@ -518,14 +610,27 @@ def _candidates(csr, dtype):
     return cands
 
 
+def _bsr_candidate(csr, dtype):
+    """Bytes per SpMV pair of the block-sparse candidate (128×128 tiles,
+    priced from :func:`bsr_padded_entries` without building tiles), or
+    ``None`` past ``BSR_AUTO_MAX_ENTRIES`` padded entries."""
+    padded = bsr_padded_entries(csr)
+    if padded > BSR_AUTO_MAX_ENTRIES:
+        return None
+    return _bsr_bytes(padded, *csr.shape,
+                      torch.empty((), dtype=dtype).element_size())
+
+
 def estimate_stream_bytes(csr, dtype=None):
-    """``(backend, bytes)`` the chooser would pick for this matrix, by the
-    bytes one SpMV pair moves (see the constants above).  Candidates:
-    dense (≤ ``DENSE_AUTO_MAX_ENTRIES`` entries; always, when the system
-    fits H-CPDENSE's budget), DIA (≤ ``DIA_AUTO_MAX_OFFSETS`` diagonals),
-    partition (:func:`partition_geometry`) and CSR.  The JAX package's
-    block-sparse candidate (``"bsr"``) is absent until its kernel (K6) is
-    ported."""
+    """``(backend, bytes)`` of the cheapest candidate the column-split
+    search prices, by the bytes one SpMV pair moves (see the constants
+    above).  Candidates: dense (≤ ``DENSE_AUTO_MAX_ENTRIES`` entries;
+    always, when the system fits H-CPDENSE's budget), DIA
+    (≤ ``DIA_AUTO_MAX_OFFSETS`` diagonals), partition
+    (:func:`partition_geometry`) and CSR.  The block-sparse candidate is
+    priced for whole systems only, by :func:`choose_layout`: its tile
+    counts take two sorts of the entries, which the search would pay for
+    each of its up to 601 pieces."""
     dtype = dtype or default_dtype()
     csr = scipy.sparse.csr_matrix(csr)
     m, n = csr.shape
@@ -554,11 +659,15 @@ def operator_cost_bytes(op) -> int:
     if isinstance(op, PartitionMatrix):
         return _partition_bytes(m, n, op.stride, op.width,
                                 op.vals.element_size())
+    if isinstance(op, BsrMatrix):
+        return _bsr_bytes(op.nnz_padded, m, n, op.tiles.element_size(),
+                          op.tm * op.tn)
     return _csr_bytes(op.nnz_padded, m, n, op.vals.element_size())
 
 
-# _candidate_cuts, col_split_plan, effective_stream_bytes and their
-# constants: verbatim copy of pysparselp_tpu/problem.py:1154-1238
+# _candidate_cuts, col_split_plan and their constants: verbatim copy of
+# pysparselp_tpu/problem.py:1154-1225 (its effective_stream_bytes, the
+# presolve's price, is the third value of choose_layout here)
 # column-split search: accept a split only when it beats the best whole-
 # matrix layout by this factor (slicing + extra matvec dispatch overhead
 # must not eat a marginal win)
@@ -632,55 +741,48 @@ def col_split_plan(csr, dtype=None, depth=COL_SPLIT_MAX_DEPTH):
     return best
 
 
-def effective_stream_bytes(csr, dtype=None) -> int:
-    """Effective bytes per SpMV pair including the column-split option —
-    the quantity the layout presolve compares across permutations."""
-    dtype = dtype or default_dtype()
-    _, whole = estimate_stream_bytes(csr, dtype)
-    split, cuts = col_split_plan(csr, dtype)
-    # same acceptance gate as the lowering (ell_from_scipy): pricing a
-    # split the selector would reject lets the permutation chooser pick a
-    # layout whose realized operator streams `whole` bytes
-    if cuts and split < COL_SPLIT_MIN_GAIN * whole:
-        return split
-    return whole
-
-
 def choose_layout(csr):
-    """``(backend, cuts)``: the backend :func:`ell_from_scipy` lowers
-    ``csr`` to, priced at :func:`default_dtype`; ``cuts`` are
-    the column cuts when the backend is ``"split"``."""
+    """``(backend, cuts, bytes)``: the backend :func:`ell_from_scipy`
+    lowers ``csr`` to, priced at :func:`default_dtype`, the column cuts
+    when the backend is ``"split"``, and the bytes one SpMV pair of that
+    layout moves (what the layout presolve compares across
+    permutations)."""
     m, n = csr.shape
+    dtype = default_dtype()
     if fits_dense_chunk(m, n):
-        return "dense", ()
+        return "dense", (), _dense_bytes(
+            m, n, torch.empty((), dtype=dtype).element_size())
     best, cost = estimate_stream_bytes(csr)
     if csr.nnz:
+        bsr = _bsr_candidate(csr, dtype)
+        if bsr is not None and bsr < cost:
+            best, cost = "bsr", bsr
         # composite column blocks: [structured | ±I | …] matrices move
         # fewer bytes when the head and the tails get their own layouts
         split_cost, cuts = col_split_plan(csr)
         if cuts and split_cost < COL_SPLIT_MIN_GAIN * cost:
-            return "split", cuts
-    return best, ()
+            return "split", cuts, split_cost
+    return best, (), cost
 
 
 _GATHER_LAYOUTS = ("ell", "segmented", "routed")
 
 
-def ell_from_scipy(a, dtype, device, prefer=None):
+def ell_from_scipy(a, dtype, device, prefer=None, cuts=None):
     """Lower a scipy sparse matrix to one of the port's operators.
 
     The backend comes from :func:`choose_layout` on every device, so the
     CPU runs take the branches the card does.  ``prefer`` forces one:
-    "dense", "dia", "partition", "split" or "csr"; the JAX package's
-    gather layouts ("ell", "segmented", "routed") map to "csr".
+    "dense", "dia", "partition", "bsr", "split" (at ``cuts``, searched when
+    ``None``) or "csr"; the JAX package's gather layouts ("ell",
+    "segmented", "routed") map to "csr".
     """
     csr = scipy.sparse.csr_matrix(a)
     if prefer in _GATHER_LAYOUTS:
         prefer = "csr"
-    cuts = ()
     if prefer is None:
-        prefer, cuts = choose_layout(csr)
-    elif prefer == "split":
+        prefer, cuts, _ = choose_layout(csr)
+    elif prefer == "split" and cuts is None:
         cuts = col_split_plan(csr)[1]
     if prefer == "dense":
         return DenseMatrix.from_scipy(csr, dtype, device)
@@ -690,10 +792,12 @@ def ell_from_scipy(a, dtype, device, prefer=None):
         return PartitionMatrix.from_scipy(csr, dtype, device)
     if prefer == "csr":
         return CsrMatrix.from_scipy(csr, dtype, device)
+    if prefer == "bsr":
+        return BsrMatrix.from_scipy(csr, dtype, device)
     if prefer == "split":
         return _lower_col_split(csr, cuts, dtype, device)
     raise ValueError(f"prefer={prefer!r}: the port's backends are 'dense', "
-                     "'dia', 'partition', 'split' and 'csr'")
+                     "'dia', 'partition', 'bsr', 'split' and 'csr'")
 
 
 def _lower_col_split(csr, cuts, dtype, device):
@@ -736,16 +840,20 @@ def lowers_to_dia(nrows, ncols, ndiag, nnz) -> bool:
     return _dia_pays(_shape_candidates(nrows, ncols, ndiag, nnz, s))
 
 
-def lower_systems(mats, dtype, device):
+def lower_systems(mats, dtype, device, layouts=None):
     """Lower an LP's constraint systems (``None`` stays ``None``).  When
     DIA pays for every present system (:func:`fused_dia_pays`), all are
     DIA and H-CPDIA runs the whole iteration; otherwise each system gets
-    :func:`ell_from_scipy`'s layout."""
+    its :func:`choose_layout` result, from ``layouts`` (one per system, as
+    the layout presolve priced them) or chosen here."""
     present = [a for a in mats if a is not None]
-    prefer = ("dia" if present and all(fused_dia_pays(a) for a in present)
-              else None)
-    return [None if a is None else ell_from_scipy(a, dtype, device, prefer)
-            for a in mats]
+    if present and all(fused_dia_pays(a) for a in present):
+        layouts = [("dia", None, None)] * len(mats)
+    elif layouts is None:
+        layouts = [(None, None, None)] * len(mats)
+    return [None if a is None
+            else ell_from_scipy(a, dtype, device, prefer, cuts)
+            for a, (prefer, cuts, _) in zip(mats, layouts)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -769,7 +877,8 @@ class LPProblem:
 # ----------------------------------------------------------------------
 # numpy layout helpers: copies of pysparselp_tpu/problem.py (anchor_align,
 # aligned_offset_count, embed_matrix, ALIGN_PAD_RHS, apply_align_embedding,
-# dia_offsets); tests/test_torch_slice.py holds them equal
+# dia_offsets; tests/test_torch_slice.py holds them equal) and the verbatim
+# rcm_permutation / apply_rcm_permutation (tests/test_torch_bsr_spmv.py)
 # ----------------------------------------------------------------------
 
 
@@ -974,6 +1083,60 @@ def apply_align_embedding(plan, sys):
         if sys.get(k) is not None:
             out[k] = scatter_cols(sys[k])
     return out, pos_eq, pos_in, col_pos
+
+
+# apply_rcm_permutation and rcm_permutation: verbatim copy of
+# pysparselp_tpu/problem.py:912-961
+def apply_rcm_permutation(sys):
+    """RCM-permute a problem dict (same keys as
+    :func:`apply_align_embedding`).  Returns
+    ``(new_sys, pos_eq, pos_in, col_pos)`` with position maps in the same
+    original→new convention."""
+    a_eq, a_one = sys.get("a_eq"), sys.get("a_ineq")
+    m_e = a_eq.shape[0] if a_eq is not None else 0
+    parts = [p for p in (a_eq, a_one) if p is not None]
+    joint = (parts[0] if len(parts) == 1
+             else scipy.sparse.vstack(parts).tocsr())
+    rows, cols = rcm_permutation(joint)
+    out = dict(sys)
+    pos_eq = pos_in = None
+    if a_eq is not None:
+        rows_eq = rows[rows < m_e]
+        pos_eq = np.empty(m_e, np.int64)
+        pos_eq[rows_eq] = np.arange(m_e)
+        out["a_eq"] = a_eq[rows_eq, :][:, cols]
+        out["beq"] = np.asarray(sys["beq"])[rows_eq]
+        if sys.get("y_eq0") is not None:
+            out["y_eq0"] = np.asarray(sys["y_eq0"], np.float64)[rows_eq]
+    if a_one is not None:
+        rows_in = rows[rows >= m_e] - m_e
+        pos_in = np.empty(rows_in.size, np.int64)
+        pos_in[rows_in] = np.arange(rows_in.size)
+        out["a_ineq"] = a_one[rows_in, :][:, cols]
+        out["b_ineq"] = np.asarray(sys["b_ineq"])[rows_in]
+        if sys.get("y_ineq0") is not None:
+            out["y_ineq0"] = np.asarray(sys["y_ineq0"], np.float64)[rows_in]
+    for k in ("c", "lb", "ub", "x0", "x30"):
+        if sys.get(k) is not None:
+            out[k] = np.asarray(sys[k], np.float64)[cols]
+    col_pos = np.empty(cols.size, np.int64)
+    col_pos[cols] = np.arange(cols.size)
+    return out, pos_eq, pos_in, col_pos
+
+
+def rcm_permutation(a):
+    """Bandwidth-reducing row/col permutation of a sparse matrix via
+    reverse Cuthill-McKee on the symmetrized bipartite pattern; returns
+    ``(rows, cols)`` index arrays (permuted -> original)."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    a = scipy.sparse.csr_matrix(a)
+    m = a.shape[0]
+    bip = scipy.sparse.bmat([[None, a], [a.T, None]], format="csr")
+    perm = np.asarray(reverse_cuthill_mckee(bip, symmetric_mode=True))
+    rows = perm[perm < m]
+    cols = perm[perm >= m] - m
+    return rows.astype(np.int64), cols.astype(np.int64)
 
 
 def dia_offsets(a) -> np.ndarray:

@@ -14,8 +14,8 @@ of three paths, chosen from the lowered operators (not from the device):
   kernel's budget: the H-CPDENSE kernel (:mod:`..ops.cp_dense`);
 * otherwise the per-operator iteration :func:`_cp_iteration`, whose
   products go through each operator's ``matvec``/``rmatvec`` (H-CSR for
-  CSR systems and blocks, H-DIA for DIA ones, plain torch for dense,
-  partition and column-block composites).
+  CSR systems and blocks, H-BSR for block-sparse ones, H-DIA for DIA ones,
+  plain torch for dense, partition and column-block composites).
 
 On CUDA tensors each kernel wrapper launches its kernel; on CPU tensors it
 runs its plain PyTorch twin, so the CPU tests exercise the same branches.
@@ -30,8 +30,9 @@ import torch
 from ..ops.cp_dense import cp_dense_chunk, cp_dense_eligible
 from ..ops.cp_dia import cp_dia_chunk, cp_dia_eligible
 from ..problem import (LPProblem, aligned_offset_count, anchor_align,
-                       apply_align_embedding, lower_systems, lowers_to_dia,
-                       resolve_device, resolve_dtype)
+                       apply_align_embedding, apply_rcm_permutation,
+                       choose_layout, lower_systems, lowers_to_dia,
+                       rcm_permutation, resolve_device, resolve_dtype)
 from .base import HostLoop, chunk_schedule, emit_callback, to_np
 
 
@@ -328,6 +329,41 @@ def _auto_layout(mats):
     return None
 
 
+def _choose_layout(mats):
+    """The layout presolve's choice, ``(choice, align_plan, layouts)``:
+    ``"align"`` (with its plan) when :func:`_auto_layout` lowers every
+    aligned system to DIA; else ``"rcm"`` when the RCM-permuted systems'
+    summed :func:`~..problem.choose_layout` bytes are below the unpermuted
+    sum (reverse Cuthill-McKee clusters the nonzeros into dense tiles for
+    the block-sparse backend); else ``None``.  ``layouts`` are the
+    :func:`~..problem.choose_layout` results of the chosen systems (one per
+    system, for :func:`~..problem.lower_systems`; ``None`` after
+    ``"align"``).  The port's counterpart of
+    ``pysparselp_tpu/solvers/chambolle_pock.py:366-423``, priced by the
+    card's chooser."""
+    plan = _auto_layout(mats)
+    if plan is not None:
+        return "align", plan, None
+
+    def priced(parts):
+        layouts = [(None, None, 0) if p is None else choose_layout(p)
+                   for p in parts]
+        return layouts, sum(lay[2] for lay in layouts)
+
+    unpermuted, cost = priced(mats)
+    live = [m for m in mats if m is not None]
+    m_e = mats[0].shape[0] if mats[0] is not None else 0
+    joint = live[0] if len(live) == 1 else scipy.sparse.vstack(live).tocsr()
+    rows, cols = rcm_permutation(joint)
+    permuted, cost_rcm = priced([
+        None if mats[0] is None else mats[0][rows[rows < m_e], :][:, cols],
+        None if mats[1] is None
+        else mats[1][rows[rows >= m_e] - m_e, :][:, cols]])
+    if cost_rcm < cost:
+        return "rcm", None, permuted
+    return None, None, unpermuted
+
+
 def chambolle_pock_ppd(
     c,
     a_eq,
@@ -365,10 +401,12 @@ def chambolle_pock_ppd(
     ``pysparselp_tpu/solvers/chambolle_pock.py::chambolle_pock_ppd`` for
     ``omega``, ``restart="average"`` and the full-state resume arguments.
 
-    Layout presolve: ``permute="auto"`` applies the anchor-aligned
-    embedding (``"align"``) on CUDA when it lowers every system to DIA, and
-    nothing on the CPU (as the JAX package off-TPU); ``"align"`` forces it;
-    ``"rcm"`` (or ``True``) is not ported yet.
+    Layout presolve: ``permute="auto"`` on CUDA applies what
+    :func:`_choose_layout` picks (the anchor-aligned embedding when it
+    lowers every system to DIA, else the RCM permutation when it streams
+    fewer bytes, else nothing), and nothing on the CPU (as the JAX package
+    off-TPU); ``"align"`` and ``"rcm"`` (or ``True``) force one on any
+    device.  Callbacks and the returned x are in the original order.
     """
     if restart is not None and omega is None:
         omega = "auto"
@@ -392,27 +430,30 @@ def chambolle_pock_ppd(
     if omega == "auto":
         omega = estimate_omega(c, beq if a_eq is not None else None,
                                b_ineq if a_one is not None else None)
-    if permute is True or permute == "rcm":
-        raise NotImplementedError(
-            "permute='rcm' serves the block-sparse (BSR) backend, which is "
-            "not ported yet: it comes with the BSR kernel (K6), the next "
-            "slice; see ROADMAP.md Queue 2")
+    if permute == "auto" and dev.type != "cuda":
+        permute = False
+    if permute is True:
+        permute = "rcm"
+    if permute not in (False, None, "auto", "align", "rcm"):
+        raise ValueError(f"permute={permute!r}: use 'auto', 'align', 'rcm', "
+                         "True or False")
     inv_cols = None          # orig col -> solved position (gather for x)
     pos_eq = pos_in = None   # orig row -> solved position (per system)
+    layouts = None           # the presolve's priced layouts, reused below
     if permute and (a_eq is not None or a_one is not None):
         mats = [a_eq, a_one]
-        if permute == "auto":
-            plan = _auto_layout(mats) if dev.type == "cuda" else None
-        elif permute == "align":
-            plan = anchor_align(mats)
-        else:
-            raise ValueError(f"permute={permute!r}: use 'auto', 'align' or "
-                             "False")
-        if plan is not None:
-            sys = dict(a_eq=a_eq, beq=beq, a_ineq=a_one, b_ineq=b_ineq,
-                       c=c, lb=lb, ub=ub, x0=x0, x30=x30,
-                       y_eq0=y_eq0, y_ineq0=y_ineq0)
-            sys, pos_eq, pos_in, col_pos = apply_align_embedding(plan, sys)
+        choice, plan, layouts = ((permute, None, None) if permute != "auto"
+                                 else _choose_layout(mats))
+        col_pos = None
+        sys = dict(a_eq=a_eq, beq=beq, a_ineq=a_one, b_ineq=b_ineq,
+                   c=c, lb=lb, ub=ub, x0=x0, x30=x30,
+                   y_eq0=y_eq0, y_ineq0=y_ineq0)
+        if choice == "align":
+            sys, pos_eq, pos_in, col_pos = apply_align_embedding(
+                plan if plan is not None else anchor_align(mats), sys)
+        elif choice == "rcm":
+            sys, pos_eq, pos_in, col_pos = apply_rcm_permutation(sys)
+        if col_pos is not None:
             a_eq, beq = sys["a_eq"], sys["beq"]
             a_one, b_ineq = sys["a_ineq"], sys["b_ineq"]
             c, lb, ub = sys["c"], sys["lb"], sys["ub"]
@@ -449,7 +490,7 @@ def chambolle_pock_ppd(
         return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
                                device=dev)
 
-    eq_m, in_m = lower_systems([a_eq, a_one], dtype, dev)
+    eq_m, in_m = lower_systems([a_eq, a_one], dtype, dev, layouts=layouts)
     prob = LPProblem(
         c=vec(c),
         lb=vec(lb),

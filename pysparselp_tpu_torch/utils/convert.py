@@ -6,9 +6,12 @@
 imports no jax): a JAX ``DiaMatrix`` is stripped of its Pallas
 kernel-layout padding to ``vals[:ndiag, :nrows]`` (``vals_t`` likewise), a
 ``DenseMatrix`` comes across whole, a ``PartitionMatrix`` as the port's
-``PartitionMatrix``, a ``ColBlockMatrix`` block by block, and the gather
-layouts (``EllMatrix``, ``SegmentedEllMatrix``, ``RoutedEllMatrix``) and
-``BsrMatrix`` through their entries as a ``CsrMatrix``.
+``PartitionMatrix``, a ``BsrMatrix`` as the port's ``BsrMatrix`` with its
+tiles and tile ids as they are (bf16 tiles widened to the port's dtype,
+which is exact; the TPU grid's padding tile-rows stay and compute rows
+past ``nrows``, which are never written), a ``ColBlockMatrix`` block by
+block, and the gather layouts (``EllMatrix``, ``SegmentedEllMatrix``,
+``RoutedEllMatrix``) through their entries as a ``CsrMatrix``.
 :func:`state_from_numpy` carries the ``(x, x3, y_eq, y_ineq)`` state and the
 restart controller's ``rstate``; :func:`state_to_numpy` goes back.  Together
 they let both packages run on the same lowered problem.
@@ -20,8 +23,8 @@ import numpy as np
 import scipy.sparse
 import torch
 
-from ..problem import (ColBlockMatrix, CsrMatrix, DenseMatrix, DiaMatrix,
-                       LPProblem, PartitionMatrix, resolve_device,
+from ..problem import (BsrMatrix, ColBlockMatrix, CsrMatrix, DenseMatrix,
+                       DiaMatrix, LPProblem, PartitionMatrix, resolve_device,
                        resolve_dtype)
 
 
@@ -42,20 +45,6 @@ def _csr(rows, cols, vals, shape):
     csr = scipy.sparse.csr_matrix((vals, (rows, cols)), shape=shape)
     csr.eliminate_zeros()
     return csr
-
-
-def _bsr_entries(op):
-    """``(rows, cols, vals)`` of a JAX ``BsrMatrix``: ``tiles[r, k]`` is
-    the transposed ``(tm, tn)`` block at tile row ``r``, tile column
-    ``cols[r, k]``."""
-    tiles = _np(op.tiles)
-    t_rows, k, tn, tm = tiles.shape
-    r, kk, j, i = np.meshgrid(np.arange(t_rows), np.arange(k),
-                              np.arange(tn), np.arange(tm), indexing="ij")
-    tcol = np.asarray(op.cols, np.int64)[r, kk]
-    rows, cols = r * tm + i, tcol * tn + j
-    keep = (rows < op.nrows) & (cols < op.ncols)
-    return rows[keep], cols[keep], tiles[keep]
 
 
 def operator_from_jax(op, dtype, device):
@@ -79,6 +68,16 @@ def operator_from_jax(op, dtype, device):
             vals=torch.as_tensor(_np(op.vals), dtype=dtype, device=device),
             col0=op.col0, stride=op.stride, width=op.width, nrows=op.nrows,
             ncols=op.ncols)
+    if kind == "BsrMatrix":
+        def t(v):
+            return torch.as_tensor(_np(v), dtype=dtype, device=device)
+
+        def i32(v):
+            return torch.as_tensor(np.array(v, np.int32), device=device)
+
+        return BsrMatrix(tiles=t(op.tiles), cols=i32(op.cols),
+                         tiles_t=t(op.tiles_t), cols_t=i32(op.cols_t),
+                         nrows=op.nrows, ncols=op.ncols, tm=op.tm, tn=op.tn)
     if kind == "ColBlockMatrix":
         return ColBlockMatrix(
             blocks=tuple(operator_from_jax(b, dtype, device)
@@ -101,8 +100,6 @@ def operator_from_jax(op, dtype, device):
                    np.concatenate(vals), shape)
     elif kind == "RoutedEllMatrix":
         csr = op.to_scipy()
-    elif kind == "BsrMatrix":
-        csr = _csr(*_bsr_entries(op), shape)
     else:
         raise TypeError(f"no port counterpart for a JAX {kind}")
     return CsrMatrix.from_scipy(csr, dtype, device)

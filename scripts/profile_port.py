@@ -3,15 +3,20 @@
 
     python3 scripts/profile_port.py
 
-Runs four solves that ``chip_smoke.py`` drives (Potts-300 f32 with
+Runs the solves that ``chip_smoke.py`` drives (Potts-300 f32 with
 ``light_metrics``, 2000 iterations; Potts-50 and SC105 f32 with restart to
 average; the transport LP of ``bench.py`` f32 with ``light_metrics``, 2000
 iterations, on the per-operator path) once to build and warm up, then once
-each under ``torch.profiler``.  For each solve it prints one JSON line: the
-wall time, the device time and count of each kernel (and memcpy) by name,
-the device busy share (device time / wall time) and the device events per
-iteration, and for Potts-300 and the transport LP the device and wall time
-per iteration in the steady window between the two checkpoints.  The same
+each under ``torch.profiler``; then, without a warm-up solve (its host
+presolve takes minutes), the CLIME LP of ``chip_smoke.py`` (p = 150) f32
+with ``light_metrics``, 2000 iterations, twice: with ``permute="rcm"``
+(block-sparse, H-BSR) and with ``permute=False`` (unpermuted, H-CSR).
+For each solve it prints one JSON line: the wall time, the device time and
+count of each kernel (and memcpy) by name, the device busy share (device
+time / wall time) and the device events per iteration, and for the
+``light_metrics`` solves the device and kernel time (memcpy excluded) per
+iteration and the wall time per iteration in the steady window between
+the two checkpoints.  The same
 lines go to ``chiprun_out/profile_port.json``.  Exits nonzero without CUDA.
 """
 
@@ -48,7 +53,7 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import sc105_lp, transport_lp
+    from chip_smoke import CLIME, clime_lp, sc105_lp, transport_lp
     from pysparselp_tpu_torch.examples.potts import build_linear_program
 
     smi = subprocess.run(
@@ -67,12 +72,19 @@ def main() -> int:
         "transport": (transport_lp,
                       dict(nb_iter=2000, nb_iter_plot=1000,
                            light_metrics=True)),
+        "clime_rcm_bsr": (lambda: clime_lp(**CLIME),
+                          dict(nb_iter=2000, nb_iter_plot=1000,
+                               light_metrics=True, permute="rcm")),
+        "clime_unpermuted_csr": (lambda: clime_lp(**CLIME),
+                                 dict(nb_iter=2000, nb_iter_plot=1000,
+                                      light_metrics=True, permute=False)),
     }
     lines = []
     for name, (make, kw) in runs.items():
         kw = dict(method="chambolle_pock_ppd", dtype=np.float32,
                   device="cuda", **kw)
-        make().solve(**kw)  # build the kernels, warm the caches
+        if not name.startswith("clime"):
+            make().solve(**kw)  # build the kernels, warm the caches
         lp = make()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -91,12 +103,23 @@ def main() -> int:
                            for k, (c, us) in sorted(events.items())})
         rec["events_per_iter"] = (sum(c for c, _ in events.values())
                                   / lp.itrn_curve[-1])
-        if name in ("potts300", "transport"):
+        if kw.get("light_metrics"):
             iters = lp.itrn_curve[-1] - lp.itrn_curve[0]
             rec["device_us_per_iter"] = device_us / lp.itrn_curve[-1]
+            rec["kernel_us_per_iter"] = sum(
+                us for k, (_, us) in events.items()
+                if "Memcpy" not in k and "Memset" not in k
+            ) / lp.itrn_curve[-1]
             rec["steady_wall_us_per_iter"] = (
                 (lp.opttime_curve[-1] - lp.opttime_curve[0]) / iters * 1e6)
             rec["steady_busy_share"] = (rec["device_us_per_iter"]
+                                        / rec["steady_wall_us_per_iter"])
+        if name.startswith("clime"):
+            rec["spmv_us_per_iter"] = sum(
+                us for k, (_, us) in events.items()
+                if "bsr_rows_kernel" in k or "csr_rows_kernel" in k
+                or "csr_long_rows_kernel" in k) / lp.itrn_curve[-1]
+            rec["steady_busy_share"] = (rec["kernel_us_per_iter"]
                                         / rec["steady_wall_us_per_iter"])
         if name == "potts300":
             chunk_us = sum(us for k, (_, us) in events.items()

@@ -15,8 +15,8 @@ from pysparselp_tpu import problem as jpr
 from pysparselp_tpu.examples.potts import (build_linear_program,
                                            build_multilabel_linear_program)
 from pysparselp_tpu.solvers import chambolle_pock as jcp
-from pysparselp_tpu_torch.problem import (ColBlockMatrix, CsrMatrix,
-                                          DenseMatrix, DiaMatrix,
+from pysparselp_tpu_torch.problem import (BsrMatrix, ColBlockMatrix,
+                                          CsrMatrix, DenseMatrix, DiaMatrix,
                                           PartitionMatrix)
 from pysparselp_tpu_torch.solvers import chambolle_pock as pcp
 from pysparselp_tpu_torch.utils.convert import (operator_from_jax,
@@ -47,7 +47,7 @@ CASES = {
     # (host system, JAX backend(s), port operator type(s))
     "sc105_dense": (lambda: host_system(sc105_lp()[0]), "dense", DenseMatrix),
     "sc105_ell": (lambda: host_system(sc105_lp()[0]), "ell", CsrMatrix),
-    "sc105_bsr": (lambda: host_system(sc105_lp()[0]), "bsr", CsrMatrix),
+    "sc105_bsr": (lambda: host_system(sc105_lp()[0]), "bsr", BsrMatrix),
     "potts_dia": (lambda: host_system(
         build_linear_program(10, 0.5, 500, seed=1)[0], align=True),
         "dia", DiaMatrix),

@@ -24,10 +24,12 @@ def test_import_leaves_jax_out():
             "chambolle_pock, pysparselp_tpu_torch.utils.convert, "
             "pysparselp_tpu_torch.examples.potts, pysparselp_tpu_torch.io, "
             "pysparselp_tpu_torch.ops.csr_spmv, "
+            "pysparselp_tpu_torch.ops.bsr_spmv, "
             "pysparselp_tpu_torch.examples.l1_svm, "
-            "pysparselp_tpu_torch.examples.kmedians, chip_smoke; "
+            "pysparselp_tpu_torch.examples.kmedians, "
+            "pysparselp_tpu_torch.examples.sparse_inv_covariance, chip_smoke; "
             "sys.path.insert(0, 'scripts'); import probe_csr_spmv, "
-            "profile_port; "
+            "probe_bsr_spmv, profile_port, time_presolve; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('pysparselp_tpu.') or "
             "m == 'pysparselp_tpu' for m in sys.modules), 'JAX package'")
@@ -44,7 +46,9 @@ def test_no_port_file_imports_jax():
                 assert "import jax" not in text, name
                 assert "from jax" not in text, name
     for script in ("chip_smoke.py", os.path.join("scripts", "profile_port.py"),
-                   os.path.join("scripts", "probe_csr_spmv.py")):
+                   os.path.join("scripts", "probe_csr_spmv.py"),
+                   os.path.join("scripts", "probe_bsr_spmv.py"),
+                   os.path.join("scripts", "time_presolve.py")):
         with open(os.path.join(REPO, script)) as f:
             text = f.read()
         assert "import jax" not in text and "pysparselp_tpu." not in (
@@ -87,12 +91,22 @@ def test_unported_methods_name_their_roadmap_item(method):
         _tiny_lp().solve(method=method, nb_iter=10, device="cpu")
 
 
-@pytest.mark.parametrize("kwargs", [dict(permute="rcm"), dict(permute=True),
-                                    dict(mesh=object())])
+@pytest.mark.parametrize("kwargs", [dict(mesh=object())])
 def test_unported_options_name_their_roadmap_item(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _tiny_lp().solve(method="chambolle_pock_ppd", nb_iter=10,
                          device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("permute", ["rcm", True])
+def test_rcm_permute_solves_like_unpermuted(permute):
+    """The RCM layout presolve runs on the CPU and returns x in the
+    original column order: the same x as no permutation."""
+    run = dict(method="chambolle_pock_ppd", nb_iter=2000, nb_iter_plot=1000,
+               device="cpu")
+    x_plain, _ = _tiny_lp().solve(permute=False, **run)
+    x_rcm, _ = _tiny_lp().solve(permute=permute, **run)
+    np.testing.assert_allclose(x_rcm, x_plain, rtol=1e-9, atol=1e-12)
 
 
 def test_tiny_solve_on_cpu():

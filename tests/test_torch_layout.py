@@ -1,9 +1,11 @@
 """The port's layout chooser and its structured operators: the verbatim
-copies (``partition_geometry``, ``_candidate_cuts``, ``col_split_plan``,
-``effective_stream_bytes``) against the JAX package's, ``PartitionMatrix``
-and ``ColBlockMatrix`` against the JAX classes (float64, 1e-12), and the
+copies (``partition_geometry``, ``_candidate_cuts``, ``col_split_plan``)
+against the JAX package's, the sort-free diagonal count against
+``dia_offsets``, ``PartitionMatrix``
+and ``ColBlockMatrix`` against the JAX classes (float64, 1e-12), the
 backends the chooser picks for the four non-grid workloads of ``bench.py``
-and the aligned Potts grids.
+and the aligned Potts grids, and the layout presolve's RCM + block-sparse
+choice for the CLIME LP.
 
 At these sizes every system is far under the dense limit, so the tests of
 what the chooser picks patch ``DENSE_AUTO_MAX_ENTRIES`` down, as
@@ -23,9 +25,13 @@ import chip_smoke
 import pysparselp_tpu.problem as jpr
 import pysparselp_tpu_torch.problem as ppr
 from pysparselp_tpu_torch.examples.potts import build_linear_program
+from pysparselp_tpu_torch.examples.sparse_inv_covariance import (clime_lp,
+                                                                 make_data)
+from pysparselp_tpu_torch.ops import bsr_spmv
 from pysparselp_tpu_torch.ops.cp_dense import cp_dense_eligible
 from pysparselp_tpu_torch.ops.cp_dia import cp_dia_eligible
-from pysparselp_tpu_torch.solvers.chambolle_pock import _auto_layout
+from pysparselp_tpu_torch.solvers.chambolle_pock import (_auto_layout,
+                                                         _choose_layout)
 from torch_port_helpers import host_system
 
 torch.set_num_threads(1)
@@ -34,6 +40,9 @@ SMALL_DENSE_LIMIT = 100_000
 
 @functools.lru_cache(maxsize=None)
 def _system(name, **kw):
+    if name == "potts_aligned":
+        return host_system(build_linear_program(20, 0.5, 500, seed=1)[0],
+                           align=True)
     return host_system(chip_smoke.WORKLOADS[name](**kw))
 
 
@@ -58,7 +67,7 @@ MATRICES = {
 
 
 @pytest.mark.parametrize("name", ["partition_geometry", "_candidate_cuts",
-                                  "col_split_plan", "effective_stream_bytes"])
+                                  "col_split_plan"])
 def test_verbatim_copies(name):
     assert inspect.getsource(getattr(ppr, name)) == \
         inspect.getsource(getattr(jpr, name))
@@ -120,15 +129,17 @@ def _describe(op):
     ("kmedians", "a_eq", "PartitionMatrix"),
     ("kmedians", "a_ineq", ["DiaMatrix", "DenseMatrix"]),
     ("l1svm", "a_ineq", ["DenseMatrix", "CsrMatrix"]),
+    ("potts_aligned", "a_ineq", "DiaMatrix"),
 ])
 def test_chooser_picks_for_workloads(name, system, want, monkeypatch):
     """What the chooser lowers the small workloads to (the dense limit
-    patched down); column-block composites list their blocks."""
+    patched down); column-block composites list their blocks.  None of
+    them takes the block-sparse candidate."""
     monkeypatch.setattr(ppr, "DENSE_AUTO_MAX_ENTRIES", SMALL_DENSE_LIMIT)
     kw = {"transport": dict(n_sources=300, n_sinks=300, n_arcs=4000),
           "unstructured": dict(m=2000, n=1500),
           "kmedians": dict(n_points=200, n_candidates=10),
-          "l1svm": dict(nb_examples=300)}[name]
+          "l1svm": dict(nb_examples=300), "potts_aligned": {}}[name]
     a = _system(name, **kw)[system]
     assert _describe(ppr.ell_from_scipy(a, torch.float64, "cpu")) == want
 
@@ -143,7 +154,7 @@ def test_aligned_potts_lowers_to_dia():
     aligned = host_system(build_linear_program(20, 0.5, 500, seed=1)[0],
                           align=True)["a_ineq"]
     assert aligned.shape[0] * aligned.shape[1] <= ppr.DENSE_AUTO_MAX_ENTRIES
-    assert ppr.choose_layout(aligned) == ("dia", ())
+    assert ppr.choose_layout(aligned)[:2] == ("dia", ())
     op = ppr.ell_from_scipy(aligned, torch.float64, "cpu")
     assert isinstance(op, ppr.DiaMatrix)
     assert ppr.lowers_to_dia(*aligned.shape, op.ndiag, aligned.nnz)
@@ -180,3 +191,83 @@ def test_operator_cost_bytes_prices_blocks():
     op = ppr.ell_from_scipy(a, torch.float32, "cpu", prefer="split")
     assert ppr.operator_cost_bytes(op) == sum(
         ppr.operator_cost_bytes(b) for b in op.blocks) > 0
+    a = MATRICES["staircase"]()
+    op = ppr.ell_from_scipy(a, torch.float32, "cpu", prefer="bsr")
+    assert isinstance(op, ppr.BsrMatrix)
+    assert ppr.operator_cost_bytes(op) == ppr._bsr_candidate(
+        a, torch.float32)
+
+
+def test_clime_p80_takes_rcm_then_bsr(monkeypatch):
+    """CLIME at p = 80 (12,800 variables, 25,600 folded rows, 1.05M
+    entries): the layout presolve takes RCM, and the chooser lowers the
+    permuted system to 128×128 tiles, priced from tile counts alone (no
+    tile is built)."""
+    def no_tiles(*args, **kwargs):
+        raise AssertionError("the chooser built tiles")
+
+    monkeypatch.setattr(ppr, "build_tile_ell", no_tiles)
+    lp, _ids = clime_lp(make_data(n_samples=160, n_features=80, seed=0)[0])
+    sys_ = host_system(lp)
+    assert sys_["a_eq"] is None and sys_["a_ineq"].shape == (25600, 12800)
+    assert sys_["a_ineq"].nnz == 2 * 80 ** 3 + 4 * 80 ** 2
+    choice, plan, layouts = _choose_layout([None, sys_["a_ineq"]])
+    assert (choice, plan) == ("rcm", None)
+    permuted = ppr.apply_rcm_permutation(sys_)[0]["a_ineq"]
+    backend, cuts, cost = ppr.choose_layout(permuted)
+    assert (backend, cuts) == ("bsr", ())
+    assert layouts == [(None, None, 0), (backend, cuts, cost)]
+    assert cost < min(ppr._candidates(permuted, torch.float32).values())
+    assert cost < ppr.choose_layout(sys_["a_ineq"])[2]
+    padded = bsr_spmv.bsr_padded_entries(permuted)
+    assert cost == ppr._bsr_bytes(padded, 25600, 12800, 4)
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES) + ["duplicates"])
+def test_diagonal_count_matches_offsets(name):
+    """The chooser's sort-free diagonal count is ``dia_offsets``' size up
+    to ``DIA_AUTO_MAX_OFFSETS`` and above it past that; duplicate entries
+    count once."""
+    if name == "duplicates":
+        # 20 rows of 40 entries over 7 columns: 26 diagonals
+        a = scipy.sparse.csr_matrix(
+            (np.ones(800), np.tile(np.arange(40) % 7, 20),
+             np.arange(0, 801, 40)), shape=(20, 60))
+        assert not a.has_canonical_format
+    else:
+        a = MATRICES[name]()
+    want = ppr.dia_offsets(a).size
+    got = ppr._diagonal_count(a)
+    if want <= ppr.DIA_AUTO_MAX_OFFSETS:
+        assert got == want
+    else:
+        assert got > ppr.DIA_AUTO_MAX_OFFSETS
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("kmedians", dict(n_points=200, n_candidates=10)),
+    ("l1svm", dict(nb_examples=300)),
+])
+def test_lowering_reuses_presolve_layouts(name, kw, monkeypatch):
+    """The layouts the presolve priced lower to the operators the lowering
+    would choose alone, without searching the systems again."""
+    monkeypatch.setattr(ppr, "DENSE_AUTO_MAX_ENTRIES", SMALL_DENSE_LIMIT)
+    sys_ = _system(name, **kw)
+    mats = [sys_["a_eq"], sys_["a_ineq"]]
+    choice, _plan, layouts = _choose_layout(mats)
+    assert choice is None
+    searched = []
+    search = ppr.col_split_plan
+
+    def counted(csr, *args, **kwargs):
+        searched.append(csr.shape)
+        return search(csr, *args, **kwargs)
+
+    monkeypatch.setattr(ppr, "col_split_plan", counted)
+    alone = ppr.lower_systems(mats, torch.float64, "cpu")
+    n_alone = len(searched)
+    searched.clear()
+    reused = ppr.lower_systems(mats, torch.float64, "cpu", layouts=layouts)
+    assert [_describe(o) for o in reused] == [_describe(o) for o in alone]
+    assert not any(a is not None and a.shape in searched for a in mats)
+    assert len(searched) < n_alone

@@ -1,8 +1,9 @@
 """The ported slice as a whole, on the CPU in float64:
 ``pysparselp_tpu_torch.SparseLP.solve(method="chambolle_pock_ppd",
 device="cpu")`` against the JAX package's goldens and live JAX solves (the
-Potts grids, SC105 and small cases of ``bench.py``'s four non-grid
-workloads), and the port's host-layer copies against their originals."""
+Potts grids, SC105, small cases of ``bench.py``'s four non-grid workloads,
+and CLIME through the RCM presolve and the block-sparse operator), and the
+port's host-layer copies against their originals."""
 
 import copy
 import functools
@@ -17,15 +18,21 @@ import torch
 import bench
 import chip_smoke
 import pysparselp_tpu.examples.potts as jpotts
+import pysparselp_tpu.examples.sparse_inv_covariance as jclime
 import pysparselp_tpu.io.netlib as jnetlib
 import pysparselp_tpu.problem as jproblem
 import pysparselp_tpu_torch.examples.potts as ppotts
+import pysparselp_tpu_torch.examples.sparse_inv_covariance as pclime
 import pysparselp_tpu_torch.io.netlib as pnetlib
 import pysparselp_tpu_torch.problem as pproblem
 import pysparselp_tpu_torch.solvers.chambolle_pock as pcp
 from pysparselp_tpu.examples.l1_svm import L1SVM as JaxL1SVM
 from pysparselp_tpu_torch.modeling import SparseLP as TorchLP
-from torch_port_helpers import host_system, sc105_lp
+from pysparselp_tpu_torch.utils.convert import (problem_from_jax_arrays,
+                                                state_from_numpy,
+                                                state_to_numpy)
+from torch_port_helpers import (host_system, jax_problem, sc105_lp,
+                                start_point, torch_pre)
 
 torch.set_num_threads(1)
 
@@ -230,6 +237,125 @@ def test_workload_matches_live_jax_solve(name, monkeypatch):
         np.testing.assert_allclose(cp_[key], cj[key], rtol=1e-9, atol=1e-12,
                                    err_msg=f"{name}:{key}")
     np.testing.assert_allclose(x_p, x_j, rtol=1e-9, atol=1e-9)
+
+
+# ----------------------------------------------------------------------
+# CLIME (examples/sparse_inv_covariance.py) through the RCM presolve and
+# the block-sparse operator
+# ----------------------------------------------------------------------
+
+
+def _jax_clime(x, lamb=0.15):
+    """The LP of the JAX example's ``run`` (sparse_inv_covariance.py:
+    59-73) on the samples ``x``."""
+    from scipy import sparse
+
+    n_features = x.shape[1]
+    emp_cov = (x.T @ x) / x.shape[0]
+    lp = jclime.SparseInvCov()
+    ids = lp.add_variables_array(shape=emp_cov.shape, lower_bounds=None,
+                                 upper_bounds=None)
+    c = sparse.kron(sparse.csr_matrix(emp_cov), sparse.eye(n_features))
+    lp.add_inequality_constraints_sparse(
+        c, np.eye(emp_cov.shape[0]).flatten() - lamb,
+        np.eye(emp_cov.shape[0]).flatten() + lamb)
+    lp.add_abs_penalization(ids, 1)
+    lp.convert_to_one_sided_inequality_system()
+    return lp, ids
+
+
+@functools.lru_cache(maxsize=None)
+def _clime_samples(p):
+    return pclime.make_data(n_samples=2 * p, n_features=p, seed=0)[0]
+
+
+def test_clime_builder_matches_jax():
+    """``SparseInvCov`` is the JAX class verbatim and ``clime_lp`` builds
+    the JAX example's LP; the numpy precision is symmetric positive
+    definite with the requested sparsity."""
+    import inspect
+
+    assert inspect.getsource(pclime.SparseInvCov) == \
+        inspect.getsource(jclime.SparseInvCov)
+    x = _clime_samples(10)
+    lp_p, ids_p = pclime.clime_lp(x)
+    lp_j, ids_j = _jax_clime(x)
+    _same_lp(lp_j, lp_p)
+    np.testing.assert_array_equal(ids_p, ids_j)
+    _x, prec, cov = pclime.make_data(n_samples=30, n_features=40, seed=3)
+    np.testing.assert_allclose(prec, prec.T)
+    assert np.linalg.eigvalsh(prec).min() > 0
+    np.testing.assert_allclose(np.diag(cov), 1.0)
+    assert 0 < np.count_nonzero(prec) < 0.2 * prec.size
+
+
+def test_clime_run_contract():
+    """The example's ``run`` returns the JAX example's contract: the
+    absolute error of the estimated precision and its count of zeros."""
+    sum_abs_diff, nb_zeros = pclime.run(nb_iter=400, device="cpu")
+    assert np.isfinite(sum_abs_diff) and sum_abs_diff > 0
+    assert isinstance(nb_zeros, int) and 0 <= nb_zeros <= 400
+
+
+def test_clime_rcm_bsr_matches_live_jax_solve(monkeypatch):
+    """CLIME at p = 10, float64, ``permute="rcm"``, every system lowered
+    to the block-sparse operator in both packages (the JAX package forced
+    as ``tests/test_bsr.py:99-120`` forces it): x agrees within 1e-9 after
+    2,000 iterations."""
+    import pysparselp_tpu.solvers.chambolle_pock as jcp
+
+    orig = jproblem.ell_from_scipy
+    monkeypatch.setattr(jcp, "ell_from_scipy",
+                        lambda a, **kw: orig(a, **{**kw, "prefer": "bsr"}))
+    lowered = []
+
+    def bsr_systems(mats, dtype, device, layouts=None):
+        ops = [None if a is None else pproblem.ell_from_scipy(
+            a, dtype, device, prefer="bsr") for a in mats]
+        lowered.extend(ops)
+        return ops
+
+    monkeypatch.setattr(pcp, "lower_systems", bsr_systems)
+    x = _clime_samples(10)
+    jlp, plp = _jax_clime(x)[0], _port_lp(pclime.clime_lp(x)[0])
+    run = dict(method=CP, nb_iter=2000, nb_iter_plot=500, permute="rcm")
+    x_j, _ = jlp.solve(**run)
+    x_p, _ = plp.solve(device="cpu", **run)
+    assert lowered[0] is None and isinstance(lowered[1], pproblem.BsrMatrix)
+    np.testing.assert_allclose(x_p, x_j, rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(plp.pobj_curve, jlp.pobj_curve, rtol=1e-9)
+    # the solution is in the original column order
+    x_plain, _ = _port_lp(pclime.clime_lp(x)[0]).solve(
+        device="cpu", **dict(run, permute=False))
+    np.testing.assert_allclose(x_p, x_plain, rtol=1e-9, atol=1e-9)
+
+
+def test_clime_jax_bsr_carries_across():
+    """A JAX ``BsrMatrix`` (the RCM-permuted CLIME system at p = 10,
+    ROW_GROUP-padded tiles) comes across as the port's ``BsrMatrix`` with
+    its tiles as they are, and a CP chunk on it equals JAX's."""
+    import jax.numpy as jnp
+
+    import pysparselp_tpu.solvers.chambolle_pock as jcp
+
+    sys_ = host_system(pclime.clime_lp(_clime_samples(10))[0])
+    sys_ = pproblem.apply_rcm_permutation(sys_)[0]
+    jprob, jpre = jax_problem(sys_, "bsr", jnp.float64)
+    prob = problem_from_jax_arrays(jprob, device="cpu")
+    op, jop = prob.a_ineq, jprob.a_ineq
+    assert isinstance(op, pproblem.BsrMatrix)
+    np.testing.assert_array_equal(op.tiles.numpy(), np.asarray(jop.tiles))
+    np.testing.assert_array_equal(op.cols_t.numpy(), np.asarray(jop.cols_t))
+    assert op.tiles.shape[0] % 8 == 0 and op.tiles.shape[0] * 128 > op.nrows
+    x, ye, yi = start_point(sys_, 4)
+    st = (x, 0.5 * x, ye, yi)
+    js, jm = jcp._cp_chunk(jprob, jpre, tuple(jnp.asarray(v) for v in st), 30)
+    ps, pm = pcp.cp_chunk_impl(prob, torch_pre(jpre, torch.float64),
+                               state_from_numpy(st), 30)
+    for a, b in zip(state_to_numpy(ps), js):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(float(pm["energy1"]), float(jm["energy1"]),
+                               rtol=1e-12)
 
 
 def test_light_metrics_skips_solution_fetch():
