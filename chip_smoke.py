@@ -39,11 +39,25 @@ nonzero):
 6. convergence: Potts-50 to the graph-cut optimum and SC105 to the perPlex
    optimum with restart-to-average.
 
+The mesh solve (``lp.solve(mesh=...)``, ``parallel/sharded_cp.py``) adds:
+
+* in phase 2, H-DIA on each of the 4 row shards of the aligned Potts-300
+  system (``parallel/sharded_dia.py``: K5's function), forward and
+  transpose window, float32 and float64, timed beside cuSPARSE;
+* ``main_path_mesh1``, after phase 3: the Potts-300 solve on one device
+  and then with ``mesh=`` a one-rank NCCL group in this process (the
+  overhead of the row-sharded path; ``bench.py``'s
+  ``measure_sharded_overhead``), held against phase 3's float64 run, its
+  H-DIA launches and all-reduces against the prediction;
+* ``main_path_mesh4``: 4 gloo ranks on the one card (``parallel.mesh.
+  spawn``), Potts-300 on per-shard DIA and the unstructured LP on per-shard
+  CSR, 200 iterations each, held against the same solves on one device.
+
 The launch counters are set to 0 just before each solve and read just
 after it; the kernel table takes H-DIA's and H-CPDIA's counts from the
-Potts-300 solve, H-CPDENSE's from the SC105 solve, H-CSR's from the
-transport solve and H-BSR's from the CLIME solve (``launches_run`` names
-the solve).  Then the kernel table
+Potts-300 solve, H-DIA (K5)'s from the one-rank mesh solve, H-CPDENSE's
+from the SC105 solve, H-CSR's from the transport solve and H-BSR's from
+the CLIME solve (``launches_run`` names the solve).  Then the kernel table
 as one JSON line and, last, the device line ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside this script, it
 exits nonzero and prints no result.
@@ -76,25 +90,41 @@ NONGRID_RTOL = 1e-5
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# each hand-written kernel: its source, the TPU kernels it replaces (K1-K8
+# of PERF.md's table, every one of them ported) and the main-path solve
+# whose launches the summary line reports.  "H-DIA (K5)" is H-DIA on the
+# row shards of the mesh solver, held and timed at the shard shapes.
 KERNELS = {
     "H-DIA": dict(source="pysparselp_tpu_torch/csrc/dia_spmv.cu",
                   replaces="pysparselp_tpu/ops/dia_pallas.py:168",
+                  tpu_kernels={"K4": "ported"},
                   launches_run="main_path_potts300"),
+    "H-DIA (K5)": dict(source="pysparselp_tpu_torch/csrc/dia_spmv.cu",
+                       replaces="pysparselp_tpu/ops/dia_pallas.py:232",
+                       tpu_kernels={"K5": "ported"},
+                       launches_run="main_path_mesh1"),
     "H-CPDIA": dict(source="pysparselp_tpu_torch/csrc/cp_dia.cu",
                     replaces="pysparselp_tpu/ops/cp_windowed.py:392; "
                              "pysparselp_tpu/ops/cp_fused.py:192",
+                    tpu_kernels={"K2": "ported", "K3": "ported"},
                     launches_run="main_path_potts300"),
     "H-CPDENSE": dict(source="pysparselp_tpu_torch/csrc/cp_dense.cu",
                       replaces="pysparselp_tpu/ops/cp_fused.py:381",
+                      tpu_kernels={"K1": "ported"},
                       launches_run="converge_sc105"),
     "H-CSR": dict(source="pysparselp_tpu_torch/csrc/csr_spmv.cu",
                   replaces="pysparselp_tpu/ops/ell_routed.py:1040; "
                            "pysparselp_tpu/ops/ell_routed.py:1132",
+                  tpu_kernels={"K7": "ported", "K8": "ported"},
                   launches_run="main_path_transport"),
     "H-BSR": dict(source="pysparselp_tpu_torch/csrc/bsr_spmv.cu",
                   replaces="pysparselp_tpu/ops/bsr_pallas.py:168",
+                  tpu_kernels={"K6": "ported"},
                   launches_run="main_path_clime"),
 }
+# the mesh phases: ranks of main_path_mesh4 (gloo, all on the one card)
+# and the row-shard count of the K5 kernel phase
+MESH_RANKS = 4
 # the CLIME configuration: p features, samples drawn from N(0, P^-1) with P
 # a seeded sparse SPD precision, the l-infinity radius lambda
 CLIME = dict(n_features=150, n_samples=300, lamb=0.15, seed=0)
@@ -903,6 +933,330 @@ def phase_clime(torch, lp, counted_solve):
     return launches
 
 
+def aligned_potts(lp):
+    """The anchor-aligned one-sided system the solver builds for a Potts
+    LP (host arrays)."""
+    from pysparselp_tpu_torch.problem import apply_align_embedding
+    from pysparselp_tpu_torch.solvers.chambolle_pock import _auto_layout
+
+    sys_ = folded(lp)
+    plan = _auto_layout([sys_["a_eq"], sys_["a_ineq"]])
+    if plan is None:
+        raise AssertionError("the Potts LP did not align to DIA")
+    return apply_align_embedding(plan, sys_)[0]
+
+
+def eqineq_aligned():
+    """A small random eq+ineq LP (60 columns, 10 equality and 40
+    inequality rows; ``tests/test_torch_sharded.py``'s case), anchor
+    aligned: 162 positions, 63 and 132 diagonals, so four shards are
+    shorter than the diagonals' spread and whole diagonals miss a shard's
+    window (offsets outside ``(-w, rows_loc)``, which K5 clamps)."""
+    import numpy as np
+    import scipy.sparse
+
+    from pysparselp_tpu_torch.problem import (anchor_align,
+                                              apply_align_embedding)
+
+    rng = np.random.RandomState(5)
+    n = 60
+    a_eq = scipy.sparse.random(10, n, density=0.15, random_state=rng,
+                               format="csr")
+    a_in = scipy.sparse.random(40, n, density=0.12, random_state=rng,
+                               format="csr")
+    x_feas = rng.rand(n)
+    sys_ = dict(a_eq=a_eq, beq=a_eq @ x_feas, a_ineq=a_in,
+                b_ineq=a_in @ x_feas + 0.5, c=rng.randn(n), lb=np.zeros(n),
+                ub=np.ones(n))
+    return apply_align_embedding(anchor_align([a_eq, a_in]), sys_)[0]
+
+
+def phase_k5(torch, lp, table):
+    """Phase 2 for K5's function: H-DIA on each of MESH_RANKS row shards
+    (``parallel.sharded_dia``), forward (rows_loc rows, absolute offsets
+    into the replicated x) and transpose window (w columns, offsets into
+    the shard's duals), against the twin in float32 and float64.  On the
+    aligned Potts-300 system, in float32, the kernel, the twin and the
+    library call (cuSPARSE ``torch.mv`` of the shard's CSR) are timed, and
+    the bound is from the bytes the call needs: the planes, the offsets,
+    the x entries the shard's diagonals reach and the output.  Potts-300's
+    shards are far taller than their diagonals' spread, so the small
+    eq+ineq systems of :func:`eqineq_aligned` (not timed) add shards with
+    window offsets outside ``(-w, rows_loc)``."""
+    import numpy as np
+    import scipy.sparse
+
+    from pysparselp_tpu_torch.ops import dia_spmv
+    from pysparselp_tpu_torch.parallel.sharded_cp import _csr_shard
+    from pysparselp_tpu_torch.parallel.sharded_dia import build_system_dia
+
+    potts, small = aligned_potts(lp), eqineq_aligned()
+    cases = [("potts300_aligned", potts["a_ineq"], potts["b_ineq"]),
+             ("eqineq_aligned_eq", small["a_eq"], small["beq"]),
+             ("eqineq_aligned_ineq", small["a_ineq"], small["b_ineq"])]
+    rng = np.random.RandomState(5)
+    dev = torch.device("cuda")
+    agg = {k: [] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    outside_small = 0
+    for problem, a, b in cases:
+        a = scipy.sparse.csr_matrix(a)
+        timed = problem == "potts300_aligned"
+        n = a.shape[1]
+        for rank in range(MESH_RANKS):
+            s, rows_loc, _ = build_system_dia(a, b, MESH_RANKS, rank)
+            wlo = s["dia_wlo"]
+            w = s["dia_vals_t"].shape[1]
+            rows = _csr_shard(a, MESH_RANKS, rank)[0]
+            spread = int(s["dia_offs"].max() - s["dia_offs"].min())
+            sides = {
+                "forward": (s["dia_vals"], s["dia_offs"], n, rows_loc, rows,
+                            min(rows_loc + spread, n)),
+                "window": (s["dia_vals_t"], s["dia_offs_t"], rows_loc, w,
+                           rows[:, wlo:wlo + w].T.tocsr(), rows_loc),
+            }
+            for side, (vals_h, offs_h, n_in, n_out, host, x_needed) in \
+                    sides.items():
+                outside = int(np.sum((offs_h <= -n_out) | (offs_h >= n_in)))
+                if not timed:
+                    outside_small += outside
+                offs = torch.as_tensor(offs_h, device=dev)
+                for dt in (torch.float32, torch.float64):
+                    name = str(dt).split(".")[1]
+                    vals = torch.as_tensor(vals_h, dtype=dt, device=dev)
+                    x = torch.as_tensor(rng.randn(n_in), dtype=dt,
+                                        device=dev)
+
+                    def kern(vals=vals, x=x, n_out=n_out):
+                        return dia_spmv.dia_spmv(vals, offs, x, n_out)
+
+                    def plain(vals=vals, x=x, n_out=n_out):
+                        return dia_spmv.dia_spmv_reference(vals, offs, x,
+                                                           n_out)
+
+                    err = compare(torch, [kern()], [plain()], name,
+                                  f"H-DIA (K5) {problem} shard {rank} {side}")
+                    rec = dict(kernel="H-DIA (K5)", problem=problem,
+                               ranks=MESH_RANKS, rank=rank, side=side,
+                               dtype=name, shape=[n_out, n_in],
+                               ndiag=int(offs_h.size),
+                               offsets=offs_h.tolist(),
+                               offsets_outside=outside, max_abs_err=err)
+                    if timed and dt == torch.float32:
+                        rec.update(timings(torch, kern, plain, 200))
+                        lib = sparse_tensor(torch, host, dt, dev)
+                        rec["library_ms"] = cuda_ms(
+                            torch, lambda lib=lib, x=x: torch.mv(lib, x), 200)
+                        nbytes = 4 * (vals.numel() + offs.numel() + x_needed
+                                      + n_out)
+                        rec["bound_ms"], rec["bound_by"] = bound(
+                            nbytes, 2 * vals.numel())
+                        for k in agg:
+                            agg[k].append(rec[k])
+                        table["H-DIA (K5)"]["bound_by"] = rec["bound_by"]
+                    table["H-DIA (K5)"]["max_abs_err"] = max(
+                        table["H-DIA (K5)"]["max_abs_err"], err)
+                    emit("kernels", **rec)
+    if not outside_small:
+        raise AssertionError("no shard window offset fell outside its range")
+    # the summary line: the mean per call over Potts-300's forward and
+    # window calls (the mesh solve makes one of each per iteration)
+    table["H-DIA (K5)"].update({k: float(np.mean(v)) for k, v in agg.items()})
+
+
+def vector_allreduces(calls):
+    """The n-vector all-reduces in a mesh's ``calls`` counter: the sums of
+    the largest size (the packed checkpoint scalars are at most 4)."""
+    n = max(numel for (_op, numel) in calls)
+    return sum(v for (op, numel), v in calls.items()
+               if op == "sum" and numel == n)
+
+
+def phase_mesh1(torch, lp, want, counted_solve):
+    """``main_path_mesh1``: Potts-300, float32, 2,000 ``light_metrics``
+    iterations with a checkpoint every 1,000, on one device and then with
+    ``mesh=`` a one-rank NCCL group on the card (in this process), as
+    ``bench.py::measure_sharded_overhead`` compares them.  The mesh solve's
+    checkpoints are held against the port's float64 CPU run (``want``),
+    its H-DIA launches and its all-reduces against what the row-sharded
+    iteration predicts.  Returns the mesh solve's launch counts."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pysparselp_tpu_torch.parallel import sharded_cp
+    from pysparselp_tpu_torch.parallel.mesh import default_mesh
+
+    run = dict(method="chambolle_pock_ppd", nb_iter=2000, nb_iter_plot=1000,
+               light_metrics=True, dtype=np.float32, device="cuda")
+    with tempfile.TemporaryDirectory(prefix="pslp_mesh1_") as tmp:
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
+            world_size=1, rank=0)
+        try:
+            mesh = default_mesh("cuda")
+            wall_1, n_1 = counted_solve(lp, **run)
+            its_1 = steady_rate(lp)
+            mesh.calls.clear()
+            wall_m, n_m = counted_solve(lp, mesh=mesh, **run)
+            its_m = steady_rate(lp)
+            calls = dict(mesh.calls)
+        finally:
+            dist.destroy_process_group()
+    got = curves(lp)
+    info = dict(sharded_cp.last_run_info)
+    if lp.itrn_curve != [1000, 2000]:
+        raise AssertionError(f"mesh1 checkpoints {lp.itrn_curve}")
+    worst = checkpoint_diffs(got, want)
+    # per iteration one rmatvec (the window) and one matvec per shard, and
+    # four products at each checkpoint; one n-vector all-reduce per
+    # iteration and one per checkpoint, whose scalars are packed into one
+    # sum and one max
+    predicted = {"H-DIA": 2 * 2000 + 4 * 2,
+                 "vector_allreduces": 2000 + 2,
+                 "scalar_allreduces": 2 * 2}
+    n_vec = vector_allreduces(calls)
+    counted = {"H-DIA": n_m["H-DIA"], "vector_allreduces": n_vec,
+               "scalar_allreduces": sum(calls.values()) - n_vec}
+    emit("main_path_mesh1", n=lp.nb_variables,
+         regime=info["regime"], backend="nccl", ranks=1,
+         single_iters_per_s_steady=its_1, mesh1_iters_per_s_steady=its_m,
+         overhead_frac=1.0 - its_m / its_1, single_wall_s=wall_1,
+         mesh1_wall_s=wall_m, presolve_s=info["presolve_s"],
+         build_s=info["build_s"], single_launches=n_1, launches=n_m,
+         allreduces={f"{op}[{numel}]": v for (op, numel), v in calls.items()},
+         counted=counted, predicted=predicted,
+         per_iteration={"H-DIA": n_m["H-DIA"] / 2000,
+                        "vector_allreduces": counted["vector_allreduces"]
+                        / 2000},
+         itrn=list(lp.itrn_curve), f32_mesh1=got, f64_cpu=want,
+         worst_rel_diff=worst, rel_limit=MAIN_RTOL)
+    if info["regime"] != "row-sharded-dia":
+        raise AssertionError(f"mesh1 ran {info['regime']}")
+    if not all(v <= MAIN_RTOL for v in worst.values()):
+        raise AssertionError(f"Potts-300 mesh1 f32 vs f64 CPU: {worst}")
+    if counted != predicted:
+        raise AssertionError(f"mesh1 counted {counted}, predicted {predicted}")
+    return n_m
+
+
+MESH4_RUN = dict(method="chambolle_pock_ppd", nb_iter=200, nb_iter_plot=100,
+                 dtype="float32", device="cuda")
+MESH4_CASES = {"potts300": dict(permute="align"),
+               "unstructured": dict(permute=False)}
+
+
+def mesh4_lp(name):
+    if name == "potts300":
+        from pysparselp_tpu_torch.examples.potts import build_linear_program
+
+        return build_linear_program(300, 0.5, 500)[0]
+    return unstructured_lp()
+
+
+def mesh4_rank(mesh, names):
+    """One rank of ``main_path_mesh4``: each named LP built here, then
+    ``lp.solve(mesh=mesh)``; returns, from rank 0, the checkpoints, the
+    steady rate, what the solve ran, its launches and all-reduces, and
+    every rank's host seconds (gathered with one psum)."""
+    import numpy as np
+    import torch
+
+    from pysparselp_tpu_torch.ops import csr_spmv, dia_spmv
+    from pysparselp_tpu_torch.parallel import sharded_cp
+
+    torch.set_num_threads(2)
+    out = {}
+    for name in names:
+        t0 = time.perf_counter()
+        lp = mesh4_lp(name)
+        model_s = time.perf_counter() - t0
+        for fn in (dia_spmv.dia_spmv, csr_spmv.csr_spmv):
+            fn.launches = 0
+        mesh.calls.clear()
+        t0 = time.perf_counter()
+        lp.solve(mesh=mesh, **MESH4_RUN, **MESH4_CASES[name])
+        wall = time.perf_counter() - t0
+        info = dict(sharded_cp.last_run_info)
+        calls = dict(mesh.calls)
+        mine = torch.zeros((mesh.size, 4), dtype=torch.float64,
+                           device=mesh.device)
+        mine[mesh.rank] = torch.tensor(
+            [model_s, info["presolve_s"], info["build_s"], wall],
+            dtype=torch.float64)
+        per_rank = mesh.psum(mine).cpu().numpy()
+        out[name] = dict(
+            curves=curves(lp), itrn=list(lp.itrn_curve),
+            iters_per_s_steady=steady_rate(lp), info=info,
+            launches={"H-DIA": dia_spmv.dia_spmv.launches,
+                      "H-CSR": csr_spmv.csr_spmv.launches},
+            allreduces={f"{op}[{numel}]": v
+                        for (op, numel), v in calls.items()},
+            vector_allreduces=vector_allreduces(calls),
+            host_s_per_rank={k: per_rank[:, i].tolist() for i, k in
+                             enumerate(("model", "presolve", "build",
+                                        "solve_wall"))})
+    return out
+
+
+def phase_mesh4(torch):
+    """``main_path_mesh4``: MESH_RANKS gloo ranks on the one card (CUDA
+    tensors, all-reduces staged through the host by gloo), each solving
+    Potts-300 (``permute="align"``: the per-shard DIA layout, so K5's
+    function with nonzero shard offsets) and the unstructured LP
+    (``permute=False``: the general layout, H-CSR per shard), 200
+    iterations in float32; each run's checkpoints held against the same
+    solve on one device within MAIN_RTOL.  Returns the Potts-300 run's
+    launch counts (per rank)."""
+    from pysparselp_tpu_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(mesh4_rank, MESH_RANKS, "gloo", "cuda", list(MESH4_CASES))
+    spawn_s = time.perf_counter() - t0
+    want_regime = {"potts300": ("row-sharded-dia", "H-DIA"),
+                   "unstructured": ("row-sharded-csr", "H-CSR")}
+    for name, got in ranks.items():
+        lp = mesh4_lp(name)
+        lp.solve(**MESH4_RUN, **MESH4_CASES[name])
+        want = curves(lp)
+        if got["itrn"] != list(lp.itrn_curve):
+            raise AssertionError(f"mesh4 {name}: checkpoints {got['itrn']} "
+                                 f"vs {lp.itrn_curve}")
+        worst = checkpoint_diffs(got["curves"], want)
+        regime, kernel = want_regime[name]
+        per_op = 2 * 200 + 4 * 2
+        emit("main_path_mesh4", problem=name, ranks=MESH_RANKS,
+             backend="gloo", device="cuda (one card, every rank)",
+             note="all-reduces go through host memory (gloo's staging of "
+                  "CUDA tensors): a transport-bound rate, not a multi-GPU "
+                  "figure",
+             regime=got["info"]["regime"], rows_loc=got["info"]["rows_loc"],
+             host_s_per_rank=got["host_s_per_rank"], spawn_wall_s=spawn_s,
+             iters_per_s_steady=got["iters_per_s_steady"],
+             single_device_iters_per_s_steady=steady_rate(lp),
+             launches_rank0=got["launches"], launches_predicted={
+                 kernel: per_op},
+             allreduces_rank0=got["allreduces"],
+             vector_allreduces_per_iteration=got["vector_allreduces"] / 200,
+             itrn=got["itrn"], f32_mesh4=got["curves"],
+             f32_single_device=want, worst_rel_diff=worst,
+             rel_limit=MAIN_RTOL)
+        if got["info"]["regime"] != regime:
+            raise AssertionError(f"mesh4 {name} ran {got['info']['regime']}")
+        if not all(v <= MAIN_RTOL for v in worst.values()):
+            raise AssertionError(f"mesh4 {name} vs one device: {worst}")
+        if got["launches"][kernel] != per_op:
+            raise AssertionError(f"mesh4 {name}: {kernel} launched "
+                                 f"{got['launches'][kernel]}, predicted "
+                                 f"{per_op}")
+        if got["vector_allreduces"] != 200 + 2:
+            raise AssertionError(f"mesh4 {name}: "
+                                 f"{got['vector_allreduces']} n-vector "
+                                 "all-reduces, predicted 202")
+    return ranks["potts300"]["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -973,6 +1327,7 @@ def main() -> int:
                                    for k, lp in workloads.items()}), table)
     from pysparselp_tpu_torch.problem import apply_rcm_permutation
     phase_bsr(torch, apply_rcm_permutation(folded(clime))[0]["a_ineq"], table)
+    phase_k5(torch, problems["potts300"], table)
 
     # phase 3: the main path on Potts-300
     lp300 = build_linear_program(300, 0.5, 500)[0]
@@ -997,6 +1352,11 @@ def main() -> int:
         raise AssertionError(f"Potts-300 f32 CUDA vs f64 CPU: {worst}")
     for key in ("H-DIA", "H-CPDIA"):
         table[key]["launches"] = n300[key]
+
+    # phase 3b: the mesh solve, one NCCL rank, then four gloo ranks
+    table["H-DIA (K5)"]["launches"] = phase_mesh1(torch, lp300, want,
+                                                  counted_solve)["H-DIA"]
+    phase_mesh4(torch)
 
     # phase 4: bench.py's non-grid workloads at its sizes
     for name, lp in workloads.items():

@@ -1,4 +1,4 @@
-# Verbatim copy of pysparselp_tpu/config.py (tests/test_torch_slice.py holds the two equal).
+# Verbatim copy of pysparselp_tpu/config.py (tests/test_torch_slice.py holds the two equal); in the port `mesh` takes a pysparselp_tpu_torch.parallel.mesh.Mesh.
 """Typed per-solver configuration (SURVEY §5 "config system").
 
 The reference configures everything through loose keyword arguments on

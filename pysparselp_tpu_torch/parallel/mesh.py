@@ -1,0 +1,186 @@
+"""A 1-D device mesh over a ``torch.distributed`` process group (mirrors
+``pysparselp_tpu/parallel/mesh.py``).
+
+The JAX package's mesh is a ``jax.sharding.Mesh`` over the devices of one
+process, and ``shard_map`` runs one program body per device.  Here each rank
+is a process that holds one shard: :class:`Mesh` names the group, this
+rank's place in it and its device, and supplies the two collectives the
+row-sharded solver uses, :meth:`Mesh.psum` and :meth:`Mesh.pmax`
+(``dist.all_reduce`` with SUM and MAX).
+
+The backend is always the caller's choice; nothing here switches one for
+another.  NCCL takes one GPU per rank.  Several ranks on one GPU need
+``backend="gloo"``, which reduces CUDA tensors through host memory.  Every
+collective reduces a contiguous 1-D view of a copy of its input, so a 0-d
+tensor travels as one element on either backend and no backend needs its
+own staging (gloo's SUM and MAX of 0-d and 1-D CUDA tensors are tested on
+the card: ``tests/test_torch_sharded.py``).
+
+:func:`spawn` starts one process per rank (the tests, ``chip_smoke.py``).
+The JAX package's ``pad_gather_width`` serves its sharded ADMM and IPM
+layouts, which are not ported yet (ROADMAP.md, Queue 1, M9).
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import queue as _queue
+import tempfile
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from ..problem import resolve_device
+
+# after a rank fails, how long spawn waits for the other ranks' reports
+FAILURE_GRACE_S = 5.0
+
+
+class Mesh:
+    """One rank's view of a 1-D mesh over ``group`` (``None``: the default
+    group), computing on ``device``.
+
+    ``calls`` counts the all-reduces this rank issued, keyed by
+    ``(op, numel)`` (``("sum", n)`` is the iteration's n-vector psum)."""
+
+    def __init__(self, device="cuda", group=None, axis_name="rows"):
+        if not dist.is_initialized():
+            raise RuntimeError("Mesh needs an initialized torch.distributed "
+                               "process group (dist.init_process_group)")
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+        self.backend = str(dist.get_backend(group))
+        self.axis_name = axis_name
+        self.calls = collections.Counter()
+
+    def __repr__(self):
+        return (f"Mesh(rank={self.rank}, size={self.size}, "
+                f"backend={self.backend!r}, device={self.device})")
+
+    def _all_reduce(self, t, op, name):
+        out = t.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out.view(-1), op=op, group=self.group)
+        self.calls[(name, out.numel())] += 1
+        return out
+
+    def psum(self, t):
+        """The sum of ``t`` over the ranks (a new tensor)."""
+        return self._all_reduce(t, dist.ReduceOp.SUM, "sum")
+
+    def pmax(self, t):
+        """The elementwise maximum of ``t`` over the ranks (a new tensor)."""
+        return self._all_reduce(t, dist.ReduceOp.MAX, "max")
+
+
+def default_mesh(device="cuda", group=None, axis_name="rows") -> Mesh:
+    """A :class:`Mesh` over the initialized default group (or ``group``).
+    Raises when no group is initialized, or when ``device`` is CUDA and
+    this machine has none: it never moves to the CPU by itself."""
+    return Mesh(device=device, group=group, axis_name=axis_name)
+
+
+def check_mesh(mesh) -> Mesh:
+    """``mesh`` if it is a :class:`Mesh`, else a ``TypeError``."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh={mesh!r}: expected a pysparselp_tpu_torch.parallel.mesh."
+            "Mesh (see default_mesh and spawn), not "
+            f"{type(mesh).__module__}.{type(mesh).__qualname__}")
+    return mesh
+
+
+def _run_rank(fn, rank, world_size, backend, device, init_method, results,
+              args):
+    """One rank: join the group, run ``fn(mesh, *args)``, report, leave.
+    The report goes out before the group is left, so a failing rank's
+    traceback is queued before the errors its departure raises on the
+    others."""
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            resolve_device(dev)
+            if dev.index is None:
+                dev = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method=init_method,
+                                world_size=world_size, rank=rank)
+        out = fn(Mesh(device=dev), *args)
+        report = (rank, True, out if rank == 0 else None)
+    except Exception:  # noqa: BLE001 - reported to the parent
+        report = (rank, False, traceback.format_exc())
+    results.put(report)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def spawn(fn, world_size, backend, device, *args, timeout=1800.0):
+    """Run ``fn(mesh, *args)`` on ``world_size`` new processes and return
+    rank 0's result.
+
+    Processes start with the ``spawn`` method and meet through a
+    ``file://`` rendezvous in a fresh temporary directory (no TCP port, so
+    concurrent callers never collide).  ``backend`` is passed to
+    ``dist.init_process_group`` as given.  ``device="cuda"`` puts rank
+    ``r`` on GPU ``r % torch.cuda.device_count()``.  ``fn`` and ``args``
+    must pickle, and ``fn`` must live in a module that does not import
+    jax.  When a rank raises, the others have ``FAILURE_GRACE_S`` seconds
+    to report (a rank's failure makes its peers' collectives fail too),
+    then they are stopped and a ``RuntimeError`` carries every reported
+    traceback, the first one first."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="pslp_mesh_") as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_run_rank, daemon=True,
+                             args=(fn, rank, world_size, backend, str(device),
+                                   init, results, args))
+                 for rank in range(world_size)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        grace = None        # set at the first failure: the others' reports
+        out, done, failed = None, set(), {}
+        try:
+            while len(done) < world_size:
+                if time.monotonic() > (deadline if grace is None else grace):
+                    break
+                try:
+                    rank, ok, value = results.get(timeout=0.2)
+                except _queue.Empty:
+                    for r, p in enumerate(procs):
+                        if r not in done and p.exitcode not in (None, 0):
+                            done.add(r)
+                            failed[r] = (f"rank {r} exited with code "
+                                         f"{p.exitcode} and no result")
+                else:
+                    done.add(rank)
+                    if not ok:
+                        failed[rank] = f"rank {rank} raised:\n{value}"
+                    elif rank == 0:
+                        out = value
+                if failed and grace is None:
+                    grace = time.monotonic() + FAILURE_GRACE_S
+            if len(done) < world_size and not failed:
+                failed[None] = f"no result within {timeout:.0f} s"
+        finally:
+            for p in procs:
+                if failed and p.is_alive():
+                    p.terminate()
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        if failed:
+            raise RuntimeError(f"spawn({getattr(fn, '__name__', fn)}, "
+                               f"world_size={world_size}, backend={backend!r}"
+                               "): " + "\n".join(failed.values()))
+    return out

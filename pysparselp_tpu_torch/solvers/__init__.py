@@ -1,10 +1,12 @@
 """Solver dispatch (mirrors ``pysparselp_tpu/solvers/__init__.py``).
 
-Only ``chambolle_pock_ppd`` is ported so far.  ``dispatch`` performs the
-same host-side conversions as the JAX package's — remove fixed variables,
-map warm starts into the reduced space, map every solution back with
-``x_original = m_change @ x_new + shift`` — and every other method raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+Only ``chambolle_pock_ppd`` is ported so far, on one device or, with
+``mesh=`` (a :class:`~pysparselp_tpu_torch.parallel.mesh.Mesh`), row-sharded
+over a ``torch.distributed`` group (``parallel.sharded_cp``).  ``dispatch``
+performs the same host-side conversions as the JAX package's — remove fixed
+variables, map warm starts into the reduced space, map every solution back
+with ``x_original = m_change @ x_new + shift`` — and every other method
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import copy
 
 import numpy as np
+import torch
 
 from .base import mirror_callback_attrs, to_np
 
@@ -88,10 +91,18 @@ def dispatch(
             for k, v in solver_kwargs.items()
             if not _same_option(v, getattr(defaults, k))
         }
-    if solver_kwargs.pop("mesh", None) is not None:
-        raise NotImplementedError(
-            "mesh= (multi-device CP) is not ported yet; see ROADMAP.md "
-            "Queue 1, M9")
+    mesh = solver_kwargs.pop("mesh", None)
+    if mesh is not None:
+        from ..parallel.mesh import check_mesh
+
+        check_mesh(mesh)
+        want = torch.device(device)
+        if want.type != mesh.device.type or (
+                want.index is not None and want != mesh.device):
+            raise ValueError(
+                f"device={device!r} disagrees with mesh.device="
+                f"{mesh.device}; the mesh decides the device, pass "
+                f"device={str(mesh.device)!r} or leave them equal")
 
     # method == "chambolle_pock_ppd"
     from .chambolle_pock import chambolle_pock_ppd
@@ -131,6 +142,27 @@ def dispatch(
 
     a_ineq_r = _csr(lp_reduced.a_inequalities)
     a_eq_r = _csr(lp_reduced.a_equalities)
+    if mesh is not None:
+        # multi-device path: row-shard the constraint systems over the mesh
+        from ..parallel.sharded_cp import chambolle_pock_ppd_sharded
+
+        x = chambolle_pock_ppd_sharded(
+            lp_reduced.costsvector, a_eq_r,
+            lp_reduced.b_equalities if a_eq_r is not None else None,
+            a_ineq_r,
+            lp_reduced.b_lower if a_ineq_r is not None else None,
+            lp_reduced.b_upper if a_ineq_r is not None else None,
+            lp_reduced.lower_bounds, lp_reduced.upper_bounds, mesh,
+            nb_max_iter=nb_iter, nb_iter_plot=nb_iter_plot,
+            callback_func=back, max_time=max_time, x0=x0_r,
+            start_time=start_time, force_integer=force_integer, dtype=dtype,
+            **solver_kwargs,
+        )
+        if force_integer:
+            x, _best = x
+            if _best is not None:
+                x = _best
+        return m_change @ x + shift
     x, _best = chambolle_pock_ppd(
         lp_reduced.costsvector,
         a_eq_r,

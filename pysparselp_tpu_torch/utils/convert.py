@@ -15,6 +15,8 @@ block, and the gather layouts (``EllMatrix``, ``SegmentedEllMatrix``,
 :func:`state_from_numpy` carries the ``(x, x3, y_eq, y_ineq)`` state and the
 restart controller's ``rstate``; :func:`state_to_numpy` goes back.  Together
 they let both packages run on the same lowered problem.
+:func:`sharded_from_jax` carries one rank's shard of the JAX row-sharded
+solver's data and state (its per-shard DIA layout) to the port's.
 """
 
 from __future__ import annotations
@@ -150,3 +152,49 @@ def state_to_numpy(tree):
     if isinstance(tree, (tuple, list)):
         return tuple(state_to_numpy(v) for v in tree)
     return tree.detach().to(device="cpu", dtype=torch.float64).numpy()
+
+
+def sharded_from_jax(data, state, ndev, rank, dtype=None, device="cpu"):
+    """Rank ``rank`` of an ``ndev``-rank mesh: the port's ``(data, state)``
+    (as ``parallel.sharded_cp.build_sharded_cp_data`` returns them) for
+    the JAX package's ``build_sharded_cp_data(..., operator="dia")`` data
+    and its (possibly advanced) state, both read as numpy arrays with the
+    JAX mesh axis first.
+
+    The JAX shard height is rounded up to 128 rows and its values padded
+    to the TPU kernel's layout; the port's shard height is ``ceil(m /
+    ndev)``.  So each system's padding is stripped, its shards joined and
+    its rows split again, and so are its ``sigma`` and the sharded duals
+    ``y_eq``/``y_ineq``: a JAX sharded state resumes in the port."""
+    from ..parallel.sharded_cp import local_rows, place_shard
+    from ..parallel.sharded_dia import shard_planes
+
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype, dev)
+    n = np.asarray(data["c"]).size
+    systems, ys = {}, {}
+    for name in ("eq", "ineq"):
+        if name not in data:
+            continue
+        sys_j = data[name]
+        if "dia_vals" not in sys_j:
+            raise TypeError("sharded_from_jax carries the per-shard DIA "
+                            "layout (operator='dia') only")
+        m = int(data[name + "_m"])
+        ndev_j, rows_j = np.asarray(sys_j["b"]).shape
+        offs_j = np.asarray(sys_j["dia_offs"], np.int64)
+        ndiag = offs_j.shape[1]
+        vals = np.concatenate(
+            [_np(sys_j["dia_vals"][d])[:ndiag, :rows_j]
+             for d in range(ndev_j)], axis=1)[:, :m]
+        # shard 0 starts at row 0, so its offsets are the global ones
+        sys_, rows_loc, m_pad = shard_planes(
+            offs_j[0], vals, _np(sys_j["b"]).reshape(-1)[:m], n, ndev, rank)
+        sys_ = dict(sys_, m=m, m_pad=m_pad, rows_loc=rows_loc)
+        systems[name] = dict(sys_, sigma=local_rows(
+            _np(sys_j["sigma"]).reshape(-1)[:m], sys_, rank))
+        ys[name] = local_rows(_np(state["y_" + name]).reshape(-1)[:m], sys_,
+                              rank)
+    return place_shard(data["c"], data["lb"], data["ub"], data["diag_t"],
+                       data["theta"], systems, _np(state["x"]),
+                       _np(state["x3"]), ys, dt, dev)

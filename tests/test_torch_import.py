@@ -27,9 +27,12 @@ def test_import_leaves_jax_out():
             "pysparselp_tpu_torch.ops.bsr_spmv, "
             "pysparselp_tpu_torch.examples.l1_svm, "
             "pysparselp_tpu_torch.examples.kmedians, "
-            "pysparselp_tpu_torch.examples.sparse_inv_covariance, chip_smoke; "
+            "pysparselp_tpu_torch.examples.sparse_inv_covariance, "
+            "pysparselp_tpu_torch.parallel.mesh, "
+            "pysparselp_tpu_torch.parallel.sharded_dia, "
+            "pysparselp_tpu_torch.parallel.sharded_cp, chip_smoke; "
             "sys.path.insert(0, 'scripts'); import probe_csr_spmv, "
-            "probe_bsr_spmv, profile_port, time_presolve; "
+            "probe_bsr_spmv, profile_port, profile_mesh, time_presolve; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('pysparselp_tpu.') or "
             "m == 'pysparselp_tpu' for m in sys.modules), 'JAX package'")
@@ -48,6 +51,7 @@ def test_no_port_file_imports_jax():
     for script in ("chip_smoke.py", os.path.join("scripts", "profile_port.py"),
                    os.path.join("scripts", "probe_csr_spmv.py"),
                    os.path.join("scripts", "probe_bsr_spmv.py"),
+                   os.path.join("scripts", "profile_mesh.py"),
                    os.path.join("scripts", "time_presolve.py")):
         with open(os.path.join(REPO, script)) as f:
             text = f.read()
@@ -93,7 +97,10 @@ def test_unported_methods_name_their_roadmap_item(method):
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object())])
 def test_unported_options_name_their_roadmap_item(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """``mesh=`` is ported: anything but the port's ``Mesh`` is refused
+    with a ``TypeError`` that names the class to pass."""
+    with pytest.raises(TypeError,
+                       match=r"pysparselp_tpu_torch\.parallel\.mesh\.Mesh"):
         _tiny_lp().solve(method="chambolle_pock_ppd", nb_iter=10,
                          device="cpu", **kwargs)
 
