@@ -10,11 +10,16 @@ nonzero):
    to build the kernels from ``pysparselp_tpu_torch/csrc`` with nvcc;
 2. every hand-written kernel against its plain PyTorch twin on the card, at
    the main path's shapes (Potts-300, multi-label Potts 64x64 K=4, netlib
-   SC105; for H-CSR the transport, unstructured and k-medians systems of
-   ``bench.py``; for H-BSR the RCM-permuted CLIME system at p = 150),
-   float32 and float64, with times, each kernel's bound and the time of the
-   one PyTorch call that computes the same function, where there is one
-   (for H-BSR also H-CSR's time on the same matrix);
+   SC105 and a dense system past shared memory; for H-CSR the transport,
+   unstructured and k-medians systems of ``bench.py``, a row of 100,000
+   entries and a system without entries; for H-BSR the RCM-permuted CLIME
+   system at p = 150), float32 and float64, with times, each kernel's
+   bound and the time of the one PyTorch call that computes the same
+   function, where there is one (for H-BSR also H-CSR's time on the same
+   matrix).  The SpMV kernels and H-CPDENSE are timed as the main path
+   calls them (the operators' prepared entry points) by CUDA events,
+   profiler device time, host time per call and kernels per call
+   (:func:`call_times`);
 3. the main path, ``SparseLP.solve(method="chambolle_pock_ppd")`` on the
    Potts-300 segmentation LP in float32, held checkpoint by checkpoint
    against the port's own float64 CPU run;
@@ -37,7 +42,9 @@ nonzero):
    rate with its H-BSR launches, beside the steady rate of the same solve
    with ``permute=False`` (unpermuted, lowered to CSR);
 6. convergence: Potts-50 to the graph-cut optimum and SC105 to the perPlex
-   optimum with restart-to-average.
+   optimum with restart-to-average (then SC105 once more under the
+   profiler: H-CPDENSE's device time per iteration and the seconds
+   between its chunk launches).
 
 The mesh solve (``lp.solve(mesh=...)``, ``parallel/sharded_cp.py``) adds:
 
@@ -90,6 +97,7 @@ NONGRID_RTOL = 1e-5
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+H100_SMS = 132
 # each hand-written kernel: its source, the TPU kernels it replaces (K1-K8
 # of PERF.md's table, every one of them ported) and the main-path solve
 # whose launches the summary line reports.  "H-DIA (K5)" is H-DIA on the
@@ -149,6 +157,66 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def call_times(torch, fn, reps=200, host_reps=1000):
+    """Per call of ``fn()``, in microseconds: ``events_us`` (CUDA events
+    over ``reps`` back-to-back calls, as :func:`cuda_ms`), ``device_us``
+    (the profiler's device time of the calls' kernels over ``reps`` calls)
+    with ``kernels_per_call`` and their ``kernel_names``, and ``host_us``
+    (``time.perf_counter`` over ``host_reps`` calls, one synchronize after
+    the loop and outside the time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    events_us = cuda_ms(torch, fn, reps) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(host_reps):
+        fn()
+    host_us = (time.perf_counter() - t0) / host_reps * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the profiler may drop an event of a long run: per call is the mean
+    # event times the events per call
+    per_call = max(round(len(dev) / reps), 1)
+    device_us = (sum(e.time_range.elapsed_us() for e in dev) / len(dev)
+                 * per_call if dev else 0.0)
+    return dict(events_us=events_us, host_us=host_us, device_us=device_us,
+                kernels_per_call=len(dev) / reps,
+                kernel_names=sorted({e.name for e in dev}))
+
+
+def chunk_profile(torch, lp, kernel, run):
+    """One more ``lp.solve(**run)`` under ``torch.profiler``: the device
+    time of the chunk kernel (name containing ``kernel``) per iteration,
+    its launches, the wall time, and the seconds between one chunk launch's
+    end and the next one's start on the device (the restart controller's
+    host and device work between chunks), in total and per gap."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lp.solve(**run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and kernel in e.name)
+    device_s = sum(end - start for start, end in spans) * 1e-6
+    gaps = [b[0] - a[1] for a, b in zip(spans, spans[1:])]
+    iters = lp.itrn_curve[-1]
+    return dict(wall_s=wall, chunk_launches=len(spans),
+                chunk_device_s=device_s,
+                device_us_per_iteration=device_s / iters * 1e6,
+                between_chunks_s=sum(gaps) * 1e-6,
+                between_chunks_us=gaps)
+
+
 def bound(nbytes, ops):
     """``(bound_ms, bound_by)``: the larger of the bytes over the HBM rate
     and the operations over the float32 rate."""
@@ -194,18 +262,24 @@ def lowered(lp, dtype, device):
     """The problem and preconditioners the solver lowers ``lp`` to on
     ``device`` (fixed variables removed, inequalities folded, the automatic
     layout presolve applied)."""
-    import numpy as np
-    import torch
-
-    from pysparselp_tpu_torch.problem import (LPProblem, apply_align_embedding,
-                                              lower_systems)
-    from pysparselp_tpu_torch.solvers.chambolle_pock import (
-        _auto_layout, host_preconditioners)
+    from pysparselp_tpu_torch.problem import apply_align_embedding
+    from pysparselp_tpu_torch.solvers.chambolle_pock import _auto_layout
 
     sys_ = folded(lp)
     plan = _auto_layout([sys_["a_eq"], sys_["a_ineq"]])
     if plan is not None:
         sys_ = apply_align_embedding(plan, sys_)[0]
+    return lowered_system(sys_, dtype, device)
+
+
+def lowered_system(sys_, dtype, device):
+    """:func:`lowered` for a host system (:func:`folded`'s keys)."""
+    import numpy as np
+    import torch
+
+    from pysparselp_tpu_torch.problem import LPProblem, lower_systems
+    from pysparselp_tpu_torch.solvers.chambolle_pock import (
+        host_preconditioners)
 
     def vec(v):
         return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
@@ -226,6 +300,23 @@ def lowered(lp, dtype, device):
     if s_in is not None:
         pre["sigma_ineq"] = vec(s_in)
     return prob, pre
+
+
+def dense_system(me=150, mi=100, n=300, seed=11):
+    """A random dense LP host system (:func:`folded`'s keys) of ``me``
+    equality and ``mi`` inequality rows over ``n`` columns in ``[0, 1]``,
+    feasible at a random point: 2 x 250 x 300 entries, past one block's
+    shared memory for H-CPDENSE's operators, within its 4 MB budget."""
+    import numpy as np
+    import scipy.sparse
+
+    rng = np.random.RandomState(seed)
+    a_eq = scipy.sparse.csr_matrix(rng.randn(me, n) * (rng.rand(me, n) < 0.3))
+    a_in = scipy.sparse.csr_matrix(rng.randn(mi, n) * (rng.rand(mi, n) < 0.3))
+    xf = rng.rand(n)
+    return dict(a_eq=a_eq, beq=a_eq @ xf, a_ineq=a_in,
+                b_ineq=a_in @ xf + 0.5, c=rng.randn(n), lb=np.zeros(n),
+                ub=np.ones(n))
 
 
 def describe(op):
@@ -396,14 +487,22 @@ def timings(torch, kern, plain, reps, per=1):
     return dict(ms=(t[1] + t[2]) / 2 / per, plain_ms=(t[0] + t[3]) / 2 / per)
 
 
+def chunk_ops(prob, planes):
+    """Operations of one CP iteration: each of the operator's ``planes``
+    entries in two multiply-adds (A x and Aᵀ y, two operations each), and
+    about ten per variable and per row for the updates and sums."""
+    return 4 * planes + 10 * (prob.n + prob.m_eq + prob.m_ineq)
+
+
 def chunk_bound(prob, planes):
     """Bound of one CP iteration with running sums (f32): the operator's
     ``planes`` entries, and per iteration c, diag_t, lb, ub, x read and x,
     x3 written, the x sum read and written; b, sigma, y read, y written
-    and the y sum read and written per system."""
+    and the y sum read and written per system; the operations of
+    :func:`chunk_ops`."""
     rows = prob.m_eq + prob.m_ineq
     return bound(4 * (planes + 9 * prob.n + 6 * rows),
-                 2 * planes + 10 * (prob.n + rows))
+                 chunk_ops(prob, planes))
 
 
 def sparse_tensor(torch, a, dtype, device):
@@ -461,12 +560,15 @@ def phase_kernels(torch, problems, table):
         rec = dict(kernel="H-DIA", dtype=name, shape=[op.nrows, op.ncols],
                    ndiag=op.ndiag, max_abs_err=err)
         if dt == torch.float32:
+            # the main path's call: the operator's prepared forward operand
             rec.update(timings(
-                torch, lambda: dia_spmv.dia_spmv(op.vals, op.offs, x, op.nrows),
+                torch, lambda: op.matvec(x),
                 lambda: dia_spmv.dia_spmv_reference(op.vals, op.offs, x,
                                                     op.nrows), 200))
             lib = sparse_tensor(torch, dia_scipy(op), dt, dev)
             rec["library_ms"] = cuda_ms(torch, lambda: torch.mv(lib, x), 200)
+            rec["kernel_us"] = call_times(torch, lambda: op.matvec(x))
+            rec["library_us"] = call_times(torch, lambda: torch.mv(lib, x))
             nbytes = 4 * (op.vals.numel() + op.ndiag + op.ncols + op.nrows)
             rec["bound_ms"], rec["bound_by"] = bound(nbytes,
                                                      2 * op.vals.numel())
@@ -512,38 +614,54 @@ def phase_kernels(torch, problems, table):
                 table["H-CPDIA"]["max_abs_err"], err)
             emit("kernels", **rec)
 
-        # H-CPDENSE: SC105, 1000 iterations with sums
-        prob, pre = lowered(problems["sc105"], dt, dev)
-        if not cp_dense.cp_dense_eligible(prob):
-            raise AssertionError("SC105 did not lower to dense operators")
-        x0 = torch.zeros(prob.n, dtype=dt, device=dev)
-        ye0 = torch.zeros(prob.m_eq, dtype=dt, device=dev)
-        yi0 = torch.zeros(prob.m_ineq, dtype=dt, device=dev)
+        # H-CPDENSE: SC105 (its chunk in shared memory) and a system whose
+        # operators exceed shared memory (the L2 tier), 1000 iterations
+        # with sums
+        for key in ("sc105", "dense_past_shared"):
+            if key == "sc105":
+                prob, pre = lowered(problems[key], dt, dev)
+            else:
+                prob, pre = lowered_system(dense_system(), dt, dev)
+            if not cp_dense.cp_dense_eligible(prob):
+                raise AssertionError(f"{key} did not lower to dense operators")
+            x0 = torch.zeros(prob.n, dtype=dt, device=dev)
+            ye0 = torch.zeros(prob.m_eq, dtype=dt, device=dev)
+            yi0 = torch.zeros(prob.m_ineq, dtype=dt, device=dev)
 
-        def kern_d(prob=prob, pre=pre):
-            return cp_dense.cp_dense_chunk(prob, pre, x0, ye0, yi0, 1000, 1.0,
-                                           with_sums=True)
+            def kern_d(prob=prob, pre=pre):
+                return cp_dense.cp_dense_chunk(prob, pre, x0, ye0, yi0, 1000,
+                                               1.0, with_sums=True)
 
-        def plain_d(prob=prob, pre=pre):
-            return cp_dense.cp_dense_chunk_reference(prob, pre, x0, ye0, yi0,
-                                                     1000, 1.0, with_sums=True)
+            def plain_d(prob=prob, pre=pre):
+                return cp_dense.cp_dense_chunk_reference(
+                    prob, pre, x0, ye0, yi0, 1000, 1.0, with_sums=True)
 
-        err = compare(torch, kern_d(), plain_d(), name, "H-CPDENSE sc105")
-        rec = dict(kernel="H-CPDENSE", problem="sc105", dtype=name,
-                   n=prob.n, m_eq=prob.m_eq, m_ineq=prob.m_ineq, nsteps=1000,
-                   max_abs_err=err)
-        if dt == torch.float32:
-            rec.update(timings(torch, kern_d, plain_d, 3, per=1000))
-            # each dense system read once per iteration (twice in the
-            # products, once by the bound's count)
-            planes = sum(o.a.numel() for o in (prob.a_eq, prob.a_ineq)
-                         if o is not None)
-            rec["bound_ms"], rec["bound_by"] = chunk_bound(prob, planes)
-            table["H-CPDENSE"].update({k: rec[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by")})
-        table["H-CPDENSE"]["max_abs_err"] = max(
-            table["H-CPDENSE"]["max_abs_err"], err)
-        emit("kernels", **rec)
+            err = compare(torch, kern_d(), plain_d(), name,
+                          f"H-CPDENSE {key}")
+            lay = cp_dense.dense_layout(prob.n, prob.m_eq, prob.m_ineq,
+                                        x0.element_size())
+            rec = dict(kernel="H-CPDENSE", problem=key, dtype=name,
+                       n=prob.n, m_eq=prob.m_eq, m_ineq=prob.m_ineq,
+                       nsteps=1000, layout=lay, max_abs_err=err)
+            if dt == torch.float32:
+                rec.update(timings(torch, kern_d, plain_d, 3, per=1000))
+                rec["kernel_us"] = call_times(torch, kern_d, reps=3,
+                                              host_reps=3)
+                # each dense system read once per iteration (twice in the
+                # products, once by the bound's count)
+                planes = sum(o.a.numel() for o in (prob.a_eq, prob.a_ineq)
+                             if o is not None)
+                rec["bound_ms"], rec["bound_by"] = chunk_bound(prob, planes)
+                # the least time of ONE thread block: the iteration's
+                # operations at one SM's share of the card's f32 rate
+                rec["bound_sm_ms"] = chunk_ops(prob, planes) / (
+                    F32_OPS_PER_S / H100_SMS) * 1e3
+                if key == "sc105":
+                    table["H-CPDENSE"].update({k: rec[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by")})
+            table["H-CPDENSE"]["max_abs_err"] = max(
+                table["H-CPDENSE"]["max_abs_err"], err)
+            emit("kernels", **rec)
 
 
 def csr_matrices(workloads):
@@ -564,10 +682,33 @@ def csr_matrices(workloads):
     return out
 
 
+def csr_extra_matrices():
+    """H-CSR cases held against the twin but not timed: one row of 100,000
+    entries among 2-entry rows (cut into a few hundred chunks) and a
+    system without entries."""
+    import numpy as np
+    import scipy.sparse
+
+    rng = np.random.RandomState(10)
+    m, n = 5000, 200_000
+    rows = np.r_[np.full(100_000, 2500), np.repeat(np.arange(m), 2)]
+    cols = np.r_[rng.choice(n, 100_000, replace=False),
+                 rng.randint(0, n, 2 * m)]
+    long_row = scipy.sparse.csr_matrix(
+        (rng.randn(rows.size), (rows, cols)), shape=(m, n))
+    long_row.sum_duplicates()
+    return {"row_of_100k": long_row,
+            "no_entries": scipy.sparse.csr_matrix((1000, 500))}
+
+
 def phase_csr(torch, matrices, table):
-    """Phase 2 for H-CSR: both orientations of each matrix against the
-    twin, per row within RTOL * (|A| |x|)_row; in float32 the kernel, twin
-    and library call (cuSPARSE through ``torch.mv``) timed."""
+    """Phase 2 for H-CSR: both orientations of each matrix (and of
+    :func:`csr_extra_matrices`) against the twin, per row within RTOL *
+    (|A| |x|)_row, float32 and float64, and a second call giving the same
+    bits; on the main path's matrices in float32 the kernel, the twin and
+    the library call (cuSPARSE through ``torch.mv``) timed by events,
+    device time, host time per call and kernels per call (one for H-CSR,
+    and no copy to the host)."""
     import numpy as np
 
     from pysparselp_tpu_torch.ops import csr_spmv as ops
@@ -577,45 +718,63 @@ def phase_csr(torch, matrices, table):
     dev = torch.device("cuda")
     for dt in (torch.float32, torch.float64):
         name = str(dt).split(".")[1]
-        for key, a in matrices.items():
+        for key, a in {**matrices, **csr_extra_matrices()}.items():
             op = CsrMatrix.from_scipy(a, dt, dev)
-            for side, (ptr, idx, vals, long, n_in, n_out, host) in (
-                    ("A", (op.indptr, op.indices, op.vals, op.long,
-                           op.ncols, op.nrows, a)),
-                    ("At", (op.indptr_t, op.indices_t, op.vals_t, op.long_t,
-                            op.nrows, op.ncols, None))):
-                x = torch.as_tensor(rng.randn(n_in), dtype=dt, device=dev)
+            for side, (operand, host) in (("A", (op.csr, a)),
+                                          ("At", (op.csr_t, None))):
+                x = torch.as_tensor(rng.randn(operand.n_in), dtype=dt,
+                                    device=dev)
 
-                def kern(ptr=ptr, idx=idx, vals=vals, x=x, n_out=n_out,
-                         long=long):
-                    return ops.csr_spmv(ptr, idx, vals, x, n_out, long)
+                def kern(operand=operand, x=x):
+                    return ops.csr_spmv(operand, x)
 
-                def plain(ptr=ptr, idx=idx, vals=vals, x=x, n_out=n_out):
-                    return ops.csr_spmv_reference(ptr, idx, vals, x, n_out)
+                def plain(operand=operand, x=x):
+                    return ops.csr_spmv_reference(
+                        operand.indptr, operand.indices, operand.vals, x,
+                        operand.n_out)
 
                 got, want = kern(), plain()
-                scale = ops.csr_spmv_reference(ptr, idx, vals.abs(), x.abs(),
-                                               n_out)
+                scale = ops.csr_spmv_reference(
+                    operand.indptr, operand.indices, operand.vals.abs(),
+                    x.abs(), operand.n_out)
                 err = (got - want).abs()
                 if not bool((err <= RTOL[name] * scale).all()):
                     raise AssertionError(
                         f"H-CSR {key} {side} ({name}): |kernel - twin| past "
-                        f"{RTOL[name]:.0e} * (|A||x|)_row, max {float(err.max()):.3e}")
-                nnz = vals.numel()
+                        f"{RTOL[name]:.0e} * (|A||x|)_row, max "
+                        f"{float(err.max()):.3e}")
+                if not torch.equal(kern(), got):
+                    raise AssertionError(f"H-CSR {key} {side} ({name}): "
+                                         "two calls differ")
+                nnz = operand.vals.numel()
                 rec = dict(kernel="H-CSR", problem=key, side=side,
-                           dtype=name, shape=[n_out, n_in], nnz=nnz,
-                           width=ops.vector_width(nnz, n_out),
-                           long_rows=int(long.numel()),
-                           max_abs_err=float(err.max()))
-                if dt == torch.float32:
+                           dtype=name, shape=[operand.n_out, operand.n_in],
+                           nnz=nnz, width=operand.plan.width,
+                           blocks=operand.plan.row_blocks
+                           + operand.plan.n_chunks,
+                           long_rows=operand.plan.n_tasks,
+                           max_abs_err=float((got - want).abs().max()))
+                if dt == torch.float32 and key in matrices:
                     rec.update(timings(torch, kern, plain, 50))
                     host = host if host is not None else a.T.tocsr()
                     lib = sparse_tensor(torch, host, dt, dev)
                     rec["library_ms"] = cuda_ms(
                         torch, lambda lib=lib, x=x: torch.mv(lib, x), 50)
-                    nbytes = nnz * 8 + (n_out + 1) * 4 + n_out * 4 + n_in * 4
+                    rec["kernel_us"] = call_times(torch, kern)
+                    rec["library_us"] = call_times(
+                        torch, lambda lib=lib, x=x: torch.mv(lib, x))
+                    nbytes = nnz * 8 + (operand.n_out + 1) * 4 \
+                        + operand.n_out * 4 + operand.n_in * 4
                     rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * nnz)
-                    rec["achieved_tb_s"] = nbytes / (rec["ms"] * 1e-3) / 1e12
+                    rec["achieved_tb_s"] = nbytes / (
+                        rec["kernel_us"]["device_us"] * 1e-6) / 1e12
+                    calls = rec["kernel_us"]
+                    if round(calls["kernels_per_call"]) != 1 or len(
+                            calls["kernel_names"]) != 1 or "Memcpy" in \
+                            calls["kernel_names"][0]:
+                        raise AssertionError(
+                            f"H-CSR {key} {side}: {calls['kernels_per_call']}"
+                            f" device events per call, {calls['kernel_names']}")
                     if (key, side) == ("transport", "A"):
                         table["H-CSR"].update({k: rec[k] for k in (
                             "ms", "plain_ms", "library_ms", "bound_ms",
@@ -660,7 +819,6 @@ def phase_bsr(torch, a, table):
     import numpy as np
 
     from pysparselp_tpu_torch.ops import bsr_spmv as ops
-    from pysparselp_tpu_torch.ops import csr_spmv
     from pysparselp_tpu_torch.problem import BsrMatrix, CsrMatrix
 
     rng = np.random.RandomState(2)
@@ -710,9 +868,8 @@ def phase_bsr(torch, a, table):
                     (torch.mv(lib, xpad)[:n_out] - want).abs().max())
                 del lib
                 csr = CsrMatrix.from_scipy(host, dt, dev)
-                rec["csr_ms"] = cuda_ms(torch, lambda csr=csr, x=x: (
-                    csr_spmv.csr_spmv(csr.indptr, csr.indices, csr.vals, x,
-                                      n_out, csr.long)), 50)
+                rec["csr_ms"] = cuda_ms(
+                    torch, lambda csr=csr, x=x: csr.matvec(x), 50)
                 # the least work for this y: the matrix's entries with
                 # their indices, as H-CSR's bound counts them
                 nnz = int(host.nnz)
@@ -1026,8 +1183,11 @@ def phase_k5(torch, lp, table):
                     x = torch.as_tensor(rng.randn(n_in), dtype=dt,
                                         device=dev)
 
-                    def kern(vals=vals, x=x, n_out=n_out):
-                        return dia_spmv.dia_spmv(vals, offs, x, n_out)
+                    # the mesh solve's call: the shard's prepared operand
+                    operand = dia_spmv.DiaOperand(vals, offs, n_out)
+
+                    def kern(operand=operand, x=x):
+                        return dia_spmv.dia_apply(operand, x)
 
                     def plain(vals=vals, x=x, n_out=n_out):
                         return dia_spmv.dia_spmv_reference(vals, offs, x,
@@ -1046,6 +1206,9 @@ def phase_k5(torch, lp, table):
                         lib = sparse_tensor(torch, host, dt, dev)
                         rec["library_ms"] = cuda_ms(
                             torch, lambda lib=lib, x=x: torch.mv(lib, x), 200)
+                        rec["kernel_us"] = call_times(torch, kern)
+                        rec["library_us"] = call_times(
+                            torch, lambda lib=lib, x=x: torch.mv(lib, x))
                         nbytes = 4 * (vals.numel() + offs.numel() + x_needed
                                       + n_out)
                         rec["bound_ms"], rec["bound_by"] = bound(
@@ -1383,14 +1546,16 @@ def main() -> int:
     if not n50["H-CPDIA"]:
         raise AssertionError("Potts-50 did not run H-CPDIA")
     lp105, gt105 = sc105_lp()
-    wall, n105 = counted_solve(
-        lp105, method="chambolle_pock_ppd", nb_iter=72000, nb_iter_plot=72000,
-        restart="average", restart_period=4000, dtype=np.float32,
-        ground_truth=gt105, ground_truth_indices=np.arange(len(gt105)),
-        device="cuda")
+    run105 = dict(method="chambolle_pock_ppd", nb_iter=72000,
+                  nb_iter_plot=72000, restart="average", restart_period=4000,
+                  dtype=np.float32, ground_truth=gt105,
+                  ground_truth_indices=np.arange(len(gt105)), device="cuda")
+    wall, n105 = counted_solve(lp105, **run105)
     d105 = float(lp105.distance_to_ground_truth[-1])
+    chunks = chunk_profile(torch, lp105, "cp_dense_kernel", run105)
     emit("converge_sc105", dist=d105, seconds=lp105.opttime_curve[-1],
-         wall_s=wall, launches=n105)
+         wall_s=wall, launches=n105, iterations=72000,
+         us_per_iteration=wall / 72000 * 1e6, profiled=chunks)
     if not d105 < 1e-3:
         raise AssertionError(f"SC105 reached dist {d105} (need < 1e-3)")
     table["H-CPDENSE"]["launches"] = n105["H-CPDENSE"]

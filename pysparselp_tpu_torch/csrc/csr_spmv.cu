@@ -10,8 +10,7 @@
 // gathers natively, so none of the routing is ported: this file computes what
 // the routes compute, y = A x for an unstructured A.  Both orientations use
 // this one kernel: the caller keeps the CSR of A for A x and the CSR of A^T
-// (the CSC of A) for A^T y.  There are no atomics, so every run of the same
-// inputs gives the same bits.
+// (the CSC of A) for A^T y.
 //
 // Bound on the H100 (3.35 TB/s HBM at 700 W): memory.  One call moves
 //   nnz * (itemsize + 4)            values and column indices,
@@ -19,23 +18,81 @@
 //   n_out * itemsize                the output,
 // plus the gathered x: n_in * itemsize when x stays in the 50 MB L2 (the
 // transport LP's x, 1M f32, is 4 MB), more when the gathers miss.  The
-// arithmetic is one multiply-add per stored entry.
+// arithmetic is one multiply-add per stored entry.  On the main path's
+// matrices the gathers of x are random, and what limits the kernel is how
+// many of them each SM keeps in flight.
 //
-// Design (a simple kernel that is right first):
-// * rows of up to kLongStrides * W entries: a sub-warp of W lanes per row
-//   (W = 2..32, picked by the wrapper from the mean row length), lanes
-//   striding over the row, then a fixed shuffle tree (xor 1, 2, ..., W/2);
-// * longer rows (the k-medians LP's hot used[c] columns of A^T, ~5,000 entries)
-//   are skipped by that launch and get a block of kBlock threads each in a
-//   second launch over the wrapper's list of long rows: threads stride, each
-//   warp reduces by the same shuffle tree, warp partials are summed in order.
-// * x is read through the read-only data path (__ldg).
+// Design: ONE launch per product, whatever the row lengths, over a plan
+// the host builds once with the operator (ops/csr_spmv.py::split_plan):
+// * the first blocks give every row a sub-warp of W lanes (W = 2..32 from
+//   the mean row length), lanes striding over the row, then a fixed
+//   shuffle tree.  Small blocks of independent rows keep the most gathers
+//   in flight per SM (the merge-path kernels this replaced, which staged a
+//   CTA's entries or scanned them in lockstep, were slower on every large
+//   main-path matrix: PERF.md, PR 5);
+// * a row longer than kLongStrides * W entries (the k-medians LP's
+//   ~5,000-entry used[c] columns of A^T) is skipped there and cut into
+//   chunks of equal entries (within one), one block each, in the same
+//   launch: threads stride over the chunk, warps reduce by the shuffle
+//   tree, the warps' partials are added in order into the chunk's slot of
+//   `carries`.  Each chunk block counts itself into its row's integer
+//   counter (an acquire-release atomic); the last to arrive sums the row's
+//   chunk slots in chunk order (one warp, lane-strided, then the shuffle
+//   tree), writes y[row] and resets the counter for the next call.
+// * x is read through the read-only data path (__ldg); indices and values
+//   by plain loads (the evict-first hint, __ldcs, measured slower on the
+//   main path's matrices: PERF.md, PR 5).
+// No floating-point atomics: every sum has a fixed order, so the same
+// inputs give the same bits (the tests emulate the order).  A plan's carries
+// and counters serve one call at a time (calls on one stream).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kLongStrides = 32;  // a row longer than 32 * W entries is long
+constexpr int kThreads = pslp::kBlock;
+constexpr int kWarps = kThreads / 32;
+// a row longer than kLongStrides * W entries is cut into chunks
+// (LONG_STRIDES in ops/csr_spmv.py)
+constexpr int kLongStrides = 32;
+constexpr unsigned kFull = 0xffffffffu;
 
+// views into the packed int32 plan of c chunks and m long rows ("tasks")
+struct Plan {
+  const int* chunk_begin;  // c: the chunk's first entry
+  const int* chunk_end;    // c: one past its last entry
+  const int* chunk_task;   // c: its row's task
+  const int* task_row;     // m
+  const int* task_first;   // m: the task's first chunk (its carries slot)
+  const int* task_count;   // m: its chunks, consecutive
+  int* counter;            // m: chunks arrived (zero between calls)
+};
+
+__device__ __forceinline__ Plan plan_view(int* p, int c, int m) {
+  Plan v;
+  v.chunk_begin = p;
+  v.chunk_end = p + c;
+  v.chunk_task = p + 2 * c;
+  v.task_row = p + 3 * c;
+  v.task_first = p + 3 * c + m;
+  v.task_count = p + 3 * c + 2 * m;
+  v.counter = p + 3 * c + 3 * m;
+  return v;
+}
+
+// arrival at a task: release this block's carry; the block that arrives
+// last then acquires the others' (acquire_fence) before it reads them
+__device__ __forceinline__ int arrive(int* counter) {
+  int old;
+  asm volatile("atom.release.gpu.global.add.s32 %0, [%1], 1;"
+               : "=r"(old) : "l"(counter) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ void acquire_fence() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+// sum over entries begin + lane, begin + lane + step, ... below end
 template <typename T>
 __device__ __forceinline__ T gather_dot(const int* __restrict__ indices,
                                         const T* __restrict__ vals,
@@ -49,100 +106,112 @@ __device__ __forceinline__ T gather_dot(const int* __restrict__ indices,
 }
 
 template <typename T, int W>
-__global__ void csr_rows_kernel(const int* __restrict__ indptr,
-                                const int* __restrict__ indices,
-                                const T* __restrict__ vals,
-                                const T* __restrict__ x, T* __restrict__ y,
-                                int n_out) {
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long row = tid / W;
-  // every lane of a sub-warp has the same row, so a sub-warp leaves together
-  if (row >= n_out) return;
-  const int lane = threadIdx.x % W;
-  const int begin = indptr[row];
-  const int end = indptr[row + 1];
-  if (end - begin > kLongStrides * W) return;  // a long row: second launch
-  T acc = gather_dot(indices, vals, x, begin, end, lane, W);
-  const unsigned group = (threadIdx.x % 32) / W * W;
-  const unsigned mask =
-      W == 32 ? 0xffffffffu : (((1u << (W % 32)) - 1u) << group);
+__global__ void __launch_bounds__(kThreads)
+csr_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+           const T* __restrict__ vals, int* plan_raw, int n_out,
+           int row_blocks, int n_chunks, int n_tasks, T* carries,
+           const T* __restrict__ x, T* __restrict__ y) {
+  __shared__ T partial[kWarps];
+  __shared__ int sfinish;
+  const int t = threadIdx.x;
+  if (static_cast<int>(blockIdx.x) < row_blocks) {
+    // a sub-warp per row; every lane of a sub-warp has the same row, so a
+    // sub-warp leaves together
+    const long long row =
+        (static_cast<long long>(blockIdx.x) * kThreads + t) / W;
+    if (row >= n_out) return;
+    const int lane = t % W;
+    const int begin = indptr[row];
+    const int end = indptr[row + 1];
+    if (end - begin > kLongStrides * W) return;  // cut into chunks
+    T acc = gather_dot(indices, vals, x, begin, end, lane, W);
+    const unsigned group = (t % 32) / W * W;
+    const unsigned mask =
+        W == 32 ? kFull : (((1u << (W % 32)) - 1u) << group);
 #pragma unroll
-  for (int off = 1; off < W; off <<= 1) {
-    acc = acc + __shfl_xor_sync(mask, acc, off, W);
+    for (int off = 1; off < W; off <<= 1) {
+      acc = acc + __shfl_xor_sync(mask, acc, off, W);
+    }
+    if (lane == 0) y[row] = acc;
+    return;
   }
-  if (lane == 0) y[row] = acc;
-}
 
-template <typename T>
-__global__ void csr_long_rows_kernel(const int* __restrict__ indptr,
-                                     const int* __restrict__ indices,
-                                     const T* __restrict__ vals,
-                                     const T* __restrict__ x,
-                                     T* __restrict__ y,
-                                     const int* __restrict__ long_rows) {
-  __shared__ T partial[pslp::kBlock / 32];
-  const int row = long_rows[blockIdx.x];
-  T acc = gather_dot(indices, vals, x, indptr[row], indptr[row + 1],
-                     threadIdx.x, blockDim.x);
+  // a chunk of a long row
+  const Plan plan = plan_view(plan_raw, n_chunks, n_tasks);
+  const int c = blockIdx.x - row_blocks;
+  const int lane = t & 31, warp = t >> 5;
+  T acc = gather_dot(indices, vals, x, plan.chunk_begin[c], plan.chunk_end[c],
+                     t, kThreads);
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    acc = acc + __shfl_xor_sync(0xffffffffu, acc, off);
+    acc = acc + __shfl_xor_sync(kFull, acc, off);
   }
-  if (threadIdx.x % 32 == 0) partial[threadIdx.x / 32] = acc;
+  if (lane == 0) partial[warp] = acc;
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (t == 0) {
     T sum = T(0);
-    for (int w = 0; w < pslp::kBlock / 32; ++w) sum = sum + partial[w];
-    y[row] = sum;
+    for (int w = 0; w < kWarps; ++w) sum = sum + partial[w];
+    carries[c] = sum;
+    const int task = plan.chunk_task[c];
+    const int before = arrive(plan.counter + task);
+    sfinish = before == plan.task_count[task] - 1 ? task : -1;
+    if (sfinish >= 0) acquire_fence();
   }
-}
-
-template <typename T, int W>
-void launch_rows(const int* indptr, const int* indices, const T* vals,
-                 const T* x, T* y, int n_out, cudaStream_t stream) {
-  const long long threads = static_cast<long long>(n_out) * W;
-  csr_rows_kernel<T, W><<<pslp::grid_for(threads), pslp::kBlock, 0, stream>>>(
-      indptr, indices, vals, x, y, n_out);
+  __syncthreads();
+  const int task = sfinish;
+  if (task < 0 || warp != 0) return;
+  // the row's last chunk to arrive: its chunks' sums in chunk order
+  const int first = plan.task_first[task], count = plan.task_count[task];
+  T sum = T(0);
+  for (int k = lane; k < count; k += 32) {
+    sum = sum + __ldcg(carries + first + k);
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    sum = sum + __shfl_xor_sync(kFull, sum, off);
+  }
+  if (lane == 0) {
+    y[plan.task_row[task]] = sum;
+    plan.counter[task] = 0;
+  }
 }
 
 template <typename T>
-int launch(const int* indptr, const int* indices, const T* vals, const T* x,
-           T* y, int n_out, int width, const int* long_rows, int n_long,
-           void* stream_ptr) {
+int launch(const int* indptr, const int* indices, const T* vals, int* plan,
+           int n_out, int width, int n_chunks, int n_tasks, T* carries,
+           const T* x, T* y, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n_out > 0) {
-    switch (width) {
-      case 2: launch_rows<T, 2>(indptr, indices, vals, x, y, n_out, stream); break;
-      case 4: launch_rows<T, 4>(indptr, indices, vals, x, y, n_out, stream); break;
-      case 8: launch_rows<T, 8>(indptr, indices, vals, x, y, n_out, stream); break;
-      case 16: launch_rows<T, 16>(indptr, indices, vals, x, y, n_out, stream); break;
-      case 32: launch_rows<T, 32>(indptr, indices, vals, x, y, n_out, stream); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+  const long long row_blocks =
+      (static_cast<long long>(n_out) * width + kThreads - 1) / kThreads;
+  const long long blocks = row_blocks + n_chunks;
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+#define PSLP_CSR_LAUNCH(W)                                                  \
+  csr_kernel<T, W><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>( \
+      indptr, indices, vals, plan, n_out, static_cast<int>(row_blocks),     \
+      n_chunks, n_tasks, carries, x, y)
+  switch (width) {
+    case 2: PSLP_CSR_LAUNCH(2); break;
+    case 4: PSLP_CSR_LAUNCH(4); break;
+    case 8: PSLP_CSR_LAUNCH(8); break;
+    case 16: PSLP_CSR_LAUNCH(16); break;
+    case 32: PSLP_CSR_LAUNCH(32); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (n_long > 0) {
-    csr_long_rows_kernel<T><<<n_long, pslp::kBlock, 0, stream>>>(
-        indptr, indices, vals, x, y, long_rows);
-  }
+#undef PSLP_CSR_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-PSLP_EXPORT int pslp_csr_spmv_f32(const int* indptr, const int* indices,
-                                  const float* vals, const float* x, float* y,
-                                  int n_out, int width, const int* long_rows,
-                                  int n_long, void* stream) {
-  return launch<float>(indptr, indices, vals, x, y, n_out, width, long_rows,
-                       n_long, stream);
-}
+#define PSLP_CSR(SUFFIX, T)                                                  \
+  PSLP_EXPORT int pslp_csr_spmv_##SUFFIX(                                    \
+      const int* indptr, const int* indices, const T* vals, int* plan,       \
+      int n_out, int width, int n_chunks, int n_tasks, T* carries,           \
+      const T* x, T* y, void* stream) {                                      \
+    return launch<T>(indptr, indices, vals, plan, n_out, width, n_chunks,    \
+                     n_tasks, carries, x, y, stream);                        \
+  }
 
-PSLP_EXPORT int pslp_csr_spmv_f64(const int* indptr, const int* indices,
-                                  const double* vals, const double* x,
-                                  double* y, int n_out, int width,
-                                  const int* long_rows, int n_long,
-                                  void* stream) {
-  return launch<double>(indptr, indices, vals, x, y, n_out, width, long_rows,
-                        n_long, stream);
-}
+PSLP_CSR(f32, float)
+PSLP_CSR(f64, double)

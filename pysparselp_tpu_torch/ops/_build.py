@@ -108,13 +108,71 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+class Entry:
+    """The launch path every wrapper shares: the C entry ``name`` resolved
+    on its first call (the library is built then, never on the CPU), and
+    the leading arguments an operator fixes (``head``: tensors as their
+    device pointers, ints) converted to ctypes once.  A call passes only
+    the per-call arguments and raises on a nonzero CUDA error code.  The
+    caller keeps the head's tensors alive."""
+
+    __slots__ = ("name", "argtypes", "head", "_fn")
+
+    def __init__(self, name, argtypes, *head):
+        self.name = name
+        self.argtypes = tuple(argtypes)
+        self.head = tuple(
+            ctypes.c_void_p(v.data_ptr()) if torch.is_tensor(v)
+            else ctypes.c_void_p(0) if v is None
+            else kind(v)
+            for kind, v in zip(self.argtypes, head))
+        self._fn = None
+
+    def __call__(self, *tail):
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = function(self.name, self.argtypes)
+        rc = fn(*self.head, *tail)
+        if rc:
+            check(rc, self.name)
 
 
-def ptr(t) -> ctypes.c_void_p:
-    """Device pointer of a tensor, or NULL for ``None``."""
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+_entries: dict = {}
+
+
+def entry(name: str, argtypes) -> Entry:
+    """The shared :class:`Entry` of ``name`` with no fixed arguments (for
+    wrappers whose every argument changes from call to call)."""
+    found = _entries.get(name)
+    if found is None:
+        found = _entries[name] = Entry(name, argtypes)
+    return found
+
+
+def _raw_stream_getter():
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw
+    return lambda index: torch.cuda.current_stream(index).cuda_stream
+
+
+_raw_stream = None
+
+
+def stream(device_index: int) -> int:
+    """PyTorch's current CUDA stream on the device, as an int handle (the
+    raw getter TorchInductor launches with: no Stream object per call)."""
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = _raw_stream_getter()
+    return _raw_stream(device_index)
+
+
+def device_index(device) -> int:
+    """The CUDA device index of ``device`` (the current one when None)."""
+    device = torch.device(device)
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
 
 
 def suffix(dtype) -> str:

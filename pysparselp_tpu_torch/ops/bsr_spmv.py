@@ -128,11 +128,10 @@ def bsr_spmv(tiles, cols, x, n_in, n_out):
                          f"TN x itemsize <= {MAX_SHARED_BYTES} bytes)")
     _build.check_cuda(tiles, cols, x, dtype=x.dtype, device=x.device)
     y = torch.empty(n_out, dtype=x.dtype, device=x.device)
-    fn = _build.function(f"pslp_bsr_spmv_{_build.suffix(x.dtype)}",
-                         _ARGTYPES)
-    rc = fn(_build.ptr(tiles), _build.ptr(cols), _build.ptr(x), _build.ptr(y),
-            t_rows, k, tn, tm, n_in, n_out, _build.stream_ptr(x.device))
-    _build.check(rc, "bsr_spmv")
+    _build.entry(f"pslp_bsr_spmv_{_build.suffix(x.dtype)}", _ARGTYPES)(
+        tiles.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
+        t_rows, k, tn, tm, n_in, n_out,
+        _build.stream(_build.device_index(x.device)))
     bsr_spmv.launches += 1
     return y
 

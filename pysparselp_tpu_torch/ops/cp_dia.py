@@ -103,14 +103,13 @@ def cp_dia_chunk(prob, pre, x, y_eq, y, nsteps, theta, with_sums=False):
     vec = [prob.c, pre["diag_t"], prob.lb, prob.ub]
     raw = ([prob.n, m, me] + vec + a_in + a_eq
            + [x, x3, yi, ye, sums[0], sums[2], sums[1]])
-    cargs = [v if isinstance(v, int) else _build.ptr(v) for v in raw]
-    scalar = _build.scalar(dt)
+    cargs = [v if isinstance(v, int) else None if v is None
+             else v.data_ptr() for v in raw]
     argtypes = ([_I] * 3 + [_P] * 4 + [_P, _P, _I, _P, _P, _I, _P, _P] * 2
-                + [_P] * 7 + [scalar, _I, _I, _P])
-    fn = _build.function(f"pslp_cp_dia_chunk_{_build.suffix(dt)}", argtypes)
-    rc = fn(*cargs, scalar(theta), int(nsteps), int(bool(with_sums)),
-            _build.stream_ptr(dev))
-    _build.check(rc, "cp_dia_chunk")
+                + [_P] * 7 + [_build.scalar(dt), _I, _I, _P])
+    _build.entry(f"pslp_cp_dia_chunk_{_build.suffix(dt)}", argtypes)(
+        *cargs, theta, int(nsteps), int(bool(with_sums)),
+        _build.stream(_build.device_index(dev)))
     cp_dia_chunk.launches += 1
     out = (x, x3, ye, yi)
     return out + sums if with_sums else out

@@ -5,14 +5,22 @@
 Replaces ``pysparselp_tpu/ops/ell_routed.py::_routed_spmv_call`` (K7) and
 ``_routed_tiled_spmv_call`` (K8): what their host-built routes compute, an
 unstructured ``y = A x``, in either orientation (the caller passes the CSR
-of ``A`` or of ``Aᵀ``).  :func:`csr_spmv` launches the kernel for CUDA
-tensors and runs :func:`csr_spmv_reference`, its plain PyTorch twin, for
-CPU tensors; it never falls back from one to the other.
+of ``A`` or of ``Aᵀ``).
+
+The kernel is one launch per product over a plan that :func:`split_plan`
+builds once, when :class:`CsrOperand` is built: every row gets a sub-warp
+of ``width`` lanes, except a row longer than ``LONG_STRIDES * width``
+entries, which is cut into chunks of equal entries (within one), one
+thread block each; the chunks' sums are added in chunk order by the last
+chunk to finish (the row is a "task").  :func:`csr_spmv` launches the
+kernel for CUDA tensors and runs :func:`csr_spmv_reference`, its plain
+PyTorch twin, for CPU tensors; it never falls back from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -20,10 +28,17 @@ import torch
 from . import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P)
-# a row longer than LONG_STRIDES * width entries gets a thread block of its
-# own (kLongStrides in csrc/csr_spmv.cu)
+_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P)
+THREADS = 256             # a thread block (kThreads in csrc/csr_spmv.cu)
+# a row longer than LONG_STRIDES * width entries is cut into chunks
+# (kLongStrides in csrc/csr_spmv.cu)
 LONG_STRIDES = 32
+# the long rows' entries are cut into chunks of at least MIN_CHUNK and at
+# most MAX_CHUNK entries, into SPREAD_CTAS chunks (two per SM of the H100's
+# 132) where those bounds allow, so that even a few long rows fill the card
+SPREAD_CTAS = 264
+MIN_CHUNK = 512
+MAX_CHUNK = 8192
 MAX_NNZ = 2**31 - 1
 
 
@@ -37,12 +52,138 @@ def vector_width(nnz, n_out) -> int:
     return width
 
 
-def long_rows(indptr, width):
-    """int32 indices of the rows the sub-warp launch leaves to the
-    block-per-row launch (``indptr`` a numpy array or a tensor)."""
-    lengths = np.diff(np.asarray(indptr.cpu() if torch.is_tensor(indptr)
-                                 else indptr, np.int64))
-    return np.nonzero(lengths > LONG_STRIDES * width)[0].astype(np.int32)
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How one CSR matrix is cut into the kernel's thread blocks (int32
+    arrays).  The first ``row_blocks`` blocks give each row ``width``
+    lanes; long rows (more than ``LONG_STRIDES * width`` entries) are tasks:
+    task ``q`` is row ``task_row[q]``, cut into ``task_count[q]`` chunks
+    from chunk ``task_first[q]`` on, and chunk ``c`` (a block of its own)
+    sums entries ``[chunk_begin[c], chunk_end[c])`` of task
+    ``chunk_task[c]`` into slot ``c`` of the operator's ``carries``."""
+
+    n_out: int
+    width: int
+    chunk_begin: np.ndarray
+    chunk_end: np.ndarray
+    chunk_task: np.ndarray
+    task_row: np.ndarray
+    task_first: np.ndarray
+    task_count: np.ndarray
+
+    @property
+    def n_chunks(self) -> int:
+        return self.chunk_begin.size
+
+    @property
+    def n_tasks(self) -> int:
+        return self.task_row.size
+
+    @property
+    def row_blocks(self) -> int:
+        return -(-self.n_out * self.width // THREADS)
+
+    def packed(self) -> np.ndarray:
+        """The kernel's int32 plan: the arrays in the order of
+        ``plan_view`` in the kernel source, then the tasks' arrival
+        counters (zero)."""
+        return np.concatenate([
+            self.chunk_begin, self.chunk_end, self.chunk_task, self.task_row,
+            self.task_first, self.task_count,
+            np.zeros(self.n_tasks, np.int32)]).astype(np.int32)
+
+
+def split_plan(indptr, chunk=None, width=None) -> SplitPlan:
+    """The plan of a CSR matrix with row pointers ``indptr`` (host array):
+    ``width`` lanes per row (:func:`vector_width` by default), and each
+    long row cut into ``ceil(length / chunk)`` chunks whose sizes differ by
+    at most one entry.  ``chunk`` defaults to the long rows' entries over
+    ``SPREAD_CTAS``, within ``[MIN_CHUNK, MAX_CHUNK]``."""
+    indptr = np.asarray(indptr, np.int64)
+    n_out = indptr.size - 1
+    lengths = np.diff(indptr)
+    if width is None:
+        width = vector_width(int(indptr[-1]), n_out)
+    rows = np.flatnonzero(lengths > LONG_STRIDES * width)
+    long_len = lengths[rows]
+    if chunk is None:
+        chunk = int(np.clip(-(-int(long_len.sum()) // SPREAD_CTAS),
+                            MIN_CHUNK, MAX_CHUNK))
+    count = -(-long_len // chunk)
+    first = np.cumsum(count) - count
+    task = np.repeat(np.arange(rows.size), count)
+    piece = np.arange(task.size) - first[task]
+    start, size, k = indptr[rows][task], long_len[task], count[task]
+
+    def i32(v):
+        return np.asarray(v, np.int32)
+
+    return SplitPlan(n_out=n_out, width=int(width),
+                     chunk_begin=i32(start + piece * size // k),
+                     chunk_end=i32(start + (piece + 1) * size // k),
+                     chunk_task=i32(task), task_row=i32(rows),
+                     task_first=i32(first), task_count=i32(count))
+
+
+class CsrOperand:
+    """One orientation of a CSR matrix on its device, ready to launch: the
+    arrays (``indptr`` int32 (n_out + 1,), ``indices`` int32 (nnz,),
+    ``vals`` (nnz,)), their :class:`SplitPlan` packed into one int32
+    tensor, the chunks' ``carries`` and the kernel's bound C entry.
+    Checked once here; :func:`csr_spmv` checks only ``x``.  ``plan`` is
+    :func:`split_plan` of ``indptr`` (computed here when None, which reads
+    ``indptr`` back to the host once)."""
+
+    __slots__ = ("indptr", "indices", "vals", "n_in", "n_out", "plan",
+                 "plan_dev", "carries", "device", "dtype", "x_shape",
+                 "device_index", "entry")
+
+    def __init__(self, indptr, indices, vals, n_in, plan=None):
+        nnz = vals.shape[0]
+        n_out = indptr.shape[0] - 1
+        if nnz > MAX_NNZ:
+            raise ValueError(f"csr_spmv: {nnz} entries do not fit int32 "
+                             "indices")
+        if (indptr.dtype != torch.int32 or indices.dtype != torch.int32
+                or indices.shape != (nnz,) or vals.dim() != 1):
+            raise ValueError("csr_spmv: indptr (n_out + 1,) and indices "
+                             "(nnz,) must be int32, vals (nnz,)")
+        if vals.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"csr_spmv takes float32 or float64, got "
+                            f"{vals.dtype}")
+        dev = vals.device
+        for t in (indptr, indices, vals):
+            if t.device != dev or (dev.type == "cuda"
+                                   and not t.is_contiguous()):
+                raise ValueError("csr_spmv: indptr, indices and vals must "
+                                 "be contiguous, on one device")
+        self.indptr, self.indices, self.vals = indptr, indices, vals
+        self.n_in, self.n_out = int(n_in), n_out
+        self.plan = plan if plan is not None else split_plan(
+            indptr.cpu().numpy())
+        self.plan_dev = torch.as_tensor(self.plan.packed(), device=dev)
+        self.carries = torch.zeros(self.plan.n_chunks, dtype=vals.dtype,
+                                   device=dev)
+        self.device, self.dtype = dev, vals.dtype
+        self.x_shape = (self.n_in,)
+        self.device_index = self.entry = None
+        if dev.type == "cuda":
+            self.device_index = _build.device_index(dev)
+            self.entry = _build.Entry(
+                f"pslp_csr_spmv_{_build.suffix(vals.dtype)}", _ARGTYPES,
+                indptr, indices, vals, self.plan_dev, n_out, self.plan.width,
+                self.plan.n_chunks, self.plan.n_tasks, self.carries)
+
+    @staticmethod
+    def from_host(indptr, indices, data, n_in, dtype, device):
+        """From host CSR arrays (the plan from the host ``indptr``)."""
+        def i32(v):
+            return torch.as_tensor(np.asarray(v, np.int32), device=device)
+
+        return CsrOperand(
+            i32(indptr), i32(indices),
+            torch.as_tensor(np.asarray(data, np.float64), dtype=dtype,
+                            device=device), n_in, split_plan(indptr))
 
 
 def csr_spmv_reference(indptr, indices, vals, x, n_out):
@@ -54,35 +195,24 @@ def csr_spmv_reference(indptr, indices, vals, x, n_out):
     return y.index_add_(0, rows, vals * x[indices.long()])
 
 
-def csr_spmv(indptr, indices, vals, x, n_out, long=None):
-    """``y = A x`` for a CSR ``A``: ``indptr`` int32 (n_out + 1,),
-    ``indices`` int32 (nnz,), ``vals`` (nnz,), ``x`` (n_in,), which may be
-    a contiguous view at a storage offset.  ``long`` is :func:`long_rows`
-    of this matrix as an int32 device tensor (computed here when None)."""
+def csr_spmv(op: CsrOperand, x):
+    """``y = A x`` for the CSR operand ``op``; ``x`` (n_in,) may be a
+    contiguous view at a storage offset."""
     if x.device.type == "cpu":
-        return csr_spmv_reference(indptr, indices, vals, x, n_out)
+        return csr_spmv_reference(op.indptr, op.indices, op.vals, x,
+                                  op.n_out)
     if x.device.type != "cuda":
         raise ValueError(f"csr_spmv runs on CUDA or the CPU, not {x.device}")
-    nnz = vals.shape[0]
-    if nnz > MAX_NNZ:
-        raise ValueError(f"csr_spmv: {nnz} entries do not fit int32 indices")
-    if (indptr.dtype != torch.int32 or indices.dtype != torch.int32
-            or indptr.shape != (n_out + 1,) or indices.shape != (nnz,)):
-        raise ValueError("csr_spmv: indptr (n_out + 1,) and indices (nnz,) "
-                         "must be int32")
-    width = vector_width(nnz, n_out)
-    if long is None:
-        long = torch.as_tensor(long_rows(indptr, width), device=x.device)
-    _build.check_cuda(indptr, indices, vals, x, long, dtype=x.dtype,
-                      device=x.device)
-    y = torch.empty(n_out, dtype=x.dtype, device=x.device)
-    fn = _build.function(f"pslp_csr_spmv_{_build.suffix(x.dtype)}",
-                         _ARGTYPES)
-    rc = fn(_build.ptr(indptr), _build.ptr(indices), _build.ptr(vals),
-            _build.ptr(x), _build.ptr(y), n_out, width, _build.ptr(long),
-            long.shape[0], _build.stream_ptr(x.device))
-    _build.check(rc, "csr_spmv")
-    csr_spmv.launches += 1
+    if (x.device != op.device or x.dtype != op.dtype
+            or x.shape != op.x_shape or not x.is_contiguous()):
+        raise ValueError(
+            f"csr_spmv: x must be a contiguous ({op.n_in},) {op.dtype} "
+            f"tensor on {op.device}, got {tuple(x.shape)} {x.dtype} on "
+            f"{x.device}")
+    y = torch.empty(op.n_out, dtype=op.dtype, device=op.device)
+    if op.plan.row_blocks + op.plan.n_chunks:
+        op.entry(x.data_ptr(), y.data_ptr(), _build.stream(op.device_index))
+        csr_spmv.launches += 1
     return y
 
 

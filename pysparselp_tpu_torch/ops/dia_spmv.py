@@ -3,9 +3,10 @@ x[r + offs[d]]`` (kernel source: ``csrc/dia_spmv.cu``).
 
 Replaces ``pysparselp_tpu/ops/dia_pallas.py::_dia_matvec_pallas`` (K4) and
 computes ``_dia_matvec_pallas_dyn``'s function (K5): the offsets are an
-int32 device tensor.  :func:`dia_spmv` launches the kernel for CUDA tensors
-and runs :func:`dia_spmv_reference`, its plain PyTorch twin, for CPU
-tensors; it never falls back from one to the other.
+int32 device tensor.  :func:`dia_apply` (on a :class:`DiaOperand`, checked once) and
+:func:`dia_spmv` launch the kernel for CUDA tensors and run
+:func:`dia_spmv_reference`, its plain PyTorch twin, for CPU tensors; they
+never fall back from one to the other.
 """
 
 from __future__ import annotations
@@ -37,23 +38,64 @@ def dia_spmv_reference(vals, offs, x, n_out):
     return y
 
 
+class DiaOperand:
+    """One orientation of a DIA operator on its device, ready to launch:
+    ``vals`` (ndiag, n_out), ``offs`` int32 (ndiag,) and the kernel's bound
+    C entry.  Checked once here; :func:`dia_apply` checks only ``x``."""
+
+    __slots__ = ("vals", "offs", "n_out", "device", "dtype", "device_index",
+                 "entry")
+
+    def __init__(self, vals, offs, n_out):
+        dev = vals.device
+        if offs.dtype != torch.int32 or vals.shape != (offs.shape[0], n_out):
+            raise ValueError("dia_spmv: vals must be (ndiag, n_out), offs "
+                             "int32")
+        if vals.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"kernels take float32 or float64, got "
+                            f"{vals.dtype}")
+        for t in (vals, offs):
+            if t.device != dev:
+                raise ValueError(f"tensor on {t.device}, expected {dev}")
+            if dev.type == "cuda" and not t.is_contiguous():
+                raise ValueError("kernel arguments must be contiguous")
+        self.vals, self.offs, self.n_out = vals, offs, int(n_out)
+        self.device, self.dtype = dev, vals.dtype
+        self.device_index = self.entry = None
+        if dev.type == "cuda":
+            self.device_index = _build.device_index(dev)
+            self.entry = _build.Entry(
+                f"pslp_dia_spmv_{_build.suffix(vals.dtype)}", _ARGTYPES,
+                vals, offs, offs.shape[0])
+
+
+def dia_apply(op: DiaOperand, x):
+    """``y = A x`` for the DIA operand ``op``, ``x`` (n_in,)."""
+    if x.device.type == "cpu":
+        return dia_spmv_reference(op.vals, op.offs, x, op.n_out)
+    if x.device.type != "cuda":
+        raise ValueError(f"dia_spmv runs on CUDA or the CPU, not {x.device}")
+    if (x.device != op.device or x.dtype != op.dtype or x.dim() != 1
+            or not x.is_contiguous()):
+        raise ValueError(f"dia_spmv: x must be a contiguous 1-D {op.dtype} "
+                         f"tensor on {op.device}, got {x.dtype} on "
+                         f"{x.device}")
+    y = torch.empty(op.n_out, dtype=op.dtype, device=op.device)
+    op.entry(x.data_ptr(), x.shape[0], y.data_ptr(), op.n_out,
+             _build.stream(op.device_index))
+    dia_spmv.launches += 1
+    return y
+
+
 def dia_spmv(vals, offs, x, n_out):
     """``y = A x`` for a DIA operator: ``vals`` (ndiag, n_out), ``offs``
-    int32 (ndiag,), ``x`` (n_in,)."""
+    int32 (ndiag,), ``x`` (n_in,); every argument checked on each call
+    (operators that are applied many times keep a :class:`DiaOperand`)."""
     if x.device.type == "cpu":
         return dia_spmv_reference(vals, offs, x, n_out)
     if x.device.type != "cuda":
         raise ValueError(f"dia_spmv runs on CUDA or the CPU, not {x.device}")
-    _build.check_cuda(vals, offs, x, dtype=x.dtype, device=x.device)
-    if offs.dtype != torch.int32 or vals.shape != (offs.shape[0], n_out):
-        raise ValueError("dia_spmv: vals must be (ndiag, n_out), offs int32")
-    y = torch.empty(n_out, dtype=x.dtype, device=x.device)
-    fn = _build.function(f"pslp_dia_spmv_{_build.suffix(x.dtype)}", _ARGTYPES)
-    rc = fn(_build.ptr(vals), _build.ptr(offs), offs.shape[0], _build.ptr(x),
-            x.shape[0], _build.ptr(y), n_out, _build.stream_ptr(x.device))
-    _build.check(rc, "dia_spmv")
-    dia_spmv.launches += 1
-    return y
+    return dia_apply(DiaOperand(vals, offs, n_out), x)
 
 
 dia_spmv.launches = 0

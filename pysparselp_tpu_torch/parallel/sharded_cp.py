@@ -39,6 +39,7 @@ import numpy as np
 import scipy.sparse
 import torch
 
+from ..ops.dia_spmv import DiaOperand
 from ..problem import CsrMatrix, resolve_dtype
 from .mesh import check_mesh
 from .sharded_dia import (build_system_dia, local_matvec_dia,
@@ -125,6 +126,12 @@ def place_shard(c, lb, ub, diag_t, theta, systems, x0, x30, ys, dtype,
                           dia_vals_t=vec(sys_["dia_vals_t"]),
                           dia_offs_t=i32(sys_["dia_offs_t"]),
                           dia_wlo=int(sys_["dia_wlo"]))
+            # the shard's forward and window products, checked once
+            placed.update(
+                dia_fwd=DiaOperand(placed["dia_vals"], placed["dia_offs"],
+                                   placed["b"].shape[0]),
+                dia_win=DiaOperand(placed["dia_vals_t"], placed["dia_offs_t"],
+                                   placed["dia_vals_t"].shape[1]))
         data[name] = placed
         data[name + "_m"] = sys_["m"]
         data[name + "_m_pad"] = sys_["m_pad"]

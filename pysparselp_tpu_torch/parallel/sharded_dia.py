@@ -3,7 +3,7 @@
 
 An anchor-aligned system is cut into contiguous blocks of rows, one per
 rank, and both SpMV directions of a shard run H-DIA
-(:func:`~pysparselp_tpu_torch.ops.dia_spmv.dia_spmv`), the kernel that
+(:func:`~pysparselp_tpu_torch.ops.dia_spmv.dia_apply`), the kernel that
 computes what ``pysparselp_tpu/ops/dia_pallas.py::_dia_matvec_pallas_dyn``
 (K5) computes: a DIA product whose offsets are an int32 device tensor, so
 one compiled kernel serves every shard.
@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse
 
-from ..ops.dia_spmv import dia_spmv
+from ..ops.dia_spmv import dia_apply
 
 
 def _cdiv(a, b):
@@ -117,18 +117,18 @@ def build_system_dia(a, b, ndev: int, rank: int):
 
 
 def local_matvec_dia(sys_l, x, n=None):
-    """Shard-local ``A_d @ x`` (x replicated, absolute offsets)."""
+    """Shard-local ``A_d @ x`` (x replicated, absolute offsets), through
+    the shard's prepared forward operand ``dia_fwd``."""
     del n
-    return dia_spmv(sys_l["dia_vals"], sys_l["dia_offs"], x,
-                    sys_l["b"].shape[0])
+    return dia_apply(sys_l["dia_fwd"], x)
 
 
 def local_rmatvec_dia(sys_l, y, n, out=None):
     """Shard-local ``A_dᵀ @ y_d`` added into the n-vector ``out`` (a new
     zero vector when None) at the window; the caller all-reduces it."""
-    w = sys_l["dia_vals_t"].shape[1]
-    yw = dia_spmv(sys_l["dia_vals_t"], sys_l["dia_offs_t"], y, w)
+    win = sys_l["dia_win"]
+    yw = dia_apply(win, y)
     if out is None:
         out = y.new_zeros(n)
-    out.narrow(0, sys_l["dia_wlo"], w).add_(yw)
+    out.narrow(0, sys_l["dia_wlo"], win.n_out).add_(yw)
     return out

@@ -44,7 +44,7 @@ from .ops import csr_spmv as _csr
 from .ops.bsr_spmv import (DEFAULT_TM, DEFAULT_TN, bsr_padded_entries,
                            bsr_spmv, build_tile_ell)
 from .ops.cp_dense import DENSE_FUSED_BUDGET, _pad128
-from .ops.dia_spmv import dia_spmv
+from .ops.dia_spmv import DiaOperand, dia_apply
 
 # The layout chooser (estimate_stream_bytes) prices each candidate by the
 # bytes one SpMV pair (A x and Aᵀ y) moves, counted from the shapes: each
@@ -181,6 +181,17 @@ class DiaMatrix:
     offs_t: torch.Tensor   # int32 (ndiag_t,)
     nrows: int
     ncols: int
+    # both orientations ready to launch, checked once
+    fwd: DiaOperand = dataclasses.field(init=False, repr=False,
+                                        compare=False)
+    bwd: DiaOperand = dataclasses.field(init=False, repr=False,
+                                        compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "fwd",
+                           DiaOperand(self.vals, self.offs, self.nrows))
+        object.__setattr__(self, "bwd",
+                           DiaOperand(self.vals_t, self.offs_t, self.ncols))
 
     @property
     def shape(self):
@@ -195,10 +206,10 @@ class DiaMatrix:
         return len(self.offsets)
 
     def matvec(self, x):
-        return dia_spmv(self.vals, self.offs, x, self.nrows)
+        return dia_apply(self.fwd, x)
 
     def rmatvec(self, y):
-        return dia_spmv(self.vals_t, self.offs_t, y, self.ncols)
+        return dia_apply(self.bwd, y)
 
     def abs_power_rowsum(self, p):
         return abs_pow0(self.vals, p).sum(dim=0)
@@ -244,20 +255,14 @@ class DiaMatrix:
 
 @dataclasses.dataclass(frozen=True)
 class CsrMatrix:
-    """Unstructured operator: the CSR of ``A`` serves ``A @ x`` and the CSR
-    of ``Aᵀ`` (the CSC of ``A``) serves ``Aᵀ @ y``, both through
-    :func:`~pysparselp_tpu_torch.ops.csr_spmv.csr_spmv` (H-CSR on CUDA).
-    ``long``/``long_t`` list the rows each launch leaves to a thread block
-    of their own (:func:`~pysparselp_tpu_torch.ops.csr_spmv.long_rows`)."""
+    """Unstructured operator: the CSR of ``A`` (``csr``) serves ``A @ x``
+    and the CSR of ``Aᵀ`` (``csr_t``, the CSC of ``A``) serves ``Aᵀ @ y``,
+    both through :func:`~pysparselp_tpu_torch.ops.csr_spmv.csr_spmv`
+    (H-CSR on CUDA).  Each orientation carries its launch plan (lanes per
+    row, long rows cut into chunks), built once here."""
 
-    indptr: torch.Tensor     # int32 (nrows + 1,)
-    indices: torch.Tensor    # int32 (nnz,)
-    vals: torch.Tensor       # (nnz,)
-    long: torch.Tensor       # int32
-    indptr_t: torch.Tensor   # int32 (ncols + 1,)
-    indices_t: torch.Tensor
-    vals_t: torch.Tensor
-    long_t: torch.Tensor
+    csr: _csr.CsrOperand
+    csr_t: _csr.CsrOperand
     nrows: int
     ncols: int
 
@@ -269,13 +274,19 @@ class CsrMatrix:
     def nnz_padded(self):
         return self.vals.numel()
 
+    # the arrays of each orientation
+    indptr = property(lambda self: self.csr.indptr)
+    indices = property(lambda self: self.csr.indices)
+    vals = property(lambda self: self.csr.vals)
+    indptr_t = property(lambda self: self.csr_t.indptr)
+    indices_t = property(lambda self: self.csr_t.indices)
+    vals_t = property(lambda self: self.csr_t.vals)
+
     def matvec(self, x):
-        return _csr.csr_spmv(self.indptr, self.indices, self.vals, x,
-                             self.nrows, self.long)
+        return _csr.csr_spmv(self.csr, x)
 
     def rmatvec(self, y):
-        return _csr.csr_spmv(self.indptr_t, self.indices_t, self.vals_t, y,
-                             self.ncols, self.long_t)
+        return _csr.csr_spmv(self.csr_t, y)
 
     @staticmethod
     def _row_sum(indptr, v, n):
@@ -298,21 +309,13 @@ class CsrMatrix:
         if csr.nnz > _csr.MAX_NNZ:
             raise ValueError(f"{csr.nnz} entries do not fit int32 indices")
         csc = csr.tocsc()
-
-        def i32(v):
-            return torch.as_tensor(np.asarray(v, np.int32), device=device)
-
-        def long_of(indptr, n_out):
-            width = _csr.vector_width(int(indptr[-1]), n_out)
-            return i32(_csr.long_rows(indptr, width))
-
         m, n = csr.shape
         return CsrMatrix(
-            indptr=i32(csr.indptr), indices=i32(csr.indices),
-            vals=_tensor(csr.data, dtype, device), long=long_of(csr.indptr, m),
-            indptr_t=i32(csc.indptr), indices_t=i32(csc.indices),
-            vals_t=_tensor(csc.data, dtype, device),
-            long_t=long_of(csc.indptr, n), nrows=m, ncols=n)
+            csr=_csr.CsrOperand.from_host(csr.indptr, csr.indices, csr.data,
+                                          n, dtype, device),
+            csr_t=_csr.CsrOperand.from_host(csc.indptr, csc.indices,
+                                            csc.data, m, dtype, device),
+            nrows=m, ncols=n)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,190 @@
+#!/usr/bin/env python3
+"""Per-call times of the port's SpMV and dense-chunk kernels, as the main
+path calls them, for one checkout of the repository, on one NVIDIA GPU.
+
+    python3 scripts/compare_kernels.py [--repo PATH]
+
+Imports ``pysparselp_tpu_torch`` from ``PATH`` (default: this checkout) and
+this checkout's ``chip_smoke.py`` for the workloads and the timer, so two
+commits compare on one card: ``git archive`` the other into a directory
+that ``.gitignore`` lists and run it, this checkout, this checkout, it, in
+one call.  Times, in float32, through the operators' own entry points:
+
+* H-CSR on ``chip_smoke.csr_matrices`` (transport, unstructured, the
+  k-medians CSR block; ``A x`` and ``Aᵀ y``), beside cuSPARSE
+  (``torch.mv`` of a ``torch.sparse_csr_tensor``);
+* H-DIA on the aligned Potts-300 system (``A x``) and on its 4 row shards
+  (forward and window, K5's function), beside cuSPARSE;
+* H-CPDENSE, 1,000 iterations with sums, per iteration: on SC105, on
+  ``chip_smoke.dense_system`` (operators past shared memory) and on square
+  random systems of ``SQUARE_SIZES`` rows and columns; where the checkout
+  takes ``lanes``, also at each of ``LANES`` lanes per output.
+
+For each, ``chip_smoke.call_times``: CUDA events over back-to-back calls,
+the profiler's device time and kernels per call, and host time per call.
+Then the four per-operator solves of ``chip_smoke.WORKLOADS`` (transport,
+unstructured, k-medians, L1-SVM), float32, ``SOLVE_ITERS`` iterations
+with ``light_metrics``, twice each: their steady iterations/s.
+Prints one JSON line per measurement (with the card's name and power limit
+and the repository path); exits nonzero without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import inspect
+import json
+import subprocess
+import sys
+import warnings
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+SQUARE_SIZES = (16, 48, 104, 152)
+LANES = (1, 2, 4, 8, 16)
+SOLVE_ITERS = 2000
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--repo", default=str(ROOT),
+                        help="checkout whose pysparselp_tpu_torch is timed")
+    args = parser.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_kernels: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    repo = str(Path(args.repo).resolve())
+    sys.path.insert(0, repo)
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import numpy as np
+
+    import pysparselp_tpu_torch
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+    from pysparselp_tpu_torch.ops import cp_dense, dia_spmv
+    from pysparselp_tpu_torch.parallel.sharded_dia import build_system_dia
+    from pysparselp_tpu_torch.problem import CsrMatrix
+
+    if not pysparselp_tpu_torch.__file__.startswith(repo):
+        raise AssertionError(f"imported {pysparselp_tpu_torch.__file__}, "
+                             f"not from {repo}")
+    warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    dt = torch.float32
+    rng = np.random.RandomState(0)
+
+    def emit(kernel, problem, side, kern, lib=None, per=1, reps=200):
+        rec = dict(repo=repo, nvidia_smi=smi, kernel=kernel,
+                   problem=problem, side=side,
+                   kernel_us=smoke.call_times(torch, kern, reps=reps,
+                                              host_reps=max(reps, 3)))
+        if per != 1:
+            rec["per_iteration_us"] = {
+                k: rec["kernel_us"][k] / per
+                for k in ("events_us", "device_us", "host_us")}
+        if lib is not None:
+            rec["library_us"] = smoke.call_times(torch, lib, reps=reps)
+        print(json.dumps(rec), flush=True)
+
+    # H-CSR on the main path's unstructured systems
+    workloads = {k: smoke.folded(make())
+                 for k, make in smoke.WORKLOADS.items() if k != "l1svm"}
+    for key, a in smoke.csr_matrices(workloads).items():
+        op = CsrMatrix.from_scipy(a, dt, dev)
+        for side, host, fn, n_in in (("A", a, op.matvec, a.shape[1]),
+                                     ("At", a.T.tocsr(), op.rmatvec,
+                                      a.shape[0])):
+            x = torch.as_tensor(rng.randn(n_in), dtype=dt, device=dev)
+            lib = smoke.sparse_tensor(torch, host, dt, dev)
+            emit("H-CSR", key, side, lambda fn=fn, x=x: fn(x),
+                 lambda lib=lib, x=x: torch.mv(lib, x))
+
+    # H-DIA: aligned Potts-300 and its 4 row shards (K5's function)
+    lp300 = build_linear_program(300, 0.5, 500)[0]
+    prob, _ = smoke.lowered(lp300, dt, dev)
+    op = prob.a_ineq
+    x = torch.as_tensor(rng.randn(op.ncols), dtype=dt, device=dev)
+    lib = smoke.sparse_tensor(torch, smoke.dia_scipy(op), dt, dev)
+    emit("H-DIA", "potts300", "A", lambda: op.matvec(x),
+         lambda: torch.mv(lib, x))
+    potts = smoke.aligned_potts(lp300)
+    prepared = hasattr(dia_spmv, "DiaOperand")
+    for rank in range(smoke.MESH_RANKS):
+        s, rows_loc, _ = build_system_dia(potts["a_ineq"], potts["b_ineq"],
+                                          smoke.MESH_RANKS, rank)
+        for side, vals_h, offs_h, n_in, n_out in (
+                ("forward", s["dia_vals"], s["dia_offs"],
+                 potts["a_ineq"].shape[1], rows_loc),
+                ("window", s["dia_vals_t"], s["dia_offs_t"], rows_loc,
+                 s["dia_vals_t"].shape[1])):
+            vals = torch.as_tensor(vals_h, dtype=dt, device=dev)
+            offs = torch.as_tensor(offs_h, device=dev)
+            xs = torch.as_tensor(rng.randn(n_in), dtype=dt, device=dev)
+            if prepared:
+                operand = dia_spmv.DiaOperand(vals, offs, n_out)
+
+                def kern(operand=operand, xs=xs):
+                    return dia_spmv.dia_apply(operand, xs)
+            else:
+                def kern(vals=vals, offs=offs, xs=xs, n_out=n_out):
+                    return dia_spmv.dia_spmv(vals, offs, xs, n_out)
+            emit("H-DIA (K5)", f"potts300 shard {rank}", side, kern)
+
+    # H-CPDENSE, 1,000 iterations with sums per call: SC105, the system
+    # past shared memory of chip_smoke.py, and square random systems of m
+    # rows (half equalities) by m columns, whose times per iteration give
+    # the kernel's fixed cost per iteration and its cost per entry
+    lanes_knob = "lanes" in inspect.signature(
+        cp_dense.cp_dense_chunk).parameters
+    systems = [("sc105", None), ("dense_past_shared", smoke.dense_system())]
+    systems += [(f"square_{m}", smoke.dense_system(m // 2, m - m // 2, m,
+                                                   seed=m))
+                for m in SQUARE_SIZES]
+    for key, host in systems:
+        if host is None:
+            prob, pre = smoke.lowered(smoke.sc105_lp()[0], dt, dev)
+        else:
+            prob, pre = smoke.lowered_system(host, dt, dev)
+        if not cp_dense.cp_dense_eligible(prob):
+            raise AssertionError(f"{key} did not lower to dense operators")
+        zeros = [torch.zeros(k, dtype=dt, device=dev)
+                 for k in (prob.n, prob.m_eq, prob.m_ineq)]
+        emit("H-CPDENSE", key, f"chunk {prob.m_eq}+{prob.m_ineq}x{prob.n}",
+             lambda prob=prob, pre=pre, zeros=zeros: cp_dense.cp_dense_chunk(
+                 prob, pre, *zeros, 1000, 1.0, with_sums=True),
+             per=1000, reps=5)
+        if not lanes_knob or key == "dense_past_shared":
+            continue
+        for lanes in LANES:
+            emit("H-CPDENSE", key, f"chunk, {lanes} lanes per output",
+                 lambda prob=prob, pre=pre, zeros=zeros, lanes=lanes:
+                 cp_dense.cp_dense_chunk(prob, pre, *zeros, 1000, 1.0,
+                                         with_sums=True, lanes=lanes),
+                 per=1000, reps=5)
+
+    # the per-operator solves H-CSR serves: steady iterations/s, twice
+    for key, make in smoke.WORKLOADS.items():
+        lp = make()
+        rates = []
+        for _ in range(2):
+            lp.solve(method="chambolle_pock_ppd", nb_iter=SOLVE_ITERS,
+                     nb_iter_plot=SOLVE_ITERS // 4, light_metrics=True,
+                     dtype=np.float32, device="cuda")
+            rates.append(smoke.steady_rate(lp))
+        print(json.dumps(dict(repo=repo, nvidia_smi=smi, solve=key,
+                              iterations=SOLVE_ITERS,
+                              iters_per_s_steady=rates)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -71,8 +71,7 @@ def main() -> int:
     a = apply_rcm_permutation(sys_)[0]["a_ineq"]
     hosts = {"A": a, "At": a.T.tocsr()}
     csr = CsrMatrix.from_scipy(a, torch.float32, dev)
-    csr_sides = {"A": (csr.indptr, csr.indices, csr.vals, csr.long),
-                 "At": (csr.indptr_t, csr.indices_t, csr.vals_t, csr.long_t)}
+    csr_sides = {"A": csr.csr, "At": csr.csr_t}
     rng = np.random.RandomState(0)
     lines = []
     for tile in TILES:
@@ -102,9 +101,8 @@ def main() -> int:
             xpad = torch.nn.functional.pad(x, (0, n_pad - n_in))
             lib_ms = events_ms(torch, lambda lib=lib, xpad=xpad:
                                torch.mv(lib, xpad), REPS)
-            ptr, idx, vals, long = csr_sides[side]
-            csr_ms = events_ms(torch, lambda: csr_spmv.csr_spmv(
-                ptr, idx, vals, x, n_out, long), REPS)
+            csr_ms = events_ms(torch, lambda side=side, x=x: csr_spmv.csr_spmv(
+                csr_sides[side], x), REPS)
             nnz = int(hosts[side].nnz)
             moved = nnz * 8 + (n_out + 1) * 4 + n_out * 4 + n_in * 4
             nz_tiles = int((tiles != 0).flatten(2).any(dim=2).sum())

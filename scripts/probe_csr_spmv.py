@@ -8,9 +8,16 @@ entries each, 1M columns so that x stays in the L2 cache), float32: times
 H-CSR (``ops.csr_spmv.csr_spmv``), its plain PyTorch twin and the library
 call ``torch.mv`` on a ``torch.sparse_csr_tensor`` of the same matrix (one
 cuSPARSE SpMV), in turns (twin, kernel, kernel, twin) with CUDA events, and
-checks the kernel against the twin.  Prints one JSON line per rung with
-the bytes the product must move, its bound at 3.35 TB/s and the achieved
-rate; the same lines go to ``chiprun_out/probe_csr_spmv.json``.  Exits
+checks the kernel against the twin.  H-CSR and the library call are also
+timed by ``chip_smoke.call_times``: device time from the profiler, host
+time per call, kernels per call; and H-CSR's device time with its plan
+built at other lanes per row (``WIDTHS``) and long-row chunk sizes
+(``CHUNKS``).  Prints one JSON line per rung with the default plan's
+lanes per row, chunks and long rows, the bytes the product must move, its
+bound at 3.35 TB/s and the achieved rate on device time; then one line
+per orientation of each of ``chip_smoke.py``'s H-CSR matrices
+(transport, unstructured, the k-medians block) with the same plan
+times.  The same lines go to ``chiprun_out/probe_csr_spmv.json``.  Exits
 nonzero without CUDA.
 """
 
@@ -27,6 +34,9 @@ HBM_BYTES_PER_S = 3.35e12     # NVIDIA H100 SXM at 700 W
 NNZ = 2_000_000
 N_COLS = 1_000_000
 ROW_LENGTHS = (2, 13, 20, 5000)
+# the plan's lanes per row and long-row chunk sizes tried beside the default
+WIDTHS = (2, 4, 8, 16, 32)
+CHUNKS = (512, 2048, 8192)
 REPS = 50
 
 
@@ -53,6 +63,7 @@ def main() -> int:
     import numpy as np
     import scipy.sparse
 
+    import chip_smoke
     from pysparselp_tpu_torch.ops import csr_spmv as ops
     from pysparselp_tpu_torch.problem import CsrMatrix
 
@@ -64,6 +75,23 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     lines = []
+
+    def plans(side, x):
+        """Device microseconds per call with the plan built at each of
+        WIDTHS lanes per row, and, where the matrix has long rows, at each
+        of CHUNKS entries per chunk."""
+        ptr = side.indptr.cpu().numpy()
+        out = {}
+        tries = [(f"width {w}", dict(width=w)) for w in WIDTHS]
+        if side.plan.n_tasks:
+            tries += [(f"chunk {c}", dict(chunk=c)) for c in CHUNKS]
+        for label, kw in tries:
+            cut = ops.CsrOperand(side.indptr, side.indices, side.vals,
+                                 side.n_in, ops.split_plan(ptr, **kw))
+            out[label] = chip_smoke.call_times(
+                torch, lambda cut=cut: ops.csr_spmv(cut, x))["device_us"]
+        return out
+
     for length in ROW_LENGTHS:
         m = NNZ // length
         cols = rng.randint(0, N_COLS, (m, length))
@@ -95,16 +123,40 @@ def main() -> int:
         lib_ms = events_ms(torch, lambda lib=lib, x=x: torch.mv(lib, x), REPS)
         nnz = a.nnz
         moved = nnz * 8 + (m + 1) * 4 + m * 4 + N_COLS * 4
-        ms = (t[1] + t[2]) / 2
+        kernel_us = chip_smoke.call_times(torch, kern)
         rec = dict(row_length=length, rows=m, cols=N_COLS, nnz=nnz,
-                   width=ops.vector_width(nnz, m),
-                   long_rows=int(op.long.numel()), nvidia_smi=smi,
-                   ms=ms, plain_ms=(t[0] + t[3]) / 2, library_ms=lib_ms,
+                   width=op.csr.plan.width, chunks=op.csr.plan.n_chunks,
+                   long_rows=op.csr.plan.n_tasks,
+                   nvidia_smi=smi, ms=(t[1] + t[2]) / 2,
+                   plain_ms=(t[0] + t[3]) / 2, library_ms=lib_ms,
+                   kernel_us=kernel_us,
+                   plans_us=plans(op.csr, x),
+                   library_us=chip_smoke.call_times(
+                       torch, lambda lib=lib, x=x: torch.mv(lib, x)),
                    bytes=moved, bound_ms=moved / HBM_BYTES_PER_S * 1e3,
-                   achieved_tb_s=moved / (ms * 1e-3) / 1e12,
+                   achieved_tb_s=moved / (kernel_us["device_us"] * 1e-6)
+                   / 1e12,
                    max_abs_err=float((got - want).abs().max()))
         print(json.dumps(rec), flush=True)
         lines.append(rec)
+    workloads = {k: chip_smoke.folded(make())
+                 for k, make in chip_smoke.WORKLOADS.items() if k != "l1svm"}
+    for key, a in chip_smoke.csr_matrices(workloads).items():
+        op = CsrMatrix.from_scipy(a, torch.float32, dev)
+        for side, operand in (("A", op.csr), ("At", op.csr_t)):
+            x = torch.as_tensor(rng.randn(operand.n_in), dtype=torch.float32,
+                                device=dev)
+            rec = dict(problem=key, side=side, nnz=a.nnz,
+                       shape=[operand.n_out, operand.n_in],
+                       width=operand.plan.width,
+                       chunks=operand.plan.n_chunks,
+                       long_rows=operand.plan.n_tasks,
+                       nvidia_smi=smi, kernel_us=chip_smoke.call_times(
+                           torch, lambda operand=operand, x=x:
+                           ops.csr_spmv(operand, x)),
+                       plans_us=plans(operand, x))
+            print(json.dumps(rec), flush=True)
+            lines.append(rec)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "probe_csr_spmv.json").write_text(

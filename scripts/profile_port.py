@@ -117,8 +117,8 @@ def main() -> int:
         if name.startswith("clime"):
             rec["spmv_us_per_iter"] = sum(
                 us for k, (_, us) in events.items()
-                if "bsr_rows_kernel" in k or "csr_rows_kernel" in k
-                or "csr_long_rows_kernel" in k) / lp.itrn_curve[-1]
+                if "bsr_rows_kernel" in k or "csr_kernel" in k
+                ) / lp.itrn_curve[-1]
             rec["steady_busy_share"] = (rec["kernel_us_per_iter"]
                                         / rec["steady_wall_us_per_iter"])
         if name == "potts300":

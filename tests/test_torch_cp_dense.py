@@ -6,12 +6,15 @@ dense products in other orders).
 JAX is imported inside the parity test: the card machine, which runs this
 file's ``cuda`` case (``python -m pytest --noconftest -m cuda``), has none."""
 
+import numpy as np
 import pytest
+import scipy.sparse
 import torch
 
-from pysparselp_tpu_torch.ops.cp_dense import (cp_dense_chunk,
+from pysparselp_tpu_torch.ops.cp_dense import (SMEM_LIMIT, cp_dense_chunk,
                                                cp_dense_chunk_reference,
-                                               cp_dense_eligible)
+                                               cp_dense_eligible,
+                                               dense_layout)
 from pysparselp_tpu_torch.utils.convert import problem_from_jax_arrays
 from torch_port_helpers import (assert_close, cuda_or_skip, host_system,
                                       jax_problem, port_problem, sc105_lp,
@@ -47,23 +50,99 @@ def test_twin_matches_dense_fused_kernel(with_sums):
     assert_close(got, want, rtol=1e-5, atol=1e-5, what="cp_dense")
 
 
+def _dense_system(me, mi, n, seed):
+    """A random dense LP host system (``torch_port_helpers.host_system``'s
+    keys) with a feasible point inside ``[0, 1]``."""
+    rng = np.random.RandomState(seed)
+
+    def mat(m):
+        if not m:
+            return None
+        a = rng.randn(m, n) * (rng.rand(m, n) < 0.3)
+        return scipy.sparse.csr_matrix(a)
+
+    a_eq, a_in = mat(me), mat(mi)
+    xf = rng.rand(n)
+    return dict(a_eq=a_eq, beq=None if a_eq is None else a_eq @ xf,
+                a_ineq=a_in, b_ineq=None if a_in is None else a_in @ xf + 0.5,
+                c=rng.randn(n), lb=np.zeros(n), ub=np.ones(n))
+
+
+# systems by the kernel's size tier: SC105 in shared memory; operators past
+# shared memory (2 x 250 x 300 entries) in the L2 tier; a 7,000-column
+# system whose float64 state (7n + 4m entries) exceeds shared memory too
+SYSTEMS = {"sc105": _sc105,
+           "past_shared": lambda: _dense_system(150, 100, 300, 11),
+           "wide": lambda: _dense_system(8, 12, 7000, 12)}
+TIERS = {("sc105", 4): "shared", ("sc105", 8): "shared",
+         ("past_shared", 4): "l2", ("past_shared", 8): "l2",
+         ("wide", 4): "l2", ("wide", 8): "global"}
+
+
+@pytest.mark.parametrize("name,itemsize", sorted(TIERS))
+def test_dense_layout_tiers(name, itemsize):
+    """What shared memory holds per system and dtype; every output gets a
+    group of lanes within the block, and the padded rows and columns hold
+    whole steps of 16-byte vectors."""
+    sys_ = SYSTEMS[name]()
+    me = 0 if sys_["a_eq"] is None else sys_["a_eq"].shape[0]
+    mi = sys_["a_ineq"].shape[0]
+    n = len(sys_["c"])
+    lay = dense_layout(n, me, mi, itemsize)
+    tier = ("shared" if lay["ops_smem"] else "l2" if lay["state_smem"]
+            else "global")
+    assert tier == TIERS[name, itemsize]
+    assert lay["smem_bytes"] <= SMEM_LIMIT
+    total = lay["state"] + (me + mi) * lay["ld_a"] + n * lay["ld_t"]
+    assert lay["scratch"] == (0 if tier == "shared" else total)
+    vec = 16 // itemsize
+    for outputs, w in ((n, lay["w1"]), (me + mi, lay["w2"])):
+        assert 1 <= w <= 32 and (w == 1 or 1024 // w >= outputs)
+    assert lay["ld_a"] >= n and lay["ld_a"] % (vec * lay["w2"]) == 0
+    assert lay["ld_t"] >= me + mi and lay["ld_t"] % (vec * lay["w1"]) == 0
+    threads = lay["threads"]
+    assert threads % 32 == 0 and threads <= 1024
+    assert threads >= min(1024, n * lay["w1"], (me + mi) * lay["w2"])
+    if name == "sc105":
+        # at most LANE_STEPS 16-byte steps a lane per output
+        assert (lay["w1"], lay["w2"]) == {4: (4, 4), 8: (8, 8)}[itemsize]
+        assert (lay["ld_a"], lay["ld_t"], threads) == {
+            4: (112, 112, 448), 8: (112, 112, 864)}[itemsize]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SYSTEMS))
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
                                         (torch.float64, 1e-12)])
-def test_kernel_matches_twin_on_cuda(dtype, rtol):
+def test_kernel_matches_twin_on_cuda(dtype, rtol, name):
     """Kernel and twin sum the products in different orders: the error is
-    held normwise, ``max|kernel - twin| <= rtol * max(1, max|twin|)``."""
+    held normwise, ``max|kernel - twin| <= rtol * max(1, max|twin|)``, on
+    every size tier and at 1 and 32 lanes per output; the inputs stay as
+    they were."""
     dev = cuda_or_skip()
-    sys_ = _sc105()
+    sys_ = SYSTEMS[name]()
     prob, pre = port_problem(sys_, "dense", dtype, dev)
     args = [torch.as_tensor(v, dtype=dtype, device=dev)
             for v in start_point(sys_, 4)]
+    before = [a.clone() for a in args]
     launches = cp_dense_chunk.launches
     got = cp_dense_chunk(prob, pre, *args, 200, 1.0, with_sums=True)
     want = cp_dense_chunk_reference(prob, pre, *args, 200, 1.0,
                                     with_sums=True)
     assert cp_dense_chunk.launches == launches + 1
+    assert all(torch.equal(a, b) for a, b in zip(args, before))
     for g, w in zip(got, want):
         if w.numel():
             scale = max(1.0, float(w.abs().max()))
-            assert float((g - w).abs().max()) <= rtol * scale
+            assert float((g - w).abs().max()) <= rtol * scale, name
+    assert all(torch.equal(g, w) for g, w in zip(
+        cp_dense_chunk(prob, pre, *args, 0, 1.0), args[:1] * 2 + args[1:]))
+    # one lane per output, and 32 (several rounds of outputs per group)
+    for lanes in (1, 32):
+        got = cp_dense_chunk(prob, pre, *args, 200, 1.0, with_sums=True,
+                             lanes=lanes)
+        for g, w in zip(got, want):
+            if w.numel():
+                scale = max(1.0, float(w.abs().max()))
+                assert float((g - w).abs().max()) <= rtol * scale, (name,
+                                                                     lanes)

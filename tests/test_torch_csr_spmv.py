@@ -6,6 +6,8 @@ tiled table) run in interpret mode (float32), through ``CsrMatrix``.
 JAX is imported inside the parity tests: the card machine, which runs this
 file's ``cuda`` cases (``python -m pytest --noconftest -m cuda``), has none."""
 
+import re
+
 import numpy as np
 import pytest
 import scipy.sparse
@@ -120,52 +122,228 @@ def test_twin_matches_routed_kernels_f32(kernel, name):
                                rtol=2e-5, atol=2e-5)
 
 
-def test_launch_plan():
-    """Lanes per row follow the mean row length; rows past 32 strides of
-    them go to the block-per-row launch."""
-    assert [ops.vector_width(nnz, 10) for nnz in (0, 20, 21, 130, 10_000)] \
-        == [2, 2, 4, 16, 32]
+def _one_row_all():
+    """One row holding every entry, among empty rows."""
+    rng = np.random.RandomState(8)
+    a = scipy.sparse.lil_matrix((20, 3000))
+    a[7, :] = rng.randn(3000)
+    return a.tocsr()
+
+
+PLAN_CASES = {
+    "empty": lambda: scipy.sparse.csr_matrix((0, 7)),
+    "no_entries": lambda: scipy.sparse.csr_matrix((6, 9)),
+    "empty_rows": _empty_and_dense_rows,
+    "one_row_all": _one_row_all,
+    "long_rows": _long_rows,
+    "random": lambda: _rand(500, 120, 0.05, 623),
+}
+
+
+def _lane_sums(prod, lanes):
+    """Entry ``k`` of ``prod`` added into lane ``k % lanes`` in entry order
+    (0 + p_l + p_{l+lanes} + ..., each add rounded)."""
+    out = np.zeros(lanes, prod.dtype)
+    for lane in range(min(lanes, prod.size)):
+        out[lane] = np.cumsum(prod[lane::lanes])[-1]
+    return out
+
+
+def _xor_tree(v):
+    """The kernels' shuffle tree over the last axis: at offsets 1, 2, ...,
+    every lane adds the lane ``offset`` away, all at once; lane 0's sum."""
+    idx = np.arange(v.shape[-1])
+    off = 1
+    while off < v.shape[-1]:
+        v = v + v[..., idx ^ off]
+        off *= 2
+    return v[..., 0]
+
+
+def _emulate(plan, indptr, indices, vals, x):
+    """The kernel's sums on ``plan``, in its order, in numpy (each product
+    and add rounded, as the kernel's ``--fmad=false`` build): a row of
+    ``width`` lanes, lane-strided then the shuffle tree; a long row's chunk
+    over the block's 256 threads, thread-strided, the tree per warp, then
+    the 8 warps in order; a long row's chunk sums, lane-strided over 32
+    lanes, then the tree."""
+    ip = np.asarray(indptr, np.int64)
+    dt = np.dtype(str(vals.dtype).split(".")[1])
+    prod = vals.numpy().astype(dt) * x.numpy().astype(dt)[indices.numpy()]
+    y = np.full(len(ip) - 1, np.nan, dt)
+    long = set(plan.task_row.tolist())
+    for r in range(len(ip) - 1):
+        if r not in long:
+            y[r] = _xor_tree(_lane_sums(prod[ip[r]:ip[r + 1]], plan.width))
+    carries = np.zeros(plan.n_chunks, dt)
+    for c in range(plan.n_chunks):
+        threads = _lane_sums(
+            prod[plan.chunk_begin[c]:plan.chunk_end[c]], ops.THREADS)
+        total = dt.type(0)
+        for warp in _xor_tree(threads.reshape(-1, 32)):
+            total = total + warp
+        carries[c] = total
+    for q in range(plan.n_tasks):
+        first = int(plan.task_first[q])
+        y[plan.task_row[q]] = _xor_tree(_lane_sums(
+            carries[first:first + int(plan.task_count[q])], 32))
+    return torch.as_tensor(y)
+
+
+PLAN_OPTIONS = {"default": {}, "chunk_7": dict(chunk=7),
+                "width_2": dict(width=2, chunk=100)}
+
+
+@pytest.mark.parametrize("option", sorted(PLAN_OPTIONS))
+@pytest.mark.parametrize("name", sorted(PLAN_CASES))
+def test_split_plan(name, option):
+    """The plan covers every row and every entry once, in order: a row of
+    at most LONG_STRIDES * width entries in the row blocks, a longer one
+    as one task whose chunks tile its entries in order, each within one
+    entry of the row's even share and at most the chunk size (by default
+    the long entries over SPREAD_CTAS, within [MIN_CHUNK, MAX_CHUNK])."""
+    a = PLAN_CASES[name]()
+    kw = PLAN_OPTIONS[option]
+    plan = ops.split_plan(a.indptr, **kw)
+    lengths = np.diff(a.indptr)
+    width = kw.get("width", ops.vector_width(a.nnz, a.shape[0]))
+    assert plan.width == width and plan.n_out == a.shape[0]
+    assert plan.row_blocks * ops.THREADS >= a.shape[0] * width
+    long = np.flatnonzero(lengths > ops.LONG_STRIDES * width)
+    assert plan.task_row.tolist() == long.tolist()
+    chunk = kw.get("chunk", int(np.clip(-(-int(lengths[long].sum())
+                                          // ops.SPREAD_CTAS),
+                                        ops.MIN_CHUNK, ops.MAX_CHUNK)))
+    covered = np.zeros(a.nnz, int)
+    for r in np.flatnonzero(lengths <= ops.LONG_STRIDES * width):
+        covered[a.indptr[r]:a.indptr[r + 1]] += 1
+    assert plan.n_chunks == int(plan.task_count.sum())
+    for q, r in enumerate(long):
+        first, count = int(plan.task_first[q]), int(plan.task_count[q])
+        cs = np.arange(first, first + count)
+        assert first == int(plan.task_count[:q].sum())
+        assert plan.chunk_task[cs].tolist() == [q] * count
+        begin, end = plan.chunk_begin[cs], plan.chunk_end[cs]
+        assert begin[0] == a.indptr[r] and end[-1] == a.indptr[r + 1]
+        assert np.array_equal(begin[1:], end[:-1])
+        size = end - begin
+        assert np.all(np.abs(size - lengths[r] / count) < 1)
+        assert size.max() <= chunk and count == -(-lengths[r] // chunk)
+        for b, e in zip(begin, end):
+            covered[b:e] += 1
+    assert np.all(covered == 1)
+    packed = plan.packed()
+    assert packed.dtype == np.int32
+    assert packed.size == 3 * plan.n_chunks + 4 * plan.n_tasks
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_CASES))
+def test_emulated_kernel_order_matches_twin_f64(name):
+    """The kernel's summation order on the plan (rows, chunks and the
+    chunk sums of long rows), emulated, against the twin and scipy."""
+    a = PLAN_CASES[name]()
+    x = np.random.RandomState(9).randn(a.shape[1])
+    xt = torch.as_tensor(x)
+    ip, ix = (torch.as_tensor(v.astype(np.int32)) for v in (a.indptr,
+                                                            a.indices))
+    vals = torch.as_tensor(a.data, dtype=torch.float64)
+    want = ops.csr_spmv_reference(ip, ix, vals, xt, a.shape[0])
+    for kw in PLAN_OPTIONS.values():
+        got = _emulate(ops.split_plan(a.indptr, **kw), ip, ix, vals, xt)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+        np.testing.assert_allclose(got.numpy(), a @ x, rtol=1e-12,
+                                   atol=1e-12)
+
+
+def test_plan_constants_match_kernel_source():
+    """The plan's block size and long-row limit are the kernel's."""
+    from pathlib import Path
+
+    src = Path(ops.__file__).resolve().parent.parent / "csrc"
+    kernel = (src / "csr_spmv.cu").read_text()
+    common = (src / "common.cuh").read_text()
+    assert "constexpr int kThreads = pslp::kBlock;" in kernel
+    assert ops.THREADS == int(re.search(r"kBlock = (\d+);", common).group(1))
+    assert ops.LONG_STRIDES == int(
+        re.search(r"kLongStrides = (\d+);", kernel).group(1))
+
+
+def test_operator_carries_its_plans():
     a = _long_rows()
-    width = ops.vector_width(a.nnz, a.shape[0])
-    np.testing.assert_array_equal(ops.long_rows(a.indptr, width),
-                                  [3, 101, 257])
     op = CsrMatrix.from_scipy(a, torch.float64, "cpu")
-    assert op.long.tolist() == [3, 101, 257] and op.long.dtype == torch.int32
-    assert op.long_t.numel() == 0
+    for side, mat in ((op.csr, a), (op.csr_t, a.T.tocsr())):
+        want = ops.split_plan(mat.indptr)
+        assert np.array_equal(side.plan.packed(), want.packed())
+        assert side.plan_dev.dtype == torch.int32
+        assert side.carries.shape == (want.n_chunks,)
+    assert op.csr.plan.n_tasks == 3
 
 
 def test_wrapper_takes_only_cpu_or_cuda():
     a = _rand(20, 30, 0.2, 1)
     op = CsrMatrix.from_scipy(a, torch.float32, "cpu")
     with pytest.raises(ValueError, match="CUDA or the CPU"):
-        ops.csr_spmv(op.indptr, op.indices, op.vals,
-                     torch.zeros(30, device="meta"), 20)
+        ops.csr_spmv(op.csr, torch.zeros(30, device="meta"))
+
+
+def _row_of_100k():
+    """One row of 100,000 entries (a few hundred chunks) between short
+    rows."""
+    rng = np.random.RandomState(10)
+    m, n = 50, 200_000
+    rows = np.r_[np.full(100_000, 20), np.arange(m)]
+    cols = np.r_[rng.choice(n, 100_000, replace=False), rng.randint(0, n, m)]
+    return scipy.sparse.csr_matrix((rng.randn(rows.size), (rows, cols)),
+                                   shape=(m, n))
+
+
+CUDA_MATRICES = dict(MATRICES, row_of_100k=_row_of_100k,
+                     no_entries=lambda: scipy.sparse.csr_matrix((6, 9)),
+                     one_row_all=_one_row_all)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_matches_twin_on_cuda(dtype):
-    """The kernel against its twin, both orientations, on every fixture;
-    x given as a view at a storage offset.  The twin adds in another
-    order, so the limit scales with the row's absolute product."""
+    """The kernel against its twin, both orientations, on every fixture,
+    one launch per product, with the default plan and with 2 lanes per
+    row and chunks of 64 entries; x given as a view at a storage offset.  The twin adds in
+    another order, so the limit scales with the row's absolute product.
+    A second call gives the same bits, and both plans give the bits of
+    the emulated order (:func:`_emulate`)."""
     dev = cuda_or_skip()
     rtol = 1e-5 if dtype == torch.float32 else 1e-12
-    for name, make in sorted(MATRICES.items()):
+    for name, make in sorted(CUDA_MATRICES.items()):
         a = make()
         op = CsrMatrix.from_scipy(a, dtype, dev)
         x, y = _vectors(a, 2)
-        for idx, ptr, vals, long, v, n_out, absa in (
-                (op.indices, op.indptr, op.vals, op.long, x, op.nrows, abs(a)),
-                (op.indices_t, op.indptr_t, op.vals_t, op.long_t, y,
-                 op.ncols, abs(a).T)):
+        for side, v, absa in ((op.csr, x, abs(a)), (op.csr_t, y, abs(a).T)):
             buf = torch.as_tensor(np.concatenate([[7.0], v]), dtype=dtype,
                                   device=dev)
             xv = buf[1:]
             launches = ops.csr_spmv.launches
-            got = ops.csr_spmv(ptr, idx, vals, xv, n_out, long)
+            got = ops.csr_spmv(side, xv)
             assert ops.csr_spmv.launches == launches + 1
-            want = ops.csr_spmv_reference(ptr, idx, vals, xv, n_out)
+            want = ops.csr_spmv_reference(side.indptr, side.indices,
+                                          side.vals, xv, side.n_out)
             scale = torch.as_tensor(absa @ np.abs(v), dtype=dtype,
                                     device=dev)
             err = (got - want).abs()
             assert bool((err <= rtol * scale).all()), (name, float(err.max()))
+            assert torch.equal(ops.csr_spmv(side, xv), got), name
+            # 2 lanes per row and chunks of 64 entries: rows past 64
+            # entries are long, the long ones many chunks
+            small = ops.CsrOperand(side.indptr, side.indices, side.vals,
+                                   side.n_in, ops.split_plan(
+                                       side.indptr.cpu().numpy(), chunk=64,
+                                       width=2))
+            got_small = ops.csr_spmv(small, xv)
+            err = (got_small - want).abs()
+            assert bool((err <= rtol * scale).all()), (name, float(err.max()))
+            # the kernel sums in the emulated order, to the bit
+            host = [v.cpu() for v in (side.indptr, side.indices, side.vals,
+                                      xv)]
+            for operand, out in ((side, got), (small, got_small)):
+                assert torch.equal(out.cpu(), _emulate(operand.plan, *host)), \
+                    name
