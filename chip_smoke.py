@@ -13,13 +13,17 @@ nonzero):
    SC105 and a dense system past shared memory; for H-CSR the transport,
    unstructured and k-medians systems of ``bench.py``, a row of 100,000
    entries and a system without entries; for H-BSR the RCM-permuted CLIME
-   system at p = 150), float32 and float64, with times, each kernel's
+   system at p = 150, one tile set at the shipped tile size, both
+   directions), float32 and float64, with times, each kernel's
    bound and the time of the one PyTorch call that computes the same
    function, where there is one (for H-BSR also H-CSR's time on the same
    matrix).  The SpMV kernels and H-CPDENSE are timed as the main path
    calls them (the operators' prepared entry points) by CUDA events,
    profiler device time, host time per call and kernels per call
-   (:func:`call_times`);
+   (:func:`call_times`); H-BSR, whose tile set fits the L2, also with the
+   L2 flushed before each call (:func:`cold_times`: its kernel-line time),
+   and beside the read rates a reduction reaches from L2 and from HBM
+   (:func:`read_rates`);
 3. the main path, ``SparseLP.solve(method="chambolle_pock_ppd")`` on the
    Potts-300 segmentation LP in float32, held checkpoint by checkpoint
    against the port's own float64 CPU run;
@@ -40,7 +44,8 @@ nonzero):
    held against the port's own float64 CPU run (unpermuted: CP-PPD with
    diagonal preconditioners is permutation-equivariant), and the steady
    rate with its H-BSR launches, beside the steady rate of the same solve
-   with ``permute=False`` (unpermuted, lowered to CSR);
+   with ``permute=False`` (unpermuted, lowered to CSR); then one more
+   solve of each, for the spread of the two rates;
 6. convergence: Potts-50 to the graph-cut optimum and SC105 to the perPlex
    optimum with restart-to-average (then SC105 once more under the
    profiler: H-CPDENSE's device time per iteration and the seconds
@@ -157,6 +162,27 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def profiled_kernels(torch, fn, reps, tries=3):
+    """The device events of ``reps`` calls of ``fn()`` under
+    ``torch.profiler``, in start order.  A capture that came back without
+    a single device event (the profiler drops one now and then) is taken
+    again, up to ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            return sorted(dev, key=lambda e: e.time_range.start)
+    raise AssertionError(f"the profiler saw no device event in {tries} "
+                         f"captures of {reps} calls")
+
+
 def call_times(torch, fn, reps=200, host_reps=1000):
     """Per call of ``fn()``, in microseconds: ``events_us`` (CUDA events
     over ``reps`` back-to-back calls, as :func:`cuda_ms`), ``device_us``
@@ -164,26 +190,18 @@ def call_times(torch, fn, reps=200, host_reps=1000):
     with ``kernels_per_call`` and their ``kernel_names``, and ``host_us``
     (``time.perf_counter`` over ``host_reps`` calls, one synchronize after
     the loop and outside the time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     events_us = cuda_ms(torch, fn, reps) * 1e3
     t0 = time.perf_counter()
     for _ in range(host_reps):
         fn()
     host_us = (time.perf_counter() - t0) / host_reps * 1e6
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = profiled_kernels(torch, fn, reps)
     # the profiler may drop an event of a long run: per call is the mean
     # event times the events per call
     per_call = max(round(len(dev) / reps), 1)
     device_us = (sum(e.time_range.elapsed_us() for e in dev) / len(dev)
-                 * per_call if dev else 0.0)
+                 * per_call)
     return dict(events_us=events_us, host_us=host_us, device_us=device_us,
                 kernels_per_call=len(dev) / reps,
                 kernel_names=sorted({e.name for e in dev}))
@@ -784,20 +802,20 @@ def phase_csr(torch, matrices, table):
                 emit("kernels", **rec)
 
 
-def bsr_library(torch, a, dtype, device, tm=128, tn=128):
-    """``(lib, n_padded)``: ``a`` (scipy) zero-padded to whole ``tm x tn``
-    blocks as a ``torch.sparse_bsr_tensor`` for the library call
+def bsr_library(torch, a, dtype, device, tile=128):
+    """``(lib, n_padded)``: ``a`` (scipy) zero-padded to whole ``tile x
+    tile`` blocks as a ``torch.sparse_bsr_tensor`` for the library call
     ``torch.mv(lib, x_padded)`` (cuSPARSE bsrmv), and the padded column
     count; only timed, the port never calls it."""
     import numpy as np
     import scipy.sparse
 
     m, n = a.shape
-    mp, np_ = -(-m // tm) * tm, -(-n // tn) * tn
+    mp, np_ = -(-m // tile) * tile, -(-n // tile) * tile
     coo = scipy.sparse.coo_matrix(a)
     b = scipy.sparse.bsr_matrix(
         scipy.sparse.csr_matrix((coo.data, (coo.row, coo.col)),
-                                shape=(mp, np_)), blocksize=(tm, tn))
+                                shape=(mp, np_)), blocksize=(tile, tile))
     b.sort_indices()
     lib = torch.sparse_bsr_tensor(
         torch.as_tensor(b.indptr.astype(np.int64), device=device),
@@ -807,15 +825,140 @@ def bsr_library(torch, a, dtype, device, tm=128, tn=128):
     return lib, np_
 
 
+def pair_times(torch, fa, fb, reps=200, host_reps=1000):
+    """An SpMV pair as the solve calls it, ``fa()`` then ``fb()`` (A x then
+    Aᵀ y), in microseconds per pair: ``events_us`` (CUDA events over
+    ``reps`` pairs back to back), ``host_us`` (``time.perf_counter`` over
+    ``host_reps`` pairs, one synchronize after), and the profiler's device
+    time per pair (``device_us``) and of each call in the alternation
+    (``device_a_us``, ``device_b_us``, by the order of the device events;
+    None unless every pair gave the same even count), with
+    ``kernels_per_pair``.  Unlike a loop of one direction, each call finds
+    in L2 what the other left there."""
+    def pair():
+        fa()
+        fb()
+
+    events_us = cuda_ms(torch, pair, reps) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(host_reps):
+        pair()
+    host_us = (time.perf_counter() - t0) / host_reps * 1e6
+    torch.cuda.synchronize()
+    dev = profiled_kernels(torch, pair, reps)
+    per = max(round(len(dev) / reps), 1)
+    us = [e.time_range.elapsed_us() for e in dev]
+    out = dict(events_us=events_us, host_us=host_us,
+               device_us=sum(us) / len(us) * per,
+               device_a_us=None, device_b_us=None,
+               kernels_per_pair=len(dev) / reps,
+               kernel_names=sorted({e.name for e in dev}))
+    if per % 2 == 0 and len(us) == per * reps:
+        half = per // 2
+        out["device_a_us"] = sum(
+            u for i, u in enumerate(us) if i % per < half) / reps
+        out["device_b_us"] = sum(
+            u for i, u in enumerate(us) if i % per >= half) / reps
+    return out
+
+
+def bsr_tile_bytes(op, transpose, itemsize):
+    """Bytes one H-BSR product of the tile set ``op`` (a ``BsrOperand``)
+    must move: its stored tiles, their int32 ids (one a tile for A x,
+    two for Aᵀ y), the pointers, x in and y out."""
+    lines = op.col_ptr.numel() if transpose else op.row_ptr.numel()
+    return (op.stored_entries * itemsize + (2 if transpose else 1) * 4
+            * op.n_tiles + lines * 4 + (op.nrows + op.ncols) * itemsize)
+
+
+def least_spmv_bytes(host, itemsize):
+    """The bytes of ``y = host @ x`` in CSR: the entries with their int32
+    column indices, the row pointers, x and y (H-CSR's bound)."""
+    m, n = host.shape
+    return host.nnz * (itemsize + 4) + (m + 1) * 4 + (m + n) * itemsize
+
+
+L2_FLUSH_BYTES = 256 * 1024 * 1024   # five times the H100's 50 MB L2
+
+
+def cold_times(torch, fn, names, flush, reps=50):
+    """Per call of ``fn()`` with the L2 flushed before it, so its operands
+    come from HBM, in microseconds: ``events_us`` (CUDA events around each
+    call) and ``device_us`` (the profiler's device time of the call's
+    kernels, those named in ``names``).  The flush reads ``flush``, a
+    tensor of ``L2_FLUSH_BYTES`` (``amax``: read only, so the L2 holds no
+    dirty line to write back during the call, and a kernel no timed call
+    uses)."""
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    for start, end in pairs:
+        flush.amax()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    events_us = sum(a.elapsed_time(b) for a, b in pairs) / reps * 1e3
+
+    def flushed():
+        flush.amax()
+        fn()
+
+    dev = [e for e in profiled_kernels(torch, flushed, reps)
+           if e.name in names]
+    if not dev:
+        raise AssertionError(f"no device event of {names} with the L2 "
+                             "flushed")
+    per = max(round(len(dev) / reps), 1)
+    device_us = sum(e.time_range.elapsed_us() for e in dev) / len(dev) * per
+    return dict(events_us=events_us, device_us=device_us)
+
+
+def read_rates(torch, nbytes, flush):
+    """Bytes per second at which the card reads ``nbytes`` of float32 in
+    one reduction, by the profiler's device time: for each of ``sum``
+    (``torch.sum`` of the buffer), ``row_sums`` (over rows of 4,096) and
+    ``gemv`` (``torch.mv`` of the buffer as rows of 1,024), ``l2`` back
+    to back, the buffer resident in L2 when it fits, and ``hbm`` with the
+    L2 flushed before each call (:func:`cold_times`); ``l2`` and ``hbm``
+    the fastest of the three."""
+    buf = torch.ones(nbytes // 4 // 4096 * 4096, device="cuda")
+    ones = torch.ones(1024, device="cuda")
+    nbytes = buf.numel() * 4
+    out = {"l2": 0.0, "hbm": 0.0}
+    for key, fn in (("sum", buf.sum),
+                    ("row_sums", lambda: buf.view(-1, 4096).sum(1)),
+                    ("gemv", lambda: torch.mv(buf.view(-1, 1024), ones))):
+        warm = call_times(torch, fn)
+        cold = cold_times(torch, fn, warm["kernel_names"], flush)
+        out[key] = {"l2": nbytes / (warm["device_us"] * 1e-6),
+                    "hbm": nbytes / (cold["device_us"] * 1e-6)}
+        out["l2"] = max(out["l2"], out[key]["l2"])
+        out["hbm"] = max(out["hbm"], out[key]["hbm"])
+    del buf
+    return out
+
+
 def phase_bsr(torch, a, table):
-    """Phase 2 for H-BSR on ``a``, the RCM-permuted CLIME system: both
-    orientations against the twin, per row within RTOL * (|A| |x|)_row,
-    float32 and float64; in float32 the kernel, twin, the library call
-    (cuSPARSE BSR, 128x128 blocks) and H-CSR on the same matrix, timed per
-    call and per SpMV pair (A x then Aᵀ y), beside two bounds: the least
-    bytes of the product (the matrix's entries with their indices, as
-    H-CSR's bound counts them; the kernel line's ``bound_ms``) and the
-    bytes of the block format's nonzero tiles (``tile_bound_ms``)."""
+    """Phase 2 for H-BSR on ``a``, the RCM-permuted CLIME system, at the
+    shipped tile size: both directions of the one tile set, through the
+    operator's entry points, against the twin, per row within RTOL *
+    (|A| |x|)_row, float32 and float64; in float32 the kernel, the library
+    call (cuSPARSE bsrmv at the shipped tile size and at 128x128) and
+    H-CSR on the same matrix, each timed twice:
+    * cold, the L2 flushed before each call (:func:`cold_times`), against
+      the bytes of the call (:func:`bsr_tile_bytes`) over the HBM rate:
+      the kernel line's ``ms`` and ``bound_ms``, and the pair's
+      ``tile_bound_fraction`` (each product cold);
+    * warm, back to back (:func:`call_times`) and as the solve calls them,
+      A x then Aᵀ y in turns (:func:`pair_times`), where the tile set
+      (37.7 MB at 16x16) stays in the 50 MB L2: beside the time the same
+      bytes take at the L2 read rate that a reduction over a buffer of
+      the tile set's size reaches in this run (:func:`read_rates`;
+      ``l2_read_us``), and the pair in turns against it
+      (``in_turns_l2_bound_fraction``).
+    Beside them, H-CSR's bytes (:func:`least_spmv_bytes`)."""
     import numpy as np
 
     from pysparselp_tpu_torch.ops import bsr_spmv as ops
@@ -823,86 +966,130 @@ def phase_bsr(torch, a, table):
 
     rng = np.random.RandomState(2)
     dev = torch.device("cuda")
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device=dev)
     for dt in (torch.float32, torch.float64):
         name = str(dt).split(".")[1]
+        s = torch.empty((), dtype=dt).element_size()
         t0 = time.perf_counter()
-        op = BsrMatrix.from_scipy(a, dt, dev)
+        mat = BsrMatrix.from_scipy(a, dt, dev)
         build_s = time.perf_counter() - t0
-        sides = {"A": (op.tiles, op.cols, op.ncols, op.nrows, a),
-                 "At": (op.tiles_t, op.cols_t, op.nrows, op.ncols,
-                        a.T.tocsr())}
-        pair = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                "csr_ms": 0.0, "bound_ms": 0.0, "bytes": 0,
-                "tile_bound_ms": 0.0, "tile_bytes": 0, "padded_bytes": 0}
-        for side, (tiles, cols, n_in, n_out, host) in sides.items():
-            x = torch.as_tensor(rng.randn(n_in), dtype=dt, device=dev)
+        op = mat.op
+        stored = dict(tile=op.tile, n_tiles=op.n_tiles,
+                      stored_entries=op.stored_entries,
+                      tile_rows=op.row_ptr.numel() - 1,
+                      tile_cols=op.col_ptr.numel() - 1,
+                      max_tiles_per_row=int(op.row_ptr.diff().max()),
+                      max_tiles_per_col=int(op.col_ptr.diff().max()))
+        if not bool((op.tiles != 0).flatten(1).any(dim=1).all()):
+            raise AssertionError("H-BSR stored a tile without an entry")
+        xs = {side: torch.as_tensor(rng.randn(n), dtype=dt, device=dev)
+              for side, n in (("A", op.ncols), ("At", op.nrows))}
+        calls = {"A": lambda: mat.matvec(xs["A"]),
+                 "At": lambda: mat.rmatvec(xs["At"])}
+        hosts = {"A": a, "At": a.T.tocsr()}
+        f32 = dt == torch.float32
+        if f32:
+            rates = read_rates(torch, op.stored_entries * s, flush)
+            pair = {k: 0.0 for k in (
+                "cold_us", "warm_us", "plain_ms", "library_cold_us",
+                "library_128_cold_us", "csr_cold_us", "tile_bytes",
+                "tile_bound_ms", "csr_bytes", "csr_bound_ms")}
+            csr = CsrMatrix.from_scipy(a, dt, dev)
+        for side, kern in calls.items():
+            transpose = side == "At"
+            x, host = xs[side], hosts[side]
 
-            def kern(tiles=tiles, cols=cols, x=x, n_in=n_in, n_out=n_out):
-                return ops.bsr_spmv(tiles, cols, x, n_in, n_out)
-
-            def plain(tiles=tiles, cols=cols, x=x, n_in=n_in, n_out=n_out):
-                return ops.bsr_spmv_reference(tiles, cols, x, n_in, n_out)
+            def plain(x=x, transpose=transpose):
+                return ops.bsr_spmv_reference(op, x, transpose)
 
             got, want = kern(), plain()
-            scale = ops.bsr_spmv_reference(tiles.abs(), cols, x.abs(), n_in,
-                                           n_out)
+            scale = ops.bsr_spmv_reference(op.abs(), x.abs(), transpose)
             err = (got - want).abs()
             if not bool((err <= RTOL[name] * scale).all()):
                 raise AssertionError(
                     f"H-BSR clime {side} ({name}): |kernel - twin| past "
                     f"{RTOL[name]:.0e} * (|A||x|)_row, max {float(err.max()):.3e}")
-            t_rows, k, tn, tm = tiles.shape
+            if not torch.equal(got, kern()):
+                raise AssertionError(f"H-BSR clime {side} ({name}): two "
+                                     "runs differ")
             rec = dict(kernel="H-BSR", problem="clime150_rcm", side=side,
-                       dtype=name, shape=[n_out, n_in], nnz=int(host.nnz),
-                       tile_rows=t_rows, k=k, tile=[tm, tn],
-                       padded=tiles.numel(), host_build_s=build_s,
+                       dtype=name, shape=list(host.shape),
+                       nnz=int(host.nnz), **stored, host_build_s=build_s,
                        max_abs_err=float(err.max()))
-            if dt == torch.float32:
-                rec.update(timings(torch, kern, plain, 50))
-                lib, n_pad = bsr_library(torch, host, dt, dev)
-                xpad = torch.nn.functional.pad(x, (0, n_pad - n_in))
-                rec["library_ms"] = cuda_ms(
-                    torch, lambda lib=lib, xpad=xpad: torch.mv(lib, xpad), 50)
-                rec["library_blocks"] = int(lib.values().shape[0])
-                rec["library_max_abs_err"] = float(
-                    (torch.mv(lib, xpad)[:n_out] - want).abs().max())
-                del lib
-                csr = CsrMatrix.from_scipy(host, dt, dev)
-                rec["csr_ms"] = cuda_ms(
-                    torch, lambda csr=csr, x=x: csr.matvec(x), 50)
-                # the least work for this y: the matrix's entries with
-                # their indices, as H-CSR's bound counts them
-                nnz = int(host.nnz)
-                nbytes = nnz * 8 + (n_out + 1) * 4 + n_out * 4 + n_in * 4
-                rec["bytes"] = nbytes
-                rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * nnz)
-                rec["achieved_tb_s"] = nbytes / (rec["ms"] * 1e-3) / 1e12
-                rec["bound_fraction"] = rec["bound_ms"] / rec["ms"]
-                # what the block format itself must read: its nonzero
-                # tiles with their ids and per-row counts, x and y
-                rec["nonzero_tiles"] = int(
-                    (tiles != 0).flatten(2).any(dim=2).sum())
-                rec["tile_bytes"] = 4 * (rec["nonzero_tiles"] * (tm * tn + 1)
-                                         + t_rows + n_in + n_out)
-                rec["tile_bound_ms"] = bound(rec["tile_bytes"], 0)[0]
-                rec["padded_bytes"] = 4 * (tiles.numel() + cols.numel()
-                                           + n_in + n_out)
+            if f32:
+                rec["plain_ms"] = cuda_ms(torch, plain, 50)
+                rec["kernel_us"] = call_times(torch, kern)
+                rec["kernel_cold"] = cold_times(
+                    torch, kern, rec["kernel_us"]["kernel_names"], flush)
+                for tile, key in ((op.tile, "library"),
+                                  (128, "library_128")):
+                    lib, n_pad = bsr_library(torch, host, dt, dev, tile)
+                    xpad = torch.nn.functional.pad(x, (0, n_pad - x.numel()))
+
+                    def lib_call(lib=lib, xpad=xpad):
+                        return torch.mv(lib, xpad)
+
+                    warm = call_times(torch, lib_call, reps=50, host_reps=50)
+                    rec[f"{key}_us"] = warm
+                    rec[f"{key}_cold"] = cold_times(
+                        torch, lib_call, warm["kernel_names"], flush)
+                    rec[f"{key}_max_abs_err"] = float(
+                        (lib_call()[:want.numel()] - want).abs().max())
+                    del lib
+                fn = csr.rmatvec if transpose else csr.matvec
+                warm = call_times(torch, lambda fn=fn, x=x: fn(x))
+                rec["csr_us"] = warm
+                rec["csr_cold"] = cold_times(
+                    torch, lambda fn=fn, x=x: fn(x), warm["kernel_names"],
+                    flush)
+                rec["tile_bytes"] = bsr_tile_bytes(op, transpose, s)
+                rec["tile_bound_ms"], rec["bound_by"] = bound(
+                    rec["tile_bytes"], 2 * op.stored_entries)
+                rec["csr_bytes"] = least_spmv_bytes(host, s)
+                rec["csr_bound_ms"] = bound(rec["csr_bytes"],
+                                            2 * int(host.nnz))[0]
+                cold = rec["kernel_cold"]["device_us"]
+                warm_dev = rec["kernel_us"]["device_us"]
+                rec.update(
+                    cold_us=cold, warm_us=warm_dev,
+                    library_cold_us=rec["library_cold"]["device_us"],
+                    library_128_cold_us=rec["library_128_cold"]["device_us"],
+                    csr_cold_us=rec["csr_cold"]["device_us"],
+                    tile_bound_fraction=rec["tile_bound_ms"] * 1e3 / cold,
+                    l2_read_us=rec["tile_bytes"] / rates["l2"] * 1e6,
+                    csr_cold_bound_fraction=rec["csr_bound_ms"] * 1e3
+                    / rec["csr_cold"]["device_us"])
                 for key in pair:
                     pair[key] += rec[key]
                 if side == "A":
-                    table["H-BSR"].update({k_: rec[k_] for k_ in (
-                        "ms", "plain_ms", "library_ms", "bound_ms",
-                        "bound_by")})
+                    # the kernel line: one A x with its operands in HBM
+                    table["H-BSR"].update(
+                        ms=rec["kernel_cold"]["events_us"] * 1e-3,
+                        plain_ms=rec["plain_ms"],
+                        library_ms=rec["library_cold"]["events_us"] * 1e-3,
+                        bound_ms=rec["tile_bound_ms"],
+                        bound_by=rec["bound_by"])
             table["H-BSR"]["max_abs_err"] = max(
                 table["H-BSR"]["max_abs_err"], rec["max_abs_err"])
             emit("kernels", **rec)
-        if dt == torch.float32:
+        if f32:
+            # the pair as the solve calls it: A x, then Aᵀ y, in turns
+            solve_pair = pair_times(torch, calls["A"], calls["At"])
+            csr_pair = pair_times(torch, lambda: csr.matvec(xs["A"]),
+                                  lambda: csr.rmatvec(xs["At"]))
             emit("kernels", kernel="H-BSR", problem="clime150_rcm",
-                 side="pair", dtype=name, **pair,
-                 bound_fraction=pair["bound_ms"] / pair["ms"],
-                 tile_bound_fraction=pair["tile_bound_ms"] / pair["ms"],
-                 csr_bound_fraction=pair["bound_ms"] / pair["csr_ms"])
-        del op
+                 side="pair", dtype=name, **stored, **pair,
+                 read_rates=rates,
+                 in_turns=solve_pair, csr_in_turns=csr_pair,
+                 tile_bound_fraction=pair["tile_bound_ms"] * 1e3
+                 / pair["cold_us"],
+                 in_turns_l2_bound_fraction=pair["tile_bytes"]
+                 / rates["l2"] * 1e6 / solve_pair["device_us"],
+                 csr_cold_bound_fraction=pair["csr_bound_ms"] * 1e3
+                 / pair["csr_cold_us"])
+            del csr
+        del mat, op
+    del flush
 
 
 CURVES = ("pobj_curve", "dobj_curve", "max_violated_equality",
@@ -1049,6 +1236,13 @@ def phase_clime(torch, lp, counted_solve):
         lp, method="chambolle_pock_ppd", nb_iter=nb_iter, nb_iter_plot=plot,
         light_metrics=True, permute=False, dtype=np.float32, device="cuda")
     its_csr = steady_rate(lp)
+    # a second solve of each, in turns: the spread of the two rates
+    again = {}
+    for permute in ("auto", False):
+        lp.solve(method="chambolle_pock_ppd", nb_iter=nb_iter,
+                 nb_iter_plot=plot, light_metrics=True, permute=permute,
+                 dtype=np.float32, device="cuda")
+        again[permute] = steady_rate(lp)
     t0 = time.perf_counter()
     lp.solve(method="chambolle_pock_ppd", nb_iter=200, nb_iter_plot=plot,
              dtype=np.float64, device="cpu")
@@ -1071,9 +1265,10 @@ def phase_clime(torch, lp, counted_solve):
          bytes_per_spmv_pair=bytes_pair, itrn=itrn,
          f32_cuda={k: v[:2] for k, v in got.items()}, f64_cpu=want,
          worst_rel_diff=worst, rel_limit=NONGRID_RTOL, cpu_wall_s=cpu_wall,
-         wall_s=wall, iters_per_s_steady=its, launches=launches,
-         launches_predicted=predicted, unpermuted_wall_s=wall_csr,
-         unpermuted_iters_per_s_steady=its_csr,
+         wall_s=wall, iters_per_s_steady=[its, again["auto"]],
+         launches=launches, launches_predicted=predicted,
+         unpermuted_wall_s=wall_csr,
+         unpermuted_iters_per_s_steady=[its_csr, again[False]],
          unpermuted_launches=launches_csr)
     if not launches_csr["H-CSR"] or launches_csr["H-BSR"]:
         raise AssertionError(f"CLIME unpermuted: launches {launches_csr}, "

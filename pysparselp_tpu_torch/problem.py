@@ -17,7 +17,8 @@ constraint system to one of these operators:
   hand-written H-CSR kernel (:mod:`pysparselp_tpu_torch.ops.csr_spmv`) on
   CUDA, over the CSR of ``A`` and of ``Aᵀ``;
 * :class:`BsrMatrix` — clustered systems (after the RCM layout presolve):
-  an ELL of dense tiles; both directions run the hand-written H-BSR kernel
+  one set of small dense tiles, the nonzero ones only, indexed by tile-row
+  and by tile-column; both directions run the hand-written H-BSR kernel
   (:mod:`pysparselp_tpu_torch.ops.bsr_spmv`) on CUDA;
 * :class:`ColBlockMatrix` — contiguous column blocks, each lowered by the
   same chooser (a dense head beside a sparse tail, ``[A | ±I]`` shapes).
@@ -40,9 +41,8 @@ import scipy.sparse
 import torch
 import torch.nn.functional as F
 
+from .ops import bsr_spmv as _bsr
 from .ops import csr_spmv as _csr
-from .ops.bsr_spmv import (DEFAULT_TM, DEFAULT_TN, bsr_padded_entries,
-                           bsr_spmv, build_tile_ell)
 from .ops.cp_dense import DENSE_FUSED_BUDGET, _pad128
 from .ops.dia_spmv import DiaOperand, dia_apply
 
@@ -55,9 +55,30 @@ from .ops.dia_spmv import DiaOperand, dia_apply
 # (ELL_GATHER_BYTES_PER_NNZ, DIA_PALLAS_COST_PER_ENTRY, ...) carries over.
 DENSE_AUTO_MAX_ENTRIES = 64 * 1024 * 1024   # the dense operator limit
 DIA_AUTO_MAX_OFFSETS = 32
-# the block-sparse candidate's limit on padded tile entries (both
-# orientations), the JAX package's value
+# the block-sparse candidate's limit on stored tile entries (its one tile
+# set), the JAX package's value
 BSR_AUTO_MAX_ENTRIES = 128 * 1024 * 1024
+# H-BSR gives each tile-row (A x) and each tile-column (Aᵀ y) one warp,
+# which loads a batch of tile values (BsrOperand.warp_batch_bytes) and waits
+# one round trip of its loads before the next; Aᵀ y's round trip is two
+# loads deep (the tile's position, then the tile).  So a product takes at
+# least the longest line's bytes at one warp's rate, batch bytes per round
+# trip: priced as the bytes the card streams meanwhile, line bytes ×
+# warp_line_price(itemsize).  Checked on the L1-SVM system after RCM, whose
+# longest tile-column holds 3,755 16×16 f32 tiles (3.85 MB): the model
+# gives 657 µs, its Aᵀ y took 685-697 µs (scripts/compare_kernels.py;
+# NVIDIA H100 80GB HBM3, 700 W).
+HBM_BYTES_PER_S = 3.35e12    # the H100's memory rate
+BSR_ROUND_TRIP_S = 0.7e-6    # two dependent global loads on the H100
+
+
+def warp_line_price(itemsize: int) -> float:
+    """Bytes the card streams per byte of H-BSR's longest tile-line (the
+    card's rate over one warp's)."""
+    return (HBM_BYTES_PER_S * BSR_ROUND_TRIP_S
+            / _bsr.BsrOperand.warp_batch_bytes(itemsize))
+
+
 # one gathered x entry of a CSR product: a whole 32-byte sector, since
 # unstructured column indices share no sector
 CSR_GATHER_BYTES = 32
@@ -320,62 +341,50 @@ class CsrMatrix:
 
 @dataclasses.dataclass(frozen=True)
 class BsrMatrix:
-    """Block-ELL operator (mirrors the JAX ``BsrMatrix``,
-    ``pysparselp_tpu/ops/bsr_pallas.py:236-346``): ``tiles`` ``(T_rows, K,
-    TN, TM)`` with ``tiles[r,k][t,m] = A[r·TM+m, cols[r,k]·TN+t]`` serve
-    ``A @ x``, and ``tiles_t`` / ``cols_t``, built the same way from ``Aᵀ``,
-    serve ``Aᵀ @ y``; both through
+    """Block-sparse operator (the JAX ``BsrMatrix``,
+    ``pysparselp_tpu/ops/bsr_pallas.py:236-346``, in the port's own
+    format): ONE tile set, a CSR of the nonzero ``T×T`` tiles of ``A`` with
+    a tile-column index beside it (:class:`~pysparselp_tpu_torch.ops.
+    bsr_spmv.BsrOperand`), serves ``A @ x`` and ``Aᵀ @ y``, both through
     :func:`~pysparselp_tpu_torch.ops.bsr_spmv.bsr_spmv` (H-BSR on CUDA).
-    Padding slots are zero tiles, which the reductions count as zero."""
+    The zeros inside the stored tiles count as zero in the reductions."""
 
-    tiles: torch.Tensor     # (T_rows, K, TN, TM)
-    cols: torch.Tensor      # int32 (T_rows, K)
-    tiles_t: torch.Tensor   # (T_cols, K', TM, TN)
-    cols_t: torch.Tensor    # int32 (T_cols, K')
+    op: _bsr.BsrOperand
     nrows: int
     ncols: int
-    tm: int
-    tn: int
 
     @property
     def shape(self):
         return (self.nrows, self.ncols)
 
     @property
+    def tile(self):
+        return self.op.tile
+
+    @property
     def nnz_padded(self):
-        return self.tiles.numel() + self.tiles_t.numel()
+        """The stored entries: nonzero tiles × T², once per tile set."""
+        return self.op.stored_entries
 
     def matvec(self, x):
-        return bsr_spmv(self.tiles, self.cols, x, self.ncols, self.nrows)
+        return _bsr.bsr_spmv(self.op, x)
 
     def rmatvec(self, y):
-        return bsr_spmv(self.tiles_t, self.cols_t, y, self.nrows, self.ncols)
+        return _bsr.bsr_spmv(self.op, y, transpose=True)
 
     def abs_power_rowsum(self, p):
-        return abs_pow0(self.tiles, p).sum(dim=(1, 2)).reshape(-1)[
-            :self.nrows]
+        return self.op.line_sum(abs_pow0(self.op.tiles, p).sum(dim=2))
 
     def abs_power_colsum(self, p):
-        return abs_pow0(self.tiles_t, p).sum(dim=(1, 2)).reshape(-1)[
-            :self.ncols]
+        parts = abs_pow0(self.op.tiles, p).sum(dim=1)
+        return self.op.line_sum(parts[self.op.tile_of.long()],
+                                transpose=True)
 
     @staticmethod
-    def from_scipy(a, dtype, device, tm=DEFAULT_TM,
-                   tn=DEFAULT_TN) -> "BsrMatrix":
-        csr = scipy.sparse.csr_matrix(a, dtype=np.float64)
-        csr.sum_duplicates()
-        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
-
-        def ell(mat, tm_, tn_):
-            tiles, cols = build_tile_ell(mat, tm_, tn_, np_dtype)[:2]
-            return (torch.as_tensor(tiles, device=device),
-                    torch.as_tensor(cols, device=device))
-
-        tiles, cols = ell(csr, tm, tn)
-        tiles_t, cols_t = ell(csr.T.tocsr(), tn, tm)
-        return BsrMatrix(tiles=tiles, cols=cols, tiles_t=tiles_t,
-                         cols_t=cols_t, nrows=csr.shape[0],
-                         ncols=csr.shape[1], tm=tm, tn=tn)
+    def from_scipy(a, dtype, device,
+                   tile=_bsr.DEFAULT_TILE) -> "BsrMatrix":
+        op = _bsr.BsrOperand.from_scipy(a, dtype, device, tile)
+        return BsrMatrix(op=op, nrows=op.nrows, ncols=op.ncols)
 
 
 # partition_geometry: verbatim copy of pysparselp_tpu/problem.py:316-343
@@ -562,10 +571,22 @@ def _csr_bytes(nnz, m, n, s):
             + (m + n) * s)
 
 
-def _bsr_bytes(padded, m, n, s, tile=DEFAULT_TM * DEFAULT_TN):
-    # the padded tiles of both orientations, their int32 tile ids, x in and
-    # y out per direction
-    return padded * s + padded // tile * 4 + 2 * (m + n) * s
+def _bsr_bytes(n_tiles, longest, m, n, s, tile=_bsr.DEFAULT_TILE,
+               line_price=None):
+    # per direction: the one tile set, its int32 tile ids (one per tile for
+    # A x, two for Aᵀ y), the pointers, x in and y out; or, where more,
+    # the longest line (``longest``: tile-row, tile-column) at one warp's
+    # rate (``line_price`` bytes per byte, warp_line_price by default)
+    if line_price is None:
+        line_price = warp_line_price(s)
+    tile_bytes = tile * tile * s
+    total = 0
+    for ids, lines, line in ((1, -(-m // tile), longest[0]),
+                             (2, -(-n // tile), longest[1])):
+        stream = (n_tiles * (tile_bytes + 4 * ids) + (lines + 1) * 4
+                  + (m + n) * s)
+        total += max(stream, line_price * line * tile_bytes)
+    return total
 
 
 def _partition_bytes(m, n, stride, width, s):
@@ -613,15 +634,18 @@ def _candidates(csr, dtype):
     return cands
 
 
-def _bsr_candidate(csr, dtype):
-    """Bytes per SpMV pair of the block-sparse candidate (128×128 tiles,
-    priced from :func:`bsr_padded_entries` without building tiles), or
-    ``None`` past ``BSR_AUTO_MAX_ENTRIES`` padded entries."""
-    padded = bsr_padded_entries(csr)
-    if padded > BSR_AUTO_MAX_ENTRIES:
+def _bsr_candidate(csr, dtype, line_price=None):
+    """Bytes per SpMV pair of the block-sparse candidate (its default
+    tiles, priced from the counts of nonzero tiles without building them;
+    ``line_price`` as :func:`_bsr_bytes`), or ``None`` past
+    ``BSR_AUTO_MAX_ENTRIES`` stored entries."""
+    tile = _bsr.DEFAULT_TILE
+    n_tiles, *longest = _bsr.tile_counts(csr, tile)
+    if n_tiles * tile * tile > BSR_AUTO_MAX_ENTRIES:
         return None
-    return _bsr_bytes(padded, *csr.shape,
-                      torch.empty((), dtype=dtype).element_size())
+    return _bsr_bytes(n_tiles, longest, *csr.shape,
+                      torch.empty((), dtype=dtype).element_size(), tile,
+                      line_price)
 
 
 def estimate_stream_bytes(csr, dtype=None):
@@ -632,7 +656,7 @@ def estimate_stream_bytes(csr, dtype=None):
     (≤ ``DIA_AUTO_MAX_OFFSETS`` diagonals), partition
     (:func:`partition_geometry`) and CSR.  The block-sparse candidate is
     priced for whole systems only, by :func:`choose_layout`: its tile
-    counts take two sorts of the entries, which the search would pay for
+    counts take a pass over the entries, which the search would pay for
     each of its up to 601 pieces."""
     dtype = dtype or default_dtype()
     csr = scipy.sparse.csr_matrix(csr)
@@ -663,8 +687,8 @@ def operator_cost_bytes(op) -> int:
         return _partition_bytes(m, n, op.stride, op.width,
                                 op.vals.element_size())
     if isinstance(op, BsrMatrix):
-        return _bsr_bytes(op.nnz_padded, m, n, op.tiles.element_size(),
-                          op.tm * op.tn)
+        return _bsr_bytes(op.op.n_tiles, op.op.longest_lines, m, n,
+                          op.op.tiles.element_size(), op.tile)
     return _csr_bytes(op.nnz_padded, m, n, op.vals.element_size())
 
 
@@ -744,12 +768,13 @@ def col_split_plan(csr, dtype=None, depth=COL_SPLIT_MAX_DEPTH):
     return best
 
 
-def choose_layout(csr):
+def choose_layout(csr, bsr_line_price=None):
     """``(backend, cuts, bytes)``: the backend :func:`ell_from_scipy`
     lowers ``csr`` to, priced at :func:`default_dtype`, the column cuts
     when the backend is ``"split"``, and the bytes one SpMV pair of that
     layout moves (what the layout presolve compares across
-    permutations)."""
+    permutations).  ``bsr_line_price`` replaces :func:`warp_line_price` as
+    the price of H-BSR's longest tile-line (0 prices the tile set alone)."""
     m, n = csr.shape
     dtype = default_dtype()
     if fits_dense_chunk(m, n):
@@ -757,7 +782,7 @@ def choose_layout(csr):
             m, n, torch.empty((), dtype=dtype).element_size())
     best, cost = estimate_stream_bytes(csr)
     if csr.nnz:
-        bsr = _bsr_candidate(csr, dtype)
+        bsr = _bsr_candidate(csr, dtype, bsr_line_price)
         if bsr is not None and bsr < cost:
             best, cost = "bsr", bsr
         # composite column blocks: [structured | ±I | …] matrices move

@@ -329,7 +329,7 @@ def _auto_layout(mats):
     return None
 
 
-def _choose_layout(mats):
+def _choose_layout(mats, bsr_line_price=None):
     """The layout presolve's choice, ``(choice, align_plan, layouts)``:
     ``"align"`` (with its plan) when :func:`_auto_layout` lowers every
     aligned system to DIA; else ``"rcm"`` when the RCM-permuted systems'
@@ -340,14 +340,15 @@ def _choose_layout(mats):
     system, for :func:`~..problem.lower_systems`; ``None`` after
     ``"align"``).  The port's counterpart of
     ``pysparselp_tpu/solvers/chambolle_pock.py:366-423``, priced by the
-    card's chooser."""
+    card's chooser (``bsr_line_price`` as
+    :func:`~..problem.choose_layout`'s)."""
     plan = _auto_layout(mats)
     if plan is not None:
         return "align", plan, None
 
     def priced(parts):
-        layouts = [(None, None, 0) if p is None else choose_layout(p)
-                   for p in parts]
+        layouts = [(None, None, 0) if p is None
+                   else choose_layout(p, bsr_line_price) for p in parts]
         return layouts, sum(lay[2] for lay in layouts)
 
     unpermuted, cost = priced(mats)

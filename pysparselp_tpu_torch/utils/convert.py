@@ -6,10 +6,10 @@
 imports no jax): a JAX ``DiaMatrix`` is stripped of its Pallas
 kernel-layout padding to ``vals[:ndiag, :nrows]`` (``vals_t`` likewise), a
 ``DenseMatrix`` comes across whole, a ``PartitionMatrix`` as the port's
-``PartitionMatrix``, a ``BsrMatrix`` as the port's ``BsrMatrix`` with its
-tiles and tile ids as they are (bf16 tiles widened to the port's dtype,
-which is exact; the TPU grid's padding tile-rows stay and compute rows
-past ``nrows``, which are never written), a ``ColBlockMatrix`` block by
+``PartitionMatrix``, a ``BsrMatrix`` as the port's ``BsrMatrix`` rebuilt
+from the entries of its block-ELL tiles (bf16 tiles widened, which is
+exact; the padding slots and the TPU grid's padding tile-rows hold zeros
+and are dropped), a ``ColBlockMatrix`` block by
 block, and the gather layouts (``EllMatrix``, ``SegmentedEllMatrix``,
 ``RoutedEllMatrix``) through their entries as a ``CsrMatrix``.
 :func:`state_from_numpy` carries the ``(x, x3, y_eq, y_ineq)`` state and the
@@ -49,6 +49,17 @@ def _csr(rows, cols, vals, shape):
     return csr
 
 
+def _bsr_entries(op):
+    """The CSR of a JAX block-ELL ``BsrMatrix`` from its ``A`` tiles:
+    ``tiles[r, k][t, m] = A[r·tm + m, cols[r, k]·tn + t]``."""
+    tiles = _np(op.tiles)
+    tn, tm = tiles.shape[2:]
+    flat = np.flatnonzero(tiles)
+    r, k, t, m = np.unravel_index(flat, tiles.shape)
+    cols = np.asarray(op.cols, np.int64)[r, k] * tn + t
+    return _csr(r * tm + m, cols, tiles.ravel()[flat], (op.nrows, op.ncols))
+
+
 def operator_from_jax(op, dtype, device):
     """The port's operator for a JAX operator (``None`` stays ``None``)."""
     if op is None:
@@ -71,15 +82,7 @@ def operator_from_jax(op, dtype, device):
             col0=op.col0, stride=op.stride, width=op.width, nrows=op.nrows,
             ncols=op.ncols)
     if kind == "BsrMatrix":
-        def t(v):
-            return torch.as_tensor(_np(v), dtype=dtype, device=device)
-
-        def i32(v):
-            return torch.as_tensor(np.array(v, np.int32), device=device)
-
-        return BsrMatrix(tiles=t(op.tiles), cols=i32(op.cols),
-                         tiles_t=t(op.tiles_t), cols_t=i32(op.cols_t),
-                         nrows=op.nrows, ncols=op.ncols, tm=op.tm, tn=op.tn)
+        return BsrMatrix.from_scipy(_bsr_entries(op), dtype, device)
     if kind == "ColBlockMatrix":
         return ColBlockMatrix(
             blocks=tuple(operator_from_jax(b, dtype, device)

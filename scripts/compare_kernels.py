@@ -13,6 +13,9 @@ one call.  Times, in float32, through the operators' own entry points:
 * H-CSR on ``chip_smoke.csr_matrices`` (transport, unstructured, the
   k-medians CSR block; ``A x`` and ``Aᵀ y``), beside cuSPARSE
   (``torch.mv`` of a ``torch.sparse_csr_tensor``);
+* H-BSR on the RCM-permuted CLIME system at p = 150 through
+  ``BsrMatrix.from_scipy(a, ...)`` at the checkout's default tiles
+  (``matvec``, ``rmatvec``, and the pair in turns, ``chip_smoke.pair_times``);
 * H-DIA on the aligned Potts-300 system (``A x``) and on its 4 row shards
   (forward and window, K5's function), beside cuSPARSE;
 * H-CPDENSE, 1,000 iterations with sums, per iteration: on SC105, on
@@ -24,7 +27,12 @@ For each, ``chip_smoke.call_times``: CUDA events over back-to-back calls,
 the profiler's device time and kernels per call, and host time per call.
 Then the four per-operator solves of ``chip_smoke.WORKLOADS`` (transport,
 unstructured, k-medians, L1-SVM), float32, ``SOLVE_ITERS`` iterations
-with ``light_metrics``, twice each: their steady iterations/s.
+with ``light_metrics``, twice each: their steady iterations/s; and L1-SVM
+twice more with the chooser's price of H-BSR's longest tile-line at zero
+(``l1svm_no_line_price``: ``_choose_layout(..., bsr_line_price=0)`` in
+the solve; the chooser then takes RCM and H-BSR).
+H-BSR is also timed on that RCM-permuted L1-SVM system, whose longest
+tile-column gives one warp's streaming rate (new-format checkouts only).
 Prints one JSON line per measurement (with the card's name and power limit
 and the repository path); exits nonzero without CUDA.
 """
@@ -32,6 +40,7 @@ and the repository path); exits nonzero without CUDA.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import inspect
 import json
@@ -39,6 +48,7 @@ import subprocess
 import sys
 import warnings
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent.parent
 SQUARE_SIZES = (16, 48, 104, 152)
@@ -66,14 +76,17 @@ def main() -> int:
 
     import pysparselp_tpu_torch
     from pysparselp_tpu_torch.examples.potts import build_linear_program
-    from pysparselp_tpu_torch.ops import cp_dense, dia_spmv
+    from pysparselp_tpu_torch.ops import bsr_spmv, cp_dense, dia_spmv
     from pysparselp_tpu_torch.parallel.sharded_dia import build_system_dia
-    from pysparselp_tpu_torch.problem import CsrMatrix
+    from pysparselp_tpu_torch.problem import (BsrMatrix, CsrMatrix,
+                                              apply_rcm_permutation)
+    from pysparselp_tpu_torch.solvers import chambolle_pock
+    from pysparselp_tpu_torch.solvers.chambolle_pock import _choose_layout
 
     if not pysparselp_tpu_torch.__file__.startswith(repo):
         raise AssertionError(f"imported {pysparselp_tpu_torch.__file__}, "
                              f"not from {repo}")
-    warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
+    warnings.filterwarnings("ignore", message="Sparse (CSR|BSR) tensor")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True
@@ -107,6 +120,34 @@ def main() -> int:
             lib = smoke.sparse_tensor(torch, host, dt, dev)
             emit("H-CSR", key, side, lambda fn=fn, x=x: fn(x),
                  lambda lib=lib, x=x: torch.mv(lib, x))
+
+    # H-BSR on the RCM-permuted CLIME matrix, as the operator serves it
+    clime = smoke.folded(smoke.clime_lp(**smoke.CLIME))
+    a = apply_rcm_permutation(clime)[0]["a_ineq"]
+    op = BsrMatrix.from_scipy(a, dt, dev)
+    x = torch.as_tensor(rng.randn(op.ncols), dtype=dt, device=dev)
+    y = torch.as_tensor(rng.randn(op.nrows), dtype=dt, device=dev)
+    bsr_systems = [("clime150_rcm", a)]
+    if hasattr(bsr_spmv, "BsrOperand"):
+        # a tile-column of 3,755 tiles: one warp's rate (the chooser's
+        # warp_line_price); the 128x128 block-ELL would store GBs
+        l1svm = apply_rcm_permutation(smoke.folded(smoke.l1svm_lp()))[0]
+        bsr_systems.append(("l1svm_rcm", l1svm["a_ineq"]))
+    for key, a in bsr_systems:
+        op = BsrMatrix.from_scipy(a, dt, dev)
+        x = torch.as_tensor(rng.randn(op.ncols), dtype=dt, device=dev)
+        y = torch.as_tensor(rng.randn(op.nrows), dtype=dt, device=dev)
+        emit("H-BSR", key, "A", lambda: op.matvec(x))
+        emit("H-BSR", key, "At", lambda: op.rmatvec(y))
+        lines = (dict(longest_lines=op.op.longest_lines, tile=op.tile)
+                 if hasattr(op, "op") else {})
+        print(json.dumps(dict(
+            repo=repo, nvidia_smi=smi, kernel="H-BSR", problem=key,
+            side="pair", stored_entries=op.nnz_padded, **lines,
+            pair_us=smoke.pair_times(torch, lambda: op.matvec(x),
+                                     lambda: op.rmatvec(y)))), flush=True)
+        del op
+    del clime, bsr_systems, a
 
     # H-DIA: aligned Potts-300 and its 4 row shards (K5's function)
     lp300 = build_linear_program(300, 0.5, 500)[0]
@@ -171,16 +212,29 @@ def main() -> int:
                                          with_sums=True, lanes=lanes),
                  per=1000, reps=5)
 
-    # the per-operator solves H-CSR serves: steady iterations/s, twice
-    for key, make in smoke.WORKLOADS.items():
+    # the per-operator solves: steady iterations/s, twice; and L1-SVM with
+    # the chooser's price of H-BSR's longest tile-line at zero
+    priced = "bsr_line_price" in inspect.signature(_choose_layout).parameters
+    solves = [(k, make, None) for k, make in smoke.WORKLOADS.items()]
+    if priced:
+        solves.append(("l1svm_no_line_price", smoke.WORKLOADS["l1svm"], 0))
+    for key, make, line_price in solves:
+        choose = (_choose_layout if line_price is None else
+                  functools.partial(_choose_layout,
+                                    bsr_line_price=line_price))
         lp = make()
+        sys_ = smoke.folded(lp)
+        choice, _plan, layouts = choose([sys_["a_eq"], sys_["a_ineq"]])
         rates = []
-        for _ in range(2):
-            lp.solve(method="chambolle_pock_ppd", nb_iter=SOLVE_ITERS,
-                     nb_iter_plot=SOLVE_ITERS // 4, light_metrics=True,
-                     dtype=np.float32, device="cuda")
-            rates.append(smoke.steady_rate(lp))
+        with mock.patch.object(chambolle_pock, "_choose_layout", choose):
+            for _ in range(2):
+                lp.solve(method="chambolle_pock_ppd", nb_iter=SOLVE_ITERS,
+                         nb_iter_plot=SOLVE_ITERS // 4, light_metrics=True,
+                         dtype=np.float32, device="cuda")
+                rates.append(smoke.steady_rate(lp))
         print(json.dumps(dict(repo=repo, nvidia_smi=smi, solve=key,
+                              permutation=choice,
+                              layouts=[lay[0] for lay in layouts or []],
                               iterations=SOLVE_ITERS,
                               iters_per_s_steady=rates)), flush=True)
     return 0

@@ -10,7 +10,8 @@ iterations, on the per-operator path) once to build and warm up, then once
 each under ``torch.profiler``; then, without a warm-up solve (its host
 presolve takes minutes), the CLIME LP of ``chip_smoke.py`` (p = 150) f32
 with ``light_metrics``, 2000 iterations, twice: with ``permute="rcm"``
-(block-sparse, H-BSR) and with ``permute=False`` (unpermuted, H-CSR).
+(block-sparse, H-BSR: ``bsr_rows_kernel`` for A x, ``bsr_cols_kernel``
+for Aᵀ y) and with ``permute=False`` (unpermuted, H-CSR).
 For each solve it prints one JSON line: the wall time, the device time and
 count of each kernel (and memcpy) by name, the device busy share (device
 time / wall time) and the device events per iteration, and for the
@@ -117,7 +118,8 @@ def main() -> int:
         if name.startswith("clime"):
             rec["spmv_us_per_iter"] = sum(
                 us for k, (_, us) in events.items()
-                if "bsr_rows_kernel" in k or "csr_kernel" in k
+                if "bsr_rows_kernel" in k or "bsr_cols_kernel" in k
+                or "csr_kernel" in k
                 ) / lp.itrn_curve[-1]
             rec["steady_busy_share"] = (rec["kernel_us_per_iter"]
                                         / rec["steady_wall_us_per_iter"])

@@ -3,8 +3,9 @@
 
     python3 scripts/time_presolve.py [--repo PATH] [--device cuda]
 
-Builds ``bench.py``'s four non-grid LPs (transport, unstructured, k-medians,
-L1-SVM) and CLIME at p = 150 with ``chip_smoke.py``'s builders, folds each
+Builds the Potts-300 segmentation LP, ``bench.py``'s four non-grid LPs
+(transport, unstructured, k-medians, L1-SVM) and CLIME at p = 150 with
+``chip_smoke.py``'s builders, folds each
 as the solver does, and times what the solver of the port at ``PATH``
 (default: this checkout; an older checkout to compare with) runs before its
 first iteration: the layout presolve (``_choose_layout``; in a checkout
@@ -55,7 +56,10 @@ def main() -> int:
         load("pysparselp_tpu_torch.examples.sparse_inv_covariance",
              ROOT / "pysparselp_tpu_torch/examples/sparse_inv_covariance.py")
     smoke = load("chip_smoke", ROOT / "chip_smoke.py")
-    makers = dict(smoke.WORKLOADS)
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+
+    makers = {"potts300": lambda: build_linear_program(300, 0.5, 500)[0],
+              **smoke.WORKLOADS}
     makers["clime"] = lambda: smoke.clime_lp(**smoke.CLIME)
     for name, make in makers.items():
         sys_ = smoke.folded(make())

@@ -196,17 +196,67 @@ def test_operator_cost_bytes_prices_blocks():
     assert isinstance(op, ppr.BsrMatrix)
     assert ppr.operator_cost_bytes(op) == ppr._bsr_candidate(
         a, torch.float32)
+    # one tile set, read by each direction, or its longest line at one
+    # warp's rate
+    o = op.op
+    assert op.nnz_padded == o.n_tiles * op.tile ** 2
+    assert ppr.operator_cost_bytes(op) == sum(
+        max(op.nnz_padded * 4 + ids * 4 * o.n_tiles + ptr.numel() * 4
+            + sum(a.shape) * 4,
+            ppr.warp_line_price(4) * line * op.tile ** 2 * 4)
+        for ids, ptr, line in zip((1, 2), (o.row_ptr, o.col_ptr),
+                                  o.longest_lines))
+
+
+def test_bsr_price_counts_the_longest_tile_line(monkeypatch):
+    """H-BSR gives each tile-column one warp: a system whose tile-column
+    spans every tile-row (the L1-SVM weight head) is priced by that line
+    at one warp's rate, above its tile set's bytes, and the chooser keeps
+    the column split; the lowered operator is priced the same way."""
+    monkeypatch.setattr(ppr, "DENSE_AUTO_MAX_ENTRIES", SMALL_DENSE_LIMIT)
+    a = _system("l1svm", nb_examples=300)["a_ineq"]
+    tiles, longest_row, longest_col = bsr_spmv.tile_counts(a)
+    assert longest_col == -(-a.shape[0] // 16) - 8 and longest_row < 16
+    m, n = a.shape
+    stream_t = tiles * (1024 + 8) + (-(-n // 16) + 1) * 4 + (m + n) * 4
+    line_t = ppr.warp_line_price(4) * longest_col * 1024
+    assert line_t > stream_t
+    cost = ppr._bsr_candidate(a, torch.float32)
+    assert cost == ppr._bsr_bytes(tiles, (longest_row, longest_col), m, n,
+                                  4) > line_t
+    op = ppr.ell_from_scipy(a, torch.float32, "cpu", prefer="bsr")
+    assert op.op.longest_lines == (longest_row, longest_col)
+    assert ppr.operator_cost_bytes(op) == cost
+    assert ppr.choose_layout(a)[:2] == ("split", (93,))
+    # priced by its tile set alone, the system lowers to BSR
+    assert ppr._bsr_candidate(a, torch.float32, 0) == ppr._bsr_bytes(
+        tiles, (longest_row, longest_col), m, n, 4, line_price=0) < cost
+    assert ppr.choose_layout(a, bsr_line_price=0)[:2] == ("bsr", ())
+
+
+def test_bsr_line_price_follows_the_warp_batch():
+    """The price of a tile-line is the card's rate over one warp's: a
+    batch of 32 lanes × ``LANE_VALUES`` values per round trip of two
+    loads.  Its one measurement: the 3,755-tile column (16×16, f32) of
+    L1-SVM after RCM took 685-697 µs for Aᵀ y on the H100 (PERF.md, K6);
+    the model gives 657 µs.  A float64 line moves twice the bytes per
+    round trip, so its price per byte halves."""
+    assert bsr_spmv.BsrOperand.warp_batch_bytes(4) == 32 * 32 * 4
+    seconds = 3755 * 1024 * ppr.warp_line_price(4) / ppr.HBM_BYTES_PER_S
+    assert 0.9 * 685e-6 < seconds < 1.1 * 697e-6
+    assert ppr.warp_line_price(8) == ppr.warp_line_price(4) / 2
 
 
 def test_clime_p80_takes_rcm_then_bsr(monkeypatch):
     """CLIME at p = 80 (12,800 variables, 25,600 folded rows, 1.05M
     entries): the layout presolve takes RCM, and the chooser lowers the
-    permuted system to 128×128 tiles, priced from tile counts alone (no
-    tile is built)."""
+    permuted system to one set of 16×16 tiles, priced from the count of
+    nonzero tiles alone (no tile is built): the tiles read once per
+    product, three int32 ids per tile, the pointers and the vectors."""
     def no_tiles(*args, **kwargs):
         raise AssertionError("the chooser built tiles")
 
-    monkeypatch.setattr(ppr, "build_tile_ell", no_tiles)
+    monkeypatch.setattr(bsr_spmv, "build_tile_csr", no_tiles)
     lp, _ids = clime_lp(make_data(n_samples=160, n_features=80, seed=0)[0])
     sys_ = host_system(lp)
     assert sys_["a_eq"] is None and sys_["a_ineq"].shape == (25600, 12800)
@@ -219,8 +269,13 @@ def test_clime_p80_takes_rcm_then_bsr(monkeypatch):
     assert layouts == [(None, None, 0), (backend, cuts, cost)]
     assert cost < min(ppr._candidates(permuted, torch.float32).values())
     assert cost < ppr.choose_layout(sys_["a_ineq"])[2]
-    padded = bsr_spmv.bsr_padded_entries(permuted)
-    assert cost == ppr._bsr_bytes(padded, 25600, 12800, 4)
+    assert bsr_spmv.DEFAULT_TILE == 16
+    tiles, *longest = bsr_spmv.tile_counts(permuted, 16)
+    assert tiles * 256 < permuted.nnz * 2
+    assert cost == ppr._bsr_bytes(tiles, longest, 25600, 12800, 4) == sum(
+        max(tiles * (1024 + 4 * ids) + (lines + 1) * 4 + 38400 * 4,
+            ppr.warp_line_price(4) * line * 1024)
+        for ids, lines, line in zip((1, 2), (1600, 800), longest))
 
 
 @pytest.mark.parametrize("name", sorted(MATRICES) + ["duplicates"])

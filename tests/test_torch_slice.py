@@ -24,6 +24,7 @@ import pysparselp_tpu.problem as jproblem
 import pysparselp_tpu_torch.examples.potts as ppotts
 import pysparselp_tpu_torch.examples.sparse_inv_covariance as pclime
 import pysparselp_tpu_torch.io.netlib as pnetlib
+import pysparselp_tpu_torch.ops.bsr_spmv as pbsr
 import pysparselp_tpu_torch.problem as pproblem
 import pysparselp_tpu_torch.solvers.chambolle_pock as pcp
 from pysparselp_tpu.examples.l1_svm import L1SVM as JaxL1SVM
@@ -330,10 +331,22 @@ def test_clime_rcm_bsr_matches_live_jax_solve(monkeypatch):
     np.testing.assert_allclose(x_p, x_plain, rtol=1e-9, atol=1e-9)
 
 
+def _bsr_dense(op):
+    """The dense matrix of a port ``BsrMatrix``'s tile set."""
+    o, t = op.op, op.tile
+    rows = np.repeat(np.arange(o.row_ptr.numel() - 1),
+                     np.diff(o.row_ptr.numpy()))
+    out = np.zeros(((o.row_ptr.numel() - 1) * t, (o.col_ptr.numel() - 1) * t))
+    for tile, r, c in zip(o.tiles.numpy(), rows, o.tile_col.numpy()):
+        out[r * t:(r + 1) * t, c * t:(c + 1) * t] = tile
+    return out[:op.nrows, :op.ncols]
+
+
 def test_clime_jax_bsr_carries_across():
     """A JAX ``BsrMatrix`` (the RCM-permuted CLIME system at p = 10,
-    ROW_GROUP-padded tiles) comes across as the port's ``BsrMatrix`` with
-    its tiles as they are, and a CP chunk on it equals JAX's."""
+    ROW_GROUP-padded 128×128 block-ELL tiles) comes across as the port's
+    ``BsrMatrix``, its tile set rebuilt from the JAX tiles' entries: the
+    same entries, and a CP chunk on it equals JAX's."""
     import jax.numpy as jnp
 
     import pysparselp_tpu.solvers.chambolle_pock as jcp
@@ -344,9 +357,13 @@ def test_clime_jax_bsr_carries_across():
     prob = problem_from_jax_arrays(jprob, device="cpu")
     op, jop = prob.a_ineq, jprob.a_ineq
     assert isinstance(op, pproblem.BsrMatrix)
-    np.testing.assert_array_equal(op.tiles.numpy(), np.asarray(jop.tiles))
-    np.testing.assert_array_equal(op.cols_t.numpy(), np.asarray(jop.cols_t))
-    assert op.tiles.shape[0] % 8 == 0 and op.tiles.shape[0] * 128 > op.nrows
+    assert np.asarray(jop.tiles).shape[0] * 128 > op.nrows   # ROW_GROUP rows
+    np.testing.assert_array_equal(np.asarray(jop.to_dense()),
+                                  _bsr_dense(op))
+    np.testing.assert_array_equal(_bsr_dense(op),
+                                  sys_["a_ineq"].toarray())
+    assert op.tile == pbsr.DEFAULT_TILE and op.nnz_padded == \
+        pbsr.tile_counts(sys_["a_ineq"])[0] * op.tile ** 2
     x, ye, yi = start_point(sys_, 4)
     st = (x, 0.5 * x, ye, yi)
     js, jm = jcp._cp_chunk(jprob, jpre, tuple(jnp.asarray(v) for v in st), 30)
