@@ -65,11 +65,29 @@ The mesh solve (``lp.solve(mesh=...)``, ``parallel/sharded_cp.py``) adds:
   spawn``), Potts-300 on per-shard DIA and the unstructured LP on per-shard
   CSR, 200 iterations each, held against the same solves on one device.
 
+Batched serving (``solve_cp_batch``, ``batch.py``) adds:
+
+* in phase 2, the batched kernels at the batch path's operators and batch
+  sizes (:func:`phase_batch_kernels`): H-DIA-B on the banded system and on
+  the DIA block of the assignment system, column by column bit-identical
+  to H-DIA; H-CSR-B on the unstructured system; both orientations, float32
+  and float64, timed beside cuSPARSE SpMM (``torch.sparse.mm``);
+* ``main_path_batch_{dense,banded,assign,unstructured}``, after phase 4:
+  ``bench.py``'s three batch configurations at its sizes (dense 512
+  variables B = 64, 20,000 iterations; banded 150,000 rows B = 16;
+  k-medians assignment B = 8; 2,000 iterations each) and the unstructured
+  LP with B = 8 (:func:`phase_batch`): the backends and the host lowering
+  time, 200 float32 iterations held against the port's float64 CPU batch
+  run, the steady batch and problem iterations/s of three runs, the
+  single-problem rate of the same template and the batching efficiency,
+  and the batched kernels' launches against the operators' prediction.
+
 The launch counters are set to 0 just before each solve and read just
 after it; the kernel table takes H-DIA's and H-CPDIA's counts from the
 Potts-300 solve, H-DIA (K5)'s from the one-rank mesh solve, H-CPDENSE's
-from the SC105 solve, H-CSR's from the transport solve and H-BSR's from
-the CLIME solve (``launches_run`` names the solve).  Then the kernel table
+from the SC105 solve, H-CSR's from the transport solve, H-BSR's from the
+CLIME solve, H-DIA-B's from the banded batch solve and H-CSR-B's from the
+unstructured batch solve (``launches_run`` names the solve).  Then the kernel table
 as one JSON line and, last, the device line ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside this script, it
 exits nonzero and prints no result.
@@ -134,6 +152,16 @@ KERNELS = {
                   replaces="pysparselp_tpu/ops/bsr_pallas.py:168",
                   tpu_kernels={"K6": "ported"},
                   launches_run="main_path_clime"),
+    # the batched entries behind solve_cp_batch: no pallas_call stands
+    # behind the vmapped XLA products they replace
+    "H-DIA-B": dict(source="pysparselp_tpu_torch/csrc/dia_spmv.cu",
+                    replaces="pysparselp_tpu/batch.py:57",
+                    tpu_kernels={},
+                    launches_run="main_path_batch_banded"),
+    "H-CSR-B": dict(source="pysparselp_tpu_torch/csrc/csr_spmv.cu",
+                    replaces="pysparselp_tpu/batch.py:147",
+                    tpu_kernels={},
+                    launches_run="main_path_batch_unstructured"),
 }
 # the mesh phases: ranks of main_path_mesh4 (gloo, all on the one card)
 # and the row-shard count of the K5 kernel phase
@@ -488,6 +516,76 @@ WORKLOADS = {"transport": transport_lp, "unstructured": unstructured_lp,
              "kmedians": kmedians_lp, "l1svm": l1svm_lp}
 
 
+def batch_dense_lp():
+    """The template of ``bench.py::measure_batch_serving`` (bench.py:665-
+    667): 512 variables, 64 equality and 384 inequality rows."""
+    from pysparselp_tpu_torch.utils.random_lp import generate_random_lp
+
+    return generate_random_lp(nbvar=512, n_eq=64, n_ineq=384, sparsity=0.02,
+                              seed=17)[0]
+
+
+def banded_lp(n=150_000, offsets=(0, 1, 2, 64), seed=7):
+    """Copy of ``bench.py::_banded_lp`` (bench.py:702-722): ``n`` variables
+    and ``n`` inequality rows on ``len(offsets)`` diagonals, feasible at an
+    interior point."""
+    import numpy as np
+    import scipy.sparse
+
+    from pysparselp_tpu_torch import SparseLP
+
+    rng = np.random.RandomState(seed)
+    diags = [rng.rand(n - abs(o)) + 0.5 for o in offsets]
+    a = scipy.sparse.diags(diags, offsets, shape=(n, n)).tocsr()
+    x0 = rng.rand(n)
+    b = np.asarray(a @ x0) + 0.5
+    lp = SparseLP()
+    lp.add_variables_array(n, lower_bounds=0, upper_bounds=1,
+                           costs=rng.rand(n) - 0.3)
+    lp.add_inequality_constraints_sparse(a, None, b)
+    return lp
+
+
+# batched serving (solve_cp_batch): bench.py's three configurations
+# (measure_batch_serving, _dia, _assign: bench.py:656-803) at its sizes and
+# the unstructured LP, each with B cost variants of its template ("add":
+# c + 0.1 randn, "scale": c (1 + 0.1 rand), numpy seed 0) and its steady
+# run's iterations
+BATCH = {
+    "dense": dict(make=batch_dense_lp, bsz=64, nb_iter=20_000, vary="add"),
+    "banded": dict(make=banded_lp, bsz=16, nb_iter=2_000, vary="add"),
+    "assign": dict(make=kmedians_lp, bsz=8, nb_iter=2_000, vary="scale"),
+    "unstructured": dict(make=unstructured_lp, bsz=8, nb_iter=2_000,
+                         vary="add"),
+}
+# the batch solves held against the port's float64 CPU batch run: these
+# iterations, a checkpoint every BATCH_CHECK_PLOT
+BATCH_CHECK_ITERS, BATCH_CHECK_PLOT = 200, 100
+
+
+def batch_costs(lp, bsz, vary):
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    c = lp.costsvector[None, :]
+    if vary == "scale":
+        return c * (1.0 + 0.1 * rng.rand(bsz, lp.nb_variables))
+    return c + 0.1 * rng.randn(bsz, lp.nb_variables)
+
+
+def batch_systems(lp):
+    """``(a_eq, a_one)``: the host systems ``solve_cp_batch`` lowers (the
+    inequalities folded one-sided; no fixed variable removed)."""
+    from pysparselp_tpu_torch.solvers import _csr
+    from pysparselp_tpu_torch.solvers.chambolle_pock import _fold_one_sided
+
+    a_one, _ = _fold_one_sided(_csr(lp.a_inequalities), lp.b_lower,
+                               lp.b_upper)
+    if a_one is not None and a_one.shape[0] == 0:
+        a_one = None
+    return _csr(lp.a_equalities), a_one
+
+
 def clime_lp(n_features=150, n_samples=300, lamb=0.15, seed=0):
     """The CLIME LP of ``examples/sparse_inv_covariance.py`` on seeded
     samples, one-sided."""
@@ -799,6 +897,143 @@ def phase_csr(torch, matrices, table):
                             "bound_by")})
                 table["H-CSR"]["max_abs_err"] = max(
                     table["H-CSR"]["max_abs_err"], rec["max_abs_err"])
+                emit("kernels", **rec)
+
+
+def batch_operator(lp, dtype, device):
+    """The operator of ``lp``'s inequality system that a batched kernel
+    serves, as ``solve_cp_batch`` lowers it, and its host matrix: the whole
+    system, or the DIA block of a column split."""
+    from pysparselp_tpu_torch.batch import _lower_batch
+    from pysparselp_tpu_torch.problem import ColBlockMatrix, DiaMatrix
+
+    a = batch_systems(lp)[1]
+    op = _lower_batch(a, dtype, device)
+    if isinstance(op, ColBlockMatrix):
+        b = next(i for i, blk in enumerate(op.blocks)
+                 if isinstance(blk, DiaMatrix))
+        s = op.col_starts
+        return op.blocks[b], a.tocsc()[:, s[b]:s[b + 1]].tocsr()
+    return op, a
+
+
+def phase_batch_kernels(torch, lps, table):
+    """Phase 2 for the batched kernels, at the batch main path's operators
+    and batch sizes: H-DIA-B on the banded system (B = 16) and on the DIA
+    block of the assignment system (B = 8), H-CSR-B on the unstructured
+    system (B = 8), both orientations, float32 and float64, against their
+    twins (H-DIA-B within RTOL and column by column bit-identical to H-DIA;
+    H-CSR-B per row within RTOL * (|A| |X|)_row, a second call giving the
+    same bits); in float32 the kernel, the twin and the library call
+    (cuSPARSE SpMM through ``torch.sparse.mm`` on the operator's CSR) timed
+    by events, device time, host time per call and kernels per call."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.ops import csr_spmv as csr_ops
+    from pysparselp_tpu_torch.ops import dia_spmv as dia_ops
+
+    rng = np.random.RandomState(3)
+    dev = torch.device("cuda")
+    cases = (("H-DIA-B", "banded"), ("H-DIA-B", "assign"),
+             ("H-CSR-B", "unstructured"))
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[1]
+        for kernel, key in cases:
+            op, host = batch_operator(lps[key], dt, dev)
+            bsz = BATCH[key]["bsz"]
+            sides = ((("A", op.fwd, host), ("At", op.bwd, None))
+                     if kernel == "H-DIA-B" else
+                     (("A", op.csr, host), ("At", op.csr_t, None)))
+            for side, operand, mat in sides:
+                mat = mat if mat is not None else host.T.tocsr()
+                n_out, n_in = mat.shape
+                x = torch.as_tensor(rng.randn(n_in, bsz), dtype=dt,
+                                    device=dev)
+                if kernel == "H-DIA-B":
+                    def kern(operand=operand, x=x):
+                        return dia_ops.dia_spmm(operand, x)
+
+                    def plain(operand=operand, x=x, n_out=n_out):
+                        return dia_ops.dia_spmm_reference(
+                            operand.vals, operand.offs, x, n_out)
+
+                    got = kern()
+                    err = compare(torch, [got], [plain()], name,
+                                  f"H-DIA-B {key} {side}")
+                    columns = torch.stack(
+                        [dia_ops.dia_apply(operand, x[:, b].contiguous())
+                         for b in range(bsz)], dim=1)
+                    if not torch.equal(got, columns):
+                        raise AssertionError(
+                            f"H-DIA-B {key} {side} ({name}) differs from "
+                            "H-DIA column by column")
+                    stored = operand.vals.numel()
+                    nbytes = (stored + bsz * (n_in + n_out)) * \
+                        x.element_size() + 4 * operand.offs.numel()
+                    extra = dict(ndiag=int(operand.offs.numel()),
+                                 columns_equal_h_dia=True)
+                else:
+                    def kern(operand=operand, x=x):
+                        return csr_ops.csr_spmm(operand, x)
+
+                    def plain(operand=operand, x=x):
+                        return csr_ops.csr_spmm_reference(
+                            operand.indptr, operand.indices, operand.vals,
+                            x, operand.n_out)
+
+                    got, want = kern(), plain()
+                    scale = csr_ops.csr_spmm_reference(
+                        operand.indptr, operand.indices, operand.vals.abs(),
+                        x.abs(), operand.n_out)
+                    diff = (got - want).abs()
+                    if not bool((diff <= RTOL[name] * scale).all()):
+                        raise AssertionError(
+                            f"H-CSR-B {key} {side} ({name}): |kernel - twin|"
+                            f" past {RTOL[name]:.0e} * (|A||X|)_row, max "
+                            f"{float(diff.max()):.3e}")
+                    if not torch.equal(kern(), got):
+                        raise AssertionError(f"H-CSR-B {key} {side} "
+                                             f"({name}): two calls differ")
+                    err = float(diff.max())
+                    stored = operand.vals.numel()
+                    nbytes = stored * (x.element_size() + 4) \
+                        + (n_out + 1) * 4 + bsz * (n_in + n_out) \
+                        * x.element_size()
+                    extra = dict(nnz=stored, width=operand.plan.width,
+                                 long_rows=operand.plan.n_tasks)
+                rec = dict(kernel=kernel, problem=key, side=side, dtype=name,
+                           shape=[n_out, n_in], batch=bsz, max_abs_err=err,
+                           **extra)
+                if dt == torch.float32:
+                    rec.update(timings(torch, kern, plain, 50))
+                    lib = sparse_tensor(torch, mat, dt, dev)
+
+                    def library(lib=lib, x=x):
+                        return torch.sparse.mm(lib, x)
+
+                    rec["library_ms"] = cuda_ms(torch, library, 50)
+                    rec["kernel_us"] = call_times(torch, kern)
+                    rec["library_us"] = call_times(torch, library)
+                    rec["bound_ms"], rec["bound_by"] = bound(
+                        nbytes, 2 * stored * bsz)
+                    rec["bound_bytes"] = nbytes
+                    # one kernel and no copy per call: one kernel name,
+                    # at most one event per call (the profiler may drop
+                    # events of a long capture, never add them)
+                    calls = rec["kernel_us"]
+                    names = calls["kernel_names"]
+                    if (len(names) != 1 or "Memcpy" in names[0]
+                            or calls["kernels_per_call"] > 1.0):
+                        raise AssertionError(
+                            f"{kernel} {key} {side}: "
+                            f"{calls['kernels_per_call']} device events per "
+                            f"call, {names}")
+                    if side == "A" and key in ("banded", "unstructured"):
+                        table[kernel].update({k: rec[k] for k in (
+                            "ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by")})
+                table[kernel]["max_abs_err"] = max(
+                    table[kernel]["max_abs_err"], err)
                 emit("kernels", **rec)
 
 
@@ -1187,6 +1422,117 @@ def phase_nongrid(torch, name, lp, counted_solve):
                                  f"times, predicted {want_n}")
     if name in ("transport", "unstructured") and not launches["H-CSR"]:
         raise AssertionError(f"{name} ran no H-CSR launch")
+    return launches
+
+
+def batch_diffs(got, want):
+    """Worst difference per curve of two batch runs over every checkpoint
+    and column: energies relative to |f64|, violations relative to max(1,
+    |f64|)."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.batch import CURVES as BATCH_CURVES
+
+    worst = {}
+    for k in BATCH_CURVES:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        scale = np.abs(w) if k.startswith("energy") else np.maximum(
+            1.0, np.abs(w))
+        diff = np.where(g == w, 0.0, np.abs(g - w) / np.where(
+            scale == 0, 1.0, scale))
+        worst[k] = float(diff.max())
+    return worst
+
+
+def phase_batch(torch, name, lp, counters):
+    """``main_path_batch_<name>``: ``solve_cp_batch`` on the card for one
+    of :data:`BATCH`'s configurations.  The backends chosen and the host
+    lowering time; the first ``BATCH_CHECK_ITERS`` iterations in float32,
+    held at every checkpoint against the port's float64 CPU batch run
+    (:func:`batch_diffs` within ``NONGRID_RTOL``); three timed runs of the
+    steady configuration (a checkpoint every quarter), each with its launch
+    counts set to 0 just before and read just after, their steady batch
+    iterations/s (between the first and last checkpoints) and problem-
+    iterations/s (× B), median and spread; the single-problem
+    ``chambolle_pock_ppd`` rate on the same template (three runs) and the
+    batching efficiency; the launches held against the operators'
+    prediction.  Returns the last timed run's launch counts."""
+    import numpy as np
+
+    from pysparselp_tpu_torch import solve_cp_batch
+    from pysparselp_tpu_torch.batch import _lower_batch
+    from pysparselp_tpu_torch.problem import CsrMatrix, DiaMatrix
+
+    cfg = BATCH[name]
+    bsz, nb_iter = cfg["bsz"], cfg["nb_iter"]
+    costs = batch_costs(lp, bsz, cfg["vary"])
+    mats = batch_systems(lp)
+    t0 = time.perf_counter()
+    ops = [None if a is None else _lower_batch(a, torch.float32, "cuda")
+           for a in mats]
+    torch.cuda.synchronize()
+    lower_s = time.perf_counter() - t0
+    check = dict(costs=costs, nb_iter=BATCH_CHECK_ITERS,
+                 nb_iter_plot=BATCH_CHECK_PLOT)
+    _x, got = solve_cp_batch(lp, dtype=np.float32, device="cuda", **check)
+    t0 = time.perf_counter()
+    _x, want = solve_cp_batch(lp, dtype=np.float64, device="cpu", **check)
+    cpu_wall = time.perf_counter() - t0
+    worst = batch_diffs(got, want)
+
+    plot = nb_iter // 4
+    runs = []
+    for _ in range(3):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        _x, info = solve_cp_batch(lp, costs=costs, nb_iter=nb_iter,
+                                  nb_iter_plot=plot, dtype=np.float32,
+                                  device="cuda")
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        itrn, sec = info["itrn"], info["opttime"]
+        runs.append(dict(wall_s=wall, first_checkpoint_s=float(sec[0]),
+                         iters_per_s=float((itrn[-1] - itrn[0])
+                                           / (sec[-1] - sec[0]))))
+    rates = sorted(r["iters_per_s"] for r in runs)
+    single = []
+    for _ in range(3):
+        lp.solve(method="chambolle_pock_ppd", nb_iter=nb_iter,
+                 nb_iter_plot=plot, light_metrics=True, dtype=np.float32,
+                 device="cuda")
+        single.append(steady_rate(lp))
+    single.sort()
+    # per operator of a kind: a matvec and an rmatvec per iteration, and
+    # an rmatvec and two matvecs in each checkpoint's metrics
+    per_op = 2 * nb_iter + 3 * (nb_iter // plot)
+    predicted = {"H-DIA-B": per_op * sum(count_ops(o, DiaMatrix)
+                                         for o in ops),
+                 "H-CSR-B": per_op * sum(count_ops(o, CsrMatrix)
+                                         for o in ops)}
+    emit(f"main_path_batch_{name}", batch=bsz, n=lp.nb_variables,
+         nnz=[None if a is None else int(a.nnz) for a in mats],
+         backend=info["backend"],
+         lowered={"a_eq": describe(ops[0]), "a_ineq": describe(ops[1])},
+         lower_s=lower_s, check_iters=BATCH_CHECK_ITERS,
+         itrn=got["itrn"].tolist(), worst_rel_diff=worst,
+         rel_limit=NONGRID_RTOL, cpu_f64_wall_s=cpu_wall,
+         steady_iters=nb_iter, runs=runs,
+         batch_iters_per_s=rates[1], batch_iters_per_s_spread=rates,
+         problem_iters_per_s=rates[1] * bsz,
+         single_iters_per_s=single[1], single_iters_per_s_spread=single,
+         batching_efficiency=rates[1] * bsz / single[1],
+         launches=launches, launches_predicted=predicted)
+    if not all(v <= NONGRID_RTOL for v in worst.values()):
+        raise AssertionError(f"batch {name} f32 CUDA vs f64 CPU: {worst}")
+    for key, want_n in predicted.items():
+        if launches[key] != want_n:
+            raise AssertionError(f"batch {name}: {key} launched "
+                                 f"{launches[key]} times, predicted {want_n}")
+    for key in ("H-DIA", "H-CSR", "H-CPDIA", "H-CPDENSE", "H-BSR"):
+        if launches[key]:
+            raise AssertionError(f"batch {name}: the 1-D kernel {key} ran "
+                                 f"{launches[key]} times")
     return launches
 
 
@@ -1640,7 +1986,8 @@ def main() -> int:
     warnings.filterwarnings("ignore", message="Sparse (CSR|BSR) tensor support")
     counters = {"H-DIA": dia_spmv.dia_spmv, "H-CPDIA": cp_dia.cp_dia_chunk,
                 "H-CPDENSE": cp_dense.cp_dense_chunk,
-                "H-CSR": csr_spmv.csr_spmv, "H-BSR": bsr_spmv.bsr_spmv}
+                "H-CSR": csr_spmv.csr_spmv, "H-BSR": bsr_spmv.bsr_spmv,
+                "H-DIA-B": dia_spmv.dia_spmm, "H-CSR-B": csr_spmv.csr_spmm}
 
     def counted_solve(lp, **kw):
         """``lp.solve(**kw)`` with every launch counter set to 0 just
@@ -1674,6 +2021,7 @@ def main() -> int:
     }
     workloads = {k: make() for k, make in WORKLOADS.items()}
     clime = clime_lp(**CLIME)
+    batch_lps = {k: cfg["make"]() for k, cfg in BATCH.items()}
     emit("problems", build_seconds=time.perf_counter() - t0)
 
     table = {k: dict(name=k, route="cuda", **v, launches=None,
@@ -1686,6 +2034,7 @@ def main() -> int:
     from pysparselp_tpu_torch.problem import apply_rcm_permutation
     phase_bsr(torch, apply_rcm_permutation(folded(clime))[0]["a_ineq"], table)
     phase_k5(torch, problems["potts300"], table)
+    phase_batch_kernels(torch, batch_lps, table)
 
     # phase 3: the main path on Potts-300
     lp300 = build_linear_program(300, 0.5, 500)[0]
@@ -1721,6 +2070,13 @@ def main() -> int:
         launches = phase_nongrid(torch, name, lp, counted_solve)
         if name == "transport":
             table["H-CSR"]["launches"] = launches["H-CSR"]
+
+    # phase 4b: batched serving (solve_cp_batch) on H-DIA-B and H-CSR-B
+    for name, lp in batch_lps.items():
+        launches = phase_batch(torch, name, lp, counters)
+        for key in ("H-DIA-B", "H-CSR-B"):
+            if KERNELS[key]["launches_run"] == f"main_path_batch_{name}":
+                table[key]["launches"] = launches[key]
 
     # phase 5: CLIME through the RCM presolve and the block-sparse operator
     table["H-BSR"]["launches"] = phase_clime(torch, clime,

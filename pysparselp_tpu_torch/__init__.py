@@ -7,12 +7,17 @@ Models sparse LPs
 with the same host modeling layer as the JAX package and solves them with
 PyTorch on an NVIDIA GPU, where the hot loops run hand-written Hopper
 kernels (``csrc/``).  Ported so far: ``SparseLP.solve(method=
-"chambolle_pock_ppd")``.  The package imports ``torch`` and never ``jax``.
+"chambolle_pock_ppd")`` (one device, or row-sharded with ``mesh=``), the
+host bridges ``method="scipy_simplex"`` / ``"scipy_interior_point"``, and
+batched serving, :func:`solve_cp_batch`.  The package imports ``torch`` and
+never ``jax``.
 """
 
+from .batch import solve_cp_batch
 from .modeling import SparseLP, solving_methods
 from .sparse_host import BlockedCSR, crd_matrix
 
-__all__ = ["SparseLP", "solving_methods", "BlockedCSR", "crd_matrix"]
+__all__ = ["SparseLP", "solving_methods", "BlockedCSR", "crd_matrix",
+           "solve_cp_batch"]
 
 __version__ = "0.1.0"

@@ -45,6 +45,28 @@
 // No floating-point atomics: every sum has a fixed order, so the same
 // inputs give the same bits (the tests emulate the order).  A plan's carries
 // and counters serve one call at a time (calls on one stream).
+//
+// H-CSR-B, the same product over B right-hand sides stored batch-last,
+//   Y[r, b] = sum_k vals[k] * X[indices[k], b],   X (n_in, B), Y (n_out, B),
+// serves the batched CP iteration (batch.py).  It replaces the vmapped
+// gather-ELL product of pysparselp_tpu/batch.py:147 (EllMatrix under
+// jax.vmap; no pallas_call stands behind it).  Bound: memory, each entry's
+// value and index read once for all B columns, plus X and Y; each gathered
+// row of X is B neighbouring values, at B = 8 in f32 one 32-byte sector,
+// what one 4-byte gather of the 1-D kernel costs.  Design, on the same plan:
+// * a block is S = 256 / min(B, 256) rows by min(B, 256) columns (columns
+//   fastest; a thread loops over its columns when B > 256): one thread per
+//   (row, b), so the B threads of a row read each entry's value and index
+//   together (a broadcast) and gather neighbouring X values; the thread
+//   sums its row in entry order.  Rows the plan cuts into chunks are
+//   skipped there;
+// * a chunk of a long row is one block of the same shape: thread (s, b)
+//   sums strand s of the chunk's entries (every S-th) for column b; the
+//   strands' sums are added in strand order into the chunk's B carries;
+//   the last chunk of the row to arrive adds the row's carries in chunk
+//   order for each column.  The carries (n_chunks x B) and the
+//   arrival counters are the caller's, separate from the 1-D entry's, so a
+//   batched and a 1-D product on one operand never share a slot.
 #include "common.cuh"
 
 namespace {
@@ -177,6 +199,101 @@ csr_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads)
+csr_batch_kernel(const int* __restrict__ indptr,
+                 const int* __restrict__ indices, const T* __restrict__ vals,
+                 int* plan_raw, int* counter, int n_out, int width,
+                 int row_blocks, int n_chunks, int n_tasks, T* carries,
+                 const T* __restrict__ x, T* __restrict__ y, int nb) {
+  // a block is blockDim.y rows (or strands) x blockDim.x columns
+  __shared__ T partial[kThreads];
+  __shared__ int sfinish;
+  const int cols = blockDim.x, strands = blockDim.y;
+  const int lane = threadIdx.x, s = threadIdx.y;
+  const int t = s * cols + lane;
+  if (static_cast<int>(blockIdx.x) < row_blocks) {
+    const int row = blockIdx.x * strands + s;
+    if (row >= n_out) return;
+    const int begin = indptr[row];
+    const int end = indptr[row + 1];
+    if (end - begin > kLongStrides * width) return;  // cut into chunks
+    for (int b = lane; b < nb; b += cols) {
+      T acc = T(0);
+      for (int k = begin; k < end; ++k) {
+        acc = acc + vals[k] * __ldg(x + static_cast<long long>(indices[k])
+                                    * nb + b);
+      }
+      y[static_cast<long long>(row) * nb + b] = acc;
+    }
+    return;
+  }
+
+  // a chunk of a long row, all B columns: strand s of its entries
+  const Plan plan = plan_view(plan_raw, n_chunks, n_tasks);
+  const int c = blockIdx.x - row_blocks;
+  const int begin = plan.chunk_begin[c], end = plan.chunk_end[c];
+  for (int b0 = 0; b0 < nb; b0 += cols) {
+    const int b = b0 + lane;
+    T acc = T(0);
+    if (b < nb) {
+      for (int k = begin + s; k < end; k += strands) {
+        acc = acc + vals[k] * __ldg(x + static_cast<long long>(indices[k])
+                                    * nb + b);
+      }
+    }
+    partial[t] = acc;
+    __syncthreads();
+    if (t < cols && b0 + t < nb) {
+      T sum = T(0);
+      for (int q = 0; q < strands; ++q) sum = sum + partial[q * cols + t];
+      carries[static_cast<long long>(c) * nb + b0 + t] = sum;
+      __threadfence();
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    const int task = plan.chunk_task[c];
+    const int before = arrive(counter + task);
+    sfinish = before == plan.task_count[task] - 1 ? task : -1;
+  }
+  __syncthreads();
+  const int task = sfinish;
+  if (task < 0) return;
+  acquire_fence();
+  // the row's last chunk to arrive: its chunks' carries in chunk order
+  const int first = plan.task_first[task], count = plan.task_count[task];
+  const long long out = static_cast<long long>(plan.task_row[task]) * nb;
+  for (int b = t; b < nb; b += cols * strands) {
+    T sum = T(0);
+    for (int j = 0; j < count; ++j) {
+      sum = sum + __ldcg(carries + static_cast<long long>(first + j) * nb + b);
+    }
+    y[out + b] = sum;
+  }
+  if (t == 0) counter[task] = 0;
+}
+
+template <typename T>
+int launch_batch(const int* indptr, const int* indices, const T* vals,
+                 int* plan, int n_out, int width, int n_chunks, int n_tasks,
+                 T* carries, int* counters, const T* x, T* y, int nb,
+                 void* stream_ptr) {
+  if (nb <= 0) return static_cast<int>(cudaSuccess);
+  const int cols = nb < kThreads ? nb : kThreads;
+  const int strands = kThreads / cols;
+  const long long row_blocks = (static_cast<long long>(n_out) + strands - 1)
+                               / strands;
+  const long long blocks = row_blocks + n_chunks;
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  csr_batch_kernel<T><<<static_cast<unsigned>(blocks), dim3(cols, strands),
+                        0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      indptr, indices, vals, plan, counters, n_out, width,
+      static_cast<int>(row_blocks), n_chunks, n_tasks, carries, x, y, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch(const int* indptr, const int* indices, const T* vals, int* plan,
            int n_out, int width, int n_chunks, int n_tasks, T* carries,
            const T* x, T* y, void* stream_ptr) {
@@ -215,3 +332,16 @@ int launch(const int* indptr, const int* indices, const T* vals, int* plan,
 
 PSLP_CSR(f32, float)
 PSLP_CSR(f64, double)
+
+#define PSLP_CSR_BATCH(SUFFIX, T)                                            \
+  PSLP_EXPORT int pslp_csr_spmm_##SUFFIX(                                    \
+      const int* indptr, const int* indices, const T* vals, int* plan,       \
+      int n_out, int width, int n_chunks, int n_tasks, T* carries,           \
+      int* counters, const T* x, T* y, int nb, void* stream) {               \
+    return launch_batch<T>(indptr, indices, vals, plan, n_out, width,        \
+                           n_chunks, n_tasks, carries, counters, x, y, nb,   \
+                           stream);                                          \
+  }
+
+PSLP_CSR_BATCH(f32, float)
+PSLP_CSR_BATCH(f64, double)

@@ -1,6 +1,7 @@
 # Copy of the model builders of pysparselp_tpu/examples/potts.py (ImageLP,
 # graph_cut_segmentation, build_linear_program,
-# build_multilabel_linear_program); tests/test_torch_slice.py holds them equal.
+# build_multilabel_linear_program; tests/test_torch_slice.py holds them
+# equal) and its batched serving demo, solve_batch_segmentation.
 """Potts image-model LP relaxation, with an exact graph-cut oracle.
 
 Reference: ``pysparselp/examples/example_pott_segmentation.py`` — a binary
@@ -165,3 +166,43 @@ def build_multilabel_linear_program(image_size, n_labels=4, coef_potts=0.5,
     for k in range(n_labels):
         lp.add_pott_model(indices[:, :, k], coef)
     return lp, indices
+
+
+def solve_batch_segmentation(images, coef_potts, nb_iter=20_000,
+                             **solve_kwargs):
+    """Segment a BATCH of same-sized images in one batched solve (the
+    port's ``pysparselp_tpu/examples/potts.py::solve_batch_segmentation``).
+
+    The Potts LP's constraint matrix and pairwise costs depend only on
+    the grid shape and ``coef_potts`` — per-frame data enters solely
+    through the unary entries of the cost vector.  Build the LP once for
+    the first frame, batch the cost vector over frames, and run the
+    whole stack through :func:`pysparselp_tpu_torch.solve_cp_batch` (the
+    serving pattern: one batched CP loop for the stream; ``device`` and
+    ``dtype`` go to it with the other keyword arguments).  The reference
+    would re-solve each frame from scratch
+    (``example_pott_segmentation.py:54-92`` has no batched path).
+
+    Returns ``(segmentations, info)``: ``(B, H, W)`` relaxed label maps
+    (threshold at 0.5 for the binary labeling) and the batched-solver
+    info dict."""
+    from ..batch import solve_cp_batch
+
+    imgs = np.asarray(images, np.float64)
+    if imgs.ndim != 3:
+        raise ValueError(f"images must be (B, H, W), got {imgs.shape}")
+    bsz = imgs.shape[0]
+
+    lp = ImageLP()
+    indices = lp.add_variables_array(
+        shape=imgs[0].shape + (1,), lower_bounds=0, upper_bounds=1,
+        costs=imgs[0][:, :, None],
+    )
+    lp.add_pott_model(indices[:, :, 0], coef_potts)
+
+    flat = indices[:, :, 0].ravel()
+    costs = np.broadcast_to(lp.costsvector, (bsz, lp.nb_variables)).copy()
+    costs[:, flat] = imgs.reshape(bsz, -1)
+    x, info = solve_cp_batch(lp, costs=costs, nb_iter=nb_iter,
+                             **solve_kwargs)
+    return x[:, flat].reshape(imgs.shape), info

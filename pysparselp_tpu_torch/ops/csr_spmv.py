@@ -15,6 +15,13 @@ thread block each; the chunks' sums are added in chunk order by the last
 chunk to finish (the row is a "task").  :func:`csr_spmv` launches the
 kernel for CUDA tensors and runs :func:`csr_spmv_reference`, its plain
 PyTorch twin, for CPU tensors; it never falls back from one to the other.
+
+H-CSR-B, the batched product ``Y[r, b] = Σ_k vals[k] · X[indices[k], b]``
+over ``X`` of shape ``(n_in, B)`` (batch-last, contiguous), is the same
+module's second kernel entry, on the same plan: :func:`csr_spmm` launches it
+for CUDA tensors and runs :func:`csr_spmm_reference` for CPU tensors.  Its
+chunk carries (``n_chunks × B``) and arrival counters are its own, one set
+per batch size (:meth:`CsrOperand.batch_scratch`), never the 1-D entry's.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from . import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P)
+# the batched entry: the same head, then carries, counters, X, Y, B, stream
+_ARGTYPES_B = _ARGTYPES[:8] + (_P, _P, _P, _P, _I, _P)
 THREADS = 256             # a thread block (kThreads in csrc/csr_spmv.cu)
 # a row longer than LONG_STRIDES * width entries is cut into chunks
 # (kLongStrides in csrc/csr_spmv.cu)
@@ -136,7 +145,7 @@ class CsrOperand:
 
     __slots__ = ("indptr", "indices", "vals", "n_in", "n_out", "plan",
                  "plan_dev", "carries", "device", "dtype", "x_shape",
-                 "device_index", "entry")
+                 "device_index", "entry", "entry_b", "_scratch")
 
     def __init__(self, indptr, indices, vals, n_in, plan=None):
         nnz = vals.shape[0]
@@ -166,13 +175,30 @@ class CsrOperand:
                                    device=dev)
         self.device, self.dtype = dev, vals.dtype
         self.x_shape = (self.n_in,)
-        self.device_index = self.entry = None
+        self.device_index = self.entry = self.entry_b = None
+        self._scratch = {}
         if dev.type == "cuda":
             self.device_index = _build.device_index(dev)
-            self.entry = _build.Entry(
-                f"pslp_csr_spmv_{_build.suffix(vals.dtype)}", _ARGTYPES,
-                indptr, indices, vals, self.plan_dev, n_out, self.plan.width,
-                self.plan.n_chunks, self.plan.n_tasks, self.carries)
+            sfx = _build.suffix(vals.dtype)
+            head = (indptr, indices, vals, self.plan_dev, n_out,
+                    self.plan.width, self.plan.n_chunks, self.plan.n_tasks)
+            self.entry = _build.Entry(f"pslp_csr_spmv_{sfx}", _ARGTYPES,
+                                      *head, self.carries)
+            self.entry_b = _build.Entry(f"pslp_csr_spmm_{sfx}", _ARGTYPES_B,
+                                        *head)
+
+    def batch_scratch(self, nb):
+        """``(carries, counters)`` of the batched entry at batch size
+        ``nb``: ``n_chunks × nb`` carries and one zeroed arrival counter
+        per long row, made on the first call at that size and kept."""
+        found = self._scratch.get(nb)
+        if found is None:
+            found = self._scratch[nb] = (
+                torch.zeros(self.plan.n_chunks * nb, dtype=self.dtype,
+                            device=self.device),
+                torch.zeros(self.plan.n_tasks, dtype=torch.int32,
+                            device=self.device))
+        return found
 
     @staticmethod
     def from_host(indptr, indices, data, n_in, dtype, device):
@@ -193,6 +219,42 @@ def csr_spmv_reference(indptr, indices, vals, x, n_out):
         torch.arange(n_out, device=vals.device), indptr.diff().long())
     y = torch.zeros(n_out, dtype=vals.dtype, device=vals.device)
     return y.index_add_(0, rows, vals * x[indices.long()])
+
+
+def csr_spmm_reference(indptr, indices, vals, x, n_out):
+    """Plain twin of H-CSR-B: :func:`csr_spmv_reference` with a trailing
+    batch axis, ``x`` (n_in, B) -> (n_out, B)."""
+    rows = torch.repeat_interleave(
+        torch.arange(n_out, device=vals.device), indptr.diff().long())
+    y = torch.zeros((n_out, x.shape[1]), dtype=vals.dtype, device=vals.device)
+    return y.index_add_(0, rows, vals[:, None] * x[indices.long()])
+
+
+def csr_spmm(op: CsrOperand, x):
+    """``Y = A X`` for the CSR operand ``op``; ``x`` (n_in, B) batch-last,
+    contiguous (H-CSR-B)."""
+    if x.device.type == "cpu":
+        return csr_spmm_reference(op.indptr, op.indices, op.vals, x,
+                                  op.n_out)
+    if x.device.type != "cuda":
+        raise ValueError(f"csr_spmm runs on CUDA or the CPU, not {x.device}")
+    if (x.device != op.device or x.dtype != op.dtype or x.dim() != 2
+            or x.shape[0] != op.n_in or not x.is_contiguous()):
+        raise ValueError(
+            f"csr_spmm: x must be a contiguous ({op.n_in}, B) {op.dtype} "
+            f"tensor on {op.device}, got {tuple(x.shape)} {x.dtype} on "
+            f"{x.device}")
+    nb = x.shape[1]
+    y = torch.empty((op.n_out, nb), dtype=op.dtype, device=op.device)
+    if nb and op.n_out * nb + op.plan.n_chunks:
+        carries, counters = op.batch_scratch(nb)
+        op.entry_b(carries.data_ptr(), counters.data_ptr(), x.data_ptr(),
+                   y.data_ptr(), nb, _build.stream(op.device_index))
+        csr_spmm.launches += 1
+    return y
+
+
+csr_spmm.launches = 0
 
 
 def csr_spmv(op: CsrOperand, x):

@@ -7,6 +7,13 @@ int32 device tensor.  :func:`dia_apply` (on a :class:`DiaOperand`, checked once)
 :func:`dia_spmv` launch the kernel for CUDA tensors and run
 :func:`dia_spmv_reference`, its plain PyTorch twin, for CPU tensors; they
 never fall back from one to the other.
+
+H-DIA-B, the batched product ``Y[r, b] = Σ_d vals[d, r] · X[r + offs[d],
+b]`` over ``X`` of shape ``(n_in, B)`` (batch-last, contiguous), is the
+same module's second kernel entry: :func:`dia_spmm` (on the same
+:class:`DiaOperand`) launches it for CUDA tensors and runs
+:func:`dia_spmm_reference` for CPU tensors.  Column ``b`` of its result
+equals :func:`dia_apply` of ``X[:, b]`` bit for bit on both sides.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from . import _build
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+_ARGTYPES_B = _ARGTYPES[:-1] + (ctypes.c_int, ctypes.c_void_p)
 
 
 def dia_spmv_reference(vals, offs, x, n_out):
@@ -38,13 +46,29 @@ def dia_spmv_reference(vals, offs, x, n_out):
     return y
 
 
+def dia_spmm_reference(vals, offs, x, n_out):
+    """Plain twin of H-DIA-B: :func:`dia_spmv_reference`'s shift loop with
+    a trailing batch axis, ``x`` (n_in, B) -> (n_out, B)."""
+    offsets = [int(o) for o in offs.tolist()]
+    y = torch.zeros((n_out, x.shape[1]), dtype=vals.dtype, device=vals.device)
+    if not offsets:
+        return y
+    n_in = x.shape[0]
+    left = max(0, -min(offsets))
+    right = max(0, max(offsets) + n_out - n_in)
+    xp = F.pad(x, (0, 0, left, right))
+    for d, off in enumerate(offsets):
+        y = y + vals[d, :n_out, None] * xp[left + off:left + off + n_out]
+    return y
+
+
 class DiaOperand:
     """One orientation of a DIA operator on its device, ready to launch:
     ``vals`` (ndiag, n_out), ``offs`` int32 (ndiag,) and the kernel's bound
     C entry.  Checked once here; :func:`dia_apply` checks only ``x``."""
 
     __slots__ = ("vals", "offs", "n_out", "device", "dtype", "device_index",
-                 "entry")
+                 "entry", "entry_b")
 
     def __init__(self, vals, offs, n_out):
         dev = vals.device
@@ -61,12 +85,14 @@ class DiaOperand:
                 raise ValueError("kernel arguments must be contiguous")
         self.vals, self.offs, self.n_out = vals, offs, int(n_out)
         self.device, self.dtype = dev, vals.dtype
-        self.device_index = self.entry = None
+        self.device_index = self.entry = self.entry_b = None
         if dev.type == "cuda":
             self.device_index = _build.device_index(dev)
-            self.entry = _build.Entry(
-                f"pslp_dia_spmv_{_build.suffix(vals.dtype)}", _ARGTYPES,
-                vals, offs, offs.shape[0])
+            sfx = _build.suffix(vals.dtype)
+            self.entry = _build.Entry(f"pslp_dia_spmv_{sfx}", _ARGTYPES,
+                                      vals, offs, offs.shape[0])
+            self.entry_b = _build.Entry(f"pslp_dia_spmm_{sfx}", _ARGTYPES_B,
+                                        vals, offs, offs.shape[0])
 
 
 def dia_apply(op: DiaOperand, x):
@@ -85,6 +111,30 @@ def dia_apply(op: DiaOperand, x):
              _build.stream(op.device_index))
     dia_spmv.launches += 1
     return y
+
+
+def dia_spmm(op: DiaOperand, x):
+    """``Y = A X`` for the DIA operand ``op``, ``x`` (n_in, B) batch-last
+    (H-DIA-B)."""
+    if x.device.type == "cpu":
+        return dia_spmm_reference(op.vals, op.offs, x, op.n_out)
+    if x.device.type != "cuda":
+        raise ValueError(f"dia_spmm runs on CUDA or the CPU, not {x.device}")
+    if (x.device != op.device or x.dtype != op.dtype or x.dim() != 2
+            or not x.is_contiguous()):
+        raise ValueError(f"dia_spmm: x must be a contiguous (n_in, B) "
+                         f"{op.dtype} tensor on {op.device}, got "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    nb = x.shape[1]
+    y = torch.empty((op.n_out, nb), dtype=op.dtype, device=op.device)
+    if op.n_out and nb:
+        op.entry_b(x.data_ptr(), x.shape[0], y.data_ptr(), op.n_out, nb,
+                   _build.stream(op.device_index))
+        dia_spmm.launches += 1
+    return y
+
+
+dia_spmm.launches = 0
 
 
 def dia_spmv(vals, offs, x, n_out):

@@ -23,6 +23,13 @@ constraint system to one of these operators:
 * :class:`ColBlockMatrix` — contiguous column blocks, each lowered by the
   same chooser (a dense head beside a sparse tail, ``[A | ±I]`` shapes).
 
+Every operator but :class:`BsrMatrix` also takes a batch-last operand: its
+``matvec`` maps ``(ncols, B)`` to ``(nrows, B)`` and its ``rmatvec`` maps
+``(nrows, B)`` to ``(ncols, B)``, one column per problem of a batched solve
+(:mod:`pysparselp_tpu_torch.batch`).  DIA and CSR run their batched kernels
+H-DIA-B and H-CSR-B on CUDA, dense runs one ``matmul`` for the batch,
+partition and column blocks the same plain torch with a trailing axis.
+
 The numpy layout helpers (:func:`anchor_align`, :func:`aligned_offset_count`,
 :func:`embed_matrix`, :func:`apply_align_embedding`, :func:`dia_offsets`,
 :func:`partition_geometry`, :func:`_candidate_cuts`, :func:`col_split_plan`,
@@ -44,7 +51,7 @@ import torch.nn.functional as F
 from .ops import bsr_spmv as _bsr
 from .ops import csr_spmv as _csr
 from .ops.cp_dense import DENSE_FUSED_BUDGET, _pad128
-from .ops.dia_spmv import DiaOperand, dia_apply
+from .ops.dia_spmv import DiaOperand, dia_apply, dia_spmm
 
 # The layout chooser (estimate_stream_bytes) prices each candidate by the
 # bytes one SpMV pair (A x and Aᵀ y) moves, counted from the shapes: each
@@ -167,7 +174,7 @@ class DenseMatrix:
         return self.a @ x
 
     def rmatvec(self, y):
-        return y @ self.a
+        return y @ self.a if y.dim() == 1 else self.a.T @ y
 
     def abs_power_rowsum(self, p):
         return abs_pow0(self.a, p).sum(dim=1)
@@ -227,10 +234,14 @@ class DiaMatrix:
         return len(self.offsets)
 
     def matvec(self, x):
-        return dia_apply(self.fwd, x)
+        if x.dim() == 1:
+            return dia_apply(self.fwd, x)
+        return dia_spmm(self.fwd, x)
 
     def rmatvec(self, y):
-        return dia_apply(self.bwd, y)
+        if y.dim() == 1:
+            return dia_apply(self.bwd, y)
+        return dia_spmm(self.bwd, y)
 
     def abs_power_rowsum(self, p):
         return abs_pow0(self.vals, p).sum(dim=0)
@@ -304,10 +315,14 @@ class CsrMatrix:
     vals_t = property(lambda self: self.csr_t.vals)
 
     def matvec(self, x):
-        return _csr.csr_spmv(self.csr, x)
+        if x.dim() == 1:
+            return _csr.csr_spmv(self.csr, x)
+        return _csr.csr_spmm(self.csr, x)
 
     def rmatvec(self, y):
-        return _csr.csr_spmv(self.csr_t, y)
+        if y.dim() == 1:
+            return _csr.csr_spmv(self.csr_t, y)
+        return _csr.csr_spmm(self.csr_t, y)
 
     @staticmethod
     def _row_sum(indptr, v, n):
@@ -452,27 +467,37 @@ class PartitionMatrix:
         return (self.nrows - 1) * self.stride + self.width
 
     def _window(self, x):
-        """The ``(m, width)`` view of ``x`` each row multiplies."""
+        """The ``(m, width)`` view of ``x`` each row multiplies (``(m,
+        width, B)`` for a batch-last ``x``)."""
         m, w, s = self.nrows, self.width, self.stride
         xs = x[self.col0:self.col0 + self._span]
+        tail = tuple(xs.shape[1:])
         if s > w:
-            xs = F.pad(xs, (0, m * s - self._span))
-            return xs.reshape(m, s)[:, :w]
-        return xs.reshape(m, w)
+            xs = F.pad(xs, (0, 0) * len(tail) + (0, m * s - self._span))
+            return xs.reshape((m, s) + tail)[:, :w]
+        return xs.reshape((m, w) + tail)
 
     def matvec(self, x):
-        return torch.sum(self.vals * self._window(x), dim=1)
+        if x.dim() == 1:
+            return torch.sum(self.vals * self._window(x), dim=1)
+        return torch.sum(self.vals[:, :, None] * self._window(x), dim=1)
 
     def _scatter(self, contrib):
-        """Place ``(m, width)`` per-slot values at their columns."""
+        """Place ``(m, width)`` per-slot values (``(m, width, B)`` for a
+        batch) at their columns."""
         s, w = self.stride, self.width
+        tail = tuple(contrib.shape[2:])
+        pad = (0, 0) * len(tail)
         if s > w:
-            contrib = F.pad(contrib, (0, s - w))
-        flat = contrib.reshape(-1)[:self._span]
-        return F.pad(flat, (self.col0, self.ncols - self.col0 - self._span))
+            contrib = F.pad(contrib, pad + (0, s - w))
+        flat = contrib.reshape((-1,) + tail)[:self._span]
+        return F.pad(flat, pad + (self.col0,
+                                  self.ncols - self.col0 - self._span))
 
     def rmatvec(self, y):
-        return self._scatter(self.vals * y[:, None])
+        if y.dim() == 1:
+            return self._scatter(self.vals * y[:, None])
+        return self._scatter(self.vals[:, :, None] * y[:, None, :])
 
     def abs_power_rowsum(self, p):
         return torch.sum(abs_pow0(self.vals, p), dim=1)

@@ -1,9 +1,12 @@
 """Solver dispatch (mirrors ``pysparselp_tpu/solvers/__init__.py``).
 
-Only ``chambolle_pock_ppd`` is ported so far, on one device or, with
-``mesh=`` (a :class:`~pysparselp_tpu_torch.parallel.mesh.Mesh`), row-sharded
-over a ``torch.distributed`` group (``parallel.sharded_cp``).  ``dispatch``
-performs the same host-side conversions as the JAX package's — remove fixed
+Ported so far: ``chambolle_pock_ppd``, on one device or, with ``mesh=`` (a
+:class:`~pysparselp_tpu_torch.parallel.mesh.Mesh`), row-sharded over a
+``torch.distributed`` group (``parallel.sharded_cp``), and the host bridges
+``scipy_simplex`` / ``scipy_interior_point`` (HiGHS through scipy,
+:mod:`.scipy_bridge`), which run on the host whatever ``device`` says and
+take the full LP, as in the JAX package.  For CP-PPD ``dispatch`` performs
+the same host-side conversions as the JAX package's — remove fixed
 variables, map warm starts into the reduced space, map every solution back
 with ``x_original = m_change @ x_new + shift`` — and every other method
 raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
@@ -26,8 +29,6 @@ _NOT_PORTED = {
     "admm_blocks": "Queue 1, M7",
     "dual_gradient_ascent": "Queue 1, M7",
     "dual_coordinate_ascent": "Queue 1, M7",
-    "scipy_simplex": "Queue 1, M7 (host bridges)",
-    "scipy_interior_point": "Queue 1, M7 (host bridges)",
     "osqp": "Queue 1, M7 (host bridges)",
     "ECOS": "Queue 1, M7 (host bridges)",
     "SCS": "Queue 1, M7 (host bridges)",
@@ -91,6 +92,14 @@ def dispatch(
             for k, v in solver_kwargs.items()
             if not _same_option(v, getattr(defaults, k))
         }
+    if method in ("scipy_simplex", "scipy_interior_point"):
+        from .scipy_bridge import solve_scipy
+
+        return solve_scipy(
+            lp, method, nb_iter=nb_iter, callback_func=callback_func,
+            start_time=start_time, nb_iter_plot=nb_iter_plot,
+        )
+
     mesh = solver_kwargs.pop("mesh", None)
     if mesh is not None:
         from ..parallel.mesh import check_mesh

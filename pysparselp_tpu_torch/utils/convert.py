@@ -4,8 +4,9 @@
 :class:`~pysparselp_tpu_torch.problem.LPProblem` from a JAX ``LPProblem``
 (read through ``numpy.asarray`` and matched by class name; this module
 imports no jax): a JAX ``DiaMatrix`` is stripped of its Pallas
-kernel-layout padding to ``vals[:ndiag, :nrows]`` (``vals_t`` likewise), a
-``DenseMatrix`` comes across whole, a ``PartitionMatrix`` as the port's
+kernel-layout padding to ``vals[:ndiag, :nrows]`` (``vals_t`` likewise), the
+batched solver's unpadded ``XlaDiaMatrix`` (``pysparselp_tpu/batch.py``)
+comes across as a ``DiaMatrix`` plane for plane, a ``DenseMatrix`` whole, a ``PartitionMatrix`` as the port's
 ``PartitionMatrix``, a ``BsrMatrix`` as the port's ``BsrMatrix`` rebuilt
 from the entries of its block-ELL tiles (bf16 tiles widened, which is
 exact; the padding slots and the TPU grid's padding tile-rows hold zeros
@@ -66,7 +67,7 @@ def operator_from_jax(op, dtype, device):
         return None
     kind = type(op).__name__
     shape = (op.nrows, op.ncols)
-    if kind == "DiaMatrix":
+    if kind in ("DiaMatrix", "XlaDiaMatrix"):
         nd, ndt = len(op.offsets), len(op.offsets_t)
         return DiaMatrix.from_planes(
             _np(op.vals)[:nd, :op.nrows], op.offsets,

@@ -17,7 +17,15 @@ count of each kernel (and memcpy) by name, the device busy share (device
 time / wall time) and the device events per iteration, and for the
 ``light_metrics`` solves the device and kernel time (memcpy excluded) per
 iteration and the wall time per iteration in the steady window between
-the two checkpoints.  The same
+the two checkpoints.  Then the four batched serving configurations of
+``chip_smoke.py`` (``BATCH``: dense B = 64, banded B = 16, assignment B = 8,
+unstructured B = 8) through ``solve_cp_batch``, f32, each warmed up by one
+solve and then profiled over its steady run (a checkpoint every quarter):
+the device time per iteration split into the batched products
+(``dia_spmm_kernel``, ``csr_batch_kernel``, dense GEMMs) and the rest (the
+unfused elementwise passes), launches per iteration and the busy share of
+the steady window.  ``--runs NAME ...`` profiles only the named runs
+(``batch_banded`` and so on).  The same
 lines go to ``chiprun_out/profile_port.json``.  Exits nonzero without CUDA.
 """
 
@@ -43,18 +51,74 @@ def device_events(prof, DeviceType):
     return dict(out)
 
 
+# device kernels of a batched product: H-DIA-B, H-CSR-B and cuBLAS GEMMs
+BATCH_PRODUCT_KERNELS = ("dia_spmm_kernel", "csr_batch_kernel", "gemm",
+                         "gemv", "splitKreduce")
+
+
+def profile_batch(torch, name, lp, smi, profile, ProfilerActivity,
+                  DeviceType):
+    """One profiled ``solve_cp_batch`` of a ``chip_smoke.BATCH``
+    configuration (after a warm-up solve)."""
+    import numpy as np
+
+    from chip_smoke import BATCH, batch_costs
+    from pysparselp_tpu_torch import solve_cp_batch
+
+    cfg = BATCH[name]
+    nb_iter = cfg["nb_iter"]
+    kw = dict(costs=batch_costs(lp, cfg["bsz"], cfg["vary"]),
+              nb_iter=nb_iter, nb_iter_plot=nb_iter // 4, dtype=np.float32,
+              device="cuda")
+    solve_cp_batch(lp, **kw)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _x, info = solve_cp_batch(lp, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof, DeviceType)
+    kernels = {k: v for k, v in events.items()
+               if "Memcpy" not in k and "Memset" not in k}
+    product_us = sum(us for k, (_, us) in kernels.items()
+                     if any(p in k for p in BATCH_PRODUCT_KERNELS))
+    kernel_us = sum(us for _, us in kernels.values())
+    itrn, sec = info["itrn"], info["opttime"]
+    steady_us = (sec[-1] - sec[0]) / (itrn[-1] - itrn[0]) * 1e6
+    return dict(run=f"batch_{name}", nvidia_smi=smi, batch=cfg["bsz"],
+                backend=info["backend"], wall_s=wall,
+                device_s=sum(us for _, us in events.values()) * 1e-6,
+                kernel_us_per_iter=kernel_us / nb_iter,
+                product_us_per_iter=product_us / nb_iter,
+                elementwise_us_per_iter=(kernel_us - product_us) / nb_iter,
+                elementwise_share=(kernel_us - product_us) / kernel_us,
+                launches_per_iter=sum(c for c, _ in kernels.values())
+                / nb_iter,
+                steady_wall_us_per_iter=steady_us,
+                steady_busy_share=kernel_us / nb_iter / steady_us,
+                checkpoints_s=[float(t) for t in sec],
+                events={k: dict(count=c, us=us)
+                        for k, (c, us) in sorted(events.items())})
+
+
 def main() -> int:
+    import argparse
+
     import torch
     if not torch.cuda.is_available():
         print("profile_port: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--runs", nargs="*", default=None,
+                        help="profile only these runs")
+    wanted = parser.parse_args().runs
     sys.path.insert(0, str(ROOT))
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import CLIME, clime_lp, sc105_lp, transport_lp
+    from chip_smoke import BATCH, CLIME, clime_lp, sc105_lp, transport_lp
     from pysparselp_tpu_torch.examples.potts import build_linear_program
 
     smi = subprocess.run(
@@ -82,6 +146,8 @@ def main() -> int:
     }
     lines = []
     for name, (make, kw) in runs.items():
+        if wanted is not None and name not in wanted:
+            continue
         kw = dict(method="chambolle_pock_ppd", dtype=np.float32,
                   device="cuda", **kw)
         if not name.startswith("clime"):
@@ -130,6 +196,13 @@ def main() -> int:
             rec["cp_device_us_per_iter"] = chunk_us / lp.itrn_curve[-1]
             rec["steady_busy_share"] = (rec["cp_device_us_per_iter"]
                                         / rec["steady_wall_us_per_iter"])
+        print(json.dumps(rec), flush=True)
+        lines.append(rec)
+    for name, cfg in BATCH.items():
+        if wanted is not None and f"batch_{name}" not in wanted:
+            continue
+        rec = profile_batch(torch, name, cfg["make"](), smi, profile,
+                            ProfilerActivity, DeviceType)
         print(json.dumps(rec), flush=True)
         lines.append(rec)
     out = ROOT / "chiprun_out"

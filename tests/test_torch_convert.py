@@ -186,3 +186,37 @@ def test_unknown_operator_raises():
 
     with pytest.raises(TypeError, match="no port counterpart"):
         operator_from_jax(Mystery(), torch.float64, "cpu")
+
+
+@pytest.mark.parametrize("shape,offsets", [((60, 75), (0, 5, -2)),
+                                           ((90, 40), (-30, -1, 0, 3))])
+def test_xla_dia_carries_across(shape, offsets):
+    """The JAX batched solver's ``XlaDiaMatrix`` comes across as the port's
+    ``DiaMatrix`` plane for plane: 1-D and batch-last products equal the
+    JAX operator's (its batch under ``jax.vmap``)."""
+    import jax
+
+    from pysparselp_tpu.batch import XlaDiaMatrix
+
+    m, n = shape
+    rng = np.random.RandomState(6)
+    a = scipy.sparse.diags(
+        [rng.randn(min(m - max(0, -o), n - max(0, o))) for o in offsets],
+        offsets, shape=shape).tocsr()
+    jop = XlaDiaMatrix.from_scipy(a, F64)
+    op = operator_from_jax(jop, torch.float64, "cpu")
+    assert isinstance(op, DiaMatrix) and op.shape == shape
+    assert op.offsets == jop.offsets and op.offsets_t == jop.offsets_t
+    np.testing.assert_array_equal(op.vals.numpy(), np.asarray(jop.vals))
+    np.testing.assert_array_equal(op.vals_t.numpy(), np.asarray(jop.vals_t))
+    x, y = rng.randn(n, 3), rng.randn(m, 3)
+    np.testing.assert_allclose(
+        op.matvec(torch.as_tensor(x)).numpy(),
+        np.asarray(jax.vmap(jop.matvec)(jnp.asarray(x.T))).T, rtol=1e-12,
+        atol=1e-12)
+    np.testing.assert_allclose(
+        op.rmatvec(torch.as_tensor(y[:, 0])).numpy(),
+        np.asarray(jop.rmatvec(jnp.asarray(y[:, 0]))), rtol=1e-12,
+        atol=1e-12)
+    np.testing.assert_allclose(op.rmatvec(torch.as_tensor(y)).numpy(),
+                               a.T @ y, rtol=1e-12, atol=1e-12)

@@ -2,6 +2,9 @@
 and against the JAX package's routed gather kernels K7
 (``_routed_spmv_call``, one table) and K8 (``_routed_tiled_spmv_call``,
 tiled table) run in interpret mode (float32), through ``CsrMatrix``.
+H-CSR-B, the batched entry on the same plan, against scipy and the JAX
+batched solver's gather-ELL product under ``jax.vmap`` (float64), and its
+summation order emulated in numpy.
 
 JAX is imported inside the parity tests: the card machine, which runs this
 file's ``cuda`` cases (``python -m pytest --noconftest -m cuda``), has none."""
@@ -15,7 +18,7 @@ import torch
 
 from pysparselp_tpu_torch.ops import csr_spmv as ops
 from pysparselp_tpu_torch.problem import CsrMatrix
-from torch_port_helpers import cuda_or_skip
+from torch_port_helpers import CudaLike, cuda_or_skip
 
 torch.set_num_threads(1)
 
@@ -347,3 +350,163 @@ def test_kernel_matches_twin_on_cuda(dtype):
             for operand, out in ((side, got), (small, got_small)):
                 assert torch.equal(out.cpu(), _emulate(operand.plan, *host)), \
                     name
+
+
+def _emulate_batch(plan, indptr, indices, vals, x):
+    """H-CSR-B's sums on ``plan`` in its order, in numpy, ``x`` (n_in, B):
+    a short row in entry order; a chunk of a long row strided over
+    ``256 // min(B, 256)`` strands, the strands' sums added in order; a
+    long row's chunk sums added in chunk order (each add rounded)."""
+    ip = np.asarray(indptr, np.int64)
+    dt = np.dtype(str(vals.dtype).split(".")[1])
+    xs = x.numpy().astype(dt)
+    prod = vals.numpy().astype(dt)[:, None] * xs[indices.numpy()]
+    nb = xs.shape[1]
+
+    def in_order(parts):
+        total = np.zeros(nb, dt)
+        for part in parts:
+            total = total + part
+        return total
+
+    y = np.full((len(ip) - 1, nb), np.nan, dt)
+    long = set(plan.task_row.tolist())
+    for r in range(len(ip) - 1):
+        if r not in long:
+            y[r] = in_order(prod[ip[r]:ip[r + 1]])
+    strands = ops.THREADS // min(nb, ops.THREADS)
+    carries = np.zeros((plan.n_chunks, nb), dt)
+    for c in range(plan.n_chunks):
+        seg = prod[plan.chunk_begin[c]:plan.chunk_end[c]]
+        carries[c] = in_order(in_order(seg[s::strands])
+                              for s in range(strands))
+    for q in range(plan.n_tasks):
+        first = int(plan.task_first[q])
+        y[plan.task_row[q]] = in_order(
+            carries[first:first + int(plan.task_count[q])])
+    return torch.as_tensor(y)
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_batched_twin_matches_scipy_and_vmapped_ell_f64(name):
+    """The batched twin, through ``CsrMatrix.matvec``/``rmatvec`` on a
+    batch-last operand, against scipy and against the JAX batched solver's
+    gather-ELL operator (``EllMatrix``) under ``jax.vmap``; the emulated
+    kernel order at B = 1, 3 and 300 (past one block's 256 columns) on
+    the default plan and on small chunks, against the twin."""
+    import jax
+    import jax.numpy as jnp
+
+    from pysparselp_tpu.problem import EllMatrix
+
+    a = MATRICES[name]()
+    op = CsrMatrix.from_scipy(a, torch.float64, "cpu")
+    jop = EllMatrix.from_scipy(a, dtype=jnp.float64)
+    rng = np.random.RandomState(4)
+    x, y = rng.randn(a.shape[1], 3), rng.randn(a.shape[0], 3)
+    got = op.matvec(torch.as_tensor(x)).numpy()
+    got_t = op.rmatvec(torch.as_tensor(y)).numpy()
+    np.testing.assert_allclose(got, a @ x, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(got_t, a.T @ y, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(
+        got, np.asarray(jax.vmap(jop.matvec)(jnp.asarray(x.T))).T,
+        rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(
+        got_t, np.asarray(jax.vmap(jop.rmatvec)(jnp.asarray(y.T))).T,
+        rtol=1e-12, atol=1e-12)
+    for nb in (1, 3, 300):
+        xb = torch.as_tensor(rng.randn(a.shape[1], nb))
+        side = op.csr
+        want = ops.csr_spmm_reference(side.indptr, side.indices, side.vals,
+                                      xb, side.n_out)
+        for kw in PLAN_OPTIONS.values():
+            emu = _emulate_batch(ops.split_plan(a.indptr, **kw),
+                                 side.indptr, side.indices, side.vals, xb)
+            np.testing.assert_allclose(emu.numpy(), want.numpy(), rtol=1e-12,
+                                       atol=1e-12)
+
+
+def test_batched_wrapper_on_cuda_launches_and_never_runs_the_twin(
+        monkeypatch):
+    """For a CUDA operand the batched wrapper launches H-CSR-B's entry
+    once, with the carries and counters of its batch size (never the 1-D
+    entry's ``carries``); the twin, patched to raise, is never called, and
+    a wrong operand raises instead of running it."""
+    a = _long_rows()
+    op = CsrMatrix.from_scipy(a, torch.float64, "cpu").csr
+    calls = []
+    op.device, op.device_index = torch.device("cuda"), 0
+    op.entry_b = lambda *args: calls.append(args)
+    op.entry = None
+
+    def twin(*_args):
+        raise AssertionError("the twin ran for a CUDA operand")
+
+    empty, zeros = torch.empty, torch.zeros
+    monkeypatch.setattr(ops, "csr_spmm_reference", twin)
+    monkeypatch.setattr(ops._build, "stream", lambda index: 0)
+    monkeypatch.setattr(torch, "empty", lambda *s, **kw: empty(
+        *s, **dict(kw, device="cpu")))
+    monkeypatch.setattr(torch, "zeros", lambda *s, **kw: zeros(
+        *s, **dict(kw, device="cpu")))
+    x = CudaLike(torch.zeros((a.shape[1], 8), dtype=torch.float64))
+    launches = ops.csr_spmm.launches
+    y = ops.csr_spmm(op, x)
+    assert y.shape == (a.shape[0], 8)
+    assert ops.csr_spmm.launches == launches + 1 and len(calls) == 1
+    carries, counters = op.batch_scratch(8)
+    assert carries.shape == (op.plan.n_chunks * 8,)
+    assert counters.shape == (op.plan.n_tasks,)
+    assert calls[0][:2] == (carries.data_ptr(), counters.data_ptr())
+    assert carries.data_ptr() != op.carries.data_ptr()
+    assert calls[0][3:5] == (y.data_ptr(), 8)
+    for bad in (torch.zeros((a.shape[1], 8), dtype=torch.float32),
+                torch.zeros((a.shape[1] + 1, 8), dtype=torch.float64),
+                torch.zeros(a.shape[1], dtype=torch.float64)):
+        with pytest.raises(ValueError, match="csr_spmm"):
+            ops.csr_spmm(op, CudaLike(bad))
+    assert ops.csr_spmm.launches == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_kernel_matches_twin_on_cuda(dtype):
+    """H-CSR-B against its twin (per row within rtol · (|A||X|)_row) and
+    its emulated order (to the bit), both orientations, on every fixture,
+    at B = 1, 3, 8 and 300, with the default plan and small chunks; one
+    launch per product.  Batched and 1-D products alternate on one
+    operand and each repeats its own bits (the two never share a carry or
+    a counter)."""
+    dev = cuda_or_skip()
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    rng = np.random.RandomState(5)
+    for name, make in sorted(CUDA_MATRICES.items()):
+        a = make()
+        op = CsrMatrix.from_scipy(a, dtype, dev)
+        for side, absa in ((op.csr, abs(a)), (op.csr_t, abs(a).T)):
+            small = ops.CsrOperand(side.indptr, side.indices, side.vals,
+                                   side.n_in, ops.split_plan(
+                                       side.indptr.cpu().numpy(), chunk=64,
+                                       width=2))
+            host = [v.cpu() for v in (side.indptr, side.indices, side.vals)]
+            v1 = torch.as_tensor(rng.randn(side.n_in), dtype=dtype,
+                                 device=dev)
+            for nb in (1, 3, 8, 300):
+                xn = rng.randn(side.n_in, nb)
+                xb = torch.as_tensor(xn, dtype=dtype, device=dev)
+                want = ops.csr_spmm_reference(side.indptr, side.indices,
+                                              side.vals, xb, side.n_out)
+                scale = torch.as_tensor(absa @ np.abs(xn), dtype=dtype,
+                                        device=dev)
+                for operand in (side, small):
+                    one = ops.csr_spmv(operand, v1)
+                    launches = ops.csr_spmm.launches
+                    got = ops.csr_spmm(operand, xb)
+                    assert ops.csr_spmm.launches == launches + 1
+                    err = (got - want).abs()
+                    assert bool((err <= rtol * scale).all()), (
+                        name, nb, float(err.max()))
+                    assert torch.equal(got.cpu(), _emulate_batch(
+                        operand.plan, *host, xb.cpu())), (name, nb)
+                    assert torch.equal(ops.csr_spmv(operand, v1), one)
+                    assert torch.equal(ops.csr_spmm(operand, xb), got)

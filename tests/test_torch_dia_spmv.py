@@ -1,6 +1,9 @@
 """H-DIA (``pysparselp_tpu_torch.ops.dia_spmv``) against the JAX package's
 DIA SpMV: the Pallas kernel ``_dia_matvec_pallas`` in interpret mode
 (float32), the XLA shift loop of ``DiaMatrix._apply`` and scipy (float64).
+H-DIA-B, the batched entry, against the JAX ``XlaDiaMatrix`` under
+``jax.vmap`` (the batched solver's DIA product) and scipy, and column by
+column against H-DIA.
 
 JAX is imported inside the parity tests: the card machine, which runs this
 file's ``cuda`` cases (``python -m pytest --noconftest -m cuda``), has none."""
@@ -10,9 +13,11 @@ import pytest
 import scipy.sparse
 import torch
 
-from pysparselp_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_reference
+from pysparselp_tpu_torch.ops import dia_spmv as dia_ops
+from pysparselp_tpu_torch.ops.dia_spmv import (dia_spmm, dia_spmm_reference,
+                                               dia_spmv, dia_spmv_reference)
 from pysparselp_tpu_torch.problem import DiaMatrix
-from torch_port_helpers import cuda_or_skip
+from torch_port_helpers import CudaLike, cuda_or_skip
 
 torch.set_num_threads(1)
 
@@ -132,3 +137,105 @@ def test_kernel_matches_twin_on_cuda(dtype):
         dia_spmv_reference(pd.vals_t, pd.offs_t, yt, pd.ncols), rtol=0,
         atol=0)
     assert dia_spmv.launches == launches + 2
+
+
+def _batch(rows, nb, seed):
+    return np.random.RandomState(seed + 200).randn(rows, nb)
+
+
+@pytest.mark.parametrize("m,n,ndiag,seed", CASES)
+def test_batched_twin_matches_vmapped_xla_dia_and_scipy(m, n, ndiag, seed):
+    """f64: the batched twin, through ``DiaMatrix.matvec``/``rmatvec`` on
+    a batch-last operand, against the JAX batched solver's
+    ``XlaDiaMatrix`` under ``jax.vmap`` and scipy; each column equals the
+    1-D twin bit for bit."""
+    import jax
+    import jax.numpy as jnp
+
+    from pysparselp_tpu.batch import XlaDiaMatrix
+
+    a = _random_dia(m, n, ndiag, seed)
+    jd = XlaDiaMatrix.from_scipy(a, jnp.float64)
+    pd = DiaMatrix.from_scipy(a, torch.float64, "cpu")
+    for nb in (1, 5):
+        x, y = _batch(n, nb, seed), _batch(m, nb, seed + 1)
+        got = pd.matvec(torch.as_tensor(x))
+        got_t = pd.rmatvec(torch.as_tensor(y))
+        assert got.shape == (m, nb) and got_t.shape == (n, nb)
+        want = np.asarray(jax.vmap(jd.matvec)(jnp.asarray(x.T))).T
+        want_t = np.asarray(jax.vmap(jd.rmatvec)(jnp.asarray(y.T))).T
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(got_t.numpy(), want_t, rtol=1e-12,
+                                   atol=1e-12)
+        np.testing.assert_allclose(got.numpy(), a @ x, rtol=1e-12,
+                                   atol=1e-12)
+        np.testing.assert_allclose(got_t.numpy(), a.T @ y, rtol=1e-12,
+                                   atol=1e-12)
+        for b in range(nb):
+            np.testing.assert_array_equal(
+                got[:, b].numpy(),
+                dia_spmv_reference(pd.vals, pd.offs,
+                                   torch.as_tensor(x[:, b]), m).numpy())
+            np.testing.assert_array_equal(
+                got_t[:, b].numpy(),
+                dia_spmv_reference(pd.vals_t, pd.offs_t,
+                                   torch.as_tensor(y[:, b]), n).numpy())
+
+
+def test_batched_wrapper_on_cuda_launches_and_never_runs_the_twin(
+        monkeypatch):
+    """For a CUDA operand the batched wrapper launches H-DIA-B's entry
+    once and counts it; the twin, patched to raise, is never called, and a
+    wrong operand raises instead of running it."""
+    a = _random_dia(130, 257, 9, 0)
+    pd = DiaMatrix.from_scipy(a, torch.float64, "cpu")
+    op = pd.fwd
+    calls = []
+    op.device, op.device_index = torch.device("cuda"), 0
+    op.entry_b = lambda *args: calls.append(args)
+
+    def twin(*_args):
+        raise AssertionError("the twin ran for a CUDA operand")
+
+    empty = torch.empty
+    monkeypatch.setattr(dia_ops, "dia_spmm_reference", twin)
+    monkeypatch.setattr(dia_ops._build, "stream", lambda index: 0)
+    monkeypatch.setattr(torch, "empty", lambda *s, **kw: empty(
+        *s, **dict(kw, device="cpu")))
+    x = CudaLike(torch.zeros((257, 4), dtype=torch.float64))
+    launches = dia_spmm.launches
+    y = dia_ops.dia_spmm(op, x)
+    assert y.shape == (130, 4) and dia_spmm.launches == launches + 1
+    assert len(calls) == 1 and calls[0][1:4] == (257, y.data_ptr(), 130)
+    assert calls[0][4] == 4
+    for bad in (torch.zeros((257, 4), dtype=torch.float32),
+                torch.zeros(257, dtype=torch.float64)):
+        with pytest.raises(ValueError, match="dia_spmm"):
+            dia_ops.dia_spmm(op, CudaLike(bad))
+    assert len(calls) == 1 and dia_spmm.launches == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_kernel_matches_twin_and_1d_kernel_on_cuda(dtype):
+    """H-DIA-B equals its twin bit for bit and, column by column, H-DIA's
+    launch on that column; one launch per product at B = 1, 3 and 16."""
+    dev = cuda_or_skip()
+    for m, n, ndiag, seed in CASES:
+        pd = DiaMatrix.from_scipy(_random_dia(m, n, ndiag, seed), dtype,
+                                  dev)
+        for nb in (1, 3, 16):
+            for side, n_in in ((pd.fwd, n), (pd.bwd, m)):
+                x = torch.as_tensor(_batch(n_in, nb, seed), dtype=dtype,
+                                    device=dev)
+                launches = dia_spmm.launches
+                got = dia_ops.dia_spmm(side, x)
+                assert dia_spmm.launches == launches + 1
+                torch.testing.assert_close(
+                    got, dia_spmm_reference(side.vals, side.offs, x,
+                                            side.n_out), rtol=0, atol=0)
+                for b in range(nb):
+                    torch.testing.assert_close(
+                        got[:, b], dia_ops.dia_apply(side,
+                                                     x[:, b].contiguous()),
+                        rtol=0, atol=0)

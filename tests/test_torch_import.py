@@ -30,7 +30,11 @@ def test_import_leaves_jax_out():
             "pysparselp_tpu_torch.examples.sparse_inv_covariance, "
             "pysparselp_tpu_torch.parallel.mesh, "
             "pysparselp_tpu_torch.parallel.sharded_dia, "
-            "pysparselp_tpu_torch.parallel.sharded_cp, chip_smoke; "
+            "pysparselp_tpu_torch.parallel.sharded_cp, "
+            "pysparselp_tpu_torch.batch, "
+            "pysparselp_tpu_torch.solvers.scipy_bridge, "
+            "pysparselp_tpu_torch.solvers.highs_bridge, "
+            "pysparselp_tpu_torch.utils.random_lp, chip_smoke; "
             "sys.path.insert(0, 'scripts'); import probe_csr_spmv, "
             "probe_bsr_spmv, profile_port, profile_mesh, time_presolve, "
             "compare_kernels; "
@@ -91,7 +95,8 @@ def test_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("method", sorted(
-    set(solving_methods) - {"chambolle_pock_ppd"}))
+    set(solving_methods) - {"chambolle_pock_ppd", "scipy_simplex",
+                            "scipy_interior_point"}))
 def test_unported_methods_name_their_roadmap_item(method):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _tiny_lp().solve(method=method, nb_iter=10, device="cpu")

@@ -420,7 +420,10 @@ def test_warm_start_resumes_exactly():
 @pytest.mark.parametrize("rel", ["sparse_host.py", "config.py",
                                  os.path.join("io", "mps.py"),
                                  os.path.join("examples", "l1_svm.py"),
-                                 os.path.join("examples", "kmedians.py")])
+                                 os.path.join("examples", "kmedians.py"),
+                                 os.path.join("utils", "random_lp.py"),
+                                 os.path.join("solvers", "scipy_bridge.py"),
+                                 os.path.join("solvers", "highs_bridge.py")])
 def test_verbatim_host_copies(rel):
     """Copies kept verbatim: the port's file is the original plus one
     header line naming it."""

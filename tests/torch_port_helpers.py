@@ -27,6 +27,24 @@ def cuda_or_skip():
     return torch.device("cuda")
 
 
+class CudaLike:
+    """A stand-in for a contiguous CUDA tensor (the CPU build of torch has
+    none): its device says CUDA, its data is a CPU tensor's."""
+
+    def __init__(self, t):
+        self.t, self.shape, self.dtype = t, t.shape, t.dtype
+        self.device = torch.device("cuda")
+
+    def dim(self):
+        return self.t.dim()
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return self.t.data_ptr()
+
+
 def sc105_lp(port=False):
     """Netlib SC105 as the JAX tests build it (``tests/test_netlib.py``),
     as a JAX-package SparseLP or, with ``port=True``, a port SparseLP."""
