@@ -9,8 +9,9 @@ nonzero):
 1. environment: torch version, the card's name and power limit, the time
    to build the kernels from ``pysparselp_tpu_torch/csrc`` with nvcc;
 2. every hand-written kernel against its plain PyTorch twin on the card, at
-   the main path's shapes (Potts-300, multi-label Potts 64x64 K=4, netlib
-   SC105 and a dense system past shared memory; for H-CSR the transport,
+   the main path's shapes (Potts-300, Potts-50, multi-label Potts 64x64
+   K=4, netlib SC105 and a dense system past shared memory; for H-CSR the
+   transport,
    unstructured and k-medians systems of ``bench.py``, a row of 100,000
    entries and a system without entries; for H-BSR the RCM-permuted CLIME
    system at p = 150, one tile set at the shipped tile size, both
@@ -82,12 +83,34 @@ Batched serving (``solve_cp_batch``, ``batch.py``) adds:
   single-problem rate of the same template and the batching efficiency,
   and the batched kernels' launches against the operators' prediction.
 
+The interior point and ADMM solvers (``mehrotra``, ``admm``, ``admm2``)
+add:
+
+* in phase 2, the float64 products of their paths (:func:`phase_f64_kernels`):
+  H-CSR on the standard forms of Potts-300 (Mehrotra's slack form) and of
+  the k-medians LP (ADMM's), H-DIA on the aligned Potts-300 system and
+  H-BSR on the RCM-permuted CLIME system, each A x, Aᵀ y and
+  ``sq_rowsum_weighted`` (the squared operand) against the twins, with
+  device times, the bytes bound and cuSPARSE ``torch.mv`` in float64;
+* phase 7, after phase 6: ``main_path_mehrotra_netlib`` (SC105, AFIRO,
+  KB2, SC50A, SC50B in float64 on the dense Cholesky path, against their
+  perPlex optima and the port's float64 CPU runs),
+  ``main_path_mehrotra_potts300`` (float64 on the CG path: the first IPM
+  iteration against the CPU twins, the graph-cut distance against the JAX
+  package's CPU figure, CG steps and host reads per IPM iteration, one IPM
+  iteration under the profiler) and ``main_path_admm_kmedians`` (the
+  reference example's clustering cost; ``bench.py``'s k-medians LP under
+  ``admm`` and ``admm2``, held against the float64 CPU run, three timed
+  float32 runs, launches and busy share per iteration).
+
 The launch counters are set to 0 just before each solve and read just
 after it; the kernel table takes H-DIA's and H-CPDIA's counts from the
 Potts-300 solve, H-DIA (K5)'s from the one-rank mesh solve, H-CPDENSE's
 from the SC105 solve, H-CSR's from the transport solve, H-BSR's from the
 CLIME solve, H-DIA-B's from the banded batch solve and H-CSR-B's from the
-unstructured batch solve (``launches_run`` names the solve).  Then the kernel table
+unstructured batch solve (``launches_run`` names the solve); the
+phase 7 solves that launch a hand kernel add its count under
+``launches_by_run``.  Then the kernel table
 as one JSON line and, last, the device line ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside this script, it
 exits nonzero and prints no result.
@@ -379,12 +402,19 @@ def describe(op):
 
 
 def sc105_lp():
+    return netlib_lp("SC105")
+
+
+def netlib_lp(name):
+    """A vendored netlib problem as ``tests/test_netlib.py`` builds SC105
+    (upper bounds clipped at twice the largest optimal value, inequalities
+    one-sided) and its perPlex optimum."""
     import numpy as np
 
     from pysparselp_tpu_torch import SparseLP
     from pysparselp_tpu_torch.io.netlib import get_problem
 
-    d = get_problem("SC105")
+    d = get_problem(name)
     gt = d["solution"]
     lp = SparseLP()
     lp.add_variables_array(
@@ -693,8 +723,10 @@ def phase_kernels(torch, problems, table):
         table["H-DIA"]["max_abs_err"] = max(table["H-DIA"]["max_abs_err"], err)
         emit("kernels", **rec)
 
-        # H-CPDIA: Potts-300 (ineq-only) and multi-label Potts (eq+ineq)
-        for key, nsteps in (("potts300", 100), ("multilabel64", 100)):
+        # H-CPDIA: Potts-300 (ineq-only; K3's shape), Potts-50 (K2's: a
+        # small aligned grid) and multi-label Potts (eq+ineq)
+        for key, nsteps in (("potts300", 100), ("potts50", 200),
+                            ("multilabel64", 100)):
             prob, pre = lowered(problems[key], dt, dev)
             if not cp_dia.cp_dia_eligible(prob):
                 raise AssertionError(f"{key} did not lower to DIA operators")
@@ -726,6 +758,9 @@ def phase_kernels(torch, problems, table):
                 if key == "potts300":
                     table["H-CPDIA"].update({k: rec[k] for k in (
                         "ms", "plain_ms", "bound_ms", "bound_by")})
+                elif key == "potts50":
+                    table["H-CPDIA"]["potts50"] = {k: rec[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by")}
             table["H-CPDIA"]["max_abs_err"] = max(
                 table["H-CPDIA"]["max_abs_err"], err)
             emit("kernels", **rec)
@@ -1961,6 +1996,471 @@ def phase_mesh4(torch):
     return ranks["potts300"]["launches"]
 
 
+# ----------------------------------------------------------------------
+# the interior point and ADMM solvers (mehrotra, admm, admm2)
+# ----------------------------------------------------------------------
+
+# the JAX package's Mehrotra on Potts-300 on the CPU in float64
+# (scripts/jax_mehrotra_potts.py): 17 IPM iterations on the CG path, mean
+# |x - graph cut| 5.548e-4; the card's float64 run is held to the larger
+# of 1e-2 and ten times that
+JAX_POTTS300_DIST = 0.0005548461760370359
+POTTS300_DIST_LIMIT = max(1e-2, 10 * JAX_POTTS300_DIST)
+# the card's float64 interior point against the port's float64 CPU run:
+# x, y, s within this, relative to the largest entry
+MEHROTRA_RTOL = 1e-8
+# the vendored netlib problems: the objective within NETLIB_OBJ_RTOL of the
+# perPlex optimum's, and mean |x - x*| < 1e-5 where x* is the only optimum
+# (AFIRO's optimal face holds other points and KB2 ends 1.6e-5 from x*, in
+# the JAX package as in the port)
+NETLIB = ("SC105", "AFIRO", "KB2", "SC50A", "SC50B")
+NETLIB_UNIQUE = ("SC105", "SC50A", "SC50B")
+NETLIB_OBJ_RTOL = 1e-7
+# the reference's k-medians clustering cost (tests/test_examples.py:13-19)
+KMEDIANS_COST = 238.9849948936172
+# bench.py's k-medians LP under ADMM on the card: the timed float32
+# iterations, the iterations held against the float64 CPU run and the
+# dtype of the card run held.  admm2 takes the CG Schur path there (155,001
+# rows > 4,096): up to 100 CG steps an iteration, so fewer of them; its
+# float32 CG solves the Schur system to float32's accuracy, which leaves
+# the equality violation 1e-4 to 3e-4 from float64's (on the card and in a
+# CPU float32 run alike), so its card run is held in float64 and its
+# float32 distance is reported
+ADMM_RUNS = {"admm": dict(nb_iter=2000, check_iter=200, held="float32"),
+             "admm2": dict(nb_iter=200, check_iter=50, held="float64")}
+# the H100's float64 rate outside the tensor cores (NVIDIA's data sheet)
+F64_OPS_PER_S = 34e12
+
+
+def mehrotra_slack(lp):
+    """The standard form ``dispatch`` hands ``mpc_sol``: fixed variables
+    removed, slack form; ``(a, b, c)``."""
+    lp = copy.deepcopy(lp)
+    lp.remove_fixed_variables()
+    lp.convert_to_slack_form()
+    return lp.a_equalities.tocsr(), lp.b_equalities, lp.costsvector
+
+
+def admm_matrix(lp, method):
+    """The host standard-form matrix ``lp_admm`` / ``lp_admm2`` lowers
+    (default options), from the full LP as ``dispatch`` hands it."""
+    from pysparselp_tpu_torch.solvers import _csr
+    from pysparselp_tpu_torch.solvers.admm import admm2_system, admm_system
+
+    a_eq, a_in = _csr(lp.a_equalities), _csr(lp.a_inequalities)
+    system = admm_system if method == "admm" else admm2_system
+    return system(lp.costsvector, a_eq,
+                  lp.b_equalities if a_eq is not None else None, a_in,
+                  lp.b_lower if a_in is not None else None,
+                  lp.b_upper if a_in is not None else None,
+                  lp.lower_bounds, lp.upper_bounds)[1]
+
+
+def operator_products(op):
+    """The products of a DIA, CSR or BSR operator (``sq_rowsum_weighted``
+    run once before, which builds its squared operand): ``(side, kernel
+    name, kernel, twin, |A| |x| of the twin, n_in, bytes, operations)`` for
+    A x, Aᵀ y and ``sq`` (Σ_j a_ij² d_j); ``kernel``/``twin``/``scale``
+    take x."""
+    from pysparselp_tpu_torch.ops import bsr_spmv, csr_spmv, dia_spmv
+    from pysparselp_tpu_torch.problem import BsrMatrix, CsrMatrix, DiaMatrix
+
+    out = []
+    if isinstance(op, DiaMatrix):
+        for side, o, n_in in (("A", op.fwd, op.ncols), ("At", op.bwd,
+                                                        op.nrows),
+                              ("sq", op._sq, op.ncols)):
+            ndiag = o.vals.shape[0]
+            nbytes = (o.vals.numel() + n_in + o.n_out) * o.vals.element_size() \
+                + 4 * ndiag
+            out.append((side, "H-DIA", lambda x, o=o: dia_spmv.dia_apply(o, x),
+                        lambda x, o=o: dia_spmv.dia_spmv_reference(
+                            o.vals, o.offs, x, o.n_out),
+                        lambda x, o=o: dia_spmv.dia_spmv_reference(
+                            o.vals.abs(), o.offs, x.abs(), o.n_out),
+                        n_in, nbytes, 2 * o.vals.numel()))
+    elif isinstance(op, CsrMatrix):
+        for side, o in (("A", op.csr), ("At", op.csr_t), ("sq", op._sq)):
+            nnz = o.vals.numel()
+            s = o.vals.element_size()
+            nbytes = nnz * (s + 4) + (o.n_out + 1) * 4 + (o.n_out + o.n_in) * s
+            out.append((side, "H-CSR", lambda x, o=o: csr_spmv.csr_spmv(o, x),
+                        lambda x, o=o: csr_spmv.csr_spmv_reference(
+                            o.indptr, o.indices, o.vals, x, o.n_out),
+                        lambda x, o=o: csr_spmv.csr_spmv_reference(
+                            o.indptr, o.indices, o.vals.abs(), x.abs(),
+                            o.n_out),
+                        o.n_in, nbytes, 2 * nnz))
+    elif isinstance(op, BsrMatrix):
+        for side, o, t in (("A", op.op, False), ("At", op.op, True),
+                           ("sq", op._sq, False)):
+            out.append((side, "H-BSR",
+                        lambda x, o=o, t=t: bsr_spmv.bsr_spmv(o, x, t),
+                        lambda x, o=o, t=t: bsr_spmv.bsr_spmv_reference(o, x,
+                                                                         t),
+                        lambda x, o=o, t=t: bsr_spmv.bsr_spmv_reference(
+                            o.abs(), x.abs(), t),
+                        o.nrows if t else o.ncols,
+                        bsr_tile_bytes(o, t, o.tiles.element_size()),
+                        2 * o.stored_entries))
+    if not out:
+        raise AssertionError(f"{type(op).__name__}: no hand kernel")
+    return out
+
+
+def phase_f64_kernels(torch, systems, table):
+    """The products of the interior point and ADMM paths in float64 on the
+    card: the operator of each of ``systems`` (``{name: host matrix or
+    (host matrix, prefer)}``, lowered by ``ell_from_scipy``: DIA, CSR or
+    BSR), A x, Aᵀ y and ``sq_rowsum_weighted`` (through the operator)
+    against the twins per row within RTOL * (|A| |x|)_row, with the
+    kernel's call times, its bound (bytes at the HBM rate) and cuSPARSE
+    ``torch.mv`` in float64 on the same matrix."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.problem import ell_from_scipy
+
+    rng = np.random.RandomState(5)
+    dev = torch.device("cuda")
+    dt = torch.float64
+    for key, spec in systems.items():
+        host, prefer = spec if isinstance(spec, tuple) else (spec, None)
+        t0 = time.perf_counter()
+        op = ell_from_scipy(host, dt, dev, prefer=prefer)
+        torch.cuda.synchronize()
+        lower_s = time.perf_counter() - t0
+        path = describe(op)
+        d = torch.as_tensor(rng.rand(op.ncols) + 0.1, dtype=dt, device=dev)
+        launches = sum(f.launches for f in kernel_counters().values())
+        sq = op.sq_rowsum_weighted(d)
+        products = operator_products(op)
+        if sum(f.launches for f in kernel_counters().values()) != launches + 1:
+            raise AssertionError(f"{key} {path}: sq_rowsum_weighted did not "
+                                 "launch one hand kernel")
+        for side, name, kern, twin, scale, n_in, nbytes, ops in products:
+            x = d if side == "sq" else torch.as_tensor(
+                rng.randn(n_in), dtype=dt, device=dev)
+            got, want = kern(x), twin(x)
+            if side == "sq" and not torch.equal(got, sq):
+                raise AssertionError(f"{key} {path}: sq_rowsum_weighted "
+                                     "differs from its operand's product")
+            err = (got - want).abs()
+            if not bool((err <= RTOL["float64"] * scale(x)).all()):
+                raise AssertionError(
+                    f"{name} {key} {path} {side} (float64): |kernel - "
+                    f"twin| past {RTOL['float64']:.0e} * (|A||x|)_row, max "
+                    f"{float(err.max()):.3e}")
+            side_host = {"A": host, "At": host.T.tocsr(),
+                         "sq": host.multiply(host).tocsr()}[side]
+            lib = sparse_tensor(torch, side_host, dt, dev)
+            rec = dict(kernel=name, system=key, lowered=path, side=side,
+                       dtype="float64", shape=[int(got.numel()), n_in],
+                       max_abs_err=float(err.max()), lower_s=lower_s,
+                       kernel_us=call_times(torch, lambda: kern(x),
+                                            reps=100, host_reps=200),
+                       library_us=call_times(
+                           torch, lambda: torch.mv(lib, x), reps=100,
+                           host_reps=200),
+                       bytes=nbytes)
+            rec["bound_us"] = max(nbytes / HBM_BYTES_PER_S,
+                                  ops / F64_OPS_PER_S) * 1e6
+            rec["bound_share"] = rec["bound_us"] / rec["kernel_us"][
+                "device_us"]
+            emit("kernels_f64", **rec)
+            entry = table[name]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       rec["max_abs_err"])
+            entry.setdefault("float64", []).append(dict(
+                system=key, side=side, device_us=rec["kernel_us"]["device_us"],
+                bound_us=rec["bound_us"],
+                library_device_us=rec["library_us"]["device_us"]))
+
+
+def profile_window(torch, fn):
+    """``fn()`` once under ``torch.profiler``: wall seconds (synchronized),
+    device kernels launched, their device seconds, the busy share, and the
+    device seconds of the ten kernel names that took most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and "Memcpy" not in e.name and "Memset" not in e.name]
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    device_s = sum(by_name.values()) * 1e-6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return dict(wall_s=wall, kernels=len(dev), device_s=device_s,
+                busy=device_s / wall,
+                top_us={k[:60]: v for k, v in top})
+
+
+def rel_diff(got, want):
+    """max |got - want| over max |want| (numpy or tensors)."""
+    import numpy as np
+
+    got, want = (np.asarray(v.cpu() if hasattr(v, "cpu") else v,
+                            np.float64) for v in (got, want))
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)),
+                                                  1e-300))
+
+
+def phase_mehrotra_netlib(torch, counted_solve):
+    """``main_path_mehrotra_netlib``: the vendored netlib problems through
+    ``SparseLP.solve(method="mehrotra")`` in float64 on the card (the dense
+    normal-equations path: ``torch.matmul`` and cuSOLVER's Cholesky, no
+    hand kernel), 100 iterations: IPM iterations, wall seconds, x against
+    the port's float64 CPU run, the objective and distance to the perPlex
+    optimum; then one IPM iteration of SC105 under the profiler."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.solvers import mehrotra as pm
+
+    out = {}
+    for name in NETLIB:
+        lp, gt = netlib_lp(name)
+        run = dict(method="mehrotra", nb_iter=100, nb_iter_plot=1,
+                   dtype=np.float64)
+        wall, launches = counted_solve(lp, device="cuda", **run)
+        x = counted_solve.out[0]
+        iters = len(lp.itrn_curve)
+        x_cpu, _ = lp.solve(device="cpu", **run)
+        opt = float(lp.costsvector @ gt)
+        rec = dict(ipm_iterations=iters, cpu_ipm_iterations=len(lp.itrn_curve),
+                   wall_s=wall, objective=float(lp.costsvector @ x),
+                   optimum=opt,
+                   objective_rel=abs(float(lp.costsvector @ x) - opt)
+                   / abs(opt),
+                   mean_dist=float(np.mean(np.abs(x - gt))),
+                   rel_diff_cpu=rel_diff(x, x_cpu), launches=launches)
+        out[name] = rec
+        if not (rec["objective_rel"] <= NETLIB_OBJ_RTOL
+                and rec["rel_diff_cpu"] <= MEHROTRA_RTOL
+                and iters == rec["cpu_ipm_iterations"]
+                and (name not in NETLIB_UNIQUE or rec["mean_dist"] < 1e-5)):
+            emit("main_path_mehrotra_netlib", problems=out)
+            raise AssertionError(f"mehrotra {name}: {rec}")
+    a, b, c = mehrotra_slack(netlib_lp("SC105")[0])
+    data, dense = pm.setup(a, b, c, torch.float64, "cuda")
+    x, y, s = pm._initial_point(data, dense)
+    theta = torch.tensor(0.9995, dtype=torch.float64, device="cuda")
+    one = profile_window(torch, lambda: pm._ipm_iteration(
+        data, x, y, s, theta, 1.0, dense))
+    emit("main_path_mehrotra_netlib", problems=out,
+         sc105_standard_form=list(a.shape), path="dense" if dense else "cg",
+         sc105_one_ipm_iteration=one, obj_rtol=NETLIB_OBJ_RTOL,
+         x_rtol=MEHROTRA_RTOL)
+
+
+def phase_mehrotra_potts300(torch, counted_solve):
+    """``main_path_mehrotra_potts300``: Potts-300 through
+    ``SparseLP.solve(method="mehrotra")`` in float64 on the card, the CG
+    path (its 358,800 inequality rows are the standard form's rows; the
+    operator's products run a hand kernel), 100 iterations: the standard
+    form and its lowering, the initial point and first IPM iteration held
+    against the port's float64 CPU run (MEHROTRA_RTOL), IPM iterations,
+    CG solves, steps and host reads of the stopping flag per IPM
+    iteration, the host seconds before the first iteration, the wall time,
+    the hand kernels' launches, the graph-cut distance (held to
+    POTTS300_DIST_LIMIT), and one IPM iteration under the profiler."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+    from pysparselp_tpu_torch.ops.cg import conjgrad
+    from pysparselp_tpu_torch.problem import BsrMatrix, CsrMatrix, DiaMatrix
+    from pysparselp_tpu_torch.solvers import mehrotra as pm
+
+    lp, gt, idx, _ = build_linear_program(300, 0.5, 500)
+    t0 = time.perf_counter()
+    a, b, c = mehrotra_slack(lp)
+    slack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data, dense = pm.setup(a, b, c, torch.float64, "cuda")
+    torch.cuda.synchronize()
+    lower_s = time.perf_counter() - t0
+    if dense:
+        raise AssertionError("Potts-300 took the dense path")
+    ell = data["ell"]
+    # the first iteration on the card against the CPU twins
+    theta = 0.9995
+    first = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        dd = data if dev == "cuda" else pm.setup(a, b, c, torch.float64,
+                                                 "cpu")[0]
+        x0, y0, s0 = pm._initial_point(dd, False)
+        x1, y1, s1, _m = pm._ipm_iteration(
+            dd, x0, y0, s0, torch.tensor(theta, dtype=torch.float64,
+                                         device=dev), 1.0, False)
+        first[dev] = [v.cpu() for v in (x0, y0, s0, x1, y1, s1)]
+        first[dev + "_s"] = time.perf_counter() - t0
+    first_diff = {k: rel_diff(g, w) for k, g, w in zip(
+        ("x0", "y0", "s0", "x1", "y1", "s1"), first["cuda"], first["cpu"])}
+    # the solve
+    conjgrad.calls = conjgrad.steps = conjgrad.syncs = 0
+    wall, launches = counted_solve(lp, method="mehrotra", nb_iter=100,
+                                   nb_iter_plot=1, dtype=np.float64,
+                                   device="cuda")
+    x = counted_solve.out[0]
+    iters = len(lp.itrn_curve)
+    cg = dict(calls=conjgrad.calls, steps=conjgrad.steps,
+              syncs=conjgrad.syncs)
+    dist = float(np.mean(np.abs(x[idx] - gt)))
+    xs, ys, ss = pm._initial_point(data, False)
+    conjgrad.steps = 0
+    one = profile_window(torch, lambda: pm._ipm_iteration(
+        data, xs, ys, ss, torch.tensor(theta, dtype=torch.float64,
+                                       device="cuda"), 1.0, False))
+    one["cg_steps"] = conjgrad.steps
+    kinds = {"H-DIA": DiaMatrix, "H-CSR": CsrMatrix, "H-BSR": BsrMatrix}
+    lowered_to = {k: count_ops(ell, kind) for k, kind in kinds.items()}
+    emit("main_path_mehrotra_potts300", n=lp.nb_variables,
+         standard_form=list(a.shape), nnz=int(a.nnz), lowered=describe(ell),
+         slack_s=slack_s, lower_s=lower_s,
+         first_checkpoint_s=lp.opttime_curve[0], first_iteration=first_diff,
+         first_iteration_cuda_s=first["cuda_s"],
+         first_iteration_cpu_s=first["cpu_s"], rel_limit=MEHROTRA_RTOL,
+         ipm_iterations=iters, wall_s=wall, s_per_ipm_iteration=wall / iters,
+         cg=cg, cg_steps_per_ipm_iteration=cg["steps"] / iters,
+         host_reads_per_ipm_iteration=(cg["syncs"] + 2 * iters) / iters,
+         mean_dist_graph_cut=dist, dist_limit=POTTS300_DIST_LIMIT,
+         jax_cpu_dist=JAX_POTTS300_DIST, launches=launches,
+         one_ipm_iteration=one)
+    if not all(v <= MEHROTRA_RTOL for v in first_diff.values()):
+        raise AssertionError(f"Potts-300 first IPM iteration, card vs CPU: "
+                             f"{first_diff}")
+    if not dist <= POTTS300_DIST_LIMIT:
+        raise AssertionError(f"Potts-300 mehrotra ended {dist} from the "
+                             f"graph cut (limit {POTTS300_DIST_LIMIT})")
+    for key, count in lowered_to.items():
+        if count and not launches[key]:
+            raise AssertionError(f"Potts-300 mehrotra lowered to {key} and "
+                                 "launched none")
+    return launches
+
+
+def phase_admm_kmedians(torch, counted_solve):
+    """``main_path_admm_kmedians``: (1) the reference example,
+    ``examples/kmedians.py::run(method="admm", nb_iter=1000)`` (500 points,
+    50 candidates) in float64 on the card, its clustering cost against the
+    reference's constant (within 1e-6); (2) ``bench.py``'s k-medians LP
+    (5,000 x 30) under ``admm`` and ``admm2`` in float32 on the card
+    (ADMM_RUNS): the standard form's lowering, the first checkpoints held
+    against the port's float64 CPU run (NONGRID_RTOL, the rule of the
+    non-grid workloads), the steady rate of three ``light_metrics`` runs
+    (median and spread), the hand kernels' launches per iteration, and the
+    launches and device time per iteration (the difference of a 40- and a
+    20-iteration solve under the profiler), whose product with the steady
+    rate is the busy share."""
+    from unittest import mock
+
+    import numpy as np
+
+    from pysparselp_tpu_torch import SparseLP
+    from pysparselp_tpu_torch.examples import kmedians
+    from pysparselp_tpu_torch.problem import (BsrMatrix, CsrMatrix, DiaMatrix,
+                                              ell_from_scipy)
+
+    solve = SparseLP.solve
+
+    def solve_f64(self, *args, **kw):
+        return solve(self, *args, **{"dtype": np.float64, **kw})
+
+    for fn in kernel_counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(SparseLP, "solve", solve_f64):
+        cost = kmedians.run(method="admm", nb_iter=1000)
+    example = dict(cost=cost, reference=KMEDIANS_COST,
+                   wall_s=time.perf_counter() - t0,
+                   launches={k: f.launches for k, f in kernel_counters().items()})
+    if not abs(cost - KMEDIANS_COST) < 1e-6:
+        emit("main_path_admm_kmedians", example=example)
+        raise AssertionError(f"k-medians cost {cost} vs {KMEDIANS_COST}")
+
+    lp = kmedians_lp()
+    kinds = {"H-DIA": DiaMatrix, "H-CSR": CsrMatrix, "H-BSR": BsrMatrix}
+    methods, total = {}, {}
+    for method, cfg in ADMM_RUNS.items():
+        host = admm_matrix(lp, method)
+        op = ell_from_scipy(host, torch.float32, "cuda")
+        lowered_to = {k: count_ops(op, kind) for k, kind in kinds.items()}
+        check = dict(method=method, nb_iter=cfg["check_iter"],
+                     nb_iter_plot=cfg["check_iter"] // 5)
+        got = {}
+        for dt in ("float32", "float64"):
+            lp.solve(dtype=getattr(np, dt), device="cuda", **check)
+            got[dt], itrn = curves(lp), list(lp.itrn_curve)
+        t0 = time.perf_counter()
+        lp.solve(dtype=np.float64, device="cpu", **check)
+        cpu_wall = time.perf_counter() - t0
+        want = curves(lp)
+        if lp.itrn_curve != itrn:
+            raise AssertionError(f"checkpoints {itrn} vs {lp.itrn_curve}")
+        diffs = {dt: checkpoint_diffs(g, want) for dt, g in got.items()}
+        worst = diffs[cfg["held"]]
+        nb_iter = cfg["nb_iter"]
+        runs, rates = [], []
+        for _ in range(3):
+            wall, launches = counted_solve(
+                lp, method=method, nb_iter=nb_iter, nb_iter_plot=nb_iter // 2,
+                light_metrics=True, dtype=np.float32, device="cuda")
+            runs.append(dict(wall_s=wall, launches=launches))
+            rates.append(steady_rate(lp))
+        # per iteration on the device: two profiled solves of 20 and 40
+        # iterations differ by 20 iterations and the same set-up
+        windows = [profile_window(torch, lambda k=k: lp.solve(
+            method=method, nb_iter=k, nb_iter_plot=k, light_metrics=True,
+            dtype=np.float32, device="cuda")) for k in (20, 40)]
+        per_iteration = dict(
+            launches=(windows[1]["kernels"] - windows[0]["kernels"]) / 20,
+            device_us=(windows[1]["device_s"] - windows[0]["device_s"])
+            / 20 * 1e6, top_us_40=windows[1]["top_us"])
+        per_iteration["busy"] = (per_iteration["device_us"] * 1e-6
+                                 * sorted(rates)[1])
+        launches = runs[-1]["launches"]
+        methods[method] = dict(
+            standard_form=list(host.shape), nnz=int(host.nnz),
+            lowered=describe(op), itrn=itrn, cuda=got, f64_cpu=want,
+            rel_diff=diffs, held=cfg["held"], rel_limit=NONGRID_RTOL,
+            cpu_wall_s=cpu_wall, nb_iter=nb_iter,
+            iters_per_s_steady=sorted(rates)[1], iters_per_s_runs=rates,
+            runs=runs,
+            hand_launches_per_iteration={k: v / nb_iter
+                                         for k, v in launches.items()},
+            per_iteration=per_iteration)
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        if not all(v <= NONGRID_RTOL for v in worst.values()):
+            emit("main_path_admm_kmedians", example=example, methods=methods)
+            raise AssertionError(f"{method} {cfg['held']} CUDA vs f64 CPU: "
+                                 f"{worst}")
+        for key, count in lowered_to.items():
+            if count and not launches[key]:
+                raise AssertionError(f"{method} lowered to {key} and "
+                                     "launched none")
+    emit("main_path_admm_kmedians", example=example, methods=methods)
+    return total
+
+
+def kernel_counters():
+    """Each hand kernel's wrapper, whose ``launches`` counts its
+    launches."""
+    from pysparselp_tpu_torch.ops import (bsr_spmv, cp_dense, cp_dia,
+                                          csr_spmv, dia_spmv)
+
+    return {"H-DIA": dia_spmv.dia_spmv, "H-CPDIA": cp_dia.cp_dia_chunk,
+            "H-CPDENSE": cp_dense.cp_dense_chunk,
+            "H-CSR": csr_spmv.csr_spmv, "H-BSR": bsr_spmv.bsr_spmv,
+            "H-DIA-B": dia_spmv.dia_spmm, "H-CSR-B": csr_spmv.csr_spmm}
+
+
 def main() -> int:
     try:
         import torch
@@ -1980,22 +2480,19 @@ def main() -> int:
 
     from pysparselp_tpu_torch.examples.potts import (
         build_linear_program, build_multilabel_linear_program)
-    from pysparselp_tpu_torch.ops import (_build, bsr_spmv, cp_dense, cp_dia,
-                                          csr_spmv, dia_spmv)
+    from pysparselp_tpu_torch.ops import _build
 
     warnings.filterwarnings("ignore", message="Sparse (CSR|BSR) tensor support")
-    counters = {"H-DIA": dia_spmv.dia_spmv, "H-CPDIA": cp_dia.cp_dia_chunk,
-                "H-CPDENSE": cp_dense.cp_dense_chunk,
-                "H-CSR": csr_spmv.csr_spmv, "H-BSR": bsr_spmv.bsr_spmv,
-                "H-DIA-B": dia_spmv.dia_spmm, "H-CSR-B": csr_spmv.csr_spmm}
+    counters = kernel_counters()
 
     def counted_solve(lp, **kw):
         """``lp.solve(**kw)`` with every launch counter set to 0 just
-        before; returns (wall seconds, the counts of this solve)."""
+        before; returns (wall seconds, the counts of this solve) and keeps
+        what the solve returned in ``counted_solve.out``."""
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        lp.solve(**kw)
+        counted_solve.out = lp.solve(**kw)
         wall = time.perf_counter() - t0
         return wall, {k: fn.launches for k, fn in counters.items()}
 
@@ -2016,6 +2513,7 @@ def main() -> int:
     t0 = time.perf_counter()
     problems = {
         "potts300": build_linear_program(300, 0.5, 500)[0],
+        "potts50": build_linear_program(50, 0.5, 500)[0],
         "multilabel64": build_multilabel_linear_program(64, 4)[0],
         "sc105": sc105_lp()[0],
     }
@@ -2035,6 +2533,14 @@ def main() -> int:
     phase_bsr(torch, apply_rcm_permutation(folded(clime))[0]["a_ineq"], table)
     phase_k5(torch, problems["potts300"], table)
     phase_batch_kernels(torch, batch_lps, table)
+    phase_f64_kernels(torch, {
+        "potts300_slack": mehrotra_slack(problems["potts300"])[0],
+        "kmedians_admm": admm_matrix(workloads["kmedians"], "admm"),
+        "kmedians_admm2": admm_matrix(workloads["kmedians"], "admm2"),
+        "potts300_aligned": (aligned_potts(problems["potts300"])["a_ineq"],
+                             "dia"),
+        "clime_rcm": (apply_rcm_permutation(folded(clime))[0]["a_ineq"],
+                      "bsr")}, table)
 
     # phase 3: the main path on Potts-300
     lp300 = build_linear_program(300, 0.5, 500)[0]
@@ -2096,6 +2602,7 @@ def main() -> int:
         raise AssertionError(f"Potts-50 reached dist {d50} (need < 1e-2)")
     if not n50["H-CPDIA"]:
         raise AssertionError("Potts-50 did not run H-CPDIA")
+    table["H-CPDIA"]["potts50"]["launches"] = n50["H-CPDIA"]
     lp105, gt105 = sc105_lp()
     run105 = dict(method="chambolle_pock_ppd", nb_iter=72000,
                   nb_iter_plot=72000, restart="average", restart_period=4000,
@@ -2110,6 +2617,17 @@ def main() -> int:
     if not d105 < 1e-3:
         raise AssertionError(f"SC105 reached dist {d105} (need < 1e-3)")
     table["H-CPDENSE"]["launches"] = n105["H-CPDENSE"]
+
+    # phase 7: the interior point and ADMM solvers
+    phase_mehrotra_netlib(torch, counted_solve)
+    for run, launches in (
+            ("main_path_mehrotra_potts300",
+             phase_mehrotra_potts300(torch, counted_solve)),
+            ("main_path_admm_kmedians",
+             phase_admm_kmedians(torch, counted_solve))):
+        for key, n in launches.items():
+            if n:
+                table[key].setdefault("launches_by_run", {})[run] = n
     for key, rec in table.items():
         if not rec["launches"]:
             raise AssertionError(f"{key} was not launched in the "

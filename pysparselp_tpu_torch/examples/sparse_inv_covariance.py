@@ -101,10 +101,10 @@ def clime_lp(x, lamb=0.15):
     return lp, ids
 
 
-def run(display=False, method="chambolle_pock_ppd", nb_iter=6000, lamb=0.15,
+def run(display=False, method="mehrotra", nb_iter=6000, lamb=0.15,
         device="cuda"):
-    """Returns ``(sum_abs_diff, nb_zeros_lp)`` as the JAX example's ``run``
-    (the port solves with CP-PPD, its one ported method)."""
+    """Returns ``(sum_abs_diff, nb_zeros_lp)`` as the JAX example's ``run``,
+    with its default method, the interior point."""
     x, prec, _cov = make_data()
     lp, ids = clime_lp(x, lamb)
     sol = lp.solve(method=method, nb_iter=nb_iter, max_time=np.inf,

@@ -184,9 +184,17 @@ class BsrOperand:
 
     def abs(self) -> "BsrOperand":
         """The operand of ``|A|`` (the same index arrays)."""
-        return BsrOperand(self.tiles.abs(), self.row_ptr, self.tile_col,
-                          self.col_ptr, self.tile_of, self.tile_row,
-                          self.nrows, self.ncols)
+        return self._with_tiles(self.tiles.abs())
+
+    def squared(self) -> "BsrOperand":
+        """The operand of ``A∘A``, entries squared (the same index
+        arrays)."""
+        return self._with_tiles(self.tiles * self.tiles)
+
+    def _with_tiles(self, tiles) -> "BsrOperand":
+        return BsrOperand(tiles, self.row_ptr, self.tile_col, self.col_ptr,
+                          self.tile_of, self.tile_row, self.nrows,
+                          self.ncols)
 
     @staticmethod
     def from_scipy(a, dtype, device, tile: int = DEFAULT_TILE):

@@ -148,6 +148,17 @@ def _tensor(v, dtype, device):
                            device=device)
 
 
+def _squared(op, make):
+    """The operand of ``A∘A`` that ``sq_rowsum_weighted`` runs the
+    operator's kernel on: ``make()`` on the first call, then kept on the
+    (frozen) operator."""
+    sq = op.__dict__.get("_sq")
+    if sq is None:
+        sq = make()
+        object.__setattr__(op, "_sq", sq)
+    return sq
+
+
 @dataclasses.dataclass(frozen=True)
 class DenseMatrix:
     """Dense operator: SpMV as a float32/float64 ``matmul`` (TF32 off)."""
@@ -181,6 +192,10 @@ class DenseMatrix:
 
     def abs_power_colsum(self, p):
         return abs_pow0(self.a, p).sum(dim=0)
+
+    def sq_rowsum_weighted(self, d):
+        """``Σ_j a_ij² d_j`` per row, ``diag(A·diag(d)·Aᵀ)``."""
+        return (self.a * self.a) @ d
 
     @staticmethod
     def from_scipy(a, dtype, device) -> "DenseMatrix":
@@ -248,6 +263,11 @@ class DiaMatrix:
 
     def abs_power_colsum(self, p):
         return abs_pow0(self.vals_t, p).sum(dim=0)
+
+    def sq_rowsum_weighted(self, d):
+        """H-DIA on the squared value planes (built once)."""
+        return dia_apply(_squared(self, lambda: DiaOperand(
+            self.vals * self.vals, self.offs, self.nrows)), d)
 
     @staticmethod
     def from_planes(vals, offsets, vals_t, offsets_t, nrows, ncols, dtype,
@@ -338,6 +358,12 @@ class CsrMatrix:
         return self._row_sum(self.indptr_t, abs_pow0(self.vals_t, p),
                              self.ncols)
 
+    def sq_rowsum_weighted(self, d):
+        """H-CSR on the squared values, over A's plan (built once)."""
+        c = self.csr
+        return _csr.csr_spmv(_squared(self, lambda: _csr.CsrOperand(
+            c.indptr, c.indices, c.vals * c.vals, c.n_in, c.plan)), d)
+
     @staticmethod
     def from_scipy(a, dtype, device) -> "CsrMatrix":
         csr = scipy.sparse.csr_matrix(a, dtype=np.float64)
@@ -394,6 +420,10 @@ class BsrMatrix:
         parts = abs_pow0(self.op.tiles, p).sum(dim=1)
         return self.op.line_sum(parts[self.op.tile_of.long()],
                                 transpose=True)
+
+    def sq_rowsum_weighted(self, d):
+        """H-BSR on the squared tile set (built once)."""
+        return _bsr.bsr_spmv(_squared(self, self.op.squared), d)
 
     @staticmethod
     def from_scipy(a, dtype, device,
@@ -505,6 +535,9 @@ class PartitionMatrix:
     def abs_power_colsum(self, p):
         return self._scatter(abs_pow0(self.vals, p))
 
+    def sq_rowsum_weighted(self, d):
+        return torch.sum(self.vals * self.vals * self._window(d), dim=1)
+
     @staticmethod
     def from_scipy(a, dtype, device) -> "PartitionMatrix":
         csr = scipy.sparse.csr_matrix(a)
@@ -565,6 +598,13 @@ class ColBlockMatrix:
 
     def abs_power_colsum(self, p):
         return torch.cat([b.abs_power_colsum(p) for b in self.blocks])
+
+    def sq_rowsum_weighted(self, d):
+        parts = self._slices(d)
+        out = self.blocks[0].sq_rowsum_weighted(parts[0])
+        for blk, ds in zip(self.blocks[1:], parts[1:]):
+            out = out + blk.sq_rowsum_weighted(ds)
+        return out
 
 
 # ----------------------------------------------------------------------

@@ -1,15 +1,24 @@
 """Solver dispatch (mirrors ``pysparselp_tpu/solvers/__init__.py``).
 
-Ported so far: ``chambolle_pock_ppd``, on one device or, with ``mesh=`` (a
-:class:`~pysparselp_tpu_torch.parallel.mesh.Mesh`), row-sharded over a
-``torch.distributed`` group (``parallel.sharded_cp``), and the host bridges
-``scipy_simplex`` / ``scipy_interior_point`` (HiGHS through scipy,
-:mod:`.scipy_bridge`), which run on the host whatever ``device`` says and
-take the full LP, as in the JAX package.  For CP-PPD ``dispatch`` performs
-the same host-side conversions as the JAX package's — remove fixed
-variables, map warm starts into the reduced space, map every solution back
-with ``x_original = m_change @ x_new + shift`` — and every other method
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+Ported so far:
+
+* ``chambolle_pock_ppd``, on one device or, with ``mesh=`` (a
+  :class:`~pysparselp_tpu_torch.parallel.mesh.Mesh`), row-sharded over a
+  ``torch.distributed`` group (``parallel.sharded_cp``);
+* ``mehrotra`` (:mod:`.mehrotra`, the interior point on the normal
+  equations: dense Cholesky or device CG);
+* ``admm`` and ``admm2`` (:mod:`.admm`);
+* the host bridges ``scipy_simplex`` / ``scipy_interior_point`` (HiGHS
+  through scipy, :mod:`.scipy_bridge`), which run on the host whatever
+  ``device`` says.
+
+``dispatch`` performs the same per-method host-side conversions as the JAX
+package's: CP-PPD removes fixed variables (warm starts mapped into the
+reduced space), Mehrotra removes fixed variables and converts to slack
+form, and every solution and callback iterate is mapped back with
+``x_original = m_change @ x_new + shift``; ADMM and the bridges take the
+full LP.  ``mesh=`` with ``mehrotra``/``admm``/``admm2``, and every other
+method, raise ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -23,9 +32,6 @@ from .base import mirror_callback_attrs, to_np
 
 # methods of the JAX package not ported yet -> the ROADMAP.md item that ports them
 _NOT_PORTED = {
-    "mehrotra": "Queue 1, M7",
-    "admm": "Queue 1, M7",
-    "admm2": "Queue 1, M7",
     "admm_blocks": "Queue 1, M7",
     "dual_gradient_ascent": "Queue 1, M7",
     "dual_coordinate_ascent": "Queue 1, M7",
@@ -100,7 +106,53 @@ def dispatch(
             start_time=start_time, nb_iter_plot=nb_iter_plot,
         )
 
+    if method in ("admm", "admm2"):
+        from .admm import lp_admm, lp_admm2
+
+        a_ineq = _csr(lp.a_inequalities)
+        a_eq = _csr(lp.a_equalities)
+        return (lp_admm if method == "admm" else lp_admm2)(
+            lp.costsvector, a_eq,
+            lp.b_equalities if a_eq is not None else None, a_ineq,
+            lp.b_lower if a_ineq is not None else None,
+            lp.b_upper if a_ineq is not None else None,
+            lp.lower_bounds, lp.upper_bounds,
+            nb_iter=nb_iter, x0=x0, callback_func=callback_func,
+            max_time=max_time, nb_iter_plot=nb_iter_plot, dtype=dtype,
+            start_time=start_time, device=device, **solver_kwargs,
+        )
+
     mesh = solver_kwargs.pop("mesh", None)
+    if method == "mehrotra":
+        if mesh is not None:
+            raise NotImplementedError(
+                "mehrotra with mesh= (sharded_mehrotra.py) is not ported to "
+                "PyTorch yet; see ROADMAP.md Queue 1, M9")
+        from .mehrotra import mpc_sol
+
+        lp_slack = copy.deepcopy(lp)
+        m_change1, shift1 = lp_slack.remove_fixed_variables()
+        m_change2, shift2 = lp_slack.convert_to_slack_form()
+
+        def mehrotra_cb(solution, niter, **kw):
+            x = m_change1 @ (m_change2 @ solution + shift2) + shift1
+            callback_func(niter, x, float(lp.costsvector.dot(x)), 0.0,
+                          kw.get("elapsed", 0.0), 0.0, 0.0)
+
+        _f, x, _y, _s, _n = mpc_sol(
+            lp_slack.a_equalities.tocsr(),
+            lp_slack.b_equalities,
+            lp_slack.costsvector,
+            max_iter=nb_iter,
+            callback=mehrotra_cb,
+            dtype=dtype,
+            start_time=start_time,
+            max_time=max_time,
+            device=device,
+            **solver_kwargs,
+        )
+        return m_change1 @ (m_change2 @ x + shift2) + shift1
+
     if mesh is not None:
         from ..parallel.mesh import check_mesh
 

@@ -1,0 +1,386 @@
+"""ADMM LP solvers, PyTorch port of ``pysparselp_tpu/solvers/admm.py``.
+
+* ``lp_admm`` — penalized-equality ADMM (reference ``pysparselp/ADMM.py:47-269``):
+  the x-subproblem ``min ½xᵀMx − yᵀx`` with ``M = γₑAᵀA + γᵢI`` under box
+  constraints, solved by ``nb_inner`` damped projected Jacobi sweeps per
+  iteration, matrix-free (``Mx = γₑAᵀ(Ax) + γᵢx``: two products of the
+  lowered operator, H-DIA, H-CSR or H-BSR on the card; ``diag(M)`` from the
+  squared column sums).  The JAX package runs a chunk as one compiled
+  ``fori_loop``; here it is a Python loop of ``2·(nb_inner + 1)`` products
+  and the elementwise passes per iteration, launched without a host
+  synchronisation until the chunk's metrics are read.
+* ``lp_admm2`` — ADMM with the equalities enforced exactly in the
+  subproblem (reference ``ADMM.py:272-474``): the KKT solve reduces to the
+  SPD Schur complement ``(A Aᵀ) ν = A y − γ b``, factored once as a dense
+  Cholesky (``m ≤ dense_threshold``) and solved by two triangular solves
+  per iteration, or solved by Jacobi-preconditioned CG on the operator.
+
+Not ported here: ``inner="gauss_seidel"`` (the native sequential sweep,
+ROADMAP M7(a)) and ``mesh=`` (``sharded_admm.py``, ROADMAP M9); both raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse
+import torch
+
+from ..ops.cg import conjgrad
+from ..ops.linear_solve import cholesky_solve, cholesky_upper
+from ..preconditioning import (
+    convert_to_standard_form_with_bounds,
+    precondition_constraints,
+)
+from ..problem import ell_from_scipy, resolve_device, resolve_dtype
+from .base import (HostLoop, ToleranceStop, chunk_schedule, emit_callback,
+                   to_np)
+
+
+def _not_ported(what, item):
+    raise NotImplementedError(f"{what} is not ported to PyTorch yet; see "
+                              f"ROADMAP.md {item}")
+
+
+# ----------------------------------------------------------------------
+# lp_admm: penalized equalities + projected Jacobi inner solver
+# ----------------------------------------------------------------------
+
+
+def _admm_chunk(data, state, nsteps: int, nb_inner: int):
+    a, b = data["a"], data["b"]
+    c, lb, ub = data["c"], data["lb"], data["ub"]
+    gamma_eq, gamma_ineq = data["gamma_eq"], data["gamma_ineq"]
+    inv_diag, omega = data["inv_diag"], data["omega"]
+    atb = data["atb"]
+
+    def m_apply(v):
+        return gamma_eq * a.rmatvec(a.matvec(v)) + gamma_ineq * v
+
+    x, xp, lam_eq = state
+    for _ in range(nsteps):
+        y = -c + gamma_eq * atb + gamma_ineq * xp - a.rmatvec(lam_eq)
+        for _ in range(nb_inner):
+            # damped projected Jacobi: parallel analogue of the reference's
+            # bounded Gauss-Seidel sweep (gaussSiedel.pyx:131-152)
+            x = x + omega * (y - m_apply(x)) * inv_diag
+            x = torch.clamp(x, lb, ub)
+        xp = x
+        lam_eq = lam_eq + gamma_eq * (a.matvec(x) - b)
+    state = (x, xp, lam_eq)
+
+    r = a.matvec(x) - b
+    energy1 = (
+        torch.dot(c, x)
+        + 0.5 * gamma_eq * torch.sum(r**2)
+        + torch.dot(lam_eq, r)
+    )
+    metrics = dict(
+        energy1=energy1,
+        max_violated_equality=torch.max(torch.abs(r)),
+        max_violated_inequality=torch.maximum(
+            torch.max(lb - x), torch.max(x - ub)
+        ),
+    )
+    return state, metrics
+
+
+def admm_system(c, a_eq, beq, a_ineq, b_lower, b_upper, lb, ub, x0=None,
+                use_preconditioning=True):
+    """The host standard form ``lp_admm`` solves: rows normalized, then
+    bounded slacks for the inequalities, then (``use_preconditioning``)
+    rows normalized again; ``(c2, a, b, lb2, ub2, x02)``."""
+    c = np.asarray(c, np.float64)
+    if x0 is None:
+        x0 = np.zeros(c.size)
+    # row-normalize before adding slacks (ADMM.py:76-83)
+    if a_eq is not None and a_eq.shape[0]:
+        a_eq, beq = precondition_constraints(a_eq, beq, alpha=2)
+    else:
+        a_eq, beq = None, None
+    if a_ineq is not None and a_ineq.shape[0]:
+        a_ineq, b_lower, b_upper = precondition_constraints(
+            a_ineq, b_lower, b_upper, alpha=2
+        )
+    else:
+        a_ineq = None
+    c2, a, b, lb2, ub2, x02 = convert_to_standard_form_with_bounds(
+        c, a_eq, beq, a_ineq, b_lower, b_upper, np.asarray(lb, float),
+        np.asarray(ub, float), x0,
+    )
+    if use_preconditioning:
+        a, b = precondition_constraints(a, b, alpha=2)
+    return c2, a, b, lb2, ub2, x02
+
+
+def lp_admm(
+    c,
+    a_eq,
+    beq,
+    a_ineq,
+    b_lower,
+    b_upper,
+    lb,
+    ub,
+    x0=None,
+    gamma_eq=2,
+    gamma_ineq=3,
+    nb_iter=100,
+    callback_func=None,
+    max_time=None,
+    use_preconditioning=True,
+    nb_iter_plot=10,
+    nb_inner=2,
+    omega=1.0,
+    dtype=None,
+    start_time=None,
+    inner="jacobi",
+    stop_tol=None,
+    mesh=None,
+    light_metrics=False,
+    device="cuda",
+):
+    """Penalized-equality ADMM; signature parity with ``ADMM.py:47`` (plus
+    ``device``).  ``inner="jacobi"`` (the default) is the damped projected
+    Jacobi loop; ``"gauss_seidel"`` and ``mesh=`` are not ported and
+    raise."""
+    if mesh is not None:
+        _not_ported("admm with mesh= (sharded_admm.py)", "Queue 1, M9")
+    if inner == "gauss_seidel":
+        _not_ported('admm with inner="gauss_seidel" (native/gauss_seidel.py)',
+                    "Queue 1, M7(a)")
+    dev = resolve_device(device)
+    dtype = resolve_dtype(dtype, dev)
+    n = np.asarray(c).size
+    c2, a, b, lb2, ub2, x02 = admm_system(
+        c, a_eq, beq, a_ineq, b_lower, b_upper, lb, ub, x0,
+        use_preconditioning)
+    a = scipy.sparse.csr_matrix(a)
+    sq = a.copy()
+    sq.data = sq.data**2
+    diag_m = gamma_eq * np.asarray(sq.sum(axis=0)).ravel() + gamma_ineq
+
+    # damped projected Jacobi converges iff omega < 2/rho(D^-1 M); estimate
+    # the spectral radius once by host power iteration and clamp
+    inv_diag_np = 1.0 / diag_m
+    rng = np.random.RandomState(0)
+    v = rng.randn(a.shape[1])
+    v /= np.linalg.norm(v)
+    rho = 1.0
+    at = a.T.tocsr()
+    for _ in range(30):
+        w = inv_diag_np * (gamma_eq * (at @ (a @ v)) + gamma_ineq * v)
+        nrm = np.linalg.norm(w)
+        if nrm == 0:
+            break
+        rho = nrm
+        v = w / nrm
+    omega = min(float(omega), 1.8 / max(rho, 1e-12))
+
+    def vec(v):
+        return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
+                               device=dev)
+
+    data = dict(
+        c=vec(c2), lb=vec(lb2), ub=vec(ub2),
+        gamma_eq=vec(gamma_eq), gamma_ineq=vec(gamma_ineq),
+        inv_diag=vec(1.0 / diag_m), omega=vec(omega), atb=vec(at @ b),
+        a=ell_from_scipy(a, dtype, dev), b=vec(b),
+    )
+    x = vec(x02)
+    xp = torch.clamp(x, data["lb"], data["ub"])
+    state = (x, xp, torch.zeros(a.shape[0], dtype=dtype, device=dev))
+
+    loop = HostLoop(start_time=start_time, max_time=max_time)
+    tstop = ToleranceStop(stop_tol)
+    niter = 0
+    for nsteps in chunk_schedule(nb_iter, nb_iter_plot):
+        state, metrics = _admm_chunk(data, state, nsteps, nb_inner)
+        niter += nsteps
+        emit_callback(
+            callback_func, niter, state[0][:n],
+            metrics["energy1"], metrics["energy1"], lambda: loop.elapsed,
+            metrics["max_violated_equality"], metrics["max_violated_inequality"],
+            light=light_metrics,
+        )
+        if loop.timed_out or tstop.check(
+            metrics["energy1"], metrics["max_violated_equality"],
+            metrics["max_violated_inequality"],
+        ):
+            break
+    return to_np(state[0][:n])
+
+
+# ----------------------------------------------------------------------
+# lp_admm2: exact equality subproblem via the Schur complement
+# ----------------------------------------------------------------------
+
+data_static_cg_iters = 100  # CG cap for the matrix-free Schur path
+
+
+def _admm2_chunk(data, state, nsteps: int, use_dense: bool):
+    a = data["a"]
+    b, c = data["b"], data["c"]
+    lb, ub = data["lb"], data["ub"]
+    gamma, alpha = data["gamma"], data["alpha"]
+
+    if use_dense:
+        chol = data["chol"]
+
+        def schur_solve(rhs):
+            return cholesky_solve(chol, rhs)
+    else:
+        jac = data["schur_inv_diag"]
+
+        def schur_solve(rhs):
+            return conjgrad(
+                lambda v: a.matvec(a.rmatvec(v)) + data["ridge"] * v,
+                rhs,
+                maxiter=data_static_cg_iters,
+                precond=lambda v: jac * v,
+            )
+
+    x, xp, lam = state
+    xp_prev = xp
+    for _ in range(nsteps):
+        xp_prev = xp
+        y1 = -c + gamma * xp - lam
+        nu = schur_solve(a.matvec(y1) - gamma * b)
+        x = (y1 - a.rmatvec(nu)) / gamma
+        x = alpha * x + (1.0 - alpha) * xp
+        xp = torch.clamp(x + lam / gamma, lb, ub)
+        lam = lam + gamma * (x - xp)
+    state = (x, xp, lam)
+    energy1 = (
+        torch.dot(c, x)
+        + 0.5 * gamma * torch.sum((x - xp) ** 2)
+        + torch.dot(lam, x - xp)
+    )
+    metrics = dict(
+        energy1=energy1,
+        max_violated_equality=torch.max(torch.abs(a.matvec(xp) - b)),
+        max_violated_inequality=torch.zeros((), dtype=x.dtype,
+                                            device=x.device),
+        # Boyd §3.4.1 residuals for adaptive-penalty balancing
+        r_primal=torch.linalg.norm(x - xp),
+        r_dual=gamma * torch.linalg.norm(xp - xp_prev),
+    )
+    return state, metrics
+
+
+def admm2_system(c, a_eq, beq, a_ineq, b_lower, b_upper, lb, ub, x0=None,
+                 use_preconditioning=False):
+    """The host standard form ``lp_admm2`` solves: (``use_preconditioning``)
+    rows normalized, then bounded slacks for the inequalities;
+    ``(c2, a, b, lb2, ub2, x02)``."""
+    c = np.asarray(c, np.float64)
+    if x0 is None:
+        x0 = np.zeros(c.size)
+    if use_preconditioning:
+        if a_eq is not None and a_eq.shape[0]:
+            a_eq, beq = precondition_constraints(a_eq, beq, alpha=2)
+        if a_ineq is not None and a_ineq.shape[0]:
+            a_ineq, b_lower, b_upper = precondition_constraints(
+                a_ineq, b_lower, b_upper, alpha=2
+            )
+    if a_eq is not None and a_eq.shape[0] == 0:
+        a_eq, beq = None, None
+    if a_ineq is not None and a_ineq.shape[0] == 0:
+        a_ineq = None
+    return convert_to_standard_form_with_bounds(
+        c, a_eq, beq, a_ineq, b_lower, b_upper, np.asarray(lb, float),
+        np.asarray(ub, float), x0,
+    )
+
+
+def lp_admm2(
+    c,
+    a_eq,
+    beq,
+    a_ineq,
+    b_lower,
+    b_upper,
+    lb,
+    ub,
+    x0=None,
+    gamma_ineq=0.7,
+    nb_iter=100,
+    callback_func=None,
+    max_time=None,
+    use_preconditioning=False,
+    nb_iter_plot=10,
+    alpha=1.95,
+    dense_threshold=4096,
+    dtype=None,
+    start_time=None,
+    stop_tol=None,
+    adaptive_rho=False,
+    mesh=None,
+    light_metrics=False,
+    device="cuda",
+):
+    """ADMM with exact equality subproblem; signature parity with
+    ``ADMM.py:272`` (plus ``device``).  ``adaptive_rho=True`` doubles the
+    penalty when the primal residual dominates the dual one by 10x and
+    halves it in the opposite case, checked once per chunk.  ``mesh=`` is
+    not ported and raises."""
+    if mesh is not None:
+        _not_ported("admm2 with mesh= (sharded_admm.py)", "Queue 1, M9")
+    dev = resolve_device(device)
+    dtype = resolve_dtype(dtype, dev)
+    n = np.asarray(c).size
+    c2, a, b, lb2, ub2, x02 = admm2_system(
+        c, a_eq, beq, a_ineq, b_lower, b_upper, lb, ub, x0,
+        use_preconditioning)
+
+    m = a.shape[0]
+    use_dense = m <= dense_threshold
+    ridge = 1e-10 * max(1.0, float(abs(a).sum() / max(m, 1)))
+
+    def vec(v):
+        return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
+                               device=dev)
+
+    data = dict(
+        c=vec(c2), lb=vec(lb2), ub=vec(ub2), gamma=vec(gamma_ineq),
+        alpha=vec(alpha), ridge=vec(ridge), a=ell_from_scipy(a, dtype, dev),
+        b=vec(b),
+    )
+    if use_dense:
+        # Schur complement S = A Aᵀ (+ridge), factored once (the analogue
+        # of the reference's one-time splu of the KKT system, ADMM.py:342)
+        s = (a @ a.T).toarray() + ridge * np.eye(m)
+        data["chol"] = cholesky_upper(vec(s))[0]
+    else:
+        diag_s = np.asarray((a.multiply(a)).sum(axis=1)).ravel() + ridge
+        data["schur_inv_diag"] = vec(1.0 / diag_s)
+    x = vec(x02)
+    xp = torch.clamp(x, data["lb"], data["ub"])
+    state = (x, xp, torch.zeros(x.shape, dtype=dtype, device=dev))
+
+    loop = HostLoop(start_time=start_time, max_time=max_time)
+    tstop = ToleranceStop(stop_tol)
+    gamma = float(gamma_ineq)
+    niter = 0
+    for nsteps in chunk_schedule(nb_iter, nb_iter_plot):
+        state, metrics = _admm2_chunk(data, state, nsteps, use_dense)
+        niter += nsteps
+        if adaptive_rho:
+            rp, rd = float(metrics["r_primal"]), float(metrics["r_dual"])
+            if rp > 10.0 * rd and rd > 0:
+                gamma *= 2.0
+                data = dict(data, gamma=vec(gamma))
+            elif rd > 10.0 * rp and rp > 0:
+                gamma *= 0.5
+                data = dict(data, gamma=vec(gamma))
+        emit_callback(
+            callback_func, niter, state[0][:n],
+            metrics["energy1"], metrics["energy1"], lambda: loop.elapsed,
+            metrics["max_violated_equality"], metrics["max_violated_inequality"],
+            light=light_metrics,
+        )
+        if loop.timed_out or tstop.check(
+            metrics["energy1"], metrics["max_violated_equality"],
+            metrics["max_violated_inequality"],
+        ):
+            break
+    return to_np(state[0][:n])

@@ -1,5 +1,6 @@
 # Copy of pysparselp_tpu/solvers/base.py (to_np, chunk_schedule, HostLoop,
-# mirror_callback_attrs, emit_callback); to_np also fetches torch tensors.
+# ToleranceStop, mirror_callback_attrs, emit_callback); to_np also fetches
+# torch tensors.
 """Shared solver-loop infrastructure.
 
 Every iterative solver follows the same shape: a *chunk* of ``nb_iter_plot``
@@ -49,6 +50,33 @@ class HostLoop:
     @property
     def timed_out(self) -> bool:
         return self.max_time is not None and self.elapsed > self.max_time
+
+
+class ToleranceStop:
+    """Host-side tolerance termination on chunk metrics.
+
+    Stops when the worst constraint violation AND the relative objective
+    change between consecutive checks both fall below ``stop_tol`` (the
+    first-order analogue of a solver's convergence test; the reference only
+    has iteration/time budgets).  Stateless no-op when ``stop_tol`` is None.
+    """
+
+    def __init__(self, stop_tol=None):
+        self.tol = stop_tol
+        self._last = None
+
+    def check(self, energy, *violations) -> bool:
+        if self.tol is None:
+            return False
+        feas = max((float(v) for v in violations), default=0.0)
+        e = float(energy)
+        rel = (
+            abs(e - self._last) / (1.0 + abs(e))
+            if self._last is not None
+            else np.inf
+        )
+        self._last = e
+        return feas < self.tol and rel < self.tol
 
 
 def mirror_callback_attrs(wrapper, user_cb):

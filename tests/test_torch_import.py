@@ -34,7 +34,14 @@ def test_import_leaves_jax_out():
             "pysparselp_tpu_torch.batch, "
             "pysparselp_tpu_torch.solvers.scipy_bridge, "
             "pysparselp_tpu_torch.solvers.highs_bridge, "
-            "pysparselp_tpu_torch.utils.random_lp, chip_smoke; "
+            "pysparselp_tpu_torch.utils.random_lp, "
+            "pysparselp_tpu_torch.preconditioning, "
+            "pysparselp_tpu_torch.ops.cg, "
+            "pysparselp_tpu_torch.ops.linear_solve, "
+            "pysparselp_tpu_torch.solvers.mehrotra, "
+            "pysparselp_tpu_torch.solvers.admm, "
+            "pysparselp_tpu_torch.examples.basis_pursuit_denoising, "
+            "chip_smoke; "
             "sys.path.insert(0, 'scripts'); import probe_csr_spmv, "
             "probe_bsr_spmv, profile_port, profile_mesh, time_presolve, "
             "compare_kernels; "
@@ -96,7 +103,8 @@ def test_default_device_is_cuda():
 
 @pytest.mark.parametrize("method", sorted(
     set(solving_methods) - {"chambolle_pock_ppd", "scipy_simplex",
-                            "scipy_interior_point"}))
+                            "scipy_interior_point", "mehrotra", "admm",
+                            "admm2"}))
 def test_unported_methods_name_their_roadmap_item(method):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _tiny_lp().solve(method=method, nb_iter=10, device="cpu")
