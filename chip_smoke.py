@@ -50,7 +50,19 @@ nonzero):
 6. convergence: Potts-50 to the graph-cut optimum and SC105 to the perPlex
    optimum with restart-to-average (then SC105 once more under the
    profiler: H-CPDENSE's device time per iteration and the seconds
-   between its chunk launches).
+   between its chunk launches); between them ``main_path_potts50``,
+   ``bench.py::measure_potts``'s steady run (200,000 float32 iterations,
+   a checkpoint every 50,000): its iterations/s, graph-cut distance and,
+   once more under the profiler, the device's busy share.
+
+H-CPDIA-R (``csrc/cp_dia_resident.cu``: K2's chunk in one launch of one
+thread-block cluster, ``ops/cp_dia.py::cp_dia_plan`` routing Potts-20 and
+Potts-50 to it and Potts-300 and multi-label 64 to the two-launch
+H-CPDIA) adds, in phase 2, :func:`phase_resident`: on Potts-20 and
+Potts-50, float32 and float64, with and without sums, at 1, 7 and 200
+iterations, against the twin and against the two-launch kernel forced on
+the same inputs; times, kernels per chunk (1), the three bounds and the
+cost of the cluster barrier alone.
 
 The mesh solve (``lp.solve(mesh=...)``, ``parallel/sharded_cp.py``) adds:
 
@@ -105,7 +117,8 @@ add:
 
 The launch counters are set to 0 just before each solve and read just
 after it; the kernel table takes H-DIA's and H-CPDIA's counts from the
-Potts-300 solve, H-DIA (K5)'s from the one-rank mesh solve, H-CPDENSE's
+Potts-300 solve, H-CPDIA-R's from the Potts-50 restart solve (and
+``main_path_potts50``'s under ``launches_by_run``), H-DIA (K5)'s from the one-rank mesh solve, H-CPDENSE's
 from the SC105 solve, H-CSR's from the transport solve, H-BSR's from the
 CLIME solve, H-DIA-B's from the banded batch solve and H-CSR-B's from the
 unstructured batch solve (``launches_run`` names the solve); the
@@ -158,10 +171,13 @@ KERNELS = {
                        tpu_kernels={"K5": "ported"},
                        launches_run="main_path_mesh1"),
     "H-CPDIA": dict(source="pysparselp_tpu_torch/csrc/cp_dia.cu",
-                    replaces="pysparselp_tpu/ops/cp_windowed.py:392; "
-                             "pysparselp_tpu/ops/cp_fused.py:192",
-                    tpu_kernels={"K2": "ported", "K3": "ported"},
+                    replaces="pysparselp_tpu/ops/cp_windowed.py:392",
+                    tpu_kernels={"K3": "ported"},
                     launches_run="main_path_potts300"),
+    "H-CPDIA-R": dict(source="pysparselp_tpu_torch/csrc/cp_dia_resident.cu",
+                      replaces="pysparselp_tpu/ops/cp_fused.py:192",
+                      tpu_kernels={"K2": "ported"},
+                      launches_run="converge_potts50"),
     "H-CPDENSE": dict(source="pysparselp_tpu_torch/csrc/cp_dense.cu",
                       replaces="pysparselp_tpu/ops/cp_fused.py:381",
                       tpu_kernels={"K1": "ported"},
@@ -633,22 +649,44 @@ def timings(torch, kern, plain, reps, per=1):
     return dict(ms=(t[1] + t[2]) / 2 / per, plain_ms=(t[0] + t[3]) / 2 / per)
 
 
-def chunk_ops(prob, planes):
-    """Operations of one CP iteration: each of the operator's ``planes``
-    entries in two multiply-adds (A x and Aᵀ y, two operations each), and
-    about ten per variable and per row for the updates and sums."""
-    return 4 * planes + 10 * (prob.n + prob.m_eq + prob.m_ineq)
+def chunk_ops(prob, macs):
+    """Operations of one CP iteration with running sums: the products'
+    ``macs`` multiply-adds, two operations each (a DIA operator's stored
+    plane entries, A's and Aᵀ's, each in one; a dense system's entries
+    each in two, A x3 and Aᵀ y), and the updates as the kernels compute
+    them: per variable one add per system into d, T d and its subtraction,
+    the clip's min and max, x3's two products and a subtraction, the sum's
+    add; per inequality row the residual's subtraction, its product with
+    sigma, the add to y, the max with 0 and the sum's add; per equality
+    row the same without the max."""
+    systems = (prob.a_eq is not None) + (prob.a_ineq is not None)
+    return (2 * macs + (8 + systems) * prob.n + 5 * prob.m_ineq
+            + 4 * prob.m_eq)
 
 
-def chunk_bound(prob, planes):
+def chunk_bound(prob, planes, macs):
     """Bound of one CP iteration with running sums (f32): the operator's
     ``planes`` entries, and per iteration c, diag_t, lb, ub, x read and x,
     x3 written, the x sum read and written; b, sigma, y read, y written
     and the y sum read and written per system; the operations of
-    :func:`chunk_ops`."""
+    :func:`chunk_ops` for ``macs`` multiply-adds."""
     rows = prob.m_eq + prob.m_ineq
     return bound(4 * (planes + 9 * prob.n + 6 * rows),
-                 chunk_ops(prob, planes))
+                 chunk_ops(prob, macs))
+
+
+def resident_smem_traffic(prob, itemsize):
+    """Shared-memory bytes one H-CPDIA-R iteration with sums reads and
+    writes: per column c, T, l, u, x and the x sum read, x, x3 and the sum
+    written, and each tap of Aᵀ a plane entry and a y entry read; per row
+    of each system b, sigma, y and its sum read, y and the sum written, and
+    each tap of A a plane entry and an x3 entry read."""
+    words = 0
+    for op, rows in ((prob.a_ineq, prob.m_ineq), (prob.a_eq, prob.m_eq)):
+        if op is not None:
+            words += 2 * len(op.offsets_t) * prob.n
+            words += (6 + 2 * len(op.offsets)) * rows
+    return itemsize * (words + 9 * prob.n)
 
 
 def sparse_tensor(torch, a, dtype, device):
@@ -723,13 +761,17 @@ def phase_kernels(torch, problems, table):
         table["H-DIA"]["max_abs_err"] = max(table["H-DIA"]["max_abs_err"], err)
         emit("kernels", **rec)
 
-        # H-CPDIA: Potts-300 (ineq-only; K3's shape), Potts-50 (K2's: a
-        # small aligned grid) and multi-label Potts (eq+ineq)
-        for key, nsteps in (("potts300", 100), ("potts50", 200),
-                            ("multilabel64", 100)):
+        # H-CPDIA: Potts-300 (ineq-only; K3's shape) and multi-label Potts
+        # (eq+ineq), which must still plan the two-launch tier (K2's small
+        # grids run H-CPDIA-R: phase_resident)
+        for key, nsteps in (("potts300", 100), ("multilabel64", 100)):
             prob, pre = lowered(problems[key], dt, dev)
             if not cp_dia.cp_dia_eligible(prob):
                 raise AssertionError(f"{key} did not lower to DIA operators")
+            tier = cp_dia.cp_dia_plan(prob, dt).tier
+            if tier != "two_launch":
+                raise AssertionError(f"{key} ({name}) planned {tier}, not "
+                                     "the two-launch H-CPDIA")
             x0 = torch.as_tensor(rng.rand(prob.n), dtype=dt, device=dev)
             ye0 = torch.as_tensor(rng.rand(prob.m_eq) * 0.1, dtype=dt,
                                   device=dev)
@@ -748,19 +790,19 @@ def phase_kernels(torch, problems, table):
             err = compare(torch, kern(), plain(), name, f"H-CPDIA {key}")
             rec = dict(kernel="H-CPDIA", problem=key, dtype=name,
                        n=prob.n, m_eq=prob.m_eq, m_ineq=prob.m_ineq,
-                       nsteps=nsteps, max_abs_err=err)
+                       nsteps=nsteps, tier=tier, max_abs_err=err)
             if dt == torch.float32:
                 rec.update(timings(torch, kern, plain, 3, per=nsteps))
+                rec["kernel_us"] = call_times(torch, kern, reps=3,
+                                              host_reps=3)
                 planes = sum(o.vals.numel() + o.vals_t.numel()
                              for o in (prob.a_eq, prob.a_ineq)
                              if o is not None)
-                rec["bound_ms"], rec["bound_by"] = chunk_bound(prob, planes)
+                rec["bound_ms"], rec["bound_by"] = chunk_bound(prob, planes,
+                                                               planes)
                 if key == "potts300":
                     table["H-CPDIA"].update({k: rec[k] for k in (
                         "ms", "plain_ms", "bound_ms", "bound_by")})
-                elif key == "potts50":
-                    table["H-CPDIA"]["potts50"] = {k: rec[k] for k in (
-                        "ms", "plain_ms", "bound_ms", "bound_by")}
             table["H-CPDIA"]["max_abs_err"] = max(
                 table["H-CPDIA"]["max_abs_err"], err)
             emit("kernels", **rec)
@@ -802,16 +844,168 @@ def phase_kernels(torch, problems, table):
                 # products, once by the bound's count)
                 planes = sum(o.a.numel() for o in (prob.a_eq, prob.a_ineq)
                              if o is not None)
-                rec["bound_ms"], rec["bound_by"] = chunk_bound(prob, planes)
+                rec["bound_ms"], rec["bound_by"] = chunk_bound(prob, planes,
+                                                               2 * planes)
                 # the least time of ONE thread block: the iteration's
                 # operations at one SM's share of the card's f32 rate
-                rec["bound_sm_ms"] = chunk_ops(prob, planes) / (
+                rec["bound_sm_ms"] = chunk_ops(prob, 2 * planes) / (
                     F32_OPS_PER_S / H100_SMS) * 1e3
                 if key == "sc105":
                     table["H-CPDENSE"].update({k: rec[k] for k in (
                         "ms", "plain_ms", "bound_ms", "bound_by")})
             table["H-CPDENSE"]["max_abs_err"] = max(
                 table["H-CPDENSE"]["max_abs_err"], err)
+            emit("kernels", **rec)
+
+
+def chunk_io_bound(prob, planes, nsteps):
+    """The least time of one ``nsteps``-iteration chunk with sums (f32), per
+    iteration, as one function: each input read once (the DIA operator's
+    ``planes`` entries and offsets; c, diag_t, l, u, x; b, sigma, y per
+    system), each output written once (x, x3 and the x sum; y and its sum
+    per system), and ``nsteps`` times :func:`chunk_ops` (each plane entry
+    in one multiply-add)."""
+    rows = prob.m_eq + prob.m_ineq
+    offsets = sum(len(o.offsets) + len(o.offsets_t)
+                  for o in (prob.a_eq, prob.a_ineq) if o is not None)
+    ms, by = bound(4 * (planes + offsets + 8 * prob.n + 5 * rows),
+                   nsteps * chunk_ops(prob, planes))
+    return ms / nsteps, by
+
+
+def resident_bound(prob, planes, plan, itemsize, nsteps, sm_mhz):
+    """H-CPDIA-R's own least time per iteration: the shared-memory bytes of
+    an iteration (:func:`resident_smem_traffic`) over the plan's C SMs at
+    128 B per clock and the card's largest SM clock (``sm_mhz``), and the
+    chunk's one HBM load and store (the bytes of :func:`chunk_io_bound`)
+    spread over ``nsteps``; in ms, with the two parts."""
+    smem_ms = resident_smem_traffic(prob, itemsize) / (
+        plan.cluster * 128 * sm_mhz * 1e6) * 1e3
+    rows = prob.m_eq + prob.m_ineq
+    hbm_ms = itemsize * (planes + 8 * prob.n + 5 * rows) / HBM_BYTES_PER_S \
+        * 1e3 / nsteps
+    return dict(ms=smem_ms + hbm_ms, smem_ms=smem_ms, hbm_ms=hbm_ms)
+
+
+def barrier_times(torch, nsteps=200, reps=20):
+    """Microseconds per barrier of ``pslp_cluster_sync_loop``: one cluster
+    of C = 8 and 16 CTAs of 640 threads (Potts-50's block) running 2 x
+    ``nsteps`` cluster.sync() (mode 0) or __syncthreads() with a local
+    mbarrier phase (mode 1: H-CPDIA-R's barrier once its halos landed)."""
+    import ctypes
+
+    from pysparselp_tpu_torch.ops import _build
+
+    sync = _build.entry("pslp_cluster_sync_loop",
+                        [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    stream = _build.stream(_build.device_index("cuda"))
+    out = {}
+    for mode, what in ((0, "cluster.sync"), (1, "syncthreads+mbarrier")):
+        for c in (8, 16):
+            ms = cuda_ms(torch, lambda c=c, mode=mode: sync(
+                c, 640, 2 * nsteps, mode, stream), reps)
+            out[f"{what} C={c}"] = ms * 1e3 / (2 * nsteps)
+    return out
+
+
+def phase_resident(torch, problems, table, sm_mhz):
+    """Phase 2 for H-CPDIA-R (K2's shapes): Potts-20 and Potts-50, float32
+    and float64, with and without sums, at 1, 7 and 200 iterations (an odd
+    count catches a buffer-parity fault), each held against the twin and
+    against the two-launch H-CPDIA forced on the same inputs; at 200
+    iterations with sums the events, device and host times, kernels per
+    call (must be 1), beside the forced two-launch kernel's, and the
+    bounds; the cluster barrier's own cost."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.ops import cp_dia
+
+    emit("kernels", kernel="H-CPDIA-R", barrier_us=barrier_times(torch))
+    rng = np.random.RandomState(1)
+    dev = torch.device("cuda")
+    for key in ("potts20", "potts50"):
+        for dt in (torch.float32, torch.float64):
+            name = str(dt).split(".")[1]
+            prob, pre = lowered(problems[key], dt, dev)
+            plan = cp_dia.cp_dia_plan(prob, dt)
+            if plan.tier != "resident":
+                raise AssertionError(f"{key} ({name}) planned {plan.tier}")
+            x0 = torch.as_tensor(rng.rand(prob.n), dtype=dt, device=dev)
+            ye0 = torch.zeros(0, dtype=dt, device=dev)
+            yi0 = torch.as_tensor(rng.rand(prob.m_ineq) * 0.1, dtype=dt,
+                                  device=dev)
+            errs = {}
+            for nsteps in (1, 7, 200):
+                for sums in (True, False):
+                    args = (prob, pre, x0, ye0, yi0, nsteps, 1.0, sums)
+                    got = cp_dia.cp_dia_chunk(*args)
+                    what = f"H-CPDIA-R {key} nsteps={nsteps} sums={sums}"
+                    errs[f"{nsteps}{'+sums' if sums else ''}"] = dict(
+                        twin=compare(torch, got,
+                                     cp_dia.cp_dia_chunk_reference(*args),
+                                     name, what),
+                        two_launch=compare(torch, got, cp_dia.cp_dia_chunk(
+                            *args, plan=cp_dia.TWO_LAUNCH), name,
+                            f"{what} vs two-launch"))
+            worst = max(e for v in errs.values() for e in v.values())
+            table["H-CPDIA-R"]["max_abs_err"] = max(
+                table["H-CPDIA-R"]["max_abs_err"], worst)
+            rec = dict(kernel="H-CPDIA-R", problem=key, dtype=name,
+                       n=prob.n, m_ineq=prob.m_ineq, cluster=plan.cluster,
+                       width=plan.width, threads=plan.threads,
+                       smem_bytes=plan.smem_bytes, reach=plan.reach,
+                       max_abs_err=errs)
+
+            def kern(prob=prob, pre=pre, x0=x0, yi0=yi0):
+                return cp_dia.cp_dia_chunk(prob, pre, x0, ye0, yi0, 200, 1.0,
+                                           True)
+
+            def two(prob=prob, pre=pre, x0=x0, yi0=yi0):
+                return cp_dia.cp_dia_chunk(prob, pre, x0, ye0, yi0, 200, 1.0,
+                                           True, plan=cp_dia.TWO_LAUNCH)
+
+            def plain(prob=prob, pre=pre, x0=x0, yi0=yi0):
+                return cp_dia.cp_dia_chunk_reference(prob, pre, x0, ye0, yi0,
+                                                     200, 1.0, True)
+
+            # the kernel and the two-launch kernel in turns, per iteration
+            pair = [cuda_ms(torch, f, 20) / 200 for f in (two, kern, kern,
+                                                          two)]
+            rec["pair_ms"] = dict(resident=(pair[1] + pair[2]) / 2,
+                                  two_launch=(pair[0] + pair[3]) / 2)
+            rec["kernel_us"] = {k: v / 200 if k.endswith("_us") else v
+                                for k, v in call_times(
+                                    torch, kern, reps=20, host_reps=20).items()}
+            rec["two_launch_us"] = {k: v / 200 if k.endswith("_us") else v
+                                    for k, v in call_times(
+                                        torch, two, reps=5,
+                                        host_reps=5).items()}
+            # one kernel per chunk (the profiler may drop an event, never
+            # add one)
+            names = rec["kernel_us"]["kernel_names"]
+            if (round(rec["kernel_us"]["kernels_per_call"]) != 1
+                    or len(names) != 1
+                    or "cp_dia_resident_kernel" not in names[0]):
+                raise AssertionError(f"H-CPDIA-R {key}: not one kernel per "
+                                     f"chunk: {rec['kernel_us']}")
+            planes = prob.a_ineq.vals.numel() + prob.a_ineq.vals_t.numel()
+            itemsize = x0.element_size()
+            rec["bound_resident"] = resident_bound(prob, planes, plan,
+                                                   itemsize, 200, sm_mhz)
+            if dt == torch.float32:
+                # the streaming and contract bounds count f32 bytes and
+                # operations
+                rec["bound_stream_ms"] = chunk_bound(prob, planes, planes)[0]
+                rec["bound_ms"], rec["bound_by"] = chunk_io_bound(
+                    prob, planes, 200)
+                rec.update(timings(torch, kern, plain, 3, per=200))
+                if key == "potts50":
+                    table["H-CPDIA-R"].update({k: rec[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by")})
+                    table["H-CPDIA-R"].update(
+                        bound_stream_ms=rec["bound_stream_ms"],
+                        bound_resident_ms=rec["bound_resident"]["ms"],
+                        two_launch_ms=rec["pair_ms"]["two_launch"])
             emit("kernels", **rec)
 
 
@@ -2449,6 +2643,39 @@ def phase_admm_kmedians(torch, counted_solve):
     return total
 
 
+def phase_potts50(torch, counted_solve):
+    """``main_path_potts50``: ``bench.py::measure_potts``'s steady run, the
+    Potts-50 solve of 200,000 float32 iterations with ``light_metrics`` and
+    checkpoints every 50,000 (one H-CPDIA-R launch each): the steady
+    iterations/s from the first to the last checkpoint, the mean distance
+    of x to the graph cut (< 1e-2), then the same solve once more under the
+    profiler for the device's busy share.  Returns H-CPDIA-R's launches."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+
+    lp, gt, idx, _ = build_linear_program(50, 0.5, 500)
+    run = dict(method="chambolle_pock_ppd", nb_iter=200_000,
+               nb_iter_plot=50_000, dtype=np.float32, light_metrics=True,
+               device="cuda")
+    wall, launches = counted_solve(lp, **run)
+    x = counted_solve.out[0]
+    dist = float(np.mean(np.abs(gt - x[idx])))
+    rate = steady_rate(lp)
+    window = profile_window(torch, lambda: lp.solve(**run))
+    emit("main_path_potts50", n=lp.nb_variables, iterations=200_000,
+         wall_s=wall, iters_per_s_steady=rate,
+         us_per_iteration_steady=1e6 / rate, dist=dist, launches=launches,
+         profiled=window)
+    if not dist < 1e-2:
+        raise AssertionError(f"Potts-50 steady run: dist {dist} (need "
+                             "< 1e-2)")
+    if not launches["H-CPDIA-R"] or launches["H-CPDIA"]:
+        raise AssertionError(f"Potts-50 steady run did not run on "
+                             f"H-CPDIA-R alone: {launches}")
+    return launches["H-CPDIA-R"]
+
+
 def kernel_counters():
     """Each hand kernel's wrapper, whose ``launches`` counts its
     launches."""
@@ -2456,6 +2683,7 @@ def kernel_counters():
                                           csr_spmv, dia_spmv)
 
     return {"H-DIA": dia_spmv.dia_spmv, "H-CPDIA": cp_dia.cp_dia_chunk,
+            "H-CPDIA-R": cp_dia.cp_dia_resident_chunk,
             "H-CPDENSE": cp_dense.cp_dense_chunk,
             "H-CSR": csr_spmv.csr_spmv, "H-BSR": bsr_spmv.bsr_spmv,
             "H-DIA-B": dia_spmv.dia_spmm, "H-CSR-B": csr_spmv.csr_spmm}
@@ -2502,9 +2730,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[0].split()[0])
     _build.library()
     emit("environment", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         sm_clock_max_mhz=sm_mhz,
          build_seconds=_build.build_info["seconds"],
          build_cached=_build.build_info["cached"])
     if _build.build_info["log"]:
@@ -2514,6 +2747,7 @@ def main() -> int:
     problems = {
         "potts300": build_linear_program(300, 0.5, 500)[0],
         "potts50": build_linear_program(50, 0.5, 500)[0],
+        "potts20": build_linear_program(20, 0.5, 500)[0],
         "multilabel64": build_multilabel_linear_program(64, 4)[0],
         "sc105": sc105_lp()[0],
     }
@@ -2527,6 +2761,7 @@ def main() -> int:
                      bound_by=None, library_ms=None)
              for k, v in KERNELS.items()}
     phase_kernels(torch, problems, table)
+    phase_resident(torch, problems, table, sm_mhz)
     phase_csr(torch, csr_matrices({k: folded(lp)
                                    for k, lp in workloads.items()}), table)
     from pysparselp_tpu_torch.problem import apply_rcm_permutation
@@ -2594,15 +2829,22 @@ def main() -> int:
         lp50, method="chambolle_pock_ppd", nb_iter=36000, nb_iter_plot=12000,
         restart_period=4000, restart="average", dtype=np.float32,
         ground_truth=gt50, ground_truth_indices=idx50, device="cuda")
-    d50 = float(np.min(lp50.distance_to_ground_truth))
+    dists = np.asarray(lp50.distance_to_ground_truth)
+    below = np.nonzero(dists < 1e-2)[0]
     emit("converge_potts50", dist=lp50.distance_to_ground_truth,
          itrn=lp50.itrn_curve, seconds=lp50.opttime_curve, wall_s=wall,
+         seconds_to_graph_cut=(float(lp50.opttime_curve[below[0]])
+                               if below.size else None),
          launches=n50)
-    if not d50 < 1e-2:
-        raise AssertionError(f"Potts-50 reached dist {d50} (need < 1e-2)")
-    if not n50["H-CPDIA"]:
-        raise AssertionError("Potts-50 did not run H-CPDIA")
-    table["H-CPDIA"]["potts50"]["launches"] = n50["H-CPDIA"]
+    if not below.size:
+        raise AssertionError(f"Potts-50 reached dist {dists.min()} "
+                             "(need < 1e-2)")
+    if not n50["H-CPDIA-R"] or n50["H-CPDIA"]:
+        raise AssertionError(f"Potts-50 did not run on H-CPDIA-R alone: "
+                             f"{n50}")
+    table["H-CPDIA-R"]["launches"] = n50["H-CPDIA-R"]
+    table["H-CPDIA-R"].setdefault("launches_by_run", {})[
+        "main_path_potts50"] = phase_potts50(torch, counted_solve)
     lp105, gt105 = sc105_lp()
     run105 = dict(method="chambolle_pock_ppd", nb_iter=72000,
                   nb_iter_plot=72000, restart="average", restart_period=4000,

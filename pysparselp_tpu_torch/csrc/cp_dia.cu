@@ -1,10 +1,12 @@
-// H-CPDIA: whole Chambolle-Pock iterations on DIA operators, eq + ineq.
+// H-CPDIA: whole Chambolle-Pock iterations on DIA operators, eq + ineq, two
+// launches an iteration.
 //
-// Replaces pysparselp_tpu/ops/cp_fused.py::_cp_fused_call (K2, inequality-only
-// DIA chunk kept resident in one TPU core's VMEM) and
-// pysparselp_tpu/ops/cp_windowed.py::build_windowed_call (K3, one iteration
-// per launch over row windows with a recomputed halo, eq + ineq) with one
-// kernel pair, because both compute the same iteration:
+// Replaces pysparselp_tpu/ops/cp_windowed.py::build_windowed_call (K3, one
+// iteration per launch over row windows with a recomputed halo, eq + ineq).
+// The small aligned grids of pysparselp_tpu/ops/cp_fused.py::_cp_fused_call
+// (K2) run on H-CPDIA-R (cp_dia_resident.cu), one launch per chunk; this
+// kernel pair serves every DIA problem whose state does not fit one
+// cluster's shared memory (ops/cp_dia.py::cp_dia_plan).  The iteration:
 //
 //   d  = c + A_e^T y_e + A_i^T y_i
 //   x2 = clip(x - T*d, l, u);   x3 = (1 + theta) x2 - theta x;   x = x2
@@ -21,9 +23,9 @@
 // primal kernel is one thread per column (taps of A^T over y); the dual
 // kernel is one thread per row over the inequality rows and, if present, the
 // equality rows (taps of A over x3).  The launch boundary is the global
-// barrier that the TPU kernels obtained from single-core VMEM residency (K2)
-// or from recomputing a halo (K3).  The host loop below launches all
-// 2 * nsteps kernels onto one stream, so Python pays one call per chunk.
+// barrier that the TPU kernel obtained from recomputing a halo.  The host
+// loop below launches all 2 * nsteps kernels onto one stream, so Python pays
+// one call per chunk.
 #include "common.cuh"
 
 namespace {

@@ -1,11 +1,18 @@
 """H-CPDIA: ``nsteps`` whole Chambolle-Pock iterations on DIA operators,
-equality and inequality systems alike (kernel source: ``csrc/cp_dia.cu``).
+equality and inequality systems alike, in two tiers chosen from the shapes
+by :func:`cp_dia_plan`:
 
-Replaces ``pysparselp_tpu/ops/cp_fused.py::_cp_fused_call`` (K2) and
-``pysparselp_tpu/ops/cp_windowed.py::build_windowed_call`` (K3), with the
-call contract of ``cp_windowed._cp_windowed_call_full``:
+* ``"resident"`` (H-CPDIA-R, ``csrc/cp_dia_resident.cu``): one launch per
+  chunk, the whole state held in the shared memory of one thread-block
+  cluster; replaces ``pysparselp_tpu/ops/cp_fused.py::_cp_fused_call`` (K2)
+  at its shapes, small aligned grids such as Potts-50;
+* ``"two_launch"`` (``csrc/cp_dia.cu``): two launches per iteration, for
+  everything that does not fit; replaces
+  ``pysparselp_tpu/ops/cp_windowed.py::build_windowed_call`` (K3).
+
+Both have the call contract of ``cp_windowed._cp_windowed_call_full``:
 ``(x, x3, y_eq, y[, sum_x, sum_y_eq, sum_y])``.  :func:`cp_dia_chunk`
-launches the kernel for CUDA tensors and runs
+launches the planned tier for CUDA tensors and runs
 :func:`cp_dia_chunk_reference`, its plain PyTorch twin, for CPU tensors.
 Inputs are never modified.
 """
@@ -13,6 +20,8 @@ Inputs are never modified.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -21,6 +30,13 @@ from .dia_spmv import dia_spmv_reference
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+# H-CPDIA-R's limits on Hopper: the dynamic shared memory one block may
+# take (227 KB), the cluster sizes (16 is non-portable) and the block size
+SMEM_PER_CTA = 232_448
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+MAX_THREADS = 1024
+MAX_DIAG = 32   # diagonals a tap set may have (csrc: kMaxDiag)
+
 
 def cp_dia_eligible(prob) -> bool:
     """Every present constraint system is a DiaMatrix."""
@@ -28,6 +44,92 @@ def cp_dia_eligible(prob) -> bool:
 
     ops = [op for op in (prob.a_eq, prob.a_ineq) if op is not None]
     return bool(ops) and all(isinstance(op, DiaMatrix) for op in ops)
+
+
+@dataclasses.dataclass(frozen=True)
+class CpDiaPlan:
+    """How :func:`cp_dia_chunk` runs a DIA problem: ``tier`` is
+    ``"resident"`` or ``"two_launch"``; for the resident tier, ``cluster``
+    CTAs (C) of ``threads`` threads, CTA r owning positions ``[slabs[r],
+    slabs[r + 1])`` of ``[0, positions)`` (``width`` = W each but the
+    last), ``smem_bytes`` of shared memory per CTA, ``reach``, the largest
+    |offset| of any tap (at most W: a tap reads its own slab or a
+    neighbour's; the halo each slab holds of x3 and y)."""
+
+    tier: str
+    cluster: int = 0
+    width: int = 0
+    slabs: tuple = ()
+    smem_bytes: int = 0
+    reach: int = 0
+    threads: int = 0
+    positions: int = 0
+
+
+TWO_LAUNCH = CpDiaPlan("two_launch")
+
+
+def resident_smem_bytes(width, reach, ndiags, m, me, itemsize) -> int:
+    """Shared memory of one H-CPDIA-R CTA (the layout of
+    ``csrc/cp_dia_resident.cu``): four mbarriers; per position c, T, l, u,
+    x, the x sum and the planes of both transposes, and per present system
+    b, sigma, the y sum and its planes; two buffers (one per iteration
+    parity) of x3 and of each y with a halo of ``reach`` entries on each
+    side (``ndiags``: the diagonal counts of A_i^T, A_i, A_e^T, A_e).  The
+    sums are always reserved: a plan does not depend on ``with_sums``."""
+    ndt, nd, ndte, nde = ndiags
+    words, halos = 6 + ndt + ndte, 1
+    if m > 0:
+        words, halos = words + 3 + nd, halos + 1
+    if me > 0:
+        words, halos = words + 3 + nde, halos + 1
+    return 32 + itemsize * (width * words + 2 * halos * (width + 2 * reach))
+
+
+def _shape(prob, dtype):
+    """The arguments of :func:`_plan`: a problem's shapes, its four offset
+    tuples (A_i^T, A_i, A_e^T, A_e) and the item size of ``dtype``."""
+    ae, ai = prob.a_eq, prob.a_ineq
+    offsets = (tuple(ai.offsets_t) if ai is not None else (),
+               tuple(ai.offsets) if ai is not None else (),
+               tuple(ae.offsets_t) if ae is not None else (),
+               tuple(ae.offsets) if ae is not None else ())
+    m = prob.m_ineq if ai is not None else 0
+    me = prob.m_eq if ae is not None else 0
+    return prob.n, m, me, offsets, torch.finfo(dtype).bits // 8
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(n, m, me, offsets, itemsize, cluster=None):
+    """:func:`cp_dia_plan` on the shapes of :func:`_shape`; ``cluster``
+    forces one cluster size (the tests and the probe's sweep)."""
+    positions = max(n, m, me)
+    reach = max((abs(o) for offs in offsets for o in offs), default=0)
+    ndiags = tuple(map(len, offsets))
+    if max(ndiags) > MAX_DIAG:
+        return TWO_LAUNCH
+    sizes = CLUSTER_SIZES[::-1] if cluster is None else (cluster,)
+    for c in sizes:
+        width = -(-positions // c)
+        smem = resident_smem_bytes(width, reach, ndiags, m, me, itemsize)
+        if smem > SMEM_PER_CTA or reach > width:
+            continue
+        slabs = tuple(min(r * width, positions) for r in range(c + 1))
+        threads = min(MAX_THREADS, -(-width // 32) * 32)
+        return CpDiaPlan("resident", c, width, slabs, smem, reach, threads,
+                         positions)
+    return TWO_LAUNCH
+
+
+def cp_dia_plan(prob, dtype):
+    """The tier of a DIA problem, from its shapes alone (the card's
+    counterpart of JAX's ``fused_vmem_bytes`` / ``FUSED_VMEM_BUDGET`` rule,
+    in shared-memory terms): ``"resident"`` at the largest cluster size C
+    (the fastest at every size measured, PERF.md) whose slab of
+    ``ceil(positions / C)`` positions, with its halos, fits one CTA's
+    shared memory and is at least as wide as the farthest tap, with at most
+    ``MAX_DIAG`` diagonals a tap set; else ``"two_launch"``."""
+    return _plan(*_shape(prob, dtype))
 
 
 def _empty(x):
@@ -65,14 +167,23 @@ def cp_dia_chunk_reference(prob, pre, x, y_eq, y, nsteps, theta,
     return out + (sx, se, si) if with_sums else out
 
 
-def cp_dia_chunk(prob, pre, x, y_eq, y, nsteps, theta, with_sums=False):
+def cp_dia_chunk(prob, pre, x, y_eq, y, nsteps, theta, with_sums=False,
+                 plan=None):
     """Run ``nsteps`` CP iterations; returns ``(x, x3, y_eq, y[, sx, se,
-    sy])`` (the eq outputs are empty when ``prob.a_eq`` is None)."""
+    sy])`` (the eq outputs are empty when ``prob.a_eq`` is None).  On CUDA
+    the tier of ``plan`` (default: :func:`cp_dia_plan`) runs; its
+    resident tier counts in :func:`cp_dia_resident_chunk`'s ``launches``,
+    the two-launch tier in this function's."""
     if x.device.type == "cpu":
         return cp_dia_chunk_reference(prob, pre, x, y_eq, y, nsteps, theta,
                                       with_sums)
     if x.device.type != "cuda":
         raise ValueError(f"cp_dia_chunk runs on CUDA or the CPU, not {x.device}")
+    if plan is None:
+        plan = cp_dia_plan(prob, x.dtype)
+    if plan.tier == "resident":
+        return cp_dia_resident_chunk(prob, pre, x, y_eq, y, nsteps, theta,
+                                     with_sums, plan)
     ae, ai = prob.a_eq, prob.a_ineq
     dt, dev = x.dtype, x.device
     x = x.clone()
@@ -116,3 +227,87 @@ def cp_dia_chunk(prob, pre, x, y_eq, y, nsteps, theta, with_sums=False):
 
 
 cp_dia_chunk.launches = 0
+
+
+_clusters: dict = {}   # (device, dtype, cluster, threads, bytes) -> count
+
+
+def _check_clusters(plan, dt, dev):
+    """Before a plan's first launch: ``cudaOccupancyMaxActiveClusters``;
+    raises when the card cannot hold one such cluster."""
+    key = (dev, dt, plan.cluster, plan.threads, plan.smem_bytes)
+    if key not in _clusters:
+        out = ctypes.c_int(0)
+        _build.entry(f"pslp_cp_dia_resident_prepare_{_build.suffix(dt)}",
+                     [_I, _I, _I, _P])(
+            plan.cluster, plan.threads, plan.smem_bytes, ctypes.byref(out))
+        _clusters[key] = out.value
+    if _clusters[key] < 1:
+        raise RuntimeError(
+            f"H-CPDIA-R: the card holds no cluster of {plan.cluster} CTAs "
+            f"with {plan.smem_bytes} bytes of shared memory each")
+
+
+def cp_dia_resident_chunk(prob, pre, x, y_eq, y, nsteps, theta,
+                          with_sums=False, plan=None):
+    """H-CPDIA-R: the chunk of :func:`cp_dia_chunk` in one launch of one
+    cluster (``plan``: a resident :func:`cp_dia_plan`, by default this
+    problem's).  The outputs are new tensors the kernel writes whole; the
+    offsets travel in the kernel's parameters, from the host tuples."""
+    if x.device.type == "cpu":
+        return cp_dia_chunk_reference(prob, pre, x, y_eq, y, nsteps, theta,
+                                      with_sums)
+    if plan is None:
+        plan = cp_dia_plan(prob, x.dtype)
+    if plan.tier != "resident":
+        raise ValueError(f"H-CPDIA-R needs a resident plan, got {plan.tier}")
+    ae, ai = prob.a_eq, prob.a_ineq
+    dt, dev = x.dtype, x.device
+    m = prob.m_ineq if ai is not None else 0
+    me = prob.m_eq if ae is not None else 0
+    ye_in = y_eq if ae is not None else _empty(x)
+    yi_in = y if ai is not None else _empty(x)
+    args = [prob.c, pre["diag_t"], prob.lb, prob.ub, x, ye_in, yi_in]
+    if ai is not None:
+        args += [ai.vals_t, ai.vals, prob.b_upper, pre["sigma_ineq"]]
+    if ae is not None:
+        args += [ae.vals_t, ae.vals, prob.b_eq, pre["sigma_eq"]]
+    _build.check_cuda(*args, dtype=dt, device=dev)
+    if max(prob.n, m, me) != plan.positions:
+        raise ValueError("the plan was made for another problem")
+    _check_clusters(plan, dt, dev)
+    out = [torch.empty_like(x), torch.empty_like(x),
+           torch.empty_like(ye_in), torch.empty_like(yi_in)]
+    sums = ([torch.empty_like(v) for v in (x, ye_in, yi_in)] if with_sums
+            else [None, None, None])
+
+    def sys_args(op, b, sigma):
+        if op is None:
+            return [None, None, None, None]
+        return [op.vals_t, op.vals, b, sigma]
+
+    offsets = [o for op in (ai, ae) if op is not None
+               for o in (*op.offsets_t, *op.offsets)]
+    raw = ([prob.n, m, me,
+            len(ai.offsets_t) if ai is not None else 0,
+            len(ai.offsets) if ai is not None else 0,
+            len(ae.offsets_t) if ae is not None else 0,
+            len(ae.offsets) if ae is not None else 0, plan.width, plan.reach,
+            (ctypes.c_int * max(len(offsets), 1))(*offsets),
+            prob.c, pre["diag_t"], prob.lb, prob.ub]
+           + sys_args(ai, prob.b_upper, pre.get("sigma_ineq"))
+           + sys_args(ae, prob.b_eq, pre.get("sigma_eq"))
+           + [x, yi_in, ye_in, out[0], out[1], out[3], out[2], sums[0],
+              sums[2], sums[1]])
+    cargs = [v.data_ptr() if torch.is_tensor(v) else v for v in raw]
+    argtypes = ([_I] * 9 + [_P] * 23 + [_build.scalar(dt)] + [_I] * 5
+                + [_P])
+    _build.entry(f"pslp_cp_dia_resident_{_build.suffix(dt)}", argtypes)(
+        *cargs, theta, int(nsteps), int(bool(with_sums)), plan.cluster,
+        plan.threads, plan.smem_bytes,
+        _build.stream(_build.device_index(dev)))
+    cp_dia_resident_chunk.launches += 1
+    return tuple(out) + tuple(sums) if with_sums else tuple(out)
+
+
+cp_dia_resident_chunk.launches = 0

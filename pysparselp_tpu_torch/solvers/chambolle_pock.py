@@ -9,7 +9,10 @@ controller (:func:`_cp_chunk_restart_device`), ``stop_tol``,
 of three paths, chosen from the lowered operators (not from the device):
 
 * ``"dia"`` — every present system is a :class:`~..problem.DiaMatrix`:
-  the H-CPDIA kernel (:mod:`..ops.cp_dia`), eq+ineq included;
+  :func:`..ops.cp_dia.cp_dia_chunk`, eq+ineq included, which runs the
+  tier :func:`..ops.cp_dia.cp_dia_plan` picks from the shapes (H-CPDIA-R,
+  one launch a chunk, where the state fits one cluster's shared memory;
+  else the two-launch H-CPDIA);
 * ``"dense"`` — every present system is a dense operator within the dense
   kernel's budget: the H-CPDENSE kernel (:mod:`..ops.cp_dense`);
 * otherwise the per-operator iteration :func:`_cp_iteration`, whose

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Per-call times of the port's SpMV and dense-chunk kernels, as the main
+"""Per-call times of the port's SpMV and CP-chunk kernels, as the main
 path calls them, for one checkout of the repository, on one NVIDIA GPU.
 
-    python3 scripts/compare_kernels.py [--repo PATH]
+    python3 scripts/compare_kernels.py [--repo PATH] [--sections ...]
 
 Imports ``pysparselp_tpu_torch`` from ``PATH`` (default: this checkout) and
 this checkout's ``chip_smoke.py`` for the workloads and the timer, so two
@@ -18,6 +18,10 @@ one call.  Times, in float32, through the operators' own entry points:
   (``matvec``, ``rmatvec``, and the pair in turns, ``chip_smoke.pair_times``);
 * H-DIA on the aligned Potts-300 system (``A x``) and on its 4 row shards
   (forward and window, K5's function), beside cuSPARSE;
+* H-CPDIA (``cp_dia_chunk``, chunks with sums, per iteration) at Potts-50
+  (H-CPDIA-R where the checkout plans it) and Potts-300, and Potts-50's
+  steady run and restart solve: iterations/s, seconds to the graph cut
+  and the device's busy share (:func:`time_cpdia`);
 * H-CPDENSE, 1,000 iterations with sums, per iteration: on SC105, on
   ``chip_smoke.dense_system`` (operators past shared memory) and on square
   random systems of ``SQUARE_SIZES`` rows and columns; where the checkout
@@ -33,6 +37,7 @@ twice more with the chooser's price of H-BSR's longest tile-line at zero
 the solve; the chooser then takes RCM and H-BSR).
 H-BSR is also timed on that RCM-permuted L1-SVM system, whose longest
 tile-column gives one warp's streaming rate (new-format checkouts only).
+``--sections`` picks a subset (``csr bsr dia cpdense cpdia solves``).
 Prints one JSON line per measurement (with the card's name and power limit
 and the repository path); exits nonzero without CUDA.
 """
@@ -54,13 +59,18 @@ ROOT = Path(__file__).resolve().parent.parent
 SQUARE_SIZES = (16, 48, 104, 152)
 LANES = (1, 2, 4, 8, 16)
 SOLVE_ITERS = 2000
+SECTIONS = ("csr", "bsr", "dia", "cpdense", "cpdia", "solves")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repo", default=str(ROOT),
                         help="checkout whose pysparselp_tpu_torch is timed")
+    parser.add_argument("--sections", nargs="+", choices=SECTIONS,
+                        default=list(SECTIONS),
+                        help="what to time (default: all)")
     args = parser.parse_args()
+    sections = set(args.sections)
     import torch
     if not torch.cuda.is_available():
         print("compare_kernels: torch.cuda.is_available() is False",
@@ -108,6 +118,24 @@ def main() -> int:
             rec["library_us"] = smoke.call_times(torch, lib, reps=reps)
         print(json.dumps(rec), flush=True)
 
+    if "csr" in sections:
+        time_csr(smoke, torch, emit, rng, dt, dev, CsrMatrix)
+    if "bsr" in sections:
+        time_bsr(smoke, torch, emit, rng, dt, dev, repo, smi, BsrMatrix,
+                 bsr_spmv, apply_rcm_permutation)
+    if "dia" in sections:
+        time_dia(smoke, torch, emit, rng, dt, dev, build_linear_program,
+                 dia_spmv, build_system_dia)
+    if "cpdense" in sections:
+        time_cpdense(smoke, torch, emit, dt, dev, cp_dense)
+    if "cpdia" in sections:
+        time_cpdia(smoke, torch, emit, rng, dt, dev, repo, smi)
+    if "solves" in sections:
+        time_solves(smoke, np, repo, smi, chambolle_pock, _choose_layout)
+    return 0
+
+
+def time_csr(smoke, torch, emit, rng, dt, dev, CsrMatrix):
     # H-CSR on the main path's unstructured systems
     workloads = {k: smoke.folded(make())
                  for k, make in smoke.WORKLOADS.items() if k != "l1svm"}
@@ -121,6 +149,9 @@ def main() -> int:
             emit("H-CSR", key, side, lambda fn=fn, x=x: fn(x),
                  lambda lib=lib, x=x: torch.mv(lib, x))
 
+
+def time_bsr(smoke, torch, emit, rng, dt, dev, repo, smi, BsrMatrix, bsr_spmv,
+             apply_rcm_permutation):
     # H-BSR on the RCM-permuted CLIME matrix, as the operator serves it
     clime = smoke.folded(smoke.clime_lp(**smoke.CLIME))
     a = apply_rcm_permutation(clime)[0]["a_ineq"]
@@ -149,6 +180,9 @@ def main() -> int:
         del op
     del clime, bsr_systems, a
 
+
+def time_dia(smoke, torch, emit, rng, dt, dev, build_linear_program,
+             dia_spmv, build_system_dia):
     # H-DIA: aligned Potts-300 and its 4 row shards (K5's function)
     lp300 = build_linear_program(300, 0.5, 500)[0]
     prob, _ = smoke.lowered(lp300, dt, dev)
@@ -180,6 +214,8 @@ def main() -> int:
                     return dia_spmv.dia_spmv(vals, offs, xs, n_out)
             emit("H-DIA (K5)", f"potts300 shard {rank}", side, kern)
 
+
+def time_cpdense(smoke, torch, emit, dt, dev, cp_dense):
     # H-CPDENSE, 1,000 iterations with sums per call: SC105, the system
     # past shared memory of chip_smoke.py, and square random systems of m
     # rows (half equalities) by m columns, whose times per iteration give
@@ -212,6 +248,70 @@ def main() -> int:
                                          with_sums=True, lanes=lanes),
                  per=1000, reps=5)
 
+
+def time_cpdia(smoke, torch, emit, rng, dt, dev, repo, smi):
+    """H-CPDIA through ``cp_dia_chunk`` per iteration, chunks with sums: at
+    Potts-50 (K2's shape; H-CPDIA-R where the checkout plans it, else the
+    two-launch kernel) and Potts-300 (K3's). Then Potts-50's solves:
+    ``bench.py::measure_potts``'s steady run (200,000 iterations, a
+    checkpoint every 50,000, ``light_metrics``) twice, its steady
+    iterations/s and distance to the graph cut, and 20,000 iterations of it
+    under the profiler (the busy share); the restart solve of
+    ``chip_smoke.py``'s converge_potts50 (36,000 iterations, restart to
+    average every 4,000) twice, its seconds to the graph cut (mean
+    distance < 1e-2), and once under the profiler."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+    from pysparselp_tpu_torch.ops import cp_dia
+
+    for size, nsteps in ((50, 200), (300, 100)):
+        prob, pre = smoke.lowered(build_linear_program(size, 0.5, 500)[0],
+                                  dt, dev)
+        x0 = torch.as_tensor(rng.rand(prob.n), dtype=dt, device=dev)
+        ye0 = torch.zeros(0, dtype=dt, device=dev)
+        yi0 = torch.as_tensor(rng.rand(prob.m_ineq) * 0.1, dtype=dt,
+                              device=dev)
+        tier = (cp_dia.cp_dia_plan(prob, dt).tier
+                if hasattr(cp_dia, "cp_dia_plan") else "two_launch")
+        emit("H-CPDIA", f"potts{size}", f"chunk of {nsteps}, {tier}",
+             lambda prob=prob, pre=pre, x0=x0, yi0=yi0, nsteps=nsteps:
+             cp_dia.cp_dia_chunk(prob, pre, x0, ye0, yi0, nsteps, 1.0,
+                                 with_sums=True),
+             per=nsteps, reps=20)
+
+    lp, gt, idx, _ = build_linear_program(50, 0.5, 500)
+    steady = dict(method="chambolle_pock_ppd", nb_iter=200_000,
+                  nb_iter_plot=50_000, dtype=np.float32, light_metrics=True,
+                  device="cuda")
+    rates, dists = [], []
+    for _ in range(2):
+        x, _ = lp.solve(**steady)
+        rates.append(smoke.steady_rate(lp))
+        dists.append(float(np.mean(np.abs(gt - x[idx]))))
+    window = smoke.profile_window(torch, lambda: lp.solve(
+        **dict(steady, nb_iter=20_000, nb_iter_plot=5_000)))
+    restart = dict(method="chambolle_pock_ppd", nb_iter=36000,
+                   nb_iter_plot=12000, restart_period=4000,
+                   restart="average", dtype=np.float32, ground_truth=gt,
+                   ground_truth_indices=idx, device="cuda")
+    to_cut = []
+    for _ in range(2):
+        lp.solve(**restart)
+        below = np.nonzero(np.asarray(lp.distance_to_ground_truth)
+                           < 1e-2)[0]
+        to_cut.append(float(lp.opttime_curve[below[0]]) if below.size
+                      else None)
+    restart_window = smoke.profile_window(torch,
+                                          lambda: lp.solve(**restart))
+    print(json.dumps(dict(repo=repo, nvidia_smi=smi, solve="potts50",
+                          iters_per_s_steady=rates, dist=dists,
+                          profiled_20k=window,
+                          restart_seconds_to_graph_cut=to_cut,
+                          restart_profiled=restart_window)), flush=True)
+
+
+def time_solves(smoke, np, repo, smi, chambolle_pock, _choose_layout):
     # the per-operator solves: steady iterations/s, twice; and L1-SVM with
     # the chooser's price of H-BSR's longest tile-line at zero
     priced = "bsr_line_price" in inspect.signature(_choose_layout).parameters
@@ -237,7 +337,6 @@ def main() -> int:
                               layouts=[lay[0] for lay in layouts or []],
                               iterations=SOLVE_ITERS,
                               iters_per_s_steady=rates)), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

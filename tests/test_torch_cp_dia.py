@@ -12,9 +12,10 @@ import torch
 
 from pysparselp_tpu_torch.examples.potts import (
     build_linear_program, build_multilabel_linear_program)
-from pysparselp_tpu_torch.ops.cp_dia import (cp_dia_chunk,
+from pysparselp_tpu_torch.ops.cp_dia import (TWO_LAUNCH, cp_dia_chunk,
                                              cp_dia_chunk_reference,
-                                             cp_dia_eligible)
+                                             cp_dia_eligible, cp_dia_plan,
+                                             cp_dia_resident_chunk)
 from pysparselp_tpu_torch.utils.convert import problem_from_jax_arrays
 from torch_port_helpers import (assert_close, cuda_or_skip, host_system,
                                       jax_problem, port_problem, start_point,
@@ -45,22 +46,26 @@ def _inputs(sys_, seed):
     return jnp, jprob, jpre, prob, pre, x, ye, yi
 
 
-@pytest.mark.parametrize("nsteps", [1, 20])
-def test_ineq_twin_matches_cp_fused_kernel(nsteps):
+@pytest.mark.parametrize("nsteps, with_sums", [(1, True), (20, True),
+                                               (20, False)],
+                         ids=["1", "20", "20-no-sums"])
+def test_ineq_twin_matches_cp_fused_kernel(nsteps, with_sums):
     from pysparselp_tpu.ops import cp_fused
 
     jnp, jprob, jpre, prob, pre, x, _ye, yi = _inputs(_potts_ineq(), seed=0)
     assert prob.a_eq is None and cp_dia_eligible(prob)
     want = cp_fused._cp_fused_call(
         jprob, jpre, jnp.asarray(x, jnp.float32), jnp.asarray(yi, jnp.float32),
-        nsteps, 1.0, interpret=True, with_sums=True)
+        nsteps, 1.0, interpret=True, with_sums=with_sums)
     got = cp_dia_chunk(prob, pre, torch.as_tensor(x, dtype=F32),
                        torch.zeros(0, dtype=F32),
                        torch.as_tensor(yi, dtype=F32), nsteps, 1.0,
-                       with_sums=True)
-    x_n, x3_n, _ye_n, y_n, sx, _se, sy = got
-    assert_close([x_n, x3_n, y_n, sx, sy], want, rtol=1e-5, atol=1e-6,
-                 what="cp_fused")
+                       with_sums=with_sums)
+    # both of _cp_fused_call's contracts: (x, x3, y) and (x, x3, y, sx, sy)
+    x_n, x3_n, _ye_n, y_n = got[:4]
+    assert len(want) == (5 if with_sums else 3)
+    assert_close([x_n, x3_n, y_n, *got[4::2]], want, rtol=1e-5,
+                 atol=1e-6, what="cp_fused")
 
 
 @pytest.mark.parametrize("nsteps", [1, 10])
@@ -96,9 +101,14 @@ def test_kernel_matches_twin_on_cuda(dtype, make):
     prob, pre = port_problem(sys_, "dia", dtype, dev)
     args = [torch.as_tensor(v, dtype=dtype, device=dev)
             for v in start_point(sys_, 3)]
-    launches = cp_dia_chunk.launches
-    got = cp_dia_chunk(prob, pre, *args, 50, 1.0, with_sums=True)
     want = cp_dia_chunk_reference(prob, pre, *args, 50, 1.0, with_sums=True)
-    assert cp_dia_chunk.launches == launches + 1
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    # these small grids plan the resident tier: the two-launch kernel is
+    # forced, then the planned tier runs too, each on its own counter
+    for plan, counted in ((TWO_LAUNCH, cp_dia_chunk),
+                          (cp_dia_plan(prob, dtype), cp_dia_resident_chunk)):
+        launches = counted.launches
+        got = cp_dia_chunk(prob, pre, *args, 50, 1.0, with_sums=True,
+                           plan=plan)
+        assert counted.launches == launches + 1
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
