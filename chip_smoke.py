@@ -115,14 +115,31 @@ add:
   ``admm`` and ``admm2``, held against the float64 CPU run, three timed
   float32 runs, launches and busy share per iteration).
 
+The dual ascent solvers and ``admm_blocks`` add:
+
+* in phase 2, H-DCA against its twin (:func:`phase_dca_kernels`): the
+  sequential sweep on SC105's one-sided systems, Potts-20, Potts-50, the
+  50 x 50 matching LP and Potts-300's first 2,000 rows (c̄ in global
+  memory), the colour steps of Potts-50, float32 and float64, bit for bit
+  (y, c̄, the returned key); device time per sweep and per row, the bytes
+  bound, the twin's time over 1,000 rows extrapolated per sweep; the full
+  Potts-300 sweep and colour sweep in float32;
+* phase 8, last: ``main_path_dga_potts`` (Potts-50 float64 on the card
+  against the CPU, Potts-300 float32: rate, launches, busy share),
+  ``main_path_admm_blocks_l1svm`` (the L1-SVM example's accuracy, rate
+  and busy share), ``main_path_dca_potts`` (Potts-20 float64 against the
+  CPU, Potts-300 float32 in both modes) and ``main_path_dca_matching``
+  (the bipartite example's cost against the CPU run).
+
 The launch counters are set to 0 just before each solve and read just
 after it; the kernel table takes H-DIA's and H-CPDIA's counts from the
 Potts-300 solve, H-CPDIA-R's from the Potts-50 restart solve (and
 ``main_path_potts50``'s under ``launches_by_run``), H-DIA (K5)'s from the one-rank mesh solve, H-CPDENSE's
 from the SC105 solve, H-CSR's from the transport solve, H-BSR's from the
 CLIME solve, H-DIA-B's from the banded batch solve and H-CSR-B's from the
-unstructured batch solve (``launches_run`` names the solve); the
-phase 7 solves that launch a hand kernel add its count under
+unstructured batch solve, H-DCA's from the sequential and H-DCA-C's
+from the blocked Potts-300 DCA solve (``launches_run`` names the solve);
+the phase 7 and 8 solves that launch a hand kernel add its count under
 ``launches_by_run``.  Then the kernel table
 as one JSON line and, last, the device line ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside this script, it
@@ -201,6 +218,19 @@ KERNELS = {
                     replaces="pysparselp_tpu/batch.py:147",
                     tpu_kernels={},
                     launches_run="main_path_batch_unstructured"),
+    # the dual coordinate ascent sweeps: no pallas_call stands behind the
+    # compiled fori_loop sweeps (H-DCA) and colour steps (H-DCA-C) they
+    # replace
+    "H-DCA": dict(source="pysparselp_tpu_torch/csrc/dca_sweep.cu",
+                  replaces="pysparselp_tpu/solvers/dual_ascent.py:323; "
+                           "pysparselp_tpu/solvers/dual_ascent.py:342; "
+                           "pysparselp_tpu/solvers/dual_ascent.py:285",
+                  tpu_kernels={},
+                  launches_run="main_path_dca_potts"),
+    "H-DCA-C": dict(source="pysparselp_tpu_torch/csrc/dca_sweep.cu",
+                    replaces="pysparselp_tpu/solvers/dual_ascent.py:285",
+                    tpu_kernels={},
+                    launches_run="main_path_dca_potts"),
 }
 # the mesh phases: ranks of main_path_mesh4 (gloo, all on the one card)
 # and the row-shard count of the K5 kernel phase
@@ -2676,17 +2706,450 @@ def phase_potts50(torch, counted_solve):
     return launches["H-CPDIA-R"]
 
 
+
+# ----------------------------------------------------------------------
+# the dual ascent solvers and admm_blocks: H-DCA and the main paths
+# ----------------------------------------------------------------------
+
+# DGA and DCA on the card against the same solve on the CPU, both float64,
+# at every checkpoint (checkpoint_diffs): the card's products add in other
+# orders (H-CSR, H-DIA), and the solvers compare reduced costs exactly
+# (c̄ > 0, c̄ == 0); the limit is stated beside the measured worst in
+# PERF.md
+DUAL_F64_RTOL = 1e-9
+# the bipartite matching LP of examples/bipartite_matching.py: its DCA cost
+# on the card (float64) against the CPU run's
+MATCHING_COST_RTOL = 1e-9
+# the L1-SVM example's admm_blocks accuracy bar (tests/test_examples.py)
+L1SVM_ACCURACY = 99.7
+
+
+def dca_systems():
+    """The systems of the kernel phase, as the DCA solver holds them after
+    ``convert_to_one_sided_inequality_system``: ``{name: (a, b, c, lb,
+    ub)}`` (host arrays)."""
+    import copy as copy_
+
+    import numpy as np
+
+    from pysparselp_tpu_torch.examples.bipartite_matching import \
+        add_bipartite_constraint
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+    from pysparselp_tpu_torch.modeling import SparseLP
+
+    lps = {"sc105": sc105_lp()[0],
+           "potts20": build_linear_program(20, 0.5, 500, seed=1)[0],
+           "potts50": build_linear_program(50, 0.5, 500, seed=1)[0]}
+    rng = np.random.RandomState(2)
+    cost = -rng.rand(50, 50)
+    lp = SparseLP()
+    add_bipartite_constraint(lp, lp.add_variables_array(cost.shape, 0, 1,
+                                                        cost))
+    lps["matching50"] = lp
+    out = {}
+    for name, lp in lps.items():
+        lp = copy_.deepcopy(lp)
+        lp.convert_to_one_sided_inequality_system()
+        for which, a, b in (("eq", lp.a_equalities, lp.b_equalities),
+                            ("ineq", lp.a_inequalities, lp.b_upper)):
+            if a is not None and a.shape[0]:
+                out[f"{name}_{which}"] = (a.tocsr(), np.asarray(b),
+                                          lp.costsvector, lp.lower_bounds,
+                                          lp.upper_bounds)
+    return out
+
+
+def dca_state(torch, system, dtype, seed=0, rows=None):
+    """A seeded mid-solve state of ``system``: y >= 0 (half of it 0),
+    c̄ = c + Aᵀ y, 80% of the rows active; the padded rows (the first
+    ``rows`` rows only, when given) and every vector as ``dtype`` tensors
+    on the card, in the sweep's argument order."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.ops.dca_sweep import EllRows
+
+    a, b, c, lb, ub = system
+    if rows is not None:
+        a, b = a[:rows], b[:rows]
+    rng = np.random.RandomState(seed)
+    m = a.shape[0]
+    y = np.where(rng.rand(m) < 0.5, 0.0, rng.rand(m))
+
+    def t(v):
+        return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
+                               device="cuda")
+
+    return (EllRows.from_scipy(a, dtype, "cuda"), t(b),
+            torch.as_tensor(rng.rand(m) < 0.8, device="cuda"), t(y),
+            t(c + a.T @ y), t(lb), t(ub))
+
+
+def dca_sweep_bytes(a, k, itemsize):
+    """The least bytes of a sweep over the rows of ``a`` padded to ``k``
+    slots: the padded values and int32 columns read once, b, the active
+    flags and y read and y written per row, c̄ read and written and lb, ub
+    read at each stored entry."""
+    m = a.shape[0]
+    return (m * k * (itemsize + 4) + m * (3 * itemsize + 1)
+            + a.nnz * 4 * itemsize)
+
+
+def steady_window(torch, solve, short, long):
+    """Per iteration on the device: two profiled ``solve(k)`` of ``short``
+    and ``long`` iterations share their set-up, so their difference is
+    ``long - short`` iterations: device microseconds and kernels per
+    iteration, and the longer solve's busiest kernels."""
+    w = [profile_window(torch, lambda k=k: solve(k)) for k in (short, long)]
+    n = long - short
+    return dict(device_us=(w[1]["device_s"] - w[0]["device_s"]) / n * 1e6,
+                kernels=(w[1]["kernels"] - w[0]["kernels"]) / n,
+                top_us_long=w[1]["top_us"])
+
+
+def device_ms(torch, fn, name, counter, reps=3):
+    """The profiler's device milliseconds per call of ``fn()`` for the
+    kernels whose name contains ``name``: their mean duration times the
+    launches one call makes (read from the wrapper ``counter``), since the
+    profiler may drop an event of a long run."""
+    before = counter.launches
+    fn()
+    per_call = counter.launches - before
+    dev = [e for e in profiled_kernels(torch, fn, reps) if name in e.name]
+    return (sum(e.time_range.elapsed_us() for e in dev) / len(dev)
+            * per_call * 1e-3)
+
+
+def phase_dca_kernels(torch, table):
+    """H-DCA against its twin on the card: the sequential sweep (one
+    launch per system) on SC105's one-sided systems, Potts-20, Potts-50
+    and the 50 x 50 matching LP, the colour steps of Potts-50, and
+    Potts-300's first 2,000 rows (c̄ past shared memory), float32 and
+    float64, compared bit for bit (y, c̄ and the returned key); device
+    time per sweep and per row, the bytes bound, the twin's time on the
+    card over 1,000 rows extrapolated per sweep; then the full Potts-300
+    sweep and colour sweep in float32 (the main path's)."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+    from pysparselp_tpu_torch.ops import dca_sweep as dca
+    from pysparselp_tpu_torch.solvers.dual_ascent import _color_rows
+    from pysparselp_tpu_torch.utils.jax_prng import prng_key, split
+
+    systems = dca_systems()
+    lp300 = build_linear_program(300, 0.5, 500)[0]
+    lp300.convert_to_one_sided_inequality_system()
+    systems["potts300_ineq"] = (lp300.a_inequalities.tocsr(),
+                                np.asarray(lp300.b_upper),
+                                lp300.costsvector, lp300.lower_bounds,
+                                lp300.upper_bounds)
+    key = prng_key(1)
+
+    def same(got, want, what):
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and got[2:] == want[2:]):
+            raise AssertionError(f"H-DCA {what}: kernel and twin differ")
+
+    records = []
+    for name, system in systems.items():
+        project = name.endswith("_ineq")
+        a = system[0]
+        rows = 2000 if name.startswith("potts300") else None
+        m = rows or a.shape[0]
+        for dt in (torch.float32, torch.float64):
+            dname = str(dt).split(".")[1]
+            args = dca_state(torch, system, dt, rows=rows)
+            ell = args[0]
+            got = dca.dca_sweep(*args, key, project)
+            want = dca.dca_sweep_reference(*args, key, project)
+            same(got, want, f"{name} {dname}")
+            itemsize = torch.empty((), dtype=dt).element_size()
+            nbytes = dca_sweep_bytes(a[:m], ell.vals.shape[1], itemsize)
+            ms = device_ms(torch, lambda: dca.dca_sweep(*args, key, project),
+                           "dca_sweep_kernel", dca.dca_sweep)
+            sub = dca_state(torch, system, dt, rows=min(m, 1000))
+            plain = cuda_ms(torch, lambda: dca.dca_sweep_reference(
+                *sub, key, project), 1) / sub[0].vals.shape[0] * m
+            smem = (dca.cbar_in_smem(ell.vals.shape[1], a.shape[1],
+                                     itemsize))
+            records.append(dict(
+                system=name, dtype=dname, rows=m, width=ell.vals.shape[1],
+                n=a.shape[1], cbar_in_smem=smem, bit_equal=True,
+                device_ms_per_sweep=ms, device_us_per_row=ms / m * 1e3,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                plain_ms_per_sweep=plain))
+
+    # the colour steps of Potts-50, group by group against the twin
+    a, b, c, lb, ub = systems["potts50_ineq"]
+    groups = [torch.as_tensor(g, dtype=torch.int32, device="cuda")
+              for g in _color_rows(a)]
+    for dt in (torch.float32, torch.float64):
+        ell, bt, active, y, cb, lbt, ubt = dca_state(torch, systems[
+            "potts50_ineq"], dt)
+        ky, wy, kc, wc = y, y, cb, cb
+        k = key
+        for g in groups:
+            k, sub = split(k)
+            ky, kc = dca.dca_color_step(ell, bt, active, ky, kc, lbt, ubt, g,
+                                        sub, True)
+            wy, wc = dca.dca_color_step_reference(ell, bt, active, wy, wc,
+                                                  lbt, ubt, g, sub, True)
+            same((ky, kc), (wy, wc), f"potts50 colour step {str(dt)}")
+    records.append(dict(system="potts50_ineq", mode="blocked",
+                        groups=len(groups), bit_equal=True))
+
+    # the main path's shapes: Potts-300's whole sweep in float32
+    a, b, c, lb, ub = systems["potts300_ineq"]
+    args = dca_state(torch, systems["potts300_ineq"], torch.float32)
+    ell = args[0]
+    groups = [torch.as_tensor(g, dtype=torch.int32, device="cuda")
+              for g in _color_rows(a)]
+
+    def colour_sweep():
+        yy, cc, k = args[3], args[4], key
+        for g in groups:
+            k, sub = split(k)
+            yy, cc = dca.dca_color_step(ell, args[1], args[2], yy, cc,
+                                        args[5], args[6], g, sub, True)
+        return yy, cc
+
+    def colour_twin():
+        yy, cc, k = args[3], args[4], key
+        for g in groups:
+            k, sub = split(k)
+            yy, cc = dca.dca_color_step_reference(ell, args[1], args[2], yy,
+                                                  cc, args[5], args[6], g,
+                                                  sub, True)
+        return yy, cc
+
+    got, want = colour_sweep(), colour_twin()
+    same(got, want, "potts300 colour sweep float32")
+    nbytes = dca_sweep_bytes(a, ell.vals.shape[1], 4)
+    seq_ms = device_ms(torch, lambda: dca.dca_sweep(*args, key, True),
+                       "dca_sweep_kernel", dca.dca_sweep, reps=2)
+    sub = dca_state(torch, systems["potts300_ineq"], torch.float32,
+                    rows=1000)
+    seq_plain = cuda_ms(torch, lambda: dca.dca_sweep_reference(
+        *sub, key, True), 1) / 1000 * a.shape[0]
+    col_ms = device_ms(torch, colour_sweep, "dca_color_kernel",
+                       dca.dca_color_step)
+    col_plain = cuda_ms(torch, colour_twin, 2)
+    records.append(dict(system="potts300_ineq", dtype="float32",
+                        rows=a.shape[0], n=a.shape[1],
+                        width=ell.vals.shape[1], groups=len(groups),
+                        device_ms_per_sweep=seq_ms,
+                        device_us_per_row=seq_ms / a.shape[0] * 1e3,
+                        plain_ms_per_sweep=seq_plain,
+                        colour_device_ms_per_sweep=col_ms,
+                        colour_plain_ms_per_sweep=col_plain,
+                        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+    emit("kernels_dca", records=records,
+         library="none: no one PyTorch call runs a coordinate sweep")
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    table["H-DCA"].update(max_abs_err=0.0, ms=seq_ms, plain_ms=seq_plain,
+                          bound_ms=bound_ms, bound_by="bytes",
+                          library_ms=None)
+    table["H-DCA-C"].update(max_abs_err=0.0, ms=col_ms, plain_ms=col_plain,
+                            bound_ms=bound_ms, bound_by="bytes",
+                            library_ms=None)
+
+
+def golden_curves(size):
+    """``tests/goldens/potts{size}_curves.json`` (the JAX package's CPU
+    runs), or an empty dict where the checkout lacks it."""
+    path = HERE / "tests" / "goldens" / f"potts{size}_curves.json"
+    return json.loads(path.read_text()) if path.is_file() else {}
+
+
+def dual_cuda_vs_cpu(lp, run, counted_solve):
+    """``lp.solve(**run)`` in float64 on the card (counted) and on the CPU:
+    their curves and distances, the worst checkpoint difference (held to
+    DUAL_F64_RTOL) and the card's launches."""
+    import numpy as np
+
+    wall, launches = counted_solve(lp, dtype=np.float64, device="cuda",
+                                   **run)
+    got, itrn = curves(lp), list(lp.itrn_curve)
+    dist = [float(v) for v in lp.distance_to_ground_truth]
+    t0 = time.perf_counter()
+    lp.solve(dtype=np.float64, device="cpu", **run)
+    cpu_wall = time.perf_counter() - t0
+    if lp.itrn_curve != itrn:
+        raise AssertionError(f"checkpoints {itrn} vs {lp.itrn_curve}")
+    worst = checkpoint_diffs(got, curves(lp))
+    rec = dict(itrn=itrn, cuda=got, f64_cpu=curves(lp), dist_cuda=dist,
+               dist_cpu=[float(v) for v in lp.distance_to_ground_truth],
+               worst_rel_diff=worst, rel_limit=DUAL_F64_RTOL, wall_s=wall,
+               cpu_wall_s=cpu_wall, launches=launches)
+    if not all(v <= DUAL_F64_RTOL for v in worst.values()):
+        raise AssertionError(f"{run['method']} f64 CUDA vs CPU: {worst}")
+    return rec
+
+
+def phase_dga_potts(torch, counted_solve):
+    """``main_path_dga_potts``: dual gradient ascent on Potts-50, 150
+    iterations (the golden's run), float64 on the card against the CPU at
+    each checkpoint, beside the golden's distances; then Potts-300 in
+    float32 for 300 iterations: iterations/s, launches per kernel, and
+    the device time, kernels and busy share per iteration (the difference
+    of a 20- and a 40-iteration solve under the profiler)."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+
+    lp, gt, idx, _ = build_linear_program(50, 0.5, 500, seed=1)
+    run = dict(method="dual_gradient_ascent", nb_iter=150, nb_iter_plot=50,
+               ground_truth=gt, ground_truth_indices=idx)
+    p50 = dual_cuda_vs_cpu(lp, run, counted_solve)
+    p50["golden_dist"] = golden_curves(50).get(
+        "dual_gradient_ascent", {}).get("dist")
+    lp, gt, idx, _ = build_linear_program(300, 0.5, 500)
+    run = dict(method="dual_gradient_ascent", nb_iter=300, nb_iter_plot=100,
+               dtype=np.float32, device="cuda", ground_truth=gt,
+               ground_truth_indices=idx)
+    wall, launches = counted_solve(lp, **run)
+    rate = steady_rate(lp)
+    window = steady_window(torch, lambda k: lp.solve(**dict(
+        run, nb_iter=k, nb_iter_plot=k)), 20, 40)
+    window["busy"] = window["device_us"] * 1e-6 * rate
+    emit("main_path_dga_potts", potts50_f64=p50, potts300_f32=dict(
+        n=lp.nb_variables, iterations=300, wall_s=wall,
+        iters_per_s_steady=rate, dist=[float(v) for v in
+                                       lp.distance_to_ground_truth],
+        dobj=[float(v) for v in lp.dobj_curve], launches=launches,
+        per_iteration=window))
+    return launches
+
+
+def phase_dca_potts(torch, counted_solve):
+    """``main_path_dca_potts``: sequential dual coordinate ascent on
+    Potts-20, 9 sweeps, float64 on the card against the CPU at each
+    checkpoint; then Potts-300 in float32, 3 sweeps in each mode: seconds
+    per sweep, H-DCA's launches, the dual energy after each sweep, and the
+    device time, kernels and busy share of a sweep (the difference of a
+    1- and a 2-sweep solve under the profiler).  Returns the sequential
+    and the blocked solve's launches."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+
+    lp, gt, idx, _ = build_linear_program(20, 0.5, 500, seed=1)
+    p20 = dual_cuda_vs_cpu(lp, dict(
+        method="dual_coordinate_ascent", nb_iter=9, nb_iter_plot=3,
+        ground_truth=gt, ground_truth_indices=idx), counted_solve)
+    p20["golden_dist"] = golden_curves(20).get(
+        "dual_coordinate_ascent", {}).get("dist")
+    lp, gt, idx, _ = build_linear_program(300, 0.5, 500)
+    modes, counts = {}, {}
+    for mode in ("sequential", "blocked"):
+        wall, launches = counted_solve(
+            lp, method="dual_coordinate_ascent", nb_iter=3, nb_iter_plot=1,
+            mode=mode, dtype=np.float32, device="cuda", ground_truth=gt,
+            ground_truth_indices=idx)
+        t = [0.0] + [float(v) for v in lp.opttime_curve]
+        per_sweep = [b - a for a, b in zip(t, t[1:])]
+        window = steady_window(torch, lambda k, m=mode: lp.solve(
+            method="dual_coordinate_ascent", nb_iter=k, nb_iter_plot=k,
+            mode=m, dtype=np.float32, device="cuda"), 1, 2)
+        window["busy"] = window["device_us"] * 1e-6 / per_sweep[-1]
+        modes[mode] = dict(
+            wall_s=wall, s_per_sweep=per_sweep,
+            dual_energy=[float(v) for v in lp.dobj_curve],
+            dist=[float(v) for v in lp.distance_to_ground_truth],
+            launches=launches, per_sweep=window)
+        counts[mode] = launches
+    emit("main_path_dca_potts", potts20_f64=p20, potts300_f32=dict(
+        n=lp.nb_variables, sweeps=3, **modes))
+    if not counts["sequential"]["H-DCA"] or not counts["blocked"]["H-DCA-C"]:
+        raise AssertionError(f"Potts-300 DCA did not run on H-DCA: {counts}")
+    return counts
+
+
+def phase_dca_matching(torch, counted_solve):
+    """``main_path_dca_matching``: the bipartite matching LP of
+    ``examples/bipartite_matching.py`` (n = 50, seed 2), dual coordinate
+    ascent for 200 sweeps with greedy rounding, float64 and float32 on the
+    card, its cost held against the float64 CPU run; whether the rounding's
+    native propagation (``_propagate.so``) loaded."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.examples.bipartite_matching import \
+        add_bipartite_constraint
+    from pysparselp_tpu_torch.integer import propagation
+    from pysparselp_tpu_torch.modeling import SparseLP
+
+    np.random.seed(2)
+    cost = -np.random.rand(50, 50)
+    lp = SparseLP()
+    add_bipartite_constraint(lp, lp.add_variables_array(cost.shape, 0, 1,
+                                                        cost))
+    run = dict(method="dual_coordinate_ascent", nb_iter=200,
+               nb_iter_plot=50, max_time=40)
+    costs, walls, launches = {}, {}, None
+    for dt in ("float64", "float32"):
+        walls[dt], n = counted_solve(lp, dtype=getattr(np, dt),
+                                     device="cuda", **run)
+        costs[dt] = float(lp.costsvector @ counted_solve.out[0])
+        launches = launches or n
+    t0 = time.perf_counter()
+    x, _ = lp.solve(dtype=np.float64, device="cpu", **run)
+    cpu = float(lp.costsvector @ x)
+    rel = abs(costs["float64"] - cpu) / abs(cpu)
+    emit("main_path_dca_matching", cost_cuda=costs, cost_cpu=cpu,
+         rel_diff_f64=rel, rel_limit=MATCHING_COST_RTOL, wall_s=walls,
+         cpu_wall_s=time.perf_counter() - t0, launches=launches,
+         propagate_native=dict(tried=propagation._LIB_TRIED,
+                               loaded=propagation._LIB is not None))
+    if not rel <= MATCHING_COST_RTOL:
+        raise AssertionError(f"matching DCA cost {costs} vs CPU {cpu}")
+
+
+def phase_admm_blocks_l1svm(torch, counted_solve):
+    """``main_path_admm_blocks_l1svm``: the L1-SVM example
+    (``examples/l1_svm.py``: 1,000 points, 3 classes) under ``admm_blocks``
+    for 2,000 iterations, float64 and float32 on the card: the
+    classification accuracy (float64 held to the JAX test's 99.7%),
+    iterations/s, H-CSR's launches (the consensus sum), and the device
+    time, kernels and busy share per iteration (the difference of a 100-
+    and a 200-iteration solve under the profiler)."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.examples import l1_svm
+
+    x, classes = l1_svm.make_data()
+    svm = l1_svm.L1SVM()
+    svm.set_data(x, classes)
+    out = {}
+    for dt in ("float64", "float32"):
+        run = dict(method="admm_blocks", nb_iter=2000, nb_iter_plot=500,
+                   max_time=np.inf, dtype=getattr(np, dt), device="cuda")
+        wall, launches = counted_solve(svm, **run)
+        svm.weights = counted_solve.out[0][svm.weights_indices]
+        acc = 100.0 * float(np.mean(svm.classify(x) == classes))
+        rate = steady_rate(svm)
+        window = steady_window(torch, lambda k: svm.solve(**dict(
+            run, nb_iter=k, nb_iter_plot=k)), 100, 200)
+        window["busy"] = window["device_us"] * 1e-6 * rate
+        out[dt] = dict(accuracy=acc, wall_s=wall, iters_per_s_steady=rate,
+                       launches=launches, per_iteration=window)
+    emit("main_path_admm_blocks_l1svm", accuracy_bar=L1SVM_ACCURACY, **out)
+    if not out["float64"]["accuracy"] >= L1SVM_ACCURACY:
+        raise AssertionError(f"L1-SVM admm_blocks accuracy {out}")
+    return out["float32"]["launches"]
+
+
 def kernel_counters():
     """Each hand kernel's wrapper, whose ``launches`` counts its
     launches."""
     from pysparselp_tpu_torch.ops import (bsr_spmv, cp_dense, cp_dia,
-                                          csr_spmv, dia_spmv)
+                                          csr_spmv, dca_sweep, dia_spmv)
 
     return {"H-DIA": dia_spmv.dia_spmv, "H-CPDIA": cp_dia.cp_dia_chunk,
             "H-CPDIA-R": cp_dia.cp_dia_resident_chunk,
             "H-CPDENSE": cp_dense.cp_dense_chunk,
             "H-CSR": csr_spmv.csr_spmv, "H-BSR": bsr_spmv.bsr_spmv,
-            "H-DIA-B": dia_spmv.dia_spmm, "H-CSR-B": csr_spmv.csr_spmm}
+            "H-DIA-B": dia_spmv.dia_spmm, "H-CSR-B": csr_spmv.csr_spmm,
+            "H-DCA": dca_sweep.dca_sweep,
+            "H-DCA-C": dca_sweep.dca_color_step}
 
 
 def main() -> int:
@@ -2776,6 +3239,7 @@ def main() -> int:
                              "dia"),
         "clime_rcm": (apply_rcm_permutation(folded(clime))[0]["a_ineq"],
                       "bsr")}, table)
+    phase_dca_kernels(torch, table)
 
     # phase 3: the main path on Potts-300
     lp300 = build_linear_program(300, 0.5, 500)[0]
@@ -2870,6 +3334,21 @@ def main() -> int:
         for key, n in launches.items():
             if n:
                 table[key].setdefault("launches_by_run", {})[run] = n
+
+    # phase 8: the dual ascent solvers and admm_blocks
+    t8 = time.perf_counter()
+    for run, launches in (
+            ("main_path_dga_potts", phase_dga_potts(torch, counted_solve)),
+            ("main_path_admm_blocks_l1svm",
+             phase_admm_blocks_l1svm(torch, counted_solve))):
+        for key, n in launches.items():
+            if n:
+                table[key].setdefault("launches_by_run", {})[run] = n
+    dca_counts = phase_dca_potts(torch, counted_solve)
+    table["H-DCA"]["launches"] = dca_counts["sequential"]["H-DCA"]
+    table["H-DCA-C"]["launches"] = dca_counts["blocked"]["H-DCA-C"]
+    phase_dca_matching(torch, counted_solve)
+    emit("phase8", seconds=time.perf_counter() - t8)
     for key, rec in table.items():
         if not rec["launches"]:
             raise AssertionError(f"{key} was not launched in the "

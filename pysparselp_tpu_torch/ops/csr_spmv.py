@@ -145,9 +145,10 @@ class CsrOperand:
 
     __slots__ = ("indptr", "indices", "vals", "n_in", "n_out", "plan",
                  "plan_dev", "carries", "device", "dtype", "x_shape",
-                 "device_index", "entry", "entry_b", "_scratch")
+                 "device_index", "entry", "entry_b", "_scratch", "fused",
+                 "_slots")
 
-    def __init__(self, indptr, indices, vals, n_in, plan=None):
+    def __init__(self, indptr, indices, vals, n_in, plan=None, fused=False):
         nnz = vals.shape[0]
         n_out = indptr.shape[0] - 1
         if nnz > MAX_NNZ:
@@ -177,6 +178,9 @@ class CsrOperand:
         self.x_shape = (self.n_in,)
         self.device_index = self.entry = self.entry_b = None
         self._scratch = {}
+        # the CPU twin rounds each row as a fused multiply-add chain
+        # (csr_spmv_fused_reference); the card is not affected
+        self.fused, self._slots = bool(fused), None
         if dev.type == "cuda":
             self.device_index = _build.device_index(dev)
             sfx = _build.suffix(vals.dtype)
@@ -201,7 +205,7 @@ class CsrOperand:
         return found
 
     @staticmethod
-    def from_host(indptr, indices, data, n_in, dtype, device):
+    def from_host(indptr, indices, data, n_in, dtype, device, fused=False):
         """From host CSR arrays (the plan from the host ``indptr``)."""
         def i32(v):
             return torch.as_tensor(np.asarray(v, np.int32), device=device)
@@ -209,7 +213,20 @@ class CsrOperand:
         return CsrOperand(
             i32(indptr), i32(indices),
             torch.as_tensor(np.asarray(data, np.float64), dtype=dtype,
-                            device=device), n_in, split_plan(indptr))
+                            device=device), n_in, split_plan(indptr),
+            fused=fused)
+
+    def row_slots(self):
+        """Per position ``p`` of a row, the entries at that position and
+        their rows (``[(entries, rows), ...]``, made on first use)."""
+        if self._slots is None:
+            lengths = self.indptr.diff().long()
+            rows = torch.arange(self.n_out, device=self.device)
+            self._slots = []
+            for p in range(int(lengths.max()) if self.n_out else 0):
+                r = rows[lengths > p]
+                self._slots.append((self.indptr[r].long() + p, r))
+        return self._slots
 
 
 def csr_spmv_reference(indptr, indices, vals, x, n_out):
@@ -219,6 +236,34 @@ def csr_spmv_reference(indptr, indices, vals, x, n_out):
         torch.arange(n_out, device=vals.device), indptr.diff().long())
     y = torch.zeros(n_out, dtype=vals.dtype, device=vals.device)
     return y.index_add_(0, rows, vals * x[indices.long()])
+
+
+def csr_spmv_fused_reference(op, x, base=None):
+    """Plain twin that rounds each row ``y[r] = fma(v_k, x_k, ... fma(v_0,
+    x_0, 0))``, its entries in order: what a gather-multiply-reduce over
+    padded rows gives on XLA's CPU backend, which contracts the multiply
+    into the sum (the JAX package's ``EllMatrix`` products on the CPU).
+    ``torch.addcmul`` is that fused multiply-add on the CPU.  With
+    ``base``, ``base + A x``: added after the sums, except where no row
+    has two entries (a padded width of 1, whose reduction XLA removes):
+    there the product fuses into the addition, ``fma(v_0, x_0, base)``."""
+    slots = op.row_slots()
+    y = torch.zeros(op.n_out, dtype=op.vals.dtype, device=op.vals.device)
+    if base is not None and len(slots) <= 1:
+        y, base = base.clone(), None
+    idx = op.indices.long()
+    for entries, rows in slots:
+        y[rows] = torch.addcmul(y[rows], op.vals[entries], x[idx[entries]])
+    return y if base is None else base + y
+
+
+def csr_spmv_plus(op: "CsrOperand", x, base):
+    """``base + A x`` for the CSR operand ``op``: H-CSR and an addition on
+    the card; on the CPU, for a ``fused`` operand, rounded as
+    :func:`csr_spmv_fused_reference` rounds it."""
+    if x.device.type == "cpu" and op.fused:
+        return csr_spmv_fused_reference(op, x, base)
+    return base + csr_spmv(op, x)
 
 
 def csr_spmm_reference(indptr, indices, vals, x, n_out):
@@ -261,6 +306,8 @@ def csr_spmv(op: CsrOperand, x):
     """``y = A x`` for the CSR operand ``op``; ``x`` (n_in,) may be a
     contiguous view at a storage offset."""
     if x.device.type == "cpu":
+        if op.fused:
+            return csr_spmv_fused_reference(op, x)
         return csr_spmv_reference(op.indptr, op.indices, op.vals, x,
                                   op.n_out)
     if x.device.type != "cuda":

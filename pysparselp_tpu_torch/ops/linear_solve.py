@@ -29,11 +29,13 @@ DENSE_MAX_DIM = 4096
 
 def cholesky_upper(m):
     """``(u, ok)``: the upper Cholesky factor of the SPD ``m`` (``uᵀu =
-    m``) and a 0-d bool, False where the factorization failed; the factor
-    is then all NaN (the JAX ``cho_factor``'s result)."""
+    m``; a batch ``(..., k, k)`` factors each matrix) and a bool per
+    matrix, False where the factorization failed; that factor is then all
+    NaN (the JAX ``cho_factor``'s result)."""
     u, info = torch.linalg.cholesky_ex(m, upper=True, check_errors=False)
     ok = info == 0
-    return torch.where(ok, u, torch.full_like(u, float("nan"))), ok
+    return torch.where(ok[..., None, None], u,
+                       torch.full_like(u, float("nan"))), ok
 
 
 def cholesky_solve(u, b):

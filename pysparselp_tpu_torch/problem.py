@@ -344,6 +344,15 @@ class CsrMatrix:
             return _csr.csr_spmv(self.csr_t, y)
         return _csr.csr_spmm(self.csr_t, y)
 
+    def matvec_plus(self, x, base):
+        """``base + A x`` (:func:`~pysparselp_tpu_torch.ops.csr_spmv.
+        csr_spmv_plus`)."""
+        return _csr.csr_spmv_plus(self.csr, x, base)
+
+    def rmatvec_plus(self, y, base):
+        """``base + Aᵀ y``."""
+        return _csr.csr_spmv_plus(self.csr_t, y, base)
+
     @staticmethod
     def _row_sum(indptr, v, n):
         rows = torch.repeat_interleave(torch.arange(n, device=v.device),
@@ -365,7 +374,11 @@ class CsrMatrix:
             c.indptr, c.indices, c.vals * c.vals, c.n_in, c.plan)), d)
 
     @staticmethod
-    def from_scipy(a, dtype, device) -> "CsrMatrix":
+    def from_scipy(a, dtype, device, fused=False) -> "CsrMatrix":
+        """``fused=True``: on the CPU, both products round each row as a
+        fused multiply-add chain, as the JAX package's gather products do
+        there (the dual ascent solvers, whose exact comparisons of reduced
+        costs need that rounding)."""
         csr = scipy.sparse.csr_matrix(a, dtype=np.float64)
         csr.sum_duplicates()
         if csr.nnz > _csr.MAX_NNZ:
@@ -374,9 +387,10 @@ class CsrMatrix:
         m, n = csr.shape
         return CsrMatrix(
             csr=_csr.CsrOperand.from_host(csr.indptr, csr.indices, csr.data,
-                                          n, dtype, device),
+                                          n, dtype, device, fused),
             csr_t=_csr.CsrOperand.from_host(csc.indptr, csc.indices,
-                                            csc.data, m, dtype, device),
+                                            csc.data, m, dtype, device,
+                                            fused),
             nrows=m, ncols=n)
 
 

@@ -7,7 +7,10 @@ Ported so far:
   ``torch.distributed`` group (``parallel.sharded_cp``);
 * ``mehrotra`` (:mod:`.mehrotra`, the interior point on the normal
   equations: dense Cholesky or device CG);
-* ``admm`` and ``admm2`` (:mod:`.admm`);
+* ``admm`` and ``admm2`` (:mod:`.admm`) and ``admm_blocks``
+  (:mod:`.admm_blocks`, consensus ADMM over the model's blocks);
+* ``dual_gradient_ascent`` and ``dual_coordinate_ascent`` (both modes;
+  :mod:`.dual_ascent`);
 * the host bridges ``scipy_simplex`` / ``scipy_interior_point`` (HiGHS
   through scipy, :mod:`.scipy_bridge`), which run on the host whatever
   ``device`` says.
@@ -15,10 +18,11 @@ Ported so far:
 ``dispatch`` performs the same per-method host-side conversions as the JAX
 package's: CP-PPD removes fixed variables (warm starts mapped into the
 reduced space), Mehrotra removes fixed variables and converts to slack
-form, and every solution and callback iterate is mapped back with
-``x_original = m_change @ x_new + shift``; ADMM and the bridges take the
-full LP.  ``mesh=`` with ``mehrotra``/``admm``/``admm2``, and every other
-method, raise ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+form, DCA removes fixed variables, and every solution and callback
+iterate is mapped back with ``x_original = m_change @ x_new + shift``;
+ADMM, dual gradient ascent and the bridges take the full LP.  ``mesh=``
+with any method but ``chambolle_pock_ppd``, and the optional bridges, raise
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -32,9 +36,6 @@ from .base import mirror_callback_attrs, to_np
 
 # methods of the JAX package not ported yet -> the ROADMAP.md item that ports them
 _NOT_PORTED = {
-    "admm_blocks": "Queue 1, M7",
-    "dual_gradient_ascent": "Queue 1, M7",
-    "dual_coordinate_ascent": "Queue 1, M7",
     "osqp": "Queue 1, M7 (host bridges)",
     "ECOS": "Queue 1, M7 (host bridges)",
     "SCS": "Queue 1, M7 (host bridges)",
@@ -106,12 +107,19 @@ def dispatch(
             start_time=start_time, nb_iter_plot=nb_iter_plot,
         )
 
-    if method in ("admm", "admm2"):
+    if method in ("admm", "admm2", "admm_blocks"):
         from .admm import lp_admm, lp_admm2
+        from .admm_blocks import lp_admm_block_decomposition
 
         a_ineq = _csr(lp.a_inequalities)
         a_eq = _csr(lp.a_equalities)
-        return (lp_admm if method == "admm" else lp_admm2)(
+        # admm_blocks splits the systems by the model's row blocks
+        for a, blocked in ((a_ineq, lp.a_inequalities),
+                           (a_eq, lp.a_equalities)):
+            if a is not None:
+                a.blocks = list(blocked.blocks)
+        return {"admm": lp_admm, "admm2": lp_admm2,
+                "admm_blocks": lp_admm_block_decomposition}[method](
             lp.costsvector, a_eq,
             lp.b_equalities if a_eq is not None else None, a_ineq,
             lp.b_lower if a_ineq is not None else None,
@@ -152,6 +160,11 @@ def dispatch(
             **solver_kwargs,
         )
         return m_change1 @ (m_change2 @ x + shift2) + shift1
+
+    if method in ("dual_gradient_ascent", "dual_coordinate_ascent"):
+        return _dual_ascent(lp, method, x0, nb_iter, max_time,
+                            callback_func, nb_iter_plot, start_time, dtype,
+                            device, dict(solver_kwargs, mesh=mesh))
 
     if mesh is not None:
         from ..parallel.mesh import check_mesh
@@ -250,4 +263,39 @@ def dispatch(
         # return the best feasible integer-rounded iterate the solver
         # tracked (``ChambollePockPPD.py:274-291``)
         x = _best
+    return m_change @ x + shift
+
+
+def _dual_ascent(lp, method, x0, nb_iter, max_time, callback_func,
+                 nb_iter_plot, start_time, dtype, device, solver_kwargs):
+    """The dual ascent branches of :func:`dispatch` (JAX's
+    ``solvers/__init__.py:270-310``): DGA on the full LP, DCA on the LP
+    with its fixed variables removed, its solution and callback iterates
+    mapped back.  Both solvers refuse ``mesh=`` (ROADMAP M9)."""
+    from .dual_ascent import dual_coordinate_ascent, dual_gradient_ascent
+
+    y_eq = solver_kwargs.pop("y_eq", None)
+    y_ineq = solver_kwargs.pop("y_ineq", None)
+    if method == "dual_gradient_ascent":
+        x, _y_eq, _y_ineq = dual_gradient_ascent(
+            x=x0, lp=lp, nb_max_iter=nb_iter, callback_func=callback_func,
+            y_eq=y_eq, y_ineq=y_ineq, max_time=max_time,
+            nb_iter_plot=nb_iter_plot, dtype=dtype, start_time=start_time,
+            device=device, **solver_kwargs,
+        )
+        return x
+
+    lp_reduced = copy.deepcopy(lp)
+    m_change, shift = lp_reduced.remove_fixed_variables()
+    x0_r = None if x0 is None else m_change.T @ (np.asarray(x0) - shift)
+
+    def back(niter, sol, e1, e2, dur, mveq, mvineq):
+        callback_func(niter, m_change @ sol + shift, e1, e2, dur, mveq, mvineq)
+
+    x, _y_eq, _y_ineq = dual_coordinate_ascent(
+        x=x0_r, lp=lp_reduced, nb_max_iter=nb_iter, callback_func=back,
+        y_eq=y_eq, y_ineq=y_ineq, max_time=max_time,
+        nb_iter_plot=nb_iter_plot, dtype=dtype, start_time=start_time,
+        device=device, **solver_kwargs,
+    )
     return m_change @ x + shift

@@ -18,6 +18,11 @@ restart controller's ``rstate``; :func:`state_to_numpy` goes back.  Together
 they let both packages run on the same lowered problem.
 :func:`sharded_from_jax` carries one rank's shard of the JAX row-sharded
 solver's data and state (its per-shard DIA layout) to the port's.
+:func:`key_from_jax` / :func:`key_to_jax` carry a ``jax.random`` key (its
+two uint32 words, as numpy) to the port's key pair and back, and
+:func:`ell_rows_from_jax` a JAX ``EllMatrix``'s padded rows to the
+:class:`~pysparselp_tpu_torch.ops.dca_sweep.EllRows` the coordinate sweep
+walks.
 """
 
 from __future__ import annotations
@@ -202,3 +207,29 @@ def sharded_from_jax(data, state, ndev, rank, dtype=None, device="cpu"):
     return place_shard(data["c"], data["lb"], data["ub"], data["diag_t"],
                        data["theta"], systems, _np(state["x"]),
                        _np(state["x3"]), ys, dt, dev)
+
+
+def key_from_jax(key):
+    """The port's key pair ``(k1, k2)`` from a raw JAX PRNG key (any array
+    of its two uint32 words)."""
+    k1, k2 = (int(v) & 0xFFFFFFFF for v in np.asarray(key).reshape(-1))
+    return (k1, k2)
+
+
+def key_to_jax(key):
+    """The port's key pair as the raw JAX key's uint32 words (numpy; pass
+    it to ``jnp.asarray``)."""
+    return np.asarray(key, dtype=np.uint32)
+
+
+def ell_rows_from_jax(ell, dtype=None, device="cpu"):
+    """The padded row view of a JAX ``EllMatrix`` (its ``vals`` / ``cols``
+    tables, padding slots included), as the coordinate sweep walks it."""
+    from ..ops.dca_sweep import EllRows
+
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype, dev)
+    return EllRows(
+        vals=torch.as_tensor(_np(ell.vals), dtype=dt, device=dev),
+        cols=torch.as_tensor(np.asarray(ell.cols, np.int32), device=dev),
+        ncols=int(ell.ncols))

@@ -13,6 +13,7 @@ import torch
 from pysparselp_tpu_torch import SparseLP
 from pysparselp_tpu_torch.modeling import solving_methods
 from pysparselp_tpu_torch.problem import resolve_device, resolve_dtype
+from pysparselp_tpu_torch.solvers import _NOT_PORTED
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,10 +42,19 @@ def test_import_leaves_jax_out():
             "pysparselp_tpu_torch.solvers.mehrotra, "
             "pysparselp_tpu_torch.solvers.admm, "
             "pysparselp_tpu_torch.examples.basis_pursuit_denoising, "
+            "pysparselp_tpu_torch.utils.jax_prng, "
+            "pysparselp_tpu_torch.ops.linesearch, "
+            "pysparselp_tpu_torch.ops.dca_sweep, "
+            "pysparselp_tpu_torch.integer, "
+            "pysparselp_tpu_torch.integer.rounding, "
+            "pysparselp_tpu_torch.integer.propagation, "
+            "pysparselp_tpu_torch.solvers.dual_ascent, "
+            "pysparselp_tpu_torch.solvers.admm_blocks, "
+            "pysparselp_tpu_torch.examples.bipartite_matching, "
             "chip_smoke; "
             "sys.path.insert(0, 'scripts'); import probe_csr_spmv, "
             "probe_bsr_spmv, profile_port, profile_mesh, time_presolve, "
-            "compare_kernels; "
+            "compare_kernels, probe_dca_sweep; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('pysparselp_tpu.') or "
             "m == 'pysparselp_tpu' for m in sys.modules), 'JAX package'")
@@ -65,7 +75,8 @@ def test_no_port_file_imports_jax():
                    os.path.join("scripts", "probe_bsr_spmv.py"),
                    os.path.join("scripts", "profile_mesh.py"),
                    os.path.join("scripts", "time_presolve.py"),
-                   os.path.join("scripts", "compare_kernels.py")):
+                   os.path.join("scripts", "compare_kernels.py"),
+                   os.path.join("scripts", "probe_dca_sweep.py")):
         with open(os.path.join(REPO, script)) as f:
             text = f.read()
         assert "import jax" not in text and "pysparselp_tpu." not in (
@@ -101,13 +112,27 @@ def test_default_device_is_cuda():
         lp.solve(method="chambolle_pock_ppd", nb_iter=10)
 
 
-@pytest.mark.parametrize("method", sorted(
-    set(solving_methods) - {"chambolle_pock_ppd", "scipy_simplex",
-                            "scipy_interior_point", "mehrotra", "admm",
-                            "admm2"}))
+@pytest.mark.parametrize("method", sorted(_NOT_PORTED))
 def test_unported_methods_name_their_roadmap_item(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _tiny_lp().solve(method=method, nb_iter=10, device="cpu")
+    """Only the optional bridges are left unported: with their package
+    installed they are valid methods that raise naming their ROADMAP item;
+    without it (as here) they are not valid methods at all."""
+    if method in solving_methods:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            _tiny_lp().solve(method=method, nb_iter=10, device="cpu")
+    else:
+        with pytest.raises(ValueError, match="available methods"):
+            _tiny_lp().solve(method=method, nb_iter=10, device="cpu")
+
+
+@pytest.mark.parametrize("method", ["admm_blocks", "dual_gradient_ascent",
+                                    "dual_coordinate_ascent"])
+def test_mesh_with_dual_and_block_methods_names_m9(method):
+    """These methods run on one device; ``mesh=`` (their sharded JAX
+    solvers) is refused naming ROADMAP M9."""
+    with pytest.raises(NotImplementedError, match="M9"):
+        _tiny_lp().solve(method=method, nb_iter=10, device="cpu",
+                         mesh=object())
 
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object())])

@@ -430,7 +430,11 @@ def test_warm_start_resumes_exactly():
                                  os.path.join("solvers", "highs_bridge.py"),
                                  "preconditioning.py",
                                  os.path.join("examples",
-                                              "basis_pursuit_denoising.py")])
+                                              "basis_pursuit_denoising.py"),
+                                 os.path.join("examples",
+                                              "bipartite_matching.py"),
+                                 os.path.join("integer", "__init__.py"),
+                                 os.path.join("integer", "rounding.py")])
 def test_verbatim_host_copies(rel):
     """Copies kept verbatim: the port's file is the original plus one
     header line naming it."""
@@ -440,6 +444,53 @@ def test_verbatim_host_copies(rel):
         header, copy_ = f.read().split("\n", 1)
     assert header.startswith("# Verbatim copy of pysparselp_tpu/")
     assert copy_ == original
+
+
+def test_propagation_copies():
+    """``integer/_propagate.cpp`` is the original byte for byte;
+    ``integer/propagation.py`` is the original with two header lines and
+    another ``_load_native`` (it builds into the port's build directory)."""
+    def text(pkg, name):
+        with open(os.path.join(REPO, pkg, "integer", name)) as f:
+            return f.read()
+
+    assert text("pysparselp_tpu_torch", "_propagate.cpp") == text(
+        "pysparselp_tpu", "_propagate.cpp")
+
+    def without_loader(src):
+        start = src.index("def _load_native():")
+        return src[:start] + src[src.index("def _ptr("):]
+
+    port = text("pysparselp_tpu_torch", "propagation.py").split("\n", 2)
+    assert port[0].startswith("# Copy of pysparselp_tpu/integer/")
+    assert without_loader(port[2]) == without_loader(
+        text("pysparselp_tpu", "propagation.py"))
+
+
+def test_propagation_native_matches_python():
+    """The port's native propagation (built into its build directory)
+    tightens bounds as the pure-Python path does."""
+    from pysparselp_tpu_torch.integer import propagation
+
+    rng = np.random.RandomState(3)
+    a = scipy.sparse.random(40, 30, density=0.15, random_state=3,
+                            format="csr")
+    a.data = np.round(a.data * 4) + 1
+    b_upper = np.asarray(a.sum(axis=1)).ravel() * 0.5
+    b_lower = np.full(40, -np.inf)
+    outs = []
+    for native in (True, False):
+        x_l, x_u, log = np.zeros(30), np.ones(30), []
+        x_l[rng.choice(30, 3, replace=False)] = 1.0
+        status = propagation.propagate_constraints(
+            np.nonzero(x_l)[0], x_l, x_u, a, a.tocsc(), b_lower, b_upper,
+            log, use_native=native)
+        outs.append((status, x_l, x_u))
+        rng = np.random.RandomState(3)
+    assert propagation._LIB is not None
+    assert outs[0][0] == outs[1][0]
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+    np.testing.assert_array_equal(outs[0][2], outs[1][2])
 
 
 def _same_lp(a, b):
