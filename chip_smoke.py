@@ -121,9 +121,13 @@ The dual ascent solvers and ``admm_blocks`` add:
   sequential sweep on SC105's one-sided systems, Potts-20, Potts-50, the
   50 x 50 matching LP and Potts-300's first 2,000 rows (c̄ in global
   memory), the colour steps of Potts-50, float32 and float64, bit for bit
-  (y, c̄, the returned key); device time per sweep and per row, the bytes
-  bound, the twin's time over 1,000 rows extrapolated per sweep; the full
-  Potts-300 sweep and colour sweep in float32;
+  (y, c̄, the returned key); each sweep's levels and schedule seconds, its
+  device time split over the key chain, the draws (with the rows staged in
+  level order) and the levels, per row
+  and per level, the three-part bound (bytes, levels, chain: DCA_* below),
+  the twin's time over 1,000 rows extrapolated per sweep; the full
+  Potts-300 sweep against the level-by-level twin and the colour sweep
+  against its twin, in float32;
 * phase 8, last: ``main_path_dga_potts`` (Potts-50 float64 on the card
   against the CPU, Potts-300 float32: rate, launches, busy share),
   ``main_path_admm_blocks_l1svm`` (the L1-SVM example's accuracy, rate
@@ -2784,6 +2788,48 @@ def dca_state(torch, system, dtype, seed=0, rows=None):
             t(c + a.T @ y), t(lb), t(ub))
 
 
+# H-DCA's least time is the largest of three (dca_bound): its bytes; its
+# levels, one after another, each at least an L2 round trip for c̄ (taken
+# as 200 cycles; 30 where c̄ is in shared memory), the row's dependent
+# arithmetic (40: a division, the compares, the scans and the search of a
+# short row) and a block barrier (20); and its key chain, m threefry-2x32
+# links one after another, each 45 dependent integer operations (20 rounds
+# of an add and a xor, 5 key injections on the path) of at least 4 cycles.
+# NVIDIA publishes none of these latencies; the figures are below what
+# Hopper microbenchmarks report, so the bound stays a least time.
+DCA_LEVEL_CYCLES = {True: 30 + 40 + 20, False: 200 + 40 + 20}
+DCA_LINK_OPS, DCA_INT_OP_CYCLES = 45, 4
+# H-DCA's three kernels a sequential sweep, by the profiler's names
+DCA_SWEEP_KERNELS = {"chain": "dca_chain_kernel", "stage": "dca_stage_kernel",
+                     "levels": "dca_levels"}
+
+
+def dca_bound(nbytes, m, levels, cbar_in_smem, sm_mhz):
+    """H-DCA's three least times of a sequential sweep in ms (``bytes``,
+    ``levels``, ``chain``), the largest (``bound_ms``) and which binds."""
+    parts = dict(
+        bytes=nbytes / HBM_BYTES_PER_S * 1e3,
+        levels=levels * DCA_LEVEL_CYCLES[cbar_in_smem] / sm_mhz * 1e-3,
+        chain=m * DCA_LINK_OPS * DCA_INT_OP_CYCLES / sm_mhz * 1e-3)
+    binds = max(parts, key=parts.get)
+    return dict(parts, bound_ms=parts[binds], binds=binds)
+
+
+def dca_sweep_split(torch, fn, reps=3):
+    """Device ms per sequential sweep ``fn()`` of each of H-DCA's three
+    kernels (the mean of its profiler events: each runs once a sweep) and
+    their sum."""
+    events = profiled_kernels(torch, fn, reps)
+    out = {}
+    for part, name in DCA_SWEEP_KERNELS.items():
+        dev = [e.time_range.elapsed_us() for e in events if name in e.name]
+        if not dev:
+            raise AssertionError(f"H-DCA: the profiler saw no {name}")
+        out[part] = sum(dev) / len(dev) * 1e-3
+    out["total"] = sum(out.values())
+    return out
+
+
 def dca_sweep_bytes(a, k, itemsize):
     """The least bytes of a sweep over the rows of ``a`` padded to ``k``
     slots: the padded values and int32 columns read once, b, the active
@@ -2819,15 +2865,19 @@ def device_ms(torch, fn, name, counter, reps=3):
             * per_call * 1e-3)
 
 
-def phase_dca_kernels(torch, table):
-    """H-DCA against its twin on the card: the sequential sweep (one
-    launch per system) on SC105's one-sided systems, Potts-20, Potts-50
-    and the 50 x 50 matching LP, the colour steps of Potts-50, and
-    Potts-300's first 2,000 rows (c̄ past shared memory), float32 and
-    float64, compared bit for bit (y, c̄ and the returned key); device
-    time per sweep and per row, the bytes bound, the twin's time on the
-    card over 1,000 rows extrapolated per sweep; then the full Potts-300
-    sweep and colour sweep in float32 (the main path's)."""
+def phase_dca_kernels(torch, table, sm_mhz):
+    """H-DCA against its twin on the card: the sequential sweep (three
+    launches per system: key chain, draws and staging, levels) on SC105's
+    one-sided systems, Potts-20, Potts-50 and the 50 x 50 matching LP, the
+    colour steps of Potts-50, and Potts-300's first 2,000 rows (c̄ past
+    shared memory), float32 and float64, compared bit for bit (y and c̄ as
+    integers, and the returned key); device time per sweep and its split
+    over the three kernels, per row and per level, the three-part bound, the
+    twin's time on the card over 1,000 rows extrapolated per sweep; then
+    Potts-300 in float32 (the main path's): the full sequential sweep
+    against the level-by-level twin (itself equal to the row-by-row twin on
+    the first 2,000 rows here and on every CPU test), its levels and
+    schedule seconds, and the colour sweep against its twin."""
     import numpy as np
 
     from pysparselp_tpu_torch.examples.potts import build_linear_program
@@ -2844,39 +2894,58 @@ def phase_dca_kernels(torch, table):
                                 lp300.upper_bounds)
     key = prng_key(1)
 
+    def bits(t):
+        return t.view(torch.int32 if t.dtype == torch.float32
+                      else torch.int64)
+
     def same(got, want, what):
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if not (torch.equal(bits(got[0]), bits(want[0]))
+                and torch.equal(bits(got[1]), bits(want[1]))
                 and got[2:] == want[2:]):
             raise AssertionError(f"H-DCA {what}: kernel and twin differ")
+
+    def timed(args, a_rows, project, itemsize, reps=3):
+        ell, m = args[0], a_rows.shape[0]
+        split_ms = dca_sweep_split(
+            torch, lambda: dca.dca_sweep(*args, key, project), reps)
+        smem = dca.cbar_in_smem(ell.vals.shape[1], ell.ncols, itemsize)
+        bound = dca_bound(dca_sweep_bytes(a_rows, ell.vals.shape[1],
+                                          itemsize),
+                          m, ell.schedule.levels, smem, sm_mhz)
+        return dict(
+            rows=m, width=ell.vals.shape[1], n=ell.ncols,
+            levels=ell.schedule.levels,
+            schedule_s=ell.schedule.seconds, cbar_in_smem=smem,
+            bit_equal=True, device_ms_per_sweep=split_ms["total"],
+            device_ms_split=split_ms,
+            device_us_per_row=split_ms["total"] / m * 1e3,
+            levels_us_per_level=(split_ms["levels"] / ell.schedule.levels
+                                 * 1e3),
+            chain_ns_per_link=split_ms["chain"] / m * 1e6,
+            bound=bound)
 
     records = []
     for name, system in systems.items():
         project = name.endswith("_ineq")
-        a = system[0]
         rows = 2000 if name.startswith("potts300") else None
-        m = rows or a.shape[0]
+        m = rows or system[0].shape[0]
         for dt in (torch.float32, torch.float64):
             dname = str(dt).split(".")[1]
             args = dca_state(torch, system, dt, rows=rows)
-            ell = args[0]
             got = dca.dca_sweep(*args, key, project)
             want = dca.dca_sweep_reference(*args, key, project)
             same(got, want, f"{name} {dname}")
+            if rows:
+                same(dca.dca_sweep_levels_reference(*args, key, project),
+                     want, f"{name} {dname}: level twin")
             itemsize = torch.empty((), dtype=dt).element_size()
-            nbytes = dca_sweep_bytes(a[:m], ell.vals.shape[1], itemsize)
-            ms = device_ms(torch, lambda: dca.dca_sweep(*args, key, project),
-                           "dca_sweep_kernel", dca.dca_sweep)
             sub = dca_state(torch, system, dt, rows=min(m, 1000))
             plain = cuda_ms(torch, lambda: dca.dca_sweep_reference(
                 *sub, key, project), 1) / sub[0].vals.shape[0] * m
-            smem = (dca.cbar_in_smem(ell.vals.shape[1], a.shape[1],
-                                     itemsize))
-            records.append(dict(
-                system=name, dtype=dname, rows=m, width=ell.vals.shape[1],
-                n=a.shape[1], cbar_in_smem=smem, bit_equal=True,
-                device_ms_per_sweep=ms, device_us_per_row=ms / m * 1e3,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                plain_ms_per_sweep=plain))
+            records.append(dict(system=name, dtype=dname,
+                                plain_ms_per_sweep=plain,
+                                **timed(args, system[0][:m], project,
+                                        itemsize)))
 
     # the colour steps of Potts-50, group by group against the twin
     a, b, c, lb, ub = systems["potts50_ineq"]
@@ -2901,6 +2970,15 @@ def phase_dca_kernels(torch, table):
     a, b, c, lb, ub = systems["potts300_ineq"]
     args = dca_state(torch, systems["potts300_ineq"], torch.float32)
     ell = args[0]
+    t0 = time.perf_counter()
+    got = dca.dca_sweep(*args, key, True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = dca.dca_sweep_levels_reference(*args, key, True)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    same(got, want, "potts300 float32 sequential sweep")
     groups = [torch.as_tensor(g, dtype=torch.int32, device="cuda")
               for g in _color_rows(a)]
 
@@ -2923,9 +3001,7 @@ def phase_dca_kernels(torch, table):
 
     got, want = colour_sweep(), colour_twin()
     same(got, want, "potts300 colour sweep float32")
-    nbytes = dca_sweep_bytes(a, ell.vals.shape[1], 4)
-    seq_ms = device_ms(torch, lambda: dca.dca_sweep(*args, key, True),
-                       "dca_sweep_kernel", dca.dca_sweep, reps=2)
+    seq = timed(args, a, True, 4, reps=2)
     sub = dca_state(torch, systems["potts300_ineq"], torch.float32,
                     rows=1000)
     seq_plain = cuda_ms(torch, lambda: dca.dca_sweep_reference(
@@ -2933,23 +3009,24 @@ def phase_dca_kernels(torch, table):
     col_ms = device_ms(torch, colour_sweep, "dca_color_kernel",
                        dca.dca_color_step)
     col_plain = cuda_ms(torch, colour_twin, 2)
+    level_sizes = np.diff(ell.schedule.ptr.cpu().numpy())
     records.append(dict(system="potts300_ineq", dtype="float32",
-                        rows=a.shape[0], n=a.shape[1],
-                        width=ell.vals.shape[1], groups=len(groups),
-                        device_ms_per_sweep=seq_ms,
-                        device_us_per_row=seq_ms / a.shape[0] * 1e3,
+                        groups=len(groups), **seq,
+                        level_rows_median=float(np.median(level_sizes)),
+                        level_rows_max=int(level_sizes.max()),
+                        first_sweep_wall_s=first_s,
+                        level_twin_wall_s=twin_s,
                         plain_ms_per_sweep=seq_plain,
                         colour_device_ms_per_sweep=col_ms,
-                        colour_plain_ms_per_sweep=col_plain,
-                        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+                        colour_plain_ms_per_sweep=col_plain))
     emit("kernels_dca", records=records,
          library="none: no one PyTorch call runs a coordinate sweep")
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    table["H-DCA"].update(max_abs_err=0.0, ms=seq_ms, plain_ms=seq_plain,
-                          bound_ms=bound_ms, bound_by="bytes",
-                          library_ms=None)
+    bound = seq["bound"]
+    table["H-DCA"].update(max_abs_err=0.0, ms=seq["device_ms_per_sweep"],
+                          plain_ms=seq_plain, bound_ms=bound["bound_ms"],
+                          bound_by="operations", library_ms=None)
     table["H-DCA-C"].update(max_abs_err=0.0, ms=col_ms, plain_ms=col_plain,
-                            bound_ms=bound_ms, bound_by="bytes",
+                            bound_ms=bound["bytes"], bound_by="bytes",
                             library_ms=None)
 
 
@@ -3239,7 +3316,7 @@ def main() -> int:
                              "dia"),
         "clime_rcm": (apply_rcm_permutation(folded(clime))[0]["a_ineq"],
                       "bsr")}, table)
-    phase_dca_kernels(torch, table)
+    phase_dca_kernels(torch, table, sm_mhz)
 
     # phase 3: the main path on Potts-300
     lp300 = build_linear_program(300, 0.5, 500)[0]

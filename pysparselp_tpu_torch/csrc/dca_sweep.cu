@@ -6,8 +6,8 @@
 // (pysparselp_tpu/solvers/dual_ascent.py:323 and :342, a fori_loop over
 // every row in order, chained through the reduced costs c_bar) and one
 // colour group of _dca_color_sweep (:285).  PyTorch has no device loop, and
-// written as tensor operations a row step is some 20 launches; this kernel
-// runs a whole sequential sweep in ONE launch, and a colour group in one.
+// written as tensor operations a row step is some 20 launches; a sequential
+// sweep here is three launches, and a colour group one.
 //
 // Row i of the padded row view (width K = the longest row; padding slots
 // hold value 0 at column 0, as the JAX EllMatrix) takes the step of
@@ -26,30 +26,46 @@
 // twin's separate operations (torch.addcmul for the fused one), so the
 // kernel and the twin give the same bits.
 //
+// The sequential sweep runs on a level schedule (ops/dca_sweep.py,
+// LevelSchedule, built once per row view on the host): row i's level is one
+// more than the highest level of any earlier row that touches one of its
+// columns, a padding slot touching column 0.  Rows of one level share no
+// column, so running the levels in order, a level's rows at once, gives
+// each row the c_bar the row-by-row sweep gives it and each column its
+// updates in the same order: the same bits, in L dependent steps instead
+// of m (Potts-300: 602 levels of at most 1,190 rows for 358,800 rows).
+//
 // The draws: the sequential sweep splits the key once per row, active or
 // not (key' = threefry(key, (0, 0)), sub = threefry(key, (0, 1))) and draws
 // tie_t = uniform(sub); this is jax.random's stream bit for bit
-// (utils/jax_prng.py holds the host copy).  The chain does not depend on
-// the data, so a second warp runs it ahead of the rows and hands the draws
-// over through a ring in shared memory; the final key comes back to the
-// host.  A colour group's row r draws uniform(sub, (rows,))[r] =
-// threefry(sub, (0, r)) itself.
+// (utils/jax_prng.py holds the host copy).  The chain of keys has no jump
+// ahead, so one thread runs it (dca_chain_kernel, its own launch) and
+// writes each row's key; a grid then hashes every row's sub key and draw
+// (dca_stage_kernel); the final key comes back to the host.  A colour
+// group's row r draws uniform(sub, (rows,))[r] = threefry(sub, (0, r))
+// itself.
 //
-// Bound on the H100 (3.35 TB/s HBM at 700 W): neither bytes nor operations.
-// A sweep reads each row's values and columns, lb, ub and c_bar at its
-// columns and writes y and c_bar once per entry (Potts-300: 358,800 rows of
-// <= 3 entries, 30.5 MB, 9.1 us of HBM time), but row i + 1 reads the c_bar
-// that row i wrote: the sweep is a chain of m dependent steps, and its time
-// is m times the latency of one step (a c_bar read, the search, the
-// update): ~2 us a row, 0.73 s a Potts-300 sweep on an NVIDIA H100 80GB
-// HBM3 at 700 W (PERF.md).  Design against the latency: one CTA; the rows'
-// values, columns and bounds are loaded one row ahead; c_bar lives in shared memory when
-// it fits (n * itemsize beside the scratch, within 227 KB: Potts-20/50,
-// SC105, the matching LP), in global memory otherwise (Potts-300); the
-// searches of a row run across one warp (slots, ranks) and its serial part
-// (scans, search, update) on one lane; the key chain runs on another warp.
+// Bound on the H100 (3.35 TB/s HBM at 700 W), the largest of three:
+// bytes (Potts-300: padded values and columns, b, active, y, c_bar and the
+// bounds, 30.5 MB, 9.1 us); the levels, each at least an L2 round trip for
+// c_bar, the row's arithmetic and a block barrier; and the key chain, m
+// threefry links of ~45 dependent integer operations each.  The chain
+// binds: one thread runs nothing else, the other lanes' work (draws,
+// levels) is off it.  The levels run in ONE block (a grid-wide barrier per
+// level would cost more than a level), so its one SM's L1 takes every
+// access of the levels, and a scattered one costs it a transaction per
+// lane: the grid that draws also stages the rows of up to 16 slots in
+// level order, slot-major (values, columns, the bounds at the columns, b,
+// active, the draw), which the level block then reads coalesced; only
+// c_bar and y stay gathers.  Such rows take one thread each, their slots,
+// ranks, scans and search in registers, the next row's staged data and y
+// loaded ahead across the barrier; longer rows take one warp each
+// (row_alpha) and read their rows in place.  c_bar lives in shared memory
+// when it fits (Potts-20/50, SC105, the matching LP), else in global memory
+// (Potts-300: 1.08 MB in float32, L2-resident), read with plain coherent
+// loads: __syncthreads orders global memory within the block.
 // A colour group has disjoint columns, so its rows step in parallel, one
-// warp each.
+// warp each, across a grid.
 
 #include <cstdint>
 
@@ -59,10 +75,11 @@ namespace {
 
 constexpr int kMaxRow = 1024;      // the longest row taken (MAX_ROW)
 constexpr int kScanBase = 16;      // XLA CPU's scan rows (SCAN_BASE)
-constexpr int kRing = 256;         // draws the key warp runs ahead
 constexpr int kScanTmp = 128;      // the recursive scans' row totals
 constexpr int kSmemLimit = 232448; // a block's dynamic shared memory
 constexpr int kColorWarps = 4;     // rows (warps) per colour block
+constexpr int kMaxWarps = 32;      // rows (warps) per level pass, wide rows
+constexpr int kStageBlock = 256;   // threads per staging block
 
 __device__ __forceinline__ uint32_t rotl(uint32_t v, int r) {
   return (v << r) | (v >> (32 - r));
@@ -266,94 +283,352 @@ __device__ T row_alpha(const T* __restrict__ vals, const int* __restrict__ cols,
   return is_tie ? fma(tie, ahi, (T(1) - tie) * alo) : alo;
 }
 
-// The guarded, projected step of row i: writes y[i], returns the change
-// of y (what multiplies the row into c_bar).  Lane 0.
+// The guarded, projected step of row i from its dual y_i: the new y_i, and
+// through `diff` the change of y (what multiplies the row into c_bar).
 template <typename T>
-__device__ __forceinline__ T take_step(T alpha, bool active, T* y, int i,
-                                       int project) {
+__device__ __forceinline__ T step_y(T alpha, bool active, T yi, int project,
+                                    T* diff) {
   alpha = (active && isfinite(alpha)) ? alpha : T(0);
-  const T yi = y[i];
   if (project) {
     T ynew = yi + alpha;
     ynew = ynew < T(0) ? T(0) : ynew;
-    y[i] = ynew;
-    return ynew - yi;
+    *diff = ynew - yi;
+    return ynew;
   }
-  y[i] = yi + alpha;
-  return alpha;
+  *diff = alpha;
+  return yi + alpha;
 }
 
-// The sequential sweep: one CTA of two warps.  Warp 1 runs the key chain
-// ahead into the ring; warp 0 walks the rows.
+// take_step on y in memory: writes y[i], returns the change.  Lane 0.
 template <typename T>
-__global__ void __launch_bounds__(64)
-    dca_sweep_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
+__device__ __forceinline__ T take_step(T alpha, bool active, T* y, int i,
+                                       int project) {
+  T diff;
+  y[i] = step_y(alpha, active, y[i], project, &diff);
+  return diff;
+}
+
+// ---------------------------------------------------------------------
+// the sequential sweep: key chain, draws, levels
+// ---------------------------------------------------------------------
+
+// The key chain, one thread: keys[i] = row i's key, key_{i+1} =
+// threefry(key_i, (0, 0)); the key after the last row to key_out.
+__global__ void __launch_bounds__(1)
+    dca_chain_kernel(uint32_t k1, uint32_t k2, int m,
+                     uint2* __restrict__ keys,
+                     long long* __restrict__ key_out) {
+#pragma unroll 4
+  for (int i = 0; i < m; ++i) {
+    keys[i] = make_uint2(k1, k2);
+    uint32_t n0 = 0, n1 = 0;
+    threefry(k1, k2, n0, n1);
+    k1 = n0;
+    k2 = n1;
+  }
+  key_out[0] = k1;
+  key_out[1] = k2;
+}
+
+// A sequential sweep's workspace (ops/dca_sweep.py::sweep_work_bytes): each
+// row's key, by row; then by position q in level order: the draws and, for
+// rows of up to kScanBase slots, the staged rows (slot j of position q at
+// j m + q).
+template <typename T>
+struct Work {
+  uint2* keys = nullptr;
+  T* draws = nullptr;
+  T *sv = nullptr, *sl = nullptr, *su = nullptr, *sb = nullptr;
+  int* sc = nullptr;
+  uint8_t* sa = nullptr;
+};
+
+template <typename T>
+Work<T> carve_work(void* base, int m, int K) {
+  char* p = static_cast<char*>(base);
+  const long long mk = static_cast<long long>(m) * K;
+  Work<T> w;
+  w.keys = reinterpret_cast<uint2*>(p);
+  p += sizeof(uint2) * static_cast<long long>(m);
+  w.draws = reinterpret_cast<T*>(p);
+  p += sizeof(T) * static_cast<long long>(m);
+  if (K <= kScanBase) {
+    w.sv = reinterpret_cast<T*>(p);
+    w.sl = w.sv + mk;
+    w.su = w.sl + mk;
+    w.sb = w.su + mk;
+    p += sizeof(T) * (3 * mk + m);
+    w.sc = reinterpret_cast<int*>(p);
+    w.sa = reinterpret_cast<uint8_t*>(w.sc + mk);
+  }
+  return w;
+}
+
+// Position q of the level order (row i = perm[q]): its draw uniform(sub_i)
+// with sub_i = threefry(key_i, (0, 1)), and the staged row where the work
+// has room for it.
+template <typename T>
+__global__ void __launch_bounds__(kStageBlock)
+    dca_stage_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
                      const T* __restrict__ b,
-                     const uint8_t* __restrict__ active, T* y, T* cbar,
+                     const uint8_t* __restrict__ active,
                      const T* __restrict__ lb, const T* __restrict__ ub,
-                     int m, int K, int n, uint32_t k1, uint32_t k2,
-                     long long* key_out, int project, int cbar_in_smem) {
+                     const int* __restrict__ perm, int m, int K, Work<T> w) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= m) return;
+  const int i = perm[q];
+  const uint2 k = w.keys[i];
+  uint32_t s0 = 0, s1 = 1;
+  threefry(k.x, k.y, s0, s1);
+  w.draws[q] = uniform_at<T>(s0, s1, 0);
+  if (w.sv == nullptr) return;
+  w.sb[q] = b[i];
+  w.sa[q] = active[i];
+  const long long off = static_cast<long long>(i) * K;
+  for (int j = 0; j < K; ++j) {
+    const int c = cols[off + j];
+    const long long at = static_cast<long long>(j) * m + q;
+    w.sv[at] = vals[off + j];
+    w.sc[at] = c;
+    w.sl[at] = lb[c];
+    w.su[at] = ub[c];
+  }
+}
+
+// arr[idx] for a run-time idx < N, by selects (the array stays in
+// registers).
+template <typename T, int N>
+__device__ __forceinline__ T pick(const T (&arr)[N], int idx) {
+  T r = arr[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) r = j == idx ? arr[j] : r;
+  return r;
+}
+
+// The entry of sorted position p: arr[j] where rank[j] == p.
+template <typename T, int N>
+__device__ __forceinline__ T pick_rank(const T (&arr)[N],
+                                       const int (&rank)[N], int p) {
+  T r = arr[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) r = rank[j] == p ? arr[j] : r;
+  return r;
+}
+
+// What a row of at most KM slots needs besides c_bar and the bounds at its
+// columns: none of it changes during the sweep (y_i only by row i), so it
+// is loaded a row ahead, across the level barrier.
+template <typename T, int KM>
+struct RowIn {
+  T v[KM];
+  int c[KM];
+  T b, y, t;
+  int i, q;
+  bool act;
+};
+
+template <typename T, int KM>
+__device__ __forceinline__ void load_row(RowIn<T, KM>& r, int q,
+                                         const int* __restrict__ perm,
+                                         const Work<T>& w, const T* y, int m,
+                                         int K) {
+  r.i = perm[q];
+  r.q = q;
+#pragma unroll
+  for (int j = 0; j < KM; ++j) {
+    const long long at = static_cast<long long>(j) * m + q;
+    r.v[j] = j < K ? w.sv[at] : T(0);
+    r.c[j] = j < K ? w.sc[at] : 0;
+  }
+  r.b = w.sb[q];
+  r.y = y[r.i];
+  r.t = w.draws[q];
+  r.act = w.sa[q] != 0;
+}
+
+// One row of K <= KM <= kScanBase slots on one thread, in registers:
+// exact_dual_line_search's steps as row_alpha takes them (short scans are
+// plain left-to-right sums), then y_i and c_bar at the row's columns,
+// slot by slot (a column met twice, padding, takes its updates in order).
+template <typename T, int KM>
+__device__ __forceinline__ void thread_row(const RowIn<T, KM>& r, T* cb,
+                                           const Work<T>& w, T* y, int m,
+                                           int K, int project) {
+  T cv[KM], a[KM], lo[KM], hi[KM], d[KM + 1];
+  int rank[KM];
+#pragma unroll
+  for (int j = 0; j < KM; ++j) {
+    cv[j] = a[j] = lo[j] = hi[j] = T(0);
+    if (j < K) {
+      const long long at = static_cast<long long>(j) * m + r.q;
+      const T v = r.v[j];
+      cv[j] = cb[r.c[j]];
+      const bool nz = v != T(0);
+      const T dau = nz ? v * w.su[at] : T(0);
+      const T dal = nz ? v * w.sl[at] : T(0);
+      a[j] = nz ? (-cv[j]) / v : inf<T>();
+      lo[j] = nan_min(dau, dal);
+      hi[j] = nan_max(dau, dal);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KM; ++j) {
+    int rk = 0;
+#pragma unroll
+    for (int q = 0; q < KM; ++q)
+      if (q < K) rk += sort_less(a[q], a[j]) || (q < j && !sort_less(a[j], a[q]));
+    rank[j] = j < K ? rk : -1;
+  }
+  // d[p] = ((-b) + suffix_p) + prefix_p over the sorted slots: suffix_p =
+  // hs[K-1] + ... + hs[p] from the last, prefix_p = ls[0] + ... + ls[p-1]
+  // from the first, each 0 past its end
+  const T nb = -r.b;
+#pragma unroll
+  for (int p = 0; p <= KM; ++p) d[p] = p == K ? nb + T(0) : T(0);
+  T suf = T(0);
+#pragma unroll
+  for (int p = KM - 1; p >= 0; --p) {
+    if (p < K) {
+      const T h = pick_rank(hi, rank, p);
+      suf = p == K - 1 ? h : suf + h;
+      d[p] = nb + suf;
+    }
+  }
+  T pre = T(0);
+#pragma unroll
+  for (int p = 0; p <= KM; ++p) {
+    if (p <= K) {
+      d[p] = d[p] + pre;
+      if (p < K) {
+        const T l = pick_rank(lo, rank, p);
+        pre = p == 0 ? l : pre + l;
+      }
+    }
+  }
+  // jnp.searchsorted(-derivs, 0.0), as row_alpha
+  const int L = K + 1;
+  int levels = 0;
+  while ((1 << levels) < L + 1) ++levels;
+  int low = 0, high = L;
+  for (int it = 0; it < levels; ++it) {
+    const int mid = (low + high) / 2;
+    const T v = -pick(d, mid);
+    if (v >= T(0) || isnan(v)) high = mid;
+    else low = mid;
+  }
+  const int k = min(max(high, 1), K);
+  const T alo = pick_rank(a, rank, k - 1);
+  const T ahi = pick_rank(a, rank, min(k, K - 1));
+  const bool is_tie = pick(d, k) == T(0) && k < K && isfinite(ahi);
+  const T alpha = is_tie ? fma(r.t, ahi, (T(1) - r.t) * alo) : alo;
+  T diff;
+  y[r.i] = step_y(alpha, r.act, r.y, project, &diff);
+  T nv[KM];
+#pragma unroll
+  for (int j = 0; j < KM; ++j) {
+    nv[j] = T(0);
+    if (j < K) {
+      T base = cv[j];
+#pragma unroll
+      for (int q = 0; q < j; ++q)
+        if (r.c[q] == r.c[j]) base = nv[q];
+      nv[j] = base + diff * r.v[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KM; ++j)
+    if (j < K) cb[r.c[j]] = nv[j];
+}
+
+// Threads of the level block for rows of up to KM slots: 1,024 for float
+// rows of up to 4, fewer where a row's registers are more (64 registers a
+// thread at 1,024).
+template <typename T, int KM>
+__host__ __device__ constexpr int level_threads() {
+  return 16384 / (KM * static_cast<int>(sizeof(T))) > 1024
+             ? 1024
+             : 16384 / (KM * static_cast<int>(sizeof(T)));
+}
+
+// The levels, rows of up to KM slots, one thread a row: level l's rows,
+// positions [ptr[l], ptr[l + 1]) of the staged level order, in passes of
+// blockDim rows, a barrier between levels.  Each thread loads its next row
+// (this level's next pass, or the next level's first) before it steps the
+// current one.
+template <typename T, int KM>
+__global__ void __launch_bounds__(level_threads<T, KM>())
+    dca_levels_kernel(T* y, T* cbar, const int* __restrict__ perm,
+                      const int* __restrict__ ptr, int n_levels, int m, int K,
+                      int n, int project, int cbar_in_smem, Work<T> w) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  volatile T* ring = smem;
-  Scratch<T> w(smem + kRing, K);
-  T* cb_smem = smem + kRing + scratch_entries<T>(K);
-  __shared__ volatile int produced, consumed;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  if (tid == 0) {
-    produced = 0;
-    consumed = 0;
+  T* cb_smem = reinterpret_cast<T*>(smem_raw);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  if (cbar_in_smem) {
+    for (int c = tid; c < n; c += nt) cb_smem[c] = cbar[c];
+    __syncthreads();
+  }
+  T* cb = cbar_in_smem ? cb_smem : cbar;
+  // ptr[min(j, n_levels)]: past the last level, empty levels
+  int beg = ptr[0], end = ptr[min(1, n_levels)], end2 = ptr[min(2, n_levels)];
+  RowIn<T, KM> next;
+  if (beg + tid < end) load_row(next, beg + tid, perm, w, y, m, K);
+  for (int l = 0; l < n_levels; ++l) {
+    const int end3 = ptr[min(l + 3, n_levels)];
+    for (int q = beg + tid; q < end; q += nt) {
+      const RowIn<T, KM> cur = next;
+      if (q + nt < end)
+        load_row(next, q + nt, perm, w, y, m, K);
+      else if (end + tid < end2)
+        load_row(next, end + tid, perm, w, y, m, K);
+      thread_row(cur, cb, w, y, m, K, project);
+    }
+    if (beg + tid >= end && end + tid < end2)
+      load_row(next, end + tid, perm, w, y, m, K);
+    __syncthreads();
+    beg = end;
+    end = end2;
+    end2 = end3;
   }
   if (cbar_in_smem)
-    for (int c = tid; c < n; c += blockDim.x) cb_smem[c] = cbar[c];
-  __syncthreads();
-  T* cb = cbar_in_smem ? cb_smem : cbar;
+    for (int c = tid; c < n; c += nt) cbar[c] = cb_smem[c];
+}
 
-  if (warp == 1) {
-    if (lane == 0) {
-      for (int i = 0; i < m; ++i) {
-        uint32_t n0 = 0, n1 = 0, s0 = 0, s1 = 1;
-        threefry(k1, k2, n0, n1);
-        threefry(k1, k2, s0, s1);
-        k1 = n0;
-        k2 = n1;
-        const T t = uniform_at<T>(s0, s1, 0);
-        while (i - consumed >= kRing) {
-        }
-        ring[i % kRing] = t;
-        __threadfence_block();
-        produced = i + 1;
-      }
-      key_out[0] = k1;
-      key_out[1] = k2;
-    }
-  } else {
-    Slot<T> next = load_slot(vals, cols, lb, ub, 0, lane, K);
-    T b_next = m ? b[0] : T(0);
-    bool act_next = m ? active[0] != 0 : false;
-    for (int i = 0; i < m; ++i) {
+// The levels, rows past kScanBase slots, one warp a row, read in place
+// (row_alpha; lane 0 takes the step and updates c_bar slot by slot,
+// padding included).
+template <typename T>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+    dca_levels_warp_kernel(const T* __restrict__ vals,
+                           const int* __restrict__ cols,
+                           const T* __restrict__ b,
+                           const uint8_t* __restrict__ active, T* y, T* cbar,
+                           const T* __restrict__ lb, const T* __restrict__ ub,
+                           const T* __restrict__ draws,
+                           const int* __restrict__ perm,
+                           const int* __restrict__ ptr, int n_levels, int K,
+                           int n, int project, int cbar_in_smem) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
+  Scratch<T> w(smem + warp * scratch_entries<T>(K), K);
+  T* cb_smem = smem + nw * scratch_entries<T>(K);
+  if (cbar_in_smem) {
+    for (int c = tid; c < n; c += nt) cb_smem[c] = cbar[c];
+    __syncthreads();
+  }
+  T* cb = cbar_in_smem ? cb_smem : cbar;
+  for (int l = 0; l < n_levels; ++l) {
+    const int end = ptr[l + 1];
+    for (int q = ptr[l] + warp; q < end; q += nw) {
+      const int i = perm[q];
       const long long off = static_cast<long long>(i) * K;
-      const Slot<T> cur = next;
-      const T b_i = b_next;
-      const bool act = act_next;
-      if (i + 1 < m) {  // the next row's loads, ahead of this row's chain
-        next = load_slot(vals, cols, lb, ub, off + K, lane, K);
-        b_next = b[i + 1];
-        act_next = active[i + 1] != 0;
-      }
-      T tie = T(0);
-      if (lane == 0) {
-        while (produced <= i) {
-        }
-        __threadfence_block();
-        tie = ring[i % kRing];
-        consumed = i + 1;
-      }
+      const Slot<T> first = load_slot(vals, cols, lb, ub, off, lane, K);
+      const T tie = lane == 0 ? draws[q] : T(0);
       const T alpha =
-          row_alpha(vals, cols, lb, ub, off, K, cur, b_i, cb, tie, w, lane);
+          row_alpha(vals, cols, lb, ub, off, K, first, b[i], cb, tie, w, lane);
       if (lane == 0) {
-        const T diff = take_step(alpha, act, y, i, project);
-        // slot by slot in order, padding included (the twin's index_add_)
+        const T diff = take_step(alpha, active[i] != 0, y, i, project);
         for (int j = 0; j < K; ++j) {
           const int c = cols[off + j];
           cb[c] = cb[c] + diff * vals[off + j];
@@ -361,10 +636,10 @@ __global__ void __launch_bounds__(64)
       }
       __syncwarp();
     }
+    __syncthreads();
   }
-  __syncthreads();
   if (cbar_in_smem)
-    for (int c = tid; c < n; c += blockDim.x) cbar[c] = cb_smem[c];
+    for (int c = tid; c < n; c += nt) cbar[c] = cb_smem[c];
 }
 
 // One colour group: one warp per row (the rows' columns are disjoint, so
@@ -403,30 +678,70 @@ __global__ void __launch_bounds__(32 * kColorWarps)
   }
 }
 
-template <typename T>
-long long sweep_smem_bytes(int K, int n, bool* cbar_in_smem) {
-  const long long base = (kRing + scratch_entries<T>(K)) * sizeof(T);
-  const long long with_cbar = base + static_cast<long long>(n) * sizeof(T);
-  *cbar_in_smem = with_cbar <= kSmemLimit;
-  return *cbar_in_smem ? with_cbar : base;
+struct SweepArgs {
+  const int* perm;
+  const int* ptr;
+  int n_levels, m, K, n, project;
+  cudaStream_t stream;
+};
+
+template <typename T, int KM>
+int launch_levels(T* y, T* cbar, const SweepArgs& s, const Work<T>& w) {
+  const long long cbytes = static_cast<long long>(s.n) * sizeof(T);
+  const bool in_smem = cbytes <= kSmemLimit;
+  const int smem = in_smem ? static_cast<int>(cbytes) : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      dca_levels_kernel<T, KM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dca_levels_kernel<T, KM><<<1, level_threads<T, KM>(), smem, s.stream>>>(
+      y, cbar, s.perm, s.ptr, s.n_levels, s.m, s.K, s.n, s.project,
+      in_smem ? 1 : 0, w);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
+int launch_levels_warp(const T* vals, const int* cols, const T* b,
+                       const uint8_t* active, T* y, T* cbar, const T* lb,
+                       const T* ub, const T* draws, const SweepArgs& s) {
+  const long long per_warp = scratch_entries<T>(s.K) * sizeof(T);
+  const int warps = static_cast<int>(
+      min(static_cast<long long>(kMaxWarps), kSmemLimit / per_warp));
+  const long long base = per_warp * warps;
+  const long long cbytes = static_cast<long long>(s.n) * sizeof(T);
+  const bool in_smem = base + cbytes <= kSmemLimit;
+  const int smem = static_cast<int>(base + (in_smem ? cbytes : 0));
+  cudaError_t err = cudaFuncSetAttribute(
+      dca_levels_warp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dca_levels_warp_kernel<T><<<1, 32 * warps, smem, s.stream>>>(
+      vals, cols, b, active, y, cbar, lb, ub, draws, s.perm, s.ptr,
+      s.n_levels, s.K, s.n, s.project, in_smem ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The three launches of a sequential sweep, on one stream.
+template <typename T>
 int launch_sweep(const T* vals, const int* cols, const T* b,
                  const uint8_t* active, T* y, T* cbar, const T* lb,
-                 const T* ub, int m, int K, int n, uint32_t k1, uint32_t k2,
-                 long long* key_out, int project, void* stream) {
-  if (K < 1 || K > kMaxRow) return static_cast<int>(cudaErrorInvalidValue);
-  bool in_smem = false;
-  const long long smem = sweep_smem_bytes<T>(K, n, &in_smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      dca_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                 const T* ub, const SweepArgs& s, uint32_t k1, uint32_t k2,
+                 void* work, long long* key_out) {
+  if (s.K < 1 || s.K > kMaxRow) return static_cast<int>(cudaErrorInvalidValue);
+  const Work<T> w = carve_work<T>(work, s.m, s.K);
+  dca_chain_kernel<<<1, 1, 0, s.stream>>>(k1, k2, s.m, w.keys, key_out);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dca_sweep_kernel<T><<<1, 64, smem, static_cast<cudaStream_t>(stream)>>>(
-      vals, cols, b, active, y, cbar, lb, ub, m, K, n, k1, k2, key_out,
-      project, in_smem ? 1 : 0);
-  return static_cast<int>(cudaGetLastError());
+  dca_stage_kernel<T><<<(s.m + kStageBlock - 1) / kStageBlock, kStageBlock, 0,
+                        s.stream>>>(vals, cols, b, active, lb, ub, s.perm,
+                                    s.m, s.K, w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (s.K <= 4) return launch_levels<T, 4>(y, cbar, s, w);
+  if (s.K <= 8) return launch_levels<T, 8>(y, cbar, s, w);
+  if (s.K <= kScanBase) return launch_levels<T, kScanBase>(y, cbar, s, w);
+  return launch_levels_warp<T>(vals, cols, b, active, y, cbar, lb, ub,
+                               w.draws, s);
 }
 
 template <typename T>
@@ -456,23 +771,29 @@ int launch_color(const T* vals, const int* cols, const T* b,
 PSLP_EXPORT int pslp_dca_sweep_f32(const float* vals, const int* cols,
                                    const float* b, const uint8_t* active,
                                    float* y, float* cbar, const float* lb,
-                                   const float* ub, int m, int K, int n,
-                                   uint32_t k1, uint32_t k2,
-                                   long long* key_out, int project,
-                                   void* stream) {
-  return launch_sweep<float>(vals, cols, b, active, y, cbar, lb, ub, m, K, n,
-                             k1, k2, key_out, project, stream);
+                                   const float* ub, const int* perm,
+                                   const int* level_ptr, int n_levels, int m,
+                                   int K, int n, uint32_t k1, uint32_t k2,
+                                   void* work, long long* key_out,
+                                   int project, void* stream) {
+  const SweepArgs s{perm, level_ptr, n_levels, m, K, n, project,
+                    static_cast<cudaStream_t>(stream)};
+  return launch_sweep<float>(vals, cols, b, active, y, cbar, lb, ub, s, k1,
+                             k2, work, key_out);
 }
 
 PSLP_EXPORT int pslp_dca_sweep_f64(const double* vals, const int* cols,
                                    const double* b, const uint8_t* active,
                                    double* y, double* cbar, const double* lb,
-                                   const double* ub, int m, int K, int n,
-                                   uint32_t k1, uint32_t k2,
-                                   long long* key_out, int project,
-                                   void* stream) {
-  return launch_sweep<double>(vals, cols, b, active, y, cbar, lb, ub, m, K,
-                              n, k1, k2, key_out, project, stream);
+                                   const double* ub, const int* perm,
+                                   const int* level_ptr, int n_levels, int m,
+                                   int K, int n, uint32_t k1, uint32_t k2,
+                                   void* work, long long* key_out,
+                                   int project, void* stream) {
+  const SweepArgs s{perm, level_ptr, n_levels, m, K, n, project,
+                    static_cast<cudaStream_t>(stream)};
+  return launch_sweep<double>(vals, cols, b, active, y, cbar, lb, ub, s, k1,
+                              k2, work, key_out);
 }
 
 PSLP_EXPORT int pslp_dca_color_step_f32(const float* vals, const int* cols,

@@ -18,14 +18,24 @@ its ``K`` slots, with ``tie_t`` drawn from the key chain
 isfinite``, projected to ``y >= 0`` for inequality rows, and adds the step
 times the row into ``c̄``.
 
-* :func:`dca_sweep` runs the sequential sweep: one launch for the whole
-  system, the key split once per row, active or not, as in JAX; it returns
-  ``(y, c̄, key)`` with the key after the last row.
+Row ``i + 1`` depends on row ``i`` only through a column they share, so
+the sequential sweep runs on a level schedule (:class:`LevelSchedule`,
+built once per row view): a row's level is one more than the highest level
+of any earlier row that touches one of its columns (a padding slot touches
+column 0).  Rows of one level are pairwise column-disjoint, and running
+the levels in order, each level's rows at once, gives every row the c̄ the
+sequential sweep gives it, and every column its updates in the same order:
+the same bits (:func:`dca_sweep_levels_reference` shows it on the CPU).
+
+* :func:`dca_sweep` runs the sequential sweep: three launches for the whole
+  system (the key chain; the draws, with the rows staged in level order;
+  the levels), the key split once per row, active or not, as in JAX; it
+  returns ``(y, c̄, key)`` with the key after the last row.
 * :func:`dca_color_step` runs one colour group (rows with pairwise
   disjoint columns), its ``(rows,)`` ties drawn from the group's sub key.
 
-On CUDA tensors both launch the kernel (``launches`` counts them) or raise;
-on CPU tensors they run :func:`dca_sweep_reference` /
+On CUDA tensors both launch the kernels (``launches`` counts them) or
+raise; on CPU tensors they run :func:`dca_sweep_reference` /
 :func:`dca_color_step_reference`, the JAX loop body in PyTorch.
 """
 
@@ -33,27 +43,34 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 
 import numpy as np
 import scipy.sparse
 import torch
 
-from ..utils.jax_prng import split, uniform, uniform_scalar
+from ..utils.jax_prng import (split, threefry2x32, uniform, uniform_at_zero,
+                               uniform_scalar)
 from . import _build
-from .linesearch import exact_dual_line_search
+from .linesearch import SCAN_BASE, exact_dual_line_search
 
 # the longest row H-DCA takes (kMaxRow in csrc/dca_sweep.cu)
 MAX_ROW = 1024
-# the sequential sweep's shared memory (csrc/dca_sweep.cu): the draws' ring
-# (kRing), one row's scratch of 7 K + 1 + kScanTmp entries, then c̄ where
-# the whole fits a block's 232,448 bytes (kSmemLimit)
-_RING, _SCAN_TMP, _SMEM_LIMIT = 256, 128, 232448
+# the kernels one sequential sweep launches: the key chain, the draws (and
+# staging) and the levels
+SWEEP_LAUNCHES = 3
+# the level kernel's shared memory (csrc/dca_sweep.cu): rows of up to
+# SCAN_BASE slots take one thread each and need none; longer rows take one
+# warp each, with a scratch of 7 K + 1 + kScanTmp entries, for up to 32
+# warps; c̄ sits beside them where it fits a block's 232,448 bytes
+# (kSmemLimit)
+_SCAN_TMP, _SMEM_LIMIT, _MAX_WARPS = 128, 232448, 32
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-# vals, cols, b, active, y, c_bar, lb, ub, m, K, n, k1, k2, key_out,
-# project, stream
-_ARGTYPES_SWEEP = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _P,
-                   _I, _P)
+# vals, cols, b, active, y, c_bar, lb, ub, perm, level_ptr, n_levels, m, K,
+# n, k1, k2, work, key_out, project, stream
+_ARGTYPES_SWEEP = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                   _U, _U, _P, _P, _I, _P)
 # vals, cols, b, active, y, c_bar, lb, ub, rows, n_rows, K, k1, k2, project,
 # stream
 _ARGTYPES_COLOR = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _I,
@@ -61,15 +78,83 @@ _ARGTYPES_COLOR = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _I,
 
 
 @dataclasses.dataclass(frozen=True)
+class LevelSchedule:
+    """The rows of a row view grouped by level: ``perm`` (int32, every row
+    once, level by level, ascending within a level) and ``ptr`` (int32,
+    ``levels + 1`` offsets into ``perm``), on the row view's device;
+    ``seconds`` is the host time it took to build."""
+
+    perm: torch.Tensor
+    ptr: torch.Tensor
+    levels: int
+    seconds: float
+
+    @staticmethod
+    def from_cols(cols: np.ndarray, device) -> "LevelSchedule":
+        """The schedule of the padded column table ``cols`` (m, K), built
+        level by level (Kahn's order over the graph whose edges join each
+        use of a column to its next use), vectorised over a level."""
+        t0 = time.perf_counter()
+        m, k = cols.shape
+        flat = np.asarray(cols, np.int64).ravel()
+        by_col = np.argsort(flat, kind="stable")
+        col, row = flat[by_col], by_col // max(k, 1)
+        # one use per (row, column): a row's padding slots are one use
+        first = np.ones(col.size, bool)
+        first[1:] = (col[1:] != col[:-1]) | (row[1:] != row[:-1])
+        col, row = col[first], row[first]
+        nxt = col[1:] == col[:-1]
+        src, dst = row[:-1][nxt], row[1:][nxt]
+        indeg = np.bincount(dst, minlength=m)
+        succ = dst[np.argsort(src, kind="stable")]
+        start = np.zeros(m + 1, np.int64)
+        np.cumsum(np.bincount(src, minlength=m), out=start[1:])
+        level = np.flatnonzero(indeg == 0)
+        groups = []
+        while level.size:
+            groups.append(level)
+            lo, cnt = start[level], start[level + 1] - start[level]
+            total = int(cnt.sum())
+            if not total:
+                break
+            pos = np.arange(total) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+            reached, times = np.unique(succ[np.repeat(lo, cnt) + pos],
+                                       return_counts=True)
+            indeg[reached] -= times
+            level = reached[indeg[reached] == 0]
+        perm = np.concatenate(groups) if groups else np.zeros(0, np.int64)
+        if perm.size != m:
+            raise AssertionError("level schedule: not every row was placed")
+        ptr = np.zeros(len(groups) + 1, np.int64)
+        np.cumsum([g.size for g in groups], out=ptr[1:])
+        return LevelSchedule(
+            perm=torch.as_tensor(perm.astype(np.int32), device=device),
+            ptr=torch.as_tensor(ptr.astype(np.int32), device=device),
+            levels=len(groups), seconds=time.perf_counter() - t0)
+
+
+@dataclasses.dataclass(frozen=True)
 class EllRows:
     """The padded row view of a constraint matrix that the sweep walks:
     ``vals`` (m, K) and ``cols`` (m, K) int32, row ``i``'s entries first in
     column order, then zeros at column 0 (``EllMatrix.from_scipy``'s row
-    form, width ``K`` = the longest row, at least 1)."""
+    form, width ``K`` = the longest row, at least 1), and its level
+    schedule."""
 
     vals: torch.Tensor
     cols: torch.Tensor
     ncols: int
+    schedule: LevelSchedule
+
+    @staticmethod
+    def from_tables(vals, cols, ncols, dtype, device) -> "EllRows":
+        """The row view of the padded tables ``vals`` / ``cols`` (numpy),
+        with its level schedule."""
+        cols = np.array(cols, np.int32)
+        return EllRows(
+            vals=torch.as_tensor(np.array(vals), dtype=dtype, device=device),
+            cols=torch.as_tensor(cols, device=device), ncols=int(ncols),
+            schedule=LevelSchedule.from_cols(cols, device))
 
     @staticmethod
     def from_scipy(a, dtype, device) -> "EllRows":
@@ -84,16 +169,29 @@ class EllRows:
             pos = np.arange(csr.nnz) - csr.indptr[row_of]
             vals[row_of, pos] = csr.data
             cols[row_of, pos] = csr.indices
-        return EllRows(
-            vals=torch.as_tensor(vals, dtype=dtype, device=device),
-            cols=torch.as_tensor(cols, device=device), ncols=n)
+        return EllRows.from_tables(vals, cols, n, dtype, device)
+
+
+def sweep_work_bytes(m, width, itemsize) -> int:
+    """The bytes of a sequential sweep's workspace (``Work`` in
+    csrc/dca_sweep.cu): each row's key (two uint32) and draw, and for rows
+    of up to ``SCAN_BASE`` slots the rows staged in level order (values and
+    the bounds at the columns as ``itemsize``, int32 columns, b, active)."""
+    nbytes = m * (8 + itemsize)
+    if width <= SCAN_BASE:
+        nbytes += m * width * (3 * itemsize + 4) + m * (itemsize + 1)
+    return nbytes
 
 
 def cbar_in_smem(width, n, itemsize) -> bool:
     """Whether the sequential sweep keeps c̄ (``n`` entries) in shared
-    memory beside the scratch of rows ``width`` slots wide."""
-    base = (_RING + 7 * width + 1 + _SCAN_TMP) * itemsize
-    return base + n * itemsize <= _SMEM_LIMIT
+    memory: beside nothing for rows of up to ``SCAN_BASE`` slots (a thread
+    a row), beside the warps' scratch for wider rows (a warp a row)."""
+    if width <= SCAN_BASE:
+        return n * itemsize <= _SMEM_LIMIT
+    per_warp = (7 * width + 1 + _SCAN_TMP) * itemsize
+    warps = min(_MAX_WARPS, _SMEM_LIMIT // per_warp)
+    return warps * per_warp + n * itemsize <= _SMEM_LIMIT
 
 
 def _row_step(vals, cols, b_i, active_i, y_i, c_bar, lb, ub, tie_t, project):
@@ -120,6 +218,40 @@ def dca_sweep_reference(ell, b, active, y, c_bar, lb, ub, key, project):
                                 c_bar, lb, ub, t, project)
         y[i] = y_new
         c_bar.index_add_(0, cols[i], diff * ell.vals[i])
+    return y, c_bar, key
+
+
+def _row_draws(keys, dtype, device):
+    """Each row's tie draw ``uniform(sub_i)``, ``sub_i`` the second half of
+    ``split(keys[i])``, hashed for all rows at once."""
+    k = torch.tensor(keys, dtype=torch.int64, device=device).reshape(-1, 2)
+    zero = torch.zeros_like(k[:, 0])
+    sub = threefry2x32((k[:, 0], k[:, 1]), zero, zero + 1)
+    return uniform_at_zero(sub, dtype)
+
+
+def dca_sweep_levels_reference(ell, b, active, y, c_bar, lb, ub, key,
+                               project):
+    """The sequential sweep on the level schedule, as the kernel runs it:
+    the key chain's draws first (one per row, in row order), then each
+    level's rows as one batch of row steps, their c̄ updates added row by
+    row, slot by slot.  Equal to :func:`dca_sweep_reference` bit for
+    bit."""
+    y, c_bar = y.clone(), c_bar.clone()
+    keys = []
+    for _ in range(ell.vals.shape[0]):
+        keys.append(key)
+        key = threefry2x32(key, 0, 0)
+    tie = _row_draws(keys, c_bar.dtype, c_bar.device)
+    sched = ell.schedule
+    perm, ptr = sched.perm.long(), sched.ptr.tolist()
+    for lo, hi in zip(ptr, ptr[1:]):
+        rows = perm[lo:hi]
+        v, cl = ell.vals[rows], ell.cols[rows].long()
+        y_new, diff = _row_step(v, cl, b[rows], active[rows], y[rows], c_bar,
+                                lb, ub, tie[rows], project)
+        y[rows] = y_new
+        c_bar.index_add_(0, cl.reshape(-1), (diff[:, None] * v).reshape(-1))
     return y, c_bar, key
 
 
@@ -154,7 +286,10 @@ def _check(ell, tensors, what):
 def dca_sweep(ell: EllRows, b, active, y, c_bar, lb, ub, key, project):
     """The sequential sweep over every row of ``ell``: returns new ``(y,
     c̄, key)`` (the inputs are not modified).  ``active`` is a bool tensor
-    per row, ``key`` the port's key pair, ``project`` clamps ``y >= 0``."""
+    per row, ``key`` the port's key pair, ``project`` clamps ``y >= 0``.
+    On the card: the key chain (one thread), the draws with the rows
+    staged in level order (a grid) and the levels (one block),
+    ``SWEEP_LAUNCHES`` launches on the current stream."""
     dev = ell.vals.device
     if dev.type == "cpu":
         return dca_sweep_reference(ell, b, active, y, c_bar, lb, ub, key,
@@ -163,18 +298,24 @@ def dca_sweep(ell: EllRows, b, active, y, c_bar, lb, ub, key, project):
         raise ValueError(f"dca_sweep runs on CUDA or the CPU, not {dev}")
     m, k = ell.vals.shape
     n = c_bar.shape[0]
+    sched = ell.schedule
     active = active.to(torch.uint8)
-    _check(ell, (ell.cols, b, active, y, c_bar, lb, ub), "dca_sweep")
+    _check(ell, (ell.cols, b, active, y, c_bar, lb, ub, sched.perm,
+                 sched.ptr), "dca_sweep")
     y, c_bar = y.clone(), c_bar.clone()
     key_out = torch.empty(2, dtype=torch.int64, device=dev)
     if m:
+        work = torch.empty(sweep_work_bytes(m, k, ell.vals.element_size()),
+                           dtype=torch.uint8, device=dev)
         fn = _build.entry(f"pslp_dca_sweep_{_build.suffix(ell.vals.dtype)}",
                           _ARGTYPES_SWEEP)
         fn(ell.vals.data_ptr(), ell.cols.data_ptr(), b.data_ptr(),
            active.data_ptr(), y.data_ptr(), c_bar.data_ptr(), lb.data_ptr(),
-           ub.data_ptr(), m, k, n, key[0], key[1], key_out.data_ptr(),
-           int(project), _build.stream(_build.device_index(dev)))
-        dca_sweep.launches += 1
+           ub.data_ptr(), sched.perm.data_ptr(), sched.ptr.data_ptr(),
+           sched.levels, m, k, n, key[0], key[1], work.data_ptr(),
+           key_out.data_ptr(), int(project),
+           _build.stream(_build.device_index(dev)))
+        dca_sweep.launches += SWEEP_LAUNCHES
         k1, k2 = key_out.tolist()
         key = (k1, k2)
     return y, c_bar, key

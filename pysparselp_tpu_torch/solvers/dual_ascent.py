@@ -13,8 +13,10 @@
 
 * ``dual_coordinate_ascent`` — exact per-constraint coordinate maximization
   (reference ``pysparselp/DualCoordinateAscent.py:39-367``).  A sweep over a
-  system's rows is one H-DCA launch (``ops/dca_sweep.py``), in the
-  sequential mode, or one launch per colour group in the blocked mode; the
+  system's rows is one H-DCA sweep (``ops/dca_sweep.py``: the key chain,
+  the draws, then the rows level by level on the level schedule built once
+  with the row view at set-up), in the sequential mode, or one launch per
+  colour group in the blocked mode; the
   metrics use the :class:`~pysparselp_tpu_torch.problem.CsrMatrix` products
   (H-CSR; on the CPU their twin rounds each row as a fused multiply-add
   chain, as the JAX package's products round there), and the sweeps walk
@@ -449,7 +451,8 @@ def dual_coordinate_ascent(
     Signature parity with ``DualCoordinateAscent.py:39`` (plus ``device``).
     On dual stall, attempts greedy integer rounding on the host like the
     reference (``DualCoordinateAscent.py:287-294``).  ``mode`` is
-    ``"sequential"`` (one H-DCA sweep per system and outer iteration) or
+    ``"sequential"`` (one H-DCA sweep per system and outer iteration, on
+    the row view's level schedule) or
     ``"blocked"`` (graph-coloured: one colour step per group of rows with
     disjoint columns).  ``mesh=`` raises (ROADMAP M9).
     """

@@ -229,7 +229,5 @@ def ell_rows_from_jax(ell, dtype=None, device="cpu"):
 
     dev = resolve_device(device)
     dt = resolve_dtype(dtype, dev)
-    return EllRows(
-        vals=torch.as_tensor(_np(ell.vals), dtype=dt, device=dev),
-        cols=torch.as_tensor(np.asarray(ell.cols, np.int32), device=dev),
-        ncols=int(ell.ncols))
+    return EllRows.from_tables(_np(ell.vals), np.asarray(ell.cols),
+                               ell.ncols, dt, dev)

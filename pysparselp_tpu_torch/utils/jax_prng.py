@@ -77,6 +77,15 @@ def uniform_scalar(key, dtype) -> float:
     return mant * scale
 
 
+def uniform_at_zero(keys, dtype):
+    """``jax.random.uniform(key, (), dtype)`` for many keys at once:
+    ``keys`` is a pair of int64 tensors (the keys' two words)."""
+    zero = torch.zeros_like(keys[0])
+    b1, b2 = threefry2x32(keys, zero, zero)
+    mant, scale = _float_bits(b1, b2, dtype)
+    return mant.to(dtype) * scale
+
+
 def uniform(key, shape, dtype, device="cpu"):
     """``jax.random.uniform(key, shape, dtype)`` on ``device``: element
     ``i`` (row-major) hashes the counter ``(0, i)``."""

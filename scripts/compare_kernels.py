@@ -37,7 +37,15 @@ twice more with the chooser's price of H-BSR's longest tile-line at zero
 the solve; the chooser then takes RCM and H-BSR).
 H-BSR is also timed on that RCM-permuted L1-SVM system, whose longest
 tile-column gives one warp's streaming rate (new-format checkouts only).
-``--sections`` picks a subset (``csr bsr dia cpdense cpdia solves``).
+H-DCA (``--sections dca``): the sequential sweep over Potts-300's
+one-sided rows in float32 (``chip_smoke.dca_state``'s mid-solve state):
+device milliseconds a sweep (the mean of each H-DCA kernel's profiler
+events, summed over the kernels a sweep launches: one in a checkout
+before the level schedule, the key chain, the draws and the levels
+after), CUDA events over whole calls, and the sequential DCA solve of
+Potts-300 for 3 sweeps (float32): its dual energy after each sweep,
+printed exactly, and its seconds a sweep (:func:`time_dca`).
+``--sections`` picks a subset (``csr bsr dia cpdense cpdia solves dca``).
 Prints one JSON line per measurement (with the card's name and power limit
 and the repository path); exits nonzero without CUDA.
 """
@@ -59,7 +67,7 @@ ROOT = Path(__file__).resolve().parent.parent
 SQUARE_SIZES = (16, 48, 104, 152)
 LANES = (1, 2, 4, 8, 16)
 SOLVE_ITERS = 2000
-SECTIONS = ("csr", "bsr", "dia", "cpdense", "cpdia", "solves")
+SECTIONS = ("csr", "bsr", "dia", "cpdense", "cpdia", "solves", "dca")
 
 
 def main() -> int:
@@ -132,6 +140,8 @@ def main() -> int:
         time_cpdia(smoke, torch, emit, rng, dt, dev, repo, smi)
     if "solves" in sections:
         time_solves(smoke, np, repo, smi, chambolle_pock, _choose_layout)
+    if "dca" in sections:
+        time_dca(smoke, torch, np, repo, smi, build_linear_program)
     return 0
 
 
@@ -337,6 +347,43 @@ def time_solves(smoke, np, repo, smi, chambolle_pock, _choose_layout):
                               layouts=[lay[0] for lay in layouts or []],
                               iterations=SOLVE_ITERS,
                               iters_per_s_steady=rates)), flush=True)
+
+
+def time_dca(smoke, torch, np, repo, smi, build_linear_program, reps=3):
+    from pysparselp_tpu_torch.ops import dca_sweep as dca
+    from pysparselp_tpu_torch.utils.jax_prng import prng_key
+
+    lp, gt, idx, _ = build_linear_program(300, 0.5, 500)
+    one_sided = build_linear_program(300, 0.5, 500)[0]
+    one_sided.convert_to_one_sided_inequality_system()
+    system = (one_sided.a_inequalities.tocsr(),
+              np.asarray(one_sided.b_upper), one_sided.costsvector,
+              one_sided.lower_bounds, one_sided.upper_bounds)
+    args = smoke.dca_state(torch, system, torch.float32)
+    key = prng_key(1)
+
+    def sweep():
+        return dca.dca_sweep(*args, key, True)
+
+    events = smoke.profiled_kernels(torch, sweep, reps)
+    names = sorted({e.name for e in events
+                    if "dca" in e.name and "color" not in e.name})
+    per_kernel = {}
+    for name in names:
+        dur = [e.time_range.elapsed_us() for e in events if e.name == name]
+        per_kernel[name] = sum(dur) / len(dur) * 1e-3
+    events_ms = smoke.cuda_ms(torch, sweep, reps)
+    run = dict(method="dual_coordinate_ascent", nb_iter=3, nb_iter_plot=1,
+               mode="sequential", dtype=np.float32, device="cuda",
+               ground_truth=gt, ground_truth_indices=idx)
+    lp.solve(**run)
+    t = [0.0] + [float(v) for v in lp.opttime_curve]
+    print(json.dumps(dict(
+        repo=repo, nvidia_smi=smi, kernel="H-DCA", problem="potts300_ineq",
+        rows=system[0].shape[0], device_ms_per_sweep=sum(per_kernel.values()),
+        device_ms_per_kernel=per_kernel, events_ms_per_call=events_ms,
+        solve_dual_energy=[float(v) for v in lp.dobj_curve],
+        solve_s_per_sweep=[b - a for a, b in zip(t, t[1:])])), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """H-DCA's plain twins (``ops/dca_sweep.py``) against the JAX package's
 coordinate sweeps (``_dca_sweep_eq``, ``_dca_sweep_ineq``,
 ``_dca_color_sweep`` of ``pysparselp_tpu/solvers/dual_ascent.py``) on the
-same rows, state and key, on the CPU; and, marked ``cuda``, the kernel
-against the twin on the card, bit for bit (y, c̄ and the key), in float32
-and float64, with the over-limit row refused.
+same rows, state and key, on the CPU; the level schedule's properties
+and the level-by-level twin, bit-equal to the sequential one; and, marked
+``cuda``, the kernel against the twin on the card, bit for bit (y, c̄ and
+the key), in float32 and float64, with the over-limit row refused.
 
 This module imports no jax at import time: its ``cuda`` cases run on a
 machine without JAX (``python -m pytest --noconftest -m cuda``)."""
@@ -75,7 +76,9 @@ def _integer_rows(m=60, n=80, k=40, seed=4):
 
 
 CASES = {"potts20": _potts_rows, "sc105": _sc105_rows,
-         "matching": _matching_rows, "integer": _integer_rows}
+         "matching": _matching_rows, "integer": _integer_rows,
+         "integer6": lambda: _integer_rows(k=6, seed=6),
+         "integer12": lambda: _integer_rows(k=12, seed=7)}
 
 
 def _state(case, dtype, device="cpu", seed=0):
@@ -178,6 +181,84 @@ def test_padded_row_unbounded_takes_no_step():
     np.testing.assert_array_equal(c_bar.numpy(), wc)
 
 
+def _bits(t):
+    """``t``'s bits as integers: ``torch.equal`` on them tells -0 from 0."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def _same_bits(got, want):
+    return (torch.equal(_bits(got[0]), _bits(want[0]))
+            and torch.equal(_bits(got[1]), _bits(want[1]))
+            and got[2:] == want[2:])
+
+
+# the level counts of the schedule, a padding slot touching column 0
+# (SC105's padded rows chain through it: without that rule its systems
+# would have 18 and 6 levels)
+LEVELS = {"potts20": 42, "potts50": 102, "sc105_eq": 21, "sc105_ineq": 42,
+          "matching": 2}
+
+
+def _schedule_rows(name):
+    if name == "potts50":
+        return _potts_rows(50)[0]
+    if name.startswith("sc105"):
+        from torch_port_helpers import sc105_lp
+
+        lp = sc105_lp(port=True)[0]
+        return (lp.a_equalities if name == "sc105_eq"
+                else lp.a_inequalities).tocsr()
+    return CASES[name]()[0]
+
+
+@pytest.mark.parametrize("name", sorted(LEVELS))
+def test_level_counts(name):
+    ell = pdca.EllRows.from_scipy(_schedule_rows(name), torch.float64, "cpu")
+    assert ell.schedule.levels == LEVELS[name]
+    assert ell.schedule.ptr.numel() == LEVELS[name] + 1
+
+
+@pytest.mark.parametrize("case", ["potts20", "sc105", "matching", "integer",
+                                  "integer6", "integer12"])
+def test_level_schedule_properties(case):
+    """Every row once; rows of a level pairwise column-disjoint (padding
+    slots as column 0); each row's level above that of every earlier row
+    sharing a column."""
+    a = CASES[case]()[0]
+    ell = pdca.EllRows.from_scipy(a, torch.float64, "cpu")
+    perm, ptr = ell.schedule.perm.numpy(), ell.schedule.ptr.numpy()
+    cols = ell.cols.numpy()
+    m = cols.shape[0]
+    assert ptr[0] == 0 and ptr[-1] == m and np.all(np.diff(ptr) > 0)
+    assert np.array_equal(np.sort(perm), np.arange(m))
+    level = np.empty(m, np.int64)
+    for lv, (lo, hi) in enumerate(zip(ptr, ptr[1:])):
+        level[perm[lo:hi]] = lv
+        used = np.concatenate([np.unique(cols[i]) for i in perm[lo:hi]])
+        assert np.unique(used).size == used.size, f"level {lv} shares a column"
+    last = {}
+    for i in range(m):
+        for c in np.unique(cols[i]):
+            if c in last:
+                assert level[i] > level[last[c]]
+            last[c] = i
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("project", [False, True], ids=["eq", "ineq"])
+@pytest.mark.parametrize("case", ["potts20", "sc105", "matching", "integer",
+                                  "integer6", "integer12"])
+def test_levels_twin_is_sequential_twin(case, project, dtype):
+    """The sweep level by level gives the row-by-row sweep's bits: y, c̄
+    (as integers, so -0 and 0 differ) and the key."""
+    _npdt, tdt = DTYPES[dtype]
+    _host, d = _state(case, tdt)
+    args = (d["ell"], d["b"], d["active"], d["y"], d["c_bar"], d["lb"],
+            d["ub"], prng_key(3), project)
+    assert _same_bits(pdca.dca_sweep_levels_reference(*args),
+                      pdca.dca_sweep_reference(*args))
+
+
 def test_ell_rows_are_jax_ell_rows():
     from pysparselp_tpu.problem import EllMatrix
     from pysparselp_tpu_torch.utils.convert import ell_rows_from_jax
@@ -207,14 +288,30 @@ def _long_rows():
             rng.rand(n), np.zeros(n), np.ones(n))
 
 
+def _wide_rows(m=3000, n=70000, seed=12):
+    """Rows of 1 to 3 entries over more columns than a block's shared
+    memory holds in either float type: c̄ in global memory."""
+    rng = np.random.RandomState(seed)
+    cnt = rng.randint(1, 4, m)
+    rows = np.repeat(np.arange(m), cnt)
+    # columns near the row's own stretch, so that rows chain into levels
+    cols = (rows * (n // m) + rng.randint(0, 3 * (n // m), rows.size)) % n
+    a = scipy.sparse.csr_matrix((rng.choice([-1.0, 1.0, 0.5], rows.size),
+                                 (rows, cols)), shape=(m, n))
+    a.sum_duplicates()
+    return (a, rng.randint(-3, 4, m) * 1.0, rng.rand(n), np.zeros(n),
+            np.ones(n))
+
+
 CASES["long"] = _long_rows
+CASES["wide"] = _wide_rows
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("project", [False, True], ids=["eq", "ineq"])
 @pytest.mark.parametrize("case", ["potts20", "sc105", "matching", "integer",
-                                  "long"])
+                                  "integer6", "integer12", "long", "wide"])
 def test_kernel_sweep_matches_twin(case, project, dtype):
     dev = cuda_or_skip()
     _npdt, tdt = DTYPES[dtype]
@@ -222,11 +319,16 @@ def test_kernel_sweep_matches_twin(case, project, dtype):
     args = (d["ell"], d["b"], d["active"], d["y"], d["c_bar"], d["lb"],
             d["ub"], prng_key(11), project)
     before = pdca.dca_sweep.launches
-    y, c_bar, key = pdca.dca_sweep(*args)
-    assert pdca.dca_sweep.launches == before + 1
-    wy, wc, wkey = pdca.dca_sweep_reference(*args)
-    assert torch.equal(y, wy) and torch.equal(c_bar, wc)
-    assert key == wkey
+    got = pdca.dca_sweep(*args)
+    assert pdca.dca_sweep.launches == before + pdca.SWEEP_LAUNCHES
+    assert _same_bits(got, pdca.dca_sweep_reference(*args))
+
+
+def test_wide_case_keeps_cbar_in_global_memory():
+    a = _wide_rows()[0]
+    assert a.getnnz(axis=1).max() <= 3
+    for itemsize in (4, 8):
+        assert not pdca.cbar_in_smem(3, a.shape[1], itemsize)
 
 
 @pytest.mark.cuda
