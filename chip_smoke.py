@@ -82,9 +82,15 @@ Batched serving (``solve_cp_batch``, ``batch.py``) adds:
 
 * in phase 2, the batched kernels at the batch path's operators and batch
   sizes (:func:`phase_batch_kernels`): H-DIA-B on the banded system and on
-  the DIA block of the assignment system, column by column bit-identical
-  to H-DIA; H-CSR-B on the unstructured system; both orientations, float32
-  and float64, timed beside cuSPARSE SpMM (``torch.sparse.mm``);
+  the DIA block of the assignment system, bit-identical to its twin and
+  column by column to H-DIA, with its plan (rows a tile, columns a
+  thread, the window, one span or one range per diagonal); H-CSR-B on
+  the unstructured system, column by column near H-CSR; both
+  orientations, float32 and float64, timed warm and with the L2 flushed
+  beside cuSPARSE SpMM (``torch.sparse.mm``), each held against two
+  bounds: H-DIA-B its bytes at the HBM rate and at the L2 read rate
+  (:func:`read_rates`), H-CSR-B its bytes at the HBM rate and its gathered
+  rows at the rate the card serves them from L2 (:func:`gather_rate`);
 * ``main_path_batch_{dense,banded,assign,unstructured}``, after phase 4:
   ``bench.py``'s three batch configurations at its sizes (dense 512
   variables B = 64, 20,000 iterations; banded 150,000 rows B = 16;
@@ -1185,11 +1191,19 @@ def phase_batch_kernels(torch, lps, table):
     and batch sizes: H-DIA-B on the banded system (B = 16) and on the DIA
     block of the assignment system (B = 8), H-CSR-B on the unstructured
     system (B = 8), both orientations, float32 and float64, against their
-    twins (H-DIA-B within RTOL and column by column bit-identical to H-DIA;
-    H-CSR-B per row within RTOL * (|A| |X|)_row, a second call giving the
-    same bits); in float32 the kernel, the twin and the library call
-    (cuSPARSE SpMM through ``torch.sparse.mm`` on the operator's CSR) timed
-    by events, device time, host time per call and kernels per call."""
+    twins (H-DIA-B bit-identical to the twin and column by column to
+    H-DIA; H-CSR-B per row within RTOL * (|A| |X|)_row, a second call
+    giving the same bits, and column by column within RTOL of H-CSR on
+    that column); in float32 the kernel, the twin and the library call
+    (cuSPARSE SpMM through ``torch.sparse.mm`` on the operator's CSR)
+    timed by events, device time, host time per call and kernels per
+    call, the kernel also with the L2 flushed before each call
+    (:func:`cold_times`), and two bounds: the bytes at the HBM rate (the
+    kernel line's, held against the cold time) and, for H-DIA-B, at the
+    L2 read rate of a buffer of that size (:func:`read_rates`; held against
+    the warm time, the solve's case: the data fits the L2), for H-CSR-B
+    its gathered X rows (32-byte sectors) at the rate the card serves
+    them from L2 (:func:`gather_rate`, on the operator's indices)."""
     import numpy as np
 
     from pysparselp_tpu_torch.ops import csr_spmv as csr_ops
@@ -1197,6 +1211,7 @@ def phase_batch_kernels(torch, lps, table):
 
     rng = np.random.RandomState(3)
     dev = torch.device("cuda")
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device=dev)
     cases = (("H-DIA-B", "banded"), ("H-DIA-B", "assign"),
              ("H-CSR-B", "unstructured"))
     for dt in (torch.float32, torch.float64):
@@ -1221,20 +1236,37 @@ def phase_batch_kernels(torch, lps, table):
                             operand.vals, operand.offs, x, n_out)
 
                     got = kern()
-                    err = compare(torch, [got], [plain()], name,
+                    want = plain()
+                    err = compare(torch, [got], [want], name,
                                   f"H-DIA-B {key} {side}")
                     columns = torch.stack(
                         [dia_ops.dia_apply(operand, x[:, b].contiguous())
                          for b in range(bsz)], dim=1)
-                    if not torch.equal(got, columns):
+                    if not (torch.equal(got, want)
+                            and torch.equal(got, columns)):
                         raise AssertionError(
                             f"H-DIA-B {key} {side} ({name}) differs from "
-                            "H-DIA column by column")
+                            "its twin or from H-DIA column by column")
                     stored = operand.vals.numel()
                     nbytes = (stored + bsz * (n_in + n_out)) * \
                         x.element_size() + 4 * operand.offs.numel()
-                    extra = dict(ndiag=int(operand.offs.numel()),
-                                 columns_equal_h_dia=True)
+                    launch = operand.batch_launch(bsz, x.data_ptr() % 16 == 0)
+                    plan = launch.plan
+                    extra = dict(
+                        ndiag=int(operand.offs.numel()), equals_twin=True,
+                        columns_equal_h_dia=True, plan=dict(
+                            rows=plan.rows, columns_a_tile=plan.cols,
+                            columns_a_thread=plan.cpt,
+                            window=("read direct" if plan.direct
+                                    else "one span" if plan.union
+                                    else "one range per diagonal"),
+                            window_rows=plan.window_rows,
+                            window_bytes=plan.window_bytes,
+                            copy=("none" if plan.direct else
+                                  "cp.async.bulk" if plan.bulk
+                                  else "cp.async"),
+                            smem_bytes=plan.smem_bytes, tiles=plan.n_tiles,
+                            grid=launch.struct.grid))
                 else:
                     def kern(operand=operand, x=x):
                         return csr_ops.csr_spmm(operand, x)
@@ -1257,13 +1289,24 @@ def phase_batch_kernels(torch, lps, table):
                     if not torch.equal(kern(), got):
                         raise AssertionError(f"H-CSR-B {key} {side} "
                                              f"({name}): two calls differ")
+                    columns = torch.stack(
+                        [csr_ops.csr_spmv(operand, x[:, b].contiguous())
+                         for b in range(bsz)], dim=1)
+                    col_diff = (got - columns).abs()
+                    if not bool((col_diff <= RTOL[name] * scale).all()):
+                        raise AssertionError(
+                            f"H-CSR-B {key} {side} ({name}): a column past "
+                            f"{RTOL[name]:.0e} * (|A||x|)_row of H-CSR on it")
                     err = float(diff.max())
                     stored = operand.vals.numel()
                     nbytes = stored * (x.element_size() + 4) \
                         + (n_out + 1) * 4 + bsz * (n_in + n_out) \
                         * x.element_size()
-                    extra = dict(nnz=stored, width=operand.plan.width,
-                                 long_rows=operand.plan.n_tasks)
+                    extra = dict(
+                        nnz=stored, width=operand.plan.width,
+                        long_rows=operand.plan.n_tasks,
+                        columns_vs_h_csr_max_abs=float(col_diff.max()),
+                        columns_equal_h_csr=bool(torch.equal(got, columns)))
                 rec = dict(kernel=kernel, problem=key, side=side, dtype=name,
                            shape=[n_out, n_in], batch=bsz, max_abs_err=err,
                            **extra)
@@ -1291,13 +1334,41 @@ def phase_batch_kernels(torch, lps, table):
                             f"{kernel} {key} {side}: "
                             f"{calls['kernels_per_call']} device events per "
                             f"call, {names}")
+                    rec["kernel_cold_us"] = cold_times(torch, kern, names,
+                                                       flush)
+                    if kernel == "H-DIA-B":
+                        rates = read_rates(torch, nbytes, flush)
+                        label, second = "l2", nbytes / rates["l2"]
+                        rec["l2_read_bytes_per_s"] = rates["l2"]
+                    else:
+                        sectors = -(-bsz * x.element_size() // 32)
+                        gathered = stored * sectors * 32
+                        rate, probe_us = gather_rate(torch, x,
+                                                     operand.indices)
+                        label, second = "gather", gathered / rate
+                        rec.update(gather_bytes=gathered,
+                                   gather_bytes_per_s=rate,
+                                   gather_probe_us=probe_us)
+                    rec[f"bound_{label}_ms"] = second * 1e3
+                    rec["bounds_us"] = {"hbm": rec["bound_ms"] * 1e3,
+                                        label: second * 1e6}
+                    rec["binds"] = max(rec["bounds_us"],
+                                       key=rec["bounds_us"].get)
+                    # the HBM bound against the cold time, the other
+                    # against the warm time (the solve's case)
+                    rec["share_of_bounds"] = {
+                        "hbm_cold": rec["bound_ms"] * 1e3
+                        / rec["kernel_cold_us"]["device_us"],
+                        f"{label}_warm": second * 1e6 / calls["device_us"]}
                     if side == "A" and key in ("banded", "unstructured"):
                         table[kernel].update({k: rec[k] for k in (
                             "ms", "plain_ms", "library_ms", "bound_ms",
                             "bound_by")})
+                        table[kernel][f"bound_{label}_ms"] = second * 1e3
                 table[kernel]["max_abs_err"] = max(
                     table[kernel]["max_abs_err"], err)
                 emit("kernels", **rec)
+    del flush
 
 
 def bsr_library(torch, a, dtype, device, tile=128):
@@ -1436,6 +1507,56 @@ def read_rates(torch, nbytes, flush):
         out["hbm"] = max(out["hbm"], out[key]["hbm"])
     del buf
     return out
+
+
+_GATHER_KERNEL = []
+
+
+def gather_rate(torch, x, indices, reps=200):
+    """Bytes per second at which the card serves rows of ``x`` (a 2-D
+    float32 CUDA tensor, left in L2 between calls when it fits) gathered
+    at the int32 ``indices``: a Triton kernel that reads each index (4
+    bytes, coalesced) and its row and adds the rows up per program (a
+    row's worth of bytes written a program of 1,024 rows).  The rate is
+    the gathered rows' bytes over the profiler's device time of one call;
+    also returns that time in microseconds.  Triton is imported here: a
+    probe of the card, no part of the port."""
+    import triton
+    import triton.language as tl
+
+    if not _GATHER_KERNEL:
+        @triton.jit
+        def gather_rows(x_ptr, idx_ptr, out_ptr, n, COLS: tl.constexpr,
+                        BLOCK: tl.constexpr, STEPS: tl.constexpr):
+            pid = tl.program_id(0)
+            cols = tl.arange(0, COLS)
+            acc = tl.zeros([BLOCK, COLS], dtype=tl.float32)
+            for step in range(STEPS):
+                offs = (pid * STEPS + step) * BLOCK + tl.arange(0, BLOCK)
+                mask = offs < n
+                j = tl.load(idx_ptr + offs, mask=mask, other=0)
+                acc += tl.load(x_ptr + j[:, None] * COLS + cols[None, :],
+                               mask=mask[:, None], other=0.0)
+            tl.store(out_ptr + pid * COLS + cols, tl.sum(acc, axis=0))
+
+        _GATHER_KERNEL.append(gather_rows)
+    kernel = _GATHER_KERNEL[0]
+    rows, cols = x.shape
+    n = indices.numel()
+    block, steps = 128, 8
+    grid = (triton.cdiv(n, block * steps),)
+    out = torch.empty((grid[0], cols), dtype=x.dtype, device=x.device)
+
+    def call():
+        kernel[grid](x, indices, out, n, COLS=cols, BLOCK=block,
+                     STEPS=steps)
+
+    want = x.double()[indices.long()].sum(0)
+    call()
+    if not torch.allclose(out.double().sum(0), want, rtol=1e-4, atol=1e-2):
+        raise AssertionError("the gather probe's sums are wrong")
+    us = call_times(torch, call, reps=reps, host_reps=reps)["device_us"]
+    return n * cols * x.element_size() / (us * 1e-6), us
 
 
 def phase_bsr(torch, a, table):

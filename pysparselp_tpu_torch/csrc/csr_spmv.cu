@@ -50,10 +50,17 @@
 //   Y[r, b] = sum_k vals[k] * X[indices[k], b],   X (n_in, B), Y (n_out, B),
 // serves the batched CP iteration (batch.py).  It replaces the vmapped
 // gather-ELL product of pysparselp_tpu/batch.py:147 (EllMatrix under
-// jax.vmap; no pallas_call stands behind it).  Bound: memory, each entry's
-// value and index read once for all B columns, plus X and Y; each gathered
-// row of X is B neighbouring values, at B = 8 in f32 one 32-byte sector,
-// what one 4-byte gather of the 1-D kernel costs.  Design, on the same plan:
+// jax.vmap; no pallas_call stands behind it).  Bounds: memory, each entry's
+// value and index read once for all B columns, plus X and Y; and the
+// gathers, every entry's row of X (B neighbouring values, at B = 8 in f32
+// one 32-byte sector) from L2, where X fits: at the rate the card serves
+// random 32-byte rows of an L2-resident buffer (chip_smoke.gather_rate,
+// ~3.7 TB/s on an H100) the unstructured LP's 1.95M rows take ~17 us, which
+// binds, and this kernel runs at ~78% of it.  Kernels that sum each column
+// in csr_kernel's order (so that column b equals csr_kernel on X[:, b]),
+// and kernels that gather 16 or 32 bytes a thread, all measured slower on
+// that LP (PERF.md); this one keeps its own order.  Design, on the same
+// plan:
 // * a block is S = 256 / min(B, 256) rows by min(B, 256) columns (columns
 //   fastest; a thread loops over its columns when B > 256): one thread per
 //   (row, b), so the B threads of a row read each entry's value and index

@@ -45,7 +45,16 @@ before the level schedule, the key chain, the draws and the levels
 after), CUDA events over whole calls, and the sequential DCA solve of
 Potts-300 for 3 sweeps (float32): its dual energy after each sweep,
 printed exactly, and its seconds a sweep (:func:`time_dca`).
-``--sections`` picks a subset (``csr bsr dia cpdense cpdia solves dca``).
+The batched products (``--sections batch``): H-DIA-B on
+``chip_smoke.BATCH``'s banded operator (B = 16) and the DIA block of its
+assignment system (B = 8), H-CSR-B on the unstructured one (B = 8), both
+orientations, float32 and float64, through ``dia_spmm`` / ``csr_spmm``;
+then the banded and unstructured ``solve_cp_batch`` runs profiled as
+``scripts/profile_port.py --runs batch_banded batch_unstructured``
+profiles them, with their problem-iterations/s and busy share
+(:func:`time_batch`).
+``--sections`` picks a subset (``csr bsr dia cpdense cpdia solves dca
+batch``).
 Prints one JSON line per measurement (with the card's name and power limit
 and the repository path); exits nonzero without CUDA.
 """
@@ -67,7 +76,8 @@ ROOT = Path(__file__).resolve().parent.parent
 SQUARE_SIZES = (16, 48, 104, 152)
 LANES = (1, 2, 4, 8, 16)
 SOLVE_ITERS = 2000
-SECTIONS = ("csr", "bsr", "dia", "cpdense", "cpdia", "solves", "dca")
+SECTIONS = ("csr", "bsr", "dia", "cpdense", "cpdia", "solves", "dca",
+            "batch")
 
 
 def main() -> int:
@@ -90,6 +100,7 @@ def main() -> int:
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    sys.modules["chip_smoke"] = smoke
     import numpy as np
 
     import pysparselp_tpu_torch
@@ -142,6 +153,8 @@ def main() -> int:
         time_solves(smoke, np, repo, smi, chambolle_pock, _choose_layout)
     if "dca" in sections:
         time_dca(smoke, torch, np, repo, smi, build_linear_program)
+    if "batch" in sections:
+        time_batch(smoke, torch, emit, rng, dev, repo, smi)
     return 0
 
 
@@ -384,6 +397,69 @@ def time_dca(smoke, torch, np, repo, smi, build_linear_program, reps=3):
         device_ms_per_kernel=per_kernel, events_ms_per_call=events_ms,
         solve_dual_energy=[float(v) for v in lp.dobj_curve],
         solve_s_per_sweep=[b - a for a, b in zip(t, t[1:])])), flush=True)
+
+
+def time_batch(smoke, torch, emit, rng, dev, repo, smi):
+    """H-DIA-B and H-CSR-B at the batch main path's operators and batch
+    sizes, both orientations, float32 and float64; then the banded and
+    unstructured batch solves (float32, ``chip_smoke.BATCH``'s
+    iterations, a warm-up solve first) under the profiler: problem-
+    iterations/s of the steady window, busy share, launches and device
+    microseconds per batch iteration, products against elementwise
+    passes (``profile_port.profile_batch``); and three more solves without
+    the profiler, their steady problem-iterations/s."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+
+    from pysparselp_tpu_torch import solve_cp_batch
+    from pysparselp_tpu_torch.ops import csr_spmv, dia_spmv
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_port", ROOT / "scripts" / "profile_port.py")
+    profile_port = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profile_port)
+    lps = {k: smoke.BATCH[k]["make"]()
+           for k in ("banded", "assign", "unstructured")}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[1]
+        for kernel, key in (("H-DIA-B", "banded"), ("H-DIA-B", "assign"),
+                            ("H-CSR-B", "unstructured")):
+            op, _ = smoke.batch_operator(lps[key], dt, dev)
+            bsz = smoke.BATCH[key]["bsz"]
+            if kernel == "H-DIA-B":
+                fn, sides = dia_spmv.dia_spmm, (("A", op.fwd), ("At", op.bwd))
+            else:
+                fn, sides = csr_spmv.csr_spmm, (("A", op.csr),
+                                                ("At", op.csr_t))
+            for side, operand in sides:
+                n_in = operand.n_in if kernel == "H-CSR-B" else (
+                    op.ncols if side == "A" else op.nrows)
+                x = torch.as_tensor(rng.randn(n_in, bsz), dtype=dt,
+                                    device=dev)
+                emit(kernel, f"{key} B={bsz} {name}", side,
+                     lambda fn=fn, operand=operand, x=x: fn(operand, x))
+    for key in ("banded", "unstructured"):
+        cfg = smoke.BATCH[key]
+        rec = profile_port.profile_batch(torch, key, lps[key], smi, profile,
+                                         ProfilerActivity, DeviceType)
+        rec.pop("events")
+        rec["problem_iters_per_s"] = (cfg["bsz"]
+                                      / rec["steady_wall_us_per_iter"] * 1e6)
+        # three more solves without the profiler: their steady rates
+        unprofiled = []
+        for _ in range(3):
+            _x, info = solve_cp_batch(
+                lps[key], costs=smoke.batch_costs(lps[key], cfg["bsz"],
+                                                  cfg["vary"]),
+                nb_iter=cfg["nb_iter"], nb_iter_plot=cfg["nb_iter"] // 4,
+                dtype=np.float32, device="cuda")
+            itrn, sec = info["itrn"], info["opttime"]
+            unprofiled.append(cfg["bsz"] * (itrn[-1] - itrn[0])
+                              / (sec[-1] - sec[0]))
+        rec["problem_iters_per_s_unprofiled"] = unprofiled
+        print(json.dumps(dict(repo=repo, **rec)), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Timing probe of the port's CSR SpMV kernel (H-CSR) on one NVIDIA GPU.
 
-    python3 scripts/probe_csr_spmv.py
+    python3 scripts/probe_csr_spmv.py [--gather-only]
 
 Over a row-length ladder (2, 13, 20 and 5,000 entries per row, about 2M
 entries each, 1M columns so that x stays in the L2 cache), float32: times
@@ -17,8 +17,14 @@ lanes per row, chunks and long rows, the bytes the product must move, its
 bound at 3.35 TB/s and the achieved rate on device time; then one line
 per orientation of each of ``chip_smoke.py``'s H-CSR matrices
 (transport, unstructured, the k-medians block) with the same plan
-times.  The same lines go to ``chiprun_out/probe_csr_spmv.json``.  Exits
-nonzero without CUDA.
+times.  Then the gather-only probe (``chip_smoke.gather_rate``, alone with
+``--gather-only``): the rate at which the card serves rows of an
+L2-resident float32 X of ``GATHER_COLUMNS`` columns (4 to 32 bytes a row)
+at the column indices of each orientation of the unstructured batch
+operator (``chip_smoke.BATCH``, 1.95M entries) and at as many uniform
+random ones: H-CSR-B's gather bound divides its gathered bytes by it.
+The same lines go to ``chiprun_out/probe_csr_spmv.json``.  Exits nonzero
+without CUDA.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ ROW_LENGTHS = (2, 13, 20, 5000)
 WIDTHS = (2, 4, 8, 16, 32)
 CHUNKS = (512, 2048, 8192)
 REPS = 50
+# columns of X (float32) in the gather-only probe: 4- to 32-byte rows
+GATHER_COLUMNS = (1, 2, 4, 8)
 
 
 def events_ms(torch, fn, reps):
@@ -51,6 +59,34 @@ def events_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def gather_lines(torch, chip_smoke, smi, dev, rng):
+    """The gather-only probe's lines: per orientation of the unstructured
+    batch operator and per row width, the rate at its indices and at
+    uniform random ones."""
+    from pysparselp_tpu_torch.problem import CsrMatrix
+
+    a = chip_smoke.batch_systems(chip_smoke.BATCH["unstructured"]["make"]())[1]
+    op = CsrMatrix.from_scipy(a, torch.float32, dev)
+    lines = []
+    for side, operand in (("A", op.csr), ("At", op.csr_t)):
+        n = operand.indices.numel()
+        uniform = torch.as_tensor(rng.randint(0, operand.n_in, n)
+                                  .astype("int32"), device=dev)
+        for cols in GATHER_COLUMNS:
+            x = torch.as_tensor(rng.randn(operand.n_in, cols),
+                                dtype=torch.float32, device=dev)
+            rec = dict(probe="gather", problem="unstructured", side=side,
+                       rows=operand.n_in, gathers=n, row_bytes=4 * cols,
+                       nvidia_smi=smi)
+            for label, idx in (("indices", operand.indices),
+                               ("uniform", uniform)):
+                rate, us = chip_smoke.gather_rate(torch, x, idx)
+                rec[label] = dict(bytes_per_s=rate, device_us=us)
+            print(json.dumps(rec), flush=True)
+            lines.append(rec)
+    return lines
 
 
 def main() -> int:
@@ -75,6 +111,13 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     lines = []
+    if "--gather-only" in sys.argv[1:]:
+        lines += gather_lines(torch, chip_smoke, smi, dev, rng)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "probe_csr_spmv_gather.json").write_text(
+            "\n".join(json.dumps(r) for r in lines) + "\n")
+        return 0
 
     def plans(side, x):
         """Device microseconds per call with the plan built at each of
@@ -157,6 +200,7 @@ def main() -> int:
                        plans_us=plans(operand, x))
             print(json.dumps(rec), flush=True)
             lines.append(rec)
+    lines += gather_lines(torch, chip_smoke, smi, dev, rng)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "probe_csr_spmv.json").write_text(

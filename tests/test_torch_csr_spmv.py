@@ -4,7 +4,7 @@ and against the JAX package's routed gather kernels K7
 tiled table) run in interpret mode (float32), through ``CsrMatrix``.
 H-CSR-B, the batched entry on the same plan, against scipy and the JAX
 batched solver's gather-ELL product under ``jax.vmap`` (float64), and its
-summation order emulated in numpy.
+summation order emulated in numpy, and held column by column near H-CSR's.
 
 JAX is imported inside the parity tests: the card machine, which runs this
 file's ``cuda`` cases (``python -m pytest --noconftest -m cuda``), has none."""
@@ -387,6 +387,28 @@ def _emulate_batch(plan, indptr, indices, vals, x):
     return torch.as_tensor(y)
 
 
+@pytest.mark.parametrize("nb", [1, 3, 8, 300])
+@pytest.mark.parametrize("option", sorted(PLAN_OPTIONS))
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_emulated_batch_columns_near_1d_order(name, option, nb):
+    """Column b of H-CSR-B's emulated sums (entry order, chunk strands)
+    against H-CSR's emulated sums on ``X[:, b]`` (:func:`_emulate`), on
+    the same plan, in float32: the two orders differ in rounding only,
+    per row within 1e-5 · (|A| |X[:, b]|)_row (the kernels' rtol); every
+    column up to B = 8, every 23rd and the last at B = 300."""
+    a = MATRICES[name]()
+    op = CsrMatrix.from_scipy(a, torch.float32, "cpu").csr
+    plan = ops.split_plan(a.indptr, **PLAN_OPTIONS[option])
+    xn = np.random.RandomState(nb).randn(a.shape[1], nb)
+    x = torch.as_tensor(xn, dtype=torch.float32)
+    got = _emulate_batch(plan, op.indptr, op.indices, op.vals, x).numpy()
+    scale = abs(a) @ np.abs(xn)
+    for b in sorted({*range(0, nb, 1 if nb <= 8 else 23), nb - 1}):
+        want = _emulate(plan, op.indptr, op.indices, op.vals,
+                        x[:, b].contiguous()).numpy()
+        assert np.all(np.abs(got[:, b] - want) <= 1e-5 * scale[:, b]), b
+
+
 @pytest.mark.parametrize("name", sorted(MATRICES))
 def test_batched_twin_matches_scipy_and_vmapped_ell_f64(name):
     """The batched twin, through ``CsrMatrix.matvec``/``rmatvec`` on a
@@ -471,12 +493,15 @@ def test_batched_wrapper_on_cuda_launches_and_never_runs_the_twin(
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_batched_kernel_matches_twin_on_cuda(dtype):
-    """H-CSR-B against its twin (per row within rtol · (|A||X|)_row) and
-    its emulated order (to the bit), both orientations, on every fixture,
-    at B = 1, 3, 8 and 300, with the default plan and small chunks; one
-    launch per product.  Batched and 1-D products alternate on one
-    operand and each repeats its own bits (the two never share a carry or
-    a counter)."""
+    """H-CSR-B against its twin (per row within rtol · (|A||X|)_row), its
+    emulated order (to the bit) and, column by column, the 1-D H-CSR on
+    the same plan (per row within rtol · (|A||X[:, b]|)_row: the two
+    kernels add in different orders), both orientations, on every
+    fixture, at B = 1, 3, 8 and 300, with the default plan and small
+    chunks; one launch per product.  X also at a storage offset that is
+    not 16-byte aligned, with the same bits.  Batched and 1-D products
+    alternate on one operand and each repeats its own bits (the two never
+    share a carry or a counter)."""
     dev = cuda_or_skip()
     rtol = 1e-5 if dtype == torch.float32 else 1e-12
     rng = np.random.RandomState(5)
@@ -494,6 +519,11 @@ def test_batched_kernel_matches_twin_on_cuda(dtype):
             for nb in (1, 3, 8, 300):
                 xn = rng.randn(side.n_in, nb)
                 xb = torch.as_tensor(xn, dtype=dtype, device=dev)
+                buf = torch.zeros(side.n_in * nb + 1, dtype=dtype,
+                                  device=dev)
+                xu = buf[1:].view(side.n_in, nb)
+                xu.copy_(xb)
+                assert xu.data_ptr() % 16 != 0
                 want = ops.csr_spmm_reference(side.indptr, side.indices,
                                               side.vals, xb, side.n_out)
                 scale = torch.as_tensor(absa @ np.abs(xn), dtype=dtype,
@@ -508,5 +538,12 @@ def test_batched_kernel_matches_twin_on_cuda(dtype):
                         name, nb, float(err.max()))
                     assert torch.equal(got.cpu(), _emulate_batch(
                         operand.plan, *host, xb.cpu())), (name, nb)
+                    for b in range(nb):
+                        col = ops.csr_spmv(operand, xb[:, b].contiguous())
+                        assert bool(((got[:, b] - col).abs()
+                                     <= rtol * scale[:, b]).all()), (
+                            name, nb, b)
+                    assert torch.equal(ops.csr_spmm(operand, xu), got), (
+                        name, nb)
                     assert torch.equal(ops.csr_spmv(operand, v1), one)
                     assert torch.equal(ops.csr_spmm(operand, xb), got)
