@@ -141,6 +141,29 @@ The dual ascent solvers and ``admm_blocks`` add:
   CPU, Potts-300 float32 in both modes) and ``main_path_dca_matching``
   (the bipartite example's cost against the CPU run).
 
+The host modules and the observability layer add phase 9, after phase 8:
+
+* ``main_path_checkpoint``: CP on Potts-300 (H-CPDIA) and Potts-50
+  (H-CPDIA-R), float32, 800 iterations straight, then 400 under a
+  ``CheckpointingCallback`` and 400 resumed from the checkpoint, the
+  resumed x held to the straight one within MAIN_RTOL;
+* ``main_path_profile``: ``utils.profile_trace`` around a 20,000-iteration
+  Potts-50 solve, one trace, its H-CPDIA-R events held equal to the
+  launch counter and every kernel launch it records held to have its
+  kernel record, the top five kernels by device time;
+* ``main_path_debug``: Potts-50 with a NaN in its cost, trapped by
+  ``utils.debug_mode()`` at a chunk boundary, returning without it;
+* ``main_path_benchmark_random_lp``: ``benchmarks.benchmark_random_lp``
+  at its defaults over every method but the scipy bridges, on the card,
+  any ``error`` entry failing the phase;
+* ``main_path_potts_run``: ``examples.potts.run(image_size=50,
+  max_time=2, nb_iter_plot=500)`` on the card, CP held to the graph cut;
+* ``host_gauss_seidel``: the native Gauss-Seidel library loaded, and the
+  ADMM host mode on the random LP against HiGHS (no kernel launched);
+
+then ``phase9_s``.  The benchmark driver and ``potts.run`` call
+``lp.solve`` once per method: :func:`solve_log` counts each call apart.
+
 The launch counters are set to 0 just before each solve and read just
 after it; the kernel table takes H-DIA's and H-CPDIA's counts from the
 Potts-300 solve, H-CPDIA-R's from the Potts-50 restart solve (and
@@ -149,8 +172,8 @@ from the SC105 solve, H-CSR's from the transport solve, H-BSR's from the
 CLIME solve, H-DIA-B's from the banded batch solve and H-CSR-B's from the
 unstructured batch solve, H-DCA's from the sequential and H-DCA-C's
 from the blocked Potts-300 DCA solve (``launches_run`` names the solve);
-the phase 7 and 8 solves that launch a hand kernel add its count under
-``launches_by_run``.  Then the kernel table
+the phase 7, 8 and 9 solves that launch a hand kernel add its count
+under ``launches_by_run``.  Then the kernel table
 as one JSON line and, last, the device line ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside this script, it
 exits nonzero and prints no result.
@@ -3335,6 +3358,311 @@ def phase_admm_blocks_l1svm(torch, counted_solve):
     return out["float32"]["launches"]
 
 
+# ----------------------------------------------------------------------
+# phase 9: the host modules and the observability layer
+# ----------------------------------------------------------------------
+
+# the benchmark driver's random LP at the JAX package's defaults
+# (benchmarks.py::benchmark_random_lp)
+RANDOM_LP = dict(nbvar=60, n_eq=5, n_ineq=60, sparsity=0.2, seed=1)
+# examples/potts.py::run's methods whose last graph-cut distance must be
+# finite on the card (mehrotra runs in float32 there and is only printed),
+# and CP's bar, tests/test_examples.py's
+POTTS_RUN_FINITE = ("chambolle_pock_ppd", "admm", "admm2", "admm_blocks",
+                    "dual_gradient_ascent", "dual_coordinate_ascent")
+POTTS_RUN_CP_DIST = 0.05
+# examples/potts.py::run's arguments: Potts-50, 2 s a method, a curve
+# point every 100 iterations (at 500 the sequential DCA emits no point in
+# 2 s on the card: 421 sweeps; and admm2's and admm_blocks' first chunk
+# runs long past max_time, which is read between chunks)
+POTTS_RUN = dict(image_size=50, max_time=2, nb_iter_plot=100)
+# where phase 9 writes its checkpoint and trace: inside the checkout's
+# build/ directory, which git ignores
+SCRATCH = HERE / "build" / "chip_smoke"
+
+
+def solve_log(counters):
+    """Patch ``SparseLP.solve`` until the returned ``restore()`` is
+    called: each call runs with every launch counter set to 0 just before
+    it and appends its method, wall seconds and nonzero launches to
+    ``log``, so drivers that call ``lp.solve`` once per method (the
+    benchmark driver, ``examples/potts.py::run``) are counted per
+    method.  Returns ``(log, restore)``."""
+    from pysparselp_tpu_torch.modeling import SparseLP
+
+    solve, log = SparseLP.solve, []
+
+    def logged(self, *args, **kw):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = solve(self, *args, **kw)
+        log.append(dict(method=kw.get("method", args[0] if args else None),
+                        wall_s=time.perf_counter() - t0,
+                        launches={k: fn.launches for k, fn in counters.items()
+                                  if fn.launches}))
+        return out
+
+    def restore():
+        SparseLP.solve = solve
+
+    SparseLP.solve = logged
+    return log, restore
+
+
+def by_method(log):
+    """The last logged solve of each method."""
+    return {rec["method"]: rec for rec in log}
+
+
+def phase_checkpoint(torch, counted_solve):
+    """``main_path_checkpoint``: CP-PPD in float32 on the card, on
+    Potts-300 (H-CPDIA) and Potts-50 (H-CPDIA-R): 800 iterations straight,
+    then 400 with ``CheckpointingCallback(path, every_sec=0.0)`` and 400
+    more resumed from ``load_checkpoint(path)`` (x0, y_eq0, y_ineq0, x30).
+    The resumed x is held to the straight one within MAIN_RTOL · max(1,
+    max|x|); each run's launches.  Returns the launches by run."""
+    import numpy as np
+
+    from pysparselp_tpu_torch import CheckpointingCallback, load_checkpoint
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    out, runs = {}, {}
+    for size, kernel in ((300, "H-CPDIA"), (50, "H-CPDIA-R")):
+        lp = build_linear_program(size, 0.5, 500)[0]
+        run = dict(method="chambolle_pock_ppd", nb_iter_plot=200,
+                   dtype=np.float32, device="cuda")
+        wall, n_straight = counted_solve(lp, nb_iter=800, **run)
+        x_straight = counted_solve.out[0]
+        path = SCRATCH / f"checkpoint_potts{size}.npz"
+        path.unlink(missing_ok=True)
+        wall_first, n_first = counted_solve(
+            lp, nb_iter=400, callback_func=CheckpointingCallback(
+                str(path), every_sec=0.0).wrap(None), **run)
+        st = load_checkpoint(str(path))
+        wall_res, n_res = counted_solve(
+            lp, nb_iter=400, x0=st["x"], y_eq0=st["y_eq"],
+            y_ineq0=st["y_ineq"], x30=st["meta"]["x3"], **run)
+        x_res = counted_solve.out[0]
+        gap = float(np.max(np.abs(x_res - x_straight)))
+        limit = MAIN_RTOL * max(1.0, float(np.max(np.abs(x_straight))))
+        out[f"potts{size}"] = dict(
+            kernel=kernel, checkpoint_niter=st["niter"],
+            checkpoint_bytes=path.stat().st_size,
+            max_abs_gap=gap, gap_limit=limit, bit_equal=gap == 0.0,
+            launches=dict(straight=n_straight, first=n_first,
+                          resumed=n_res),
+            wall_s=dict(straight=wall, first=wall_first, resumed=wall_res))
+        if st["niter"] != 400 or not gap <= limit:
+            raise AssertionError(f"Potts-{size} resume: {out}")
+        for name, n in (("straight", n_straight), ("resumed", n_res)):
+            if not n[kernel]:
+                raise AssertionError(f"Potts-{size} {name} run did not "
+                                     f"launch {kernel}: {n}")
+            runs[f"main_path_checkpoint/potts{size}_{name}"] = n
+    emit("main_path_checkpoint", **out)
+    return runs
+
+
+def phase_profile(torch, counters):
+    """``main_path_profile``: ``utils.profile_trace(dir)`` around a
+    20,000-iteration Potts-50 CP solve (float32, 2,000-iteration chunks),
+    one trace: its kernel events counted by name, H-CPDIA-R's held equal
+    to ``cp_dia_resident_chunk.launches`` for that solve and every kernel
+    launch the trace records held to have its kernel record; the top five
+    kernels by device time and the trace's size."""
+    import shutil
+
+    import numpy as np
+
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+    from pysparselp_tpu_torch.utils import profile_trace
+
+    lp = build_linear_program(50, 0.5, 500)[0]
+    log_dir = SCRATCH / "profile_trace"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with profile_trace(str(log_dir)) as d:
+        lp.solve(method="chambolle_pock_ppd", nb_iter=20000,
+                 nb_iter_plot=2000, dtype=np.float32, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    trace = Path(d) / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    resident = sum("cp_dia_resident_kernel" in e["name"] for e in kernels)
+    correlated = {e.get("args", {}).get("correlation") for e in kernels}
+    runtime = sorted((e for e in events if e.get("cat") == "cuda_runtime"
+                      and "Launch" in e["name"]), key=lambda e: e["ts"])
+    orphans = [i for i, e in enumerate(runtime)
+               if e.get("args", {}).get("correlation") not in correlated]
+    counts, device_us = {}, {}
+    for e in kernels:
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
+        device_us[e["name"]] = device_us.get(e["name"], 0.0) + float(
+            e.get("dur", 0.0))
+    top = sorted(device_us, key=device_us.get, reverse=True)[:5]
+    emit("main_path_profile", log_dir=str(d), trace_bytes=trace.stat().st_size,
+         trace_events=len(events), kernel_events=len(kernels),
+         kernel_launches=len(runtime), launches_without_kernel=len(orphans),
+         orphan_launch_order=orphans[:20], kernel_names=len(counts),
+         h_cpdia_r_events=resident, launches=launches, wall_s=wall,
+         top5=[dict(name=name[:120], events=counts[name],
+                    device_us=device_us[name]) for name in top])
+    if not resident or resident != launches.get("H-CPDIA-R") or orphans:
+        raise AssertionError(
+            f"trace holds {resident} H-CPDIA-R events, the counter "
+            f"{launches}; {len(orphans)} of {len(runtime)} launches lack "
+            f"their kernel record")
+    return launches
+
+
+def phase_debug(torch, counted_solve):
+    """``main_path_debug``: Potts-50 with one NaN in its cost vector
+    (neither package's host layer refuses it, so the NaN goes in the cost):
+    under ``utils.debug_mode()`` the float32 CP solve on the card raises
+    ``FloatingPointError`` at the first chunk boundary after the NaN;
+    without it the same solve returns.  The iteration the trap fired at."""
+    import re
+
+    import numpy as np
+
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+    from pysparselp_tpu_torch.utils import debug_mode
+
+    lp = build_linear_program(50, 0.5, 500)[0]
+    lp.costsvector[3] = np.nan
+    run = dict(method="chambolle_pock_ppd", nb_iter=2000, nb_iter_plot=500,
+               dtype=np.float32, device="cuda")
+    trap = None
+    with debug_mode():
+        try:
+            lp.solve(**run)
+        except FloatingPointError as e:
+            trap = str(e)
+    if trap is None:
+        raise AssertionError("debug_mode did not trap the NaN cost")
+    wall, launches = counted_solve(lp, **run)
+    x = counted_solve.out[0]
+    emit("main_path_debug", nan_input="cost", trapped=trap,
+         trap_iteration=int(re.search(r"iteration (\d+)", trap).group(1)),
+         returned_without_debug=True, nan_entries_returned=int(
+             np.isnan(x).sum()), wall_s=wall, launches=launches)
+
+
+def phase_benchmark_random_lp(torch, counters):
+    """``main_path_benchmark_random_lp``: ``benchmarks.benchmark_random_lp``
+    at the JAX package's defaults (RANDOM_LP), every method of
+    ``solving_methods`` but the scipy bridges, 2,000 iterations, a point
+    every 500, 5 s at most each, on the card (float32): per method the
+    cost, the distance to HiGHS's solution, seconds and each hand kernel's
+    launches.  The driver catches a failing method into ``{"error": ...}``;
+    any such entry fails the phase.  Returns (launches by method, the
+    random LP, HiGHS's solution)."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.benchmarks import benchmark_random_lp
+    from pysparselp_tpu_torch.modeling import solving_methods
+
+    methods = [m for m in solving_methods
+               if m not in ("scipy_simplex", "scipy_interior_point")]
+    log, restore = solve_log(counters)
+    try:
+        t0 = time.perf_counter()
+        results, lp = benchmark_random_lp(
+            **RANDOM_LP, methods=methods, nb_iter=2000, nb_iter_plot=500,
+            max_time=5, solve_kwargs={"device": "cuda"}, verbose=False)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    gt, _ = lp.solve(method="scipy_simplex")
+    logged, out = by_method(log), {}
+    for method, r in results.items():
+        if "error" in r:
+            out[method] = r
+            continue
+        dist = r["distance_to_ground_truth"]
+        out[method] = dict(
+            cost=r["cost"], max_violation=r["max_violation"],
+            mean_abs_dist_to_highs=float(np.mean(np.abs(r["x"] - gt))),
+            last_curve_dist=dist[-1] if dist else None,
+            curve_points=len(r["itrn_curve"]), elapsed_s=r["elapsed"],
+            launches=logged[method]["launches"])
+    emit("main_path_benchmark_random_lp", lp=RANDOM_LP, highs_cost=float(
+        lp.cost(gt)), methods=out, wall_s=wall)
+    errors = {m: r["error"] for m, r in results.items() if "error" in r}
+    if errors or set(results) != set(methods):
+        raise AssertionError(f"benchmark_random_lp: {errors or results}")
+    return {m: rec["launches"] for m, rec in logged.items()}, lp, gt
+
+
+def phase_potts_run(torch, counters):
+    """``main_path_potts_run``: ``examples.potts.run(**POTTS_RUN)`` on the
+    card with its default method list (float32): every method's last
+    graph-cut distance, curve points, seconds and launches, and the
+    iteration CP first came within the bar.  Fails on an exception, on a non-finite (or missing) last
+    distance of CP, the ADMM family, DGA or DCA, and on CP's above
+    tests/test_examples.py's 0.05; Mehrotra's is printed whatever it is
+    (float32 is below what the interior point needs).  Returns the
+    launches by method."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.examples import potts
+
+    log, restore = solve_log(counters)
+    try:
+        t0 = time.perf_counter()
+        curves = potts.run(**POTTS_RUN)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    logged = by_method(log)
+    out = {m: dict(last_dist=c[-1] if c else None, points=len(c),
+                   wall_s=logged[m]["wall_s"],
+                   launches=logged[m]["launches"])
+           for m, c in curves.items()}
+    below = np.nonzero(np.asarray(curves["chambolle_pock_ppd"])
+                       < POTTS_RUN_CP_DIST)[0]
+    out["chambolle_pock_ppd"]["first_within_bar_iteration"] = (
+        int(below[0] + 1) * POTTS_RUN["nb_iter_plot"] if below.size
+        else None)
+    emit("main_path_potts_run", **POTTS_RUN, methods=out,
+         cp_dist_bar=POTTS_RUN_CP_DIST, wall_s=wall)
+    bad = [m for m in POTTS_RUN_FINITE if m in out and not (
+        out[m]["last_dist"] is not None and np.isfinite(out[m]["last_dist"]))]
+    if bad or not out["chambolle_pock_ppd"]["last_dist"] < POTTS_RUN_CP_DIST:
+        raise AssertionError(f"potts.run on the card: {out}")
+    return {m: rec["launches"] for m, rec in logged.items()}
+
+
+def phase_host_gauss_seidel(torch, counted_solve, lp, gt):
+    """``host_gauss_seidel``: the native Gauss-Seidel library
+    (``native/_gauss_seidel.cpp``, built by g++ into the build directory)
+    must load; then ``lp.solve(method="admm", inner="gauss_seidel",
+    device="cuda", nb_iter=1000)`` on the benchmark's random LP: its cost
+    against HiGHS's and its seconds.  The sweeps run on the host whatever
+    ``device`` says, so no hand kernel may be launched."""
+    import importlib
+
+    gs = importlib.import_module("pysparselp_tpu_torch.native.gauss_seidel")
+    lib = gs._load_native()
+    if lib is None:
+        raise AssertionError("the native Gauss-Seidel library did not build")
+    wall, launches = counted_solve(lp, method="admm", inner="gauss_seidel",
+                                   device="cuda", nb_iter=1000)
+    x = counted_solve.out[0]
+    emit("host_gauss_seidel", runs_on="host (sequential C++ sweeps; "
+         "device='cuda' is resolved, not used)", native_library=lib._name,
+         cost=float(lp.cost(x)), highs_cost=float(lp.cost(gt)),
+         max_violation=float(lp.max_constraint_violation(x)), seconds=wall,
+         launches={k: n for k, n in launches.items() if n})
+    if any(launches.values()):
+        raise AssertionError(f"the host mode launched kernels: {launches}")
+
+
 def kernel_counters():
     """Each hand kernel's wrapper, whose ``launches`` counts its
     launches."""
@@ -3385,6 +3713,14 @@ def main() -> int:
         wall = time.perf_counter() - t0
         return wall, {k: fn.launches for k, fn in counters.items()}
 
+    phase_s, clock = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Keep the seconds since the last lap under ``name``."""
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+
     # phase 1: environment and the build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3403,6 +3739,7 @@ def main() -> int:
          build_cached=_build.build_info["cached"])
     if _build.build_info["log"]:
         print(_build.build_info["log"], file=sys.stderr)
+    lap("1_environment_build")
 
     t0 = time.perf_counter()
     problems = {
@@ -3416,6 +3753,7 @@ def main() -> int:
     clime = clime_lp(**CLIME)
     batch_lps = {k: cfg["make"]() for k, cfg in BATCH.items()}
     emit("problems", build_seconds=time.perf_counter() - t0)
+    lap("problems")
 
     table = {k: dict(name=k, route="cuda", **v, launches=None,
                      max_abs_err=0.0, ms=None, plain_ms=None, bound_ms=None,
@@ -3438,6 +3776,7 @@ def main() -> int:
         "clime_rcm": (apply_rcm_permutation(folded(clime))[0]["a_ineq"],
                       "bsr")}, table)
     phase_dca_kernels(torch, table, sm_mhz)
+    lap("2_kernels")
 
     # phase 3: the main path on Potts-300
     lp300 = build_linear_program(300, 0.5, 500)[0]
@@ -3462,17 +3801,20 @@ def main() -> int:
         raise AssertionError(f"Potts-300 f32 CUDA vs f64 CPU: {worst}")
     for key in ("H-DIA", "H-CPDIA"):
         table[key]["launches"] = n300[key]
+    lap("3_potts300")
 
     # phase 3b: the mesh solve, one NCCL rank, then four gloo ranks
     table["H-DIA (K5)"]["launches"] = phase_mesh1(torch, lp300, want,
                                                   counted_solve)["H-DIA"]
     phase_mesh4(torch)
+    lap("3b_mesh")
 
     # phase 4: bench.py's non-grid workloads at its sizes
     for name, lp in workloads.items():
         launches = phase_nongrid(torch, name, lp, counted_solve)
         if name == "transport":
             table["H-CSR"]["launches"] = launches["H-CSR"]
+    lap("4_nongrid")
 
     # phase 4b: batched serving (solve_cp_batch) on H-DIA-B and H-CSR-B
     for name, lp in batch_lps.items():
@@ -3480,10 +3822,12 @@ def main() -> int:
         for key in ("H-DIA-B", "H-CSR-B"):
             if KERNELS[key]["launches_run"] == f"main_path_batch_{name}":
                 table[key]["launches"] = launches[key]
+    lap("4b_batch")
 
     # phase 5: CLIME through the RCM presolve and the block-sparse operator
     table["H-BSR"]["launches"] = phase_clime(torch, clime,
                                              counted_solve)["H-BSR"]
+    lap("5_clime")
 
     # phase 6: convergence with restart-to-average
     lp50, gt50, idx50, _ = build_linear_program(50, 0.5, 500)
@@ -3521,6 +3865,7 @@ def main() -> int:
     if not d105 < 1e-3:
         raise AssertionError(f"SC105 reached dist {d105} (need < 1e-3)")
     table["H-CPDENSE"]["launches"] = n105["H-CPDENSE"]
+    lap("6_convergence")
 
     # phase 7: the interior point and ADMM solvers
     phase_mehrotra_netlib(torch, counted_solve)
@@ -3532,6 +3877,7 @@ def main() -> int:
         for key, n in launches.items():
             if n:
                 table[key].setdefault("launches_by_run", {})[run] = n
+    lap("7_mehrotra_admm")
 
     # phase 8: the dual ascent solvers and admm_blocks
     t8 = time.perf_counter()
@@ -3547,6 +3893,26 @@ def main() -> int:
     table["H-DCA-C"]["launches"] = dca_counts["blocked"]["H-DCA-C"]
     phase_dca_matching(torch, counted_solve)
     emit("phase8", seconds=time.perf_counter() - t8)
+    lap("8_dual_ascent")
+
+    # phase 9: the host modules and the observability layer
+    t9 = time.perf_counter()
+    runs = phase_checkpoint(torch, counted_solve)
+    runs["main_path_profile"] = phase_profile(torch, counters)
+    phase_debug(torch, counted_solve)
+    bench, random_lp, highs = phase_benchmark_random_lp(torch, counters)
+    runs.update({f"main_path_benchmark_random_lp/{m}": n
+                 for m, n in bench.items()})
+    runs.update({f"main_path_potts_run/{m}": n
+                 for m, n in phase_potts_run(torch, counters).items()})
+    phase_host_gauss_seidel(torch, counted_solve, random_lp, highs)
+    for run, launches in runs.items():
+        for key, n in launches.items():
+            if n:
+                table[key].setdefault("launches_by_run", {})[run] = n
+    emit("phase9", phase9_s=time.perf_counter() - t9)
+    lap("9_host_observability")
+    emit("phase_seconds", total_s=sum(phase_s.values()), **phase_s)
     for key, rec in table.items():
         if not rec["launches"]:
             raise AssertionError(f"{key} was not launched in the "

@@ -6,18 +6,40 @@ Models sparse LPs
 
 with the same host modeling layer as the JAX package and solves them with
 PyTorch on an NVIDIA GPU, where the hot loops run hand-written Hopper
-kernels (``csrc/``).  Ported so far: ``SparseLP.solve(method=
-"chambolle_pock_ppd")`` (one device, or row-sharded with ``mesh=``), the
-host bridges ``method="scipy_simplex"`` / ``"scipy_interior_point"``, and
-batched serving, :func:`solve_cp_batch`.  The package imports ``torch`` and
-never ``jax``.
+kernels (``csrc/``).  Ported: every method of ``SparseLP.solve`` —
+``chambolle_pock_ppd`` (one device, or row-sharded with ``mesh=``),
+``mehrotra``, ``admm`` (also ``inner="gauss_seidel"``, a host mode),
+``admm2``, ``admm_blocks``, ``dual_gradient_ascent`` and
+``dual_coordinate_ascent`` on one device; the host bridges
+``scipy_simplex`` / ``scipy_interior_point`` and, where their packages are
+installed, ``osqp`` and cvxpy's ``ECOS`` / ``SCS`` / ``CVXOPT`` — batched
+serving (:func:`solve_cp_batch`), checkpoints (:func:`save_checkpoint`,
+:func:`load_checkpoint`, :class:`CheckpointingCallback`; the ``.npz``
+format is the JAX package's), the instrumentation of :mod:`.utils`
+(``profile_trace`` on ``torch.profiler``, ``debug_mode``), the benchmark
+driver :mod:`.benchmarks`, I/O (MPS, netlib, LPsparse text) and the
+examples.  Not yet: ``mesh=`` with any other method (ROADMAP M9).  The
+package imports ``torch`` and never ``jax``.
 """
 
 from .batch import solve_cp_batch
+from .checkpoint import (
+    CheckpointingCallback,
+    load_checkpoint,
+    save_checkpoint,
+)
 from .modeling import SparseLP, solving_methods
 from .sparse_host import BlockedCSR, crd_matrix
 
-__all__ = ["SparseLP", "solving_methods", "BlockedCSR", "crd_matrix",
-           "solve_cp_batch"]
+__all__ = [
+    "SparseLP",
+    "solving_methods",
+    "BlockedCSR",
+    "crd_matrix",
+    "save_checkpoint",
+    "load_checkpoint",
+    "CheckpointingCallback",
+    "solve_cp_batch",
+]
 
 __version__ = "0.1.0"

@@ -36,6 +36,7 @@ from .problem import (DENSE_AUTO_MAX_ENTRIES, DIA_AUTO_MAX_OFFSETS,
                       resolve_dtype)
 from .solvers import _csr
 from .solvers.chambolle_pock import _fold_one_sided, host_preconditioners
+from .utils.debug import check_iterate
 
 CURVES = ("energy1", "energy2", "max_violated_equality",
           "max_violated_inequality")
@@ -277,6 +278,8 @@ def solve_cp_batch(lp, costs=None, b_eq=None, b_lower=None, b_upper=None,
         opttime.append(time.perf_counter() - start)
         for i, k in enumerate(CURVES):
             curves[k].append(stacked[i])
+        check_iterate("solve_cp_batch", done, x=state[0],
+                      **dict(zip(CURVES, stacked)))
     info = {"backend": backend, "itrn": np.asarray(itrn),
             "opttime": np.asarray(opttime)}
     info.update({k: np.stack(v) for k, v in curves.items()})

@@ -1,7 +1,9 @@
 # Copy of the model builders of pysparselp_tpu/examples/potts.py (ImageLP,
 # graph_cut_segmentation, build_linear_program,
 # build_multilabel_linear_program; tests/test_torch_slice.py holds them
-# equal) and its batched serving demo, solve_batch_segmentation.
+# equal), its batched serving demo, solve_batch_segmentation, and its
+# every-method driver, run (verbatim; tests/test_torch_examples.py holds
+# its source equal).
 """Potts image-model LP relaxation, with an exact graph-cut oracle.
 
 Reference: ``pysparselp/examples/example_pott_segmentation.py`` — a binary
@@ -20,7 +22,7 @@ import numpy as np
 import scipy.sparse
 from scipy.sparse.csgraph import breadth_first_order, maximum_flow
 
-from ..modeling import SparseLP
+from ..modeling import SparseLP, solving_methods
 
 
 class ImageLP(SparseLP):
@@ -206,3 +208,40 @@ def solve_batch_segmentation(images, coef_potts, nb_iter=20_000,
     x, info = solve_cp_batch(lp, costs=costs, nb_iter=nb_iter,
                              **solve_kwargs)
     return x[:, flat].reshape(imgs.shape), info
+
+
+def run(display=False, image_size=50, coef_mul=500, coef_potts=0.5,
+        max_time=15, methods=None, nb_iter=1000000, nb_iter_plot=500):
+    """Run all solvers on the Potts LP; returns per-method distance curves
+    (the reference's test contract, ``example_pott_segmentation.py:95-187``)."""
+    lp, ground_truth, indices, _unary = build_linear_program(
+        image_size, coef_potts, coef_mul
+    )
+    if methods is None:
+        methods = [
+            m for m in solving_methods
+            if m not in ("scipy_simplex", "scipy_interior_point")
+        ]
+    curves = {}
+    for method in methods:
+        sol, _elapsed = lp.solve(
+            method=method, nb_iter=nb_iter, max_time=max_time,
+            ground_truth=ground_truth, ground_truth_indices=indices,
+            nb_iter_plot=nb_iter_plot,
+        )
+        curves[method] = list(lp.distance_to_ground_truth)
+        if display:  # pragma: no cover
+            import matplotlib.pyplot as plt
+
+            plt.loglog(lp.itrn_curve, lp.distance_to_ground_truth,
+                       label=method)
+    if display:  # pragma: no cover
+        import matplotlib.pyplot as plt
+
+        plt.legend()
+        plt.show()
+    return curves
+
+
+if __name__ == "__main__":
+    run(display=True)

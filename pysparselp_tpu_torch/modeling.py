@@ -664,6 +664,17 @@ class SparseLP:
 
         save_mps(self, filename)
 
+    def save_ian_e_h_yen(self, folder):
+        from .io.ian_yen import save_ian_e_h_yen
+
+        save_ian_e_h_yen(self, folder)
+
+    def convert_to_cvxpy(self):
+        """Return ``(cvxpy.Problem, x)`` (reference ``SparseLP.py:930-988``)."""
+        from .solvers.cvxpy_bridge import convert_to_cvxpy
+
+        return convert_to_cvxpy(self)
+
     # ------------------------------------------------------------------
     # solve dispatch (``SparseLP.py:990-1383``)
     # ------------------------------------------------------------------

@@ -12,7 +12,9 @@ Ported so far:
 * ``dual_gradient_ascent`` and ``dual_coordinate_ascent`` (both modes;
   :mod:`.dual_ascent`);
 * the host bridges ``scipy_simplex`` / ``scipy_interior_point`` (HiGHS
-  through scipy, :mod:`.scipy_bridge`), which run on the host whatever
+  through scipy, :mod:`.scipy_bridge`) and, where their packages are
+  installed, ``osqp`` (:mod:`.osqp_bridge`) and ``ECOS`` / ``SCS`` /
+  ``CVXOPT`` (cvxpy, :mod:`.cvxpy_bridge`), which run on the host whatever
   ``device`` says.
 
 ``dispatch`` performs the same per-method host-side conversions as the JAX
@@ -21,8 +23,8 @@ reduced space), Mehrotra removes fixed variables and converts to slack
 form, DCA removes fixed variables, and every solution and callback
 iterate is mapped back with ``x_original = m_change @ x_new + shift``;
 ADMM, dual gradient ascent and the bridges take the full LP.  ``mesh=``
-with any method but ``chambolle_pock_ppd``, and the optional bridges, raise
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+with any method but ``chambolle_pock_ppd`` raises ``NotImplementedError``
+naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -33,14 +35,6 @@ import numpy as np
 import torch
 
 from .base import mirror_callback_attrs, to_np
-
-# methods of the JAX package not ported yet -> the ROADMAP.md item that ports them
-_NOT_PORTED = {
-    "osqp": "Queue 1, M7 (host bridges)",
-    "ECOS": "Queue 1, M7 (host bridges)",
-    "SCS": "Queue 1, M7 (host bridges)",
-    "CVXOPT": "Queue 1, M7 (host bridges)",
-}
 
 
 def _same_option(a, b) -> bool:
@@ -82,10 +76,6 @@ def dispatch(
         raise ValueError(
             f"method {method!r} not valid; available methods are {solving_methods}"
         )
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method {method!r} is not ported to PyTorch yet; see ROADMAP.md "
-            f"{_NOT_PORTED[method]}")
 
     # typed per-solver config gate: unknown/typo'd options raise here with
     # the valid field list instead of deep inside the solver
@@ -106,6 +96,18 @@ def dispatch(
             lp, method, nb_iter=nb_iter, callback_func=callback_func,
             start_time=start_time, nb_iter_plot=nb_iter_plot,
         )
+
+    if method == "osqp":  # pragma: no cover - optional dependency
+        from .osqp_bridge import solve_osqp
+
+        return solve_osqp(lp, nb_iter=nb_iter, callback_func=callback_func,
+                          start_time=start_time)
+
+    if method in ("ECOS", "SCS", "CVXOPT"):  # pragma: no cover - optional
+        from .cvxpy_bridge import solve_cvxpy
+
+        return solve_cvxpy(lp, method, nb_iter=nb_iter,
+                           callback_func=callback_func, start_time=start_time)
 
     if method in ("admm", "admm2", "admm_blocks"):
         from .admm import lp_admm, lp_admm2

@@ -15,8 +15,10 @@
   Cholesky (``m ≤ dense_threshold``) and solved by two triangular solves
   per iteration, or solved by Jacobi-preconditioned CG on the operator.
 
-Not ported here: ``inner="gauss_seidel"`` (the native sequential sweep,
-ROADMAP M7(a)) and ``mesh=`` (``sharded_admm.py``, ROADMAP M9); both raise.
+``lp_admm(inner="gauss_seidel")`` is the JAX package's host mode: the
+native bounded Gauss-Seidel sweep (:mod:`pysparselp_tpu_torch.native`) on
+the host, whatever ``device`` says.  Not ported here: ``mesh=``
+(``sharded_admm.py``, ROADMAP M9), which raises.
 """
 
 from __future__ import annotations
@@ -140,20 +142,31 @@ def lp_admm(
     device="cuda",
 ):
     """Penalized-equality ADMM; signature parity with ``ADMM.py:47`` (plus
-    ``device``).  ``inner="jacobi"`` (the default) is the damped projected
-    Jacobi loop; ``"gauss_seidel"`` and ``mesh=`` are not ported and
-    raise."""
+    ``device``).
+
+    ``inner`` selects the x-subproblem solver: ``"jacobi"`` (the default)
+    is the damped projected Jacobi loop on ``device``; ``"gauss_seidel"``
+    is the sequential bounded Gauss-Seidel host mode (native C++ sweeps,
+    :mod:`pysparselp_tpu_torch.native.gauss_seidel`), the algorithmic twin
+    of the reference's default inner solver.  As in the JAX package it runs
+    on the host in float64 whatever ``device`` and ``dtype`` say: a
+    sequential sweep cannot use the card.  ``device`` is still resolved,
+    so ``"cuda"`` without a card raises as everywhere else.  ``mesh=`` is
+    not ported and raises (with either ``inner``)."""
     if mesh is not None:
         _not_ported("admm with mesh= (sharded_admm.py)", "Queue 1, M9")
-    if inner == "gauss_seidel":
-        _not_ported('admm with inner="gauss_seidel" (native/gauss_seidel.py)',
-                    "Queue 1, M7(a)")
     dev = resolve_device(device)
     dtype = resolve_dtype(dtype, dev)
     n = np.asarray(c).size
     c2, a, b, lb2, ub2, x02 = admm_system(
         c, a_eq, beq, a_ineq, b_lower, b_upper, lb, ub, x0,
         use_preconditioning)
+    if inner == "gauss_seidel":
+        return _lp_admm_host_gs(
+            c2, a, b, lb2, ub2, x02, n, gamma_eq, gamma_ineq, nb_iter,
+            nb_iter_plot, nb_inner, callback_func, start_time, max_time,
+            stop_tol, light_metrics,
+        )
     a = scipy.sparse.csr_matrix(a)
     sq = a.copy()
     sq.data = sq.data**2
@@ -208,6 +221,52 @@ def lp_admm(
         ):
             break
     return to_np(state[0][:n])
+
+
+def _lp_admm_host_gs(c, a, b, lb, ub, x0, n, gamma_eq, gamma_ineq, nb_iter,
+                     nb_iter_plot, nb_inner, callback_func, start_time,
+                     max_time, stop_tol=None, light_metrics=False):
+    """Host-mode ADMM iterate with the native bounded Gauss-Seidel inner
+    solve — the sequential twin of the reference's default path
+    (``ADMM.py:143-268`` with ``gaussSiedel.pyx:95`` inside)."""
+    from ..native.gauss_seidel import BoundedGaussSeidel
+
+    a = scipy.sparse.csr_matrix(a)
+    m_mat = (
+        gamma_eq * (a.T @ a) + gamma_ineq * scipy.sparse.eye(a.shape[1])
+    ).tocsr()
+    bs = BoundedGaussSeidel(m_mat)
+    at = a.T.tocsr()
+    atb = at @ b
+    x = np.asarray(x0, np.float64).copy()
+    xp = np.clip(x, lb, ub)
+    lam = np.zeros(a.shape[0])
+    loop = HostLoop(start_time=start_time, max_time=max_time)
+    tstop = ToleranceStop(stop_tol)
+    for i in range(1, nb_iter + 1):
+        y = -c + gamma_eq * atb + gamma_ineq * xp - at @ lam
+        x = bs.solve(y, lb, ub, x, maxiter=max(nb_inner, 1))
+        xp = x
+        r = a @ x - b
+        lam += gamma_eq * r
+        if i % nb_iter_plot == 0 or i == nb_iter:
+            energy = float(
+                c @ x + 0.5 * gamma_eq * (r @ r) + lam @ r
+            )
+            emit_callback(
+                callback_func, i, x[:n], energy, energy, lambda: loop.elapsed,
+                float(np.abs(r).max(initial=0.0)),
+                float(max(np.max(lb - x, initial=0.0),
+                          np.max(x - ub, initial=0.0))),
+                light=light_metrics,
+            )
+            if loop.timed_out or tstop.check(
+                energy, np.abs(r).max(initial=0.0),
+                max(np.max(lb - x, initial=0.0),
+                    np.max(x - ub, initial=0.0)),
+            ):
+                break
+    return x[:n]
 
 
 # ----------------------------------------------------------------------

@@ -1,6 +1,6 @@
 # Copy of pysparselp_tpu/solvers/base.py (to_np, chunk_schedule, HostLoop,
 # ToleranceStop, mirror_callback_attrs, emit_callback); to_np also fetches
-# torch tensors.
+# torch tensors, and emit_callback runs utils.debug's chunk-boundary check.
 """Shared solver-loop infrastructure.
 
 Every iterative solver follows the same shape: a *chunk* of ``nb_iter_plot``
@@ -14,10 +14,13 @@ region.
 
 from __future__ import annotations
 
+import sys
 import time
 
 import numpy as np
 import torch
+
+from ..utils.debug import check_iterate
 
 
 def to_np(x):
@@ -113,7 +116,17 @@ def emit_callback(callback_func, niter, x, energy1, energy2, elapsed,
     milliseconds, so the default path's 5+ round trips per checkpoint can
     otherwise dominate short chunks; on a local card each costs a device
     synchronisation.
+
+    Under :func:`~pysparselp_tpu_torch.utils.debug.debug_mode` the iterate
+    and the metrics are checked first, with or without a callback, and a
+    non-finite value raises ``FloatingPointError`` naming the calling
+    solver function and ``niter``; with the flag off the check reads
+    nothing from the device.
     """
+    check_iterate(sys._getframe(1).f_code.co_name, niter, x=x,
+                  energy1=energy1, energy2=energy2,
+                  max_violated_eq=max_violated_eq,
+                  max_violated_ineq=max_violated_ineq)
     if callback_func is None:
         return
     if light:

@@ -35,6 +35,7 @@ import torch
 from ..ops.cg import conjgrad
 from ..ops.linear_solve import cholesky_solve, cholesky_upper
 from ..problem import ell_from_scipy, resolve_device, resolve_dtype
+from ..utils.debug import check_iterate
 from .base import to_np
 
 
@@ -139,6 +140,8 @@ def _ipm_iteration(data, x, y, s, theta, ridge_boost, use_dense: bool):
               & torch.isfinite(s_new).all())
     if factored is not None:
         finite = finite & factored
+    # the step before rejection, for debug_mode (references, no device work)
+    step = dict(step_x=x_new, step_y=y_new, step_s=s_new)
     # reject non-finite steps (ill-conditioned normal matrix at convergence):
     # keep the previous iterate; the host loop stops on the `finite` flag
     x_new = torch.where(finite, x_new, x)
@@ -148,7 +151,7 @@ def _ipm_iteration(data, x, y, s, theta, ridge_boost, use_dense: bool):
     residual = torch.linalg.norm(torch.cat((r_b, r_c, r_xs0))) / data["bc"]
     return x_new, y_new, s_new, dict(
         residual=residual, mu=mu, f=torch.dot(c, x_new),
-        alpha_x=alpha_x, alpha_s=alpha_s, finite=finite,
+        alpha_x=alpha_x, alpha_s=alpha_s, finite=finite, step=step,
     )
 
 
@@ -271,6 +274,10 @@ def mpc_sol(
         ridge_boost = 1.0
         x_new, y_new, s_new, metrics = _ipm_iteration(
             data, x, y, s, theta_dev, ridge_boost, use_dense)
+        # debug_mode: trap a NaN (or, with infs=True, infinite) iterate or
+        # step here, before such a step is rejected and retried
+        check_iterate("mehrotra", niter, x=x, y=y, s=s,
+                      residual=metrics["residual"], **metrics["step"])
         # non-finite step: raise the regularization and retry this iteration
         retries = 0
         while not bool(metrics["finite"]) and retries < 4:

@@ -133,7 +133,9 @@ def test_basis_pursuit_denoising_beats_generator(monkeypatch):
 
 
 @pytest.mark.parametrize("method,kw,item", [
-    ("admm", dict(inner="gauss_seidel"), "M7\\(a\\)"),
+    # inner="gauss_seidel" is ported (tests/test_torch_gauss_seidel.py);
+    # with mesh= it is still refused
+    ("admm", dict(inner="gauss_seidel", mesh=object()), "M9"),
     ("admm", dict(mesh=object()), "M9"),
     ("admm2", dict(mesh=object()), "M9"),
 ])

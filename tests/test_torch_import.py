@@ -11,9 +11,7 @@ import pytest
 import torch
 
 from pysparselp_tpu_torch import SparseLP
-from pysparselp_tpu_torch.modeling import solving_methods
 from pysparselp_tpu_torch.problem import resolve_device, resolve_dtype
-from pysparselp_tpu_torch.solvers import _NOT_PORTED
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,10 +49,22 @@ def test_import_leaves_jax_out():
             "pysparselp_tpu_torch.solvers.dual_ascent, "
             "pysparselp_tpu_torch.solvers.admm_blocks, "
             "pysparselp_tpu_torch.examples.bipartite_matching, "
+            "pysparselp_tpu_torch.native, "
+            "pysparselp_tpu_torch.native.gauss_seidel, "
+            "pysparselp_tpu_torch.io.ian_yen, "
+            "pysparselp_tpu_torch.solvers.osqp_bridge, "
+            "pysparselp_tpu_torch.solvers.cvxpy_bridge, "
+            "pysparselp_tpu_torch.checkpoint, "
+            "pysparselp_tpu_torch.benchmarks, "
+            "pysparselp_tpu_torch.utils.debug, "
+            "pysparselp_tpu_torch.utils.instrumentation, "
+            "pysparselp_tpu_torch.utils.timers, "
+            "pysparselp_tpu_torch.utils.xorshift, "
             "chip_smoke; "
             "sys.path.insert(0, 'scripts'); import probe_csr_spmv, "
             "probe_bsr_spmv, profile_port, profile_mesh, time_presolve, "
-            "compare_kernels, probe_dca_sweep, probe_csr_batch_orders; "
+            "compare_kernels, probe_dca_sweep, probe_csr_batch_orders, "
+            "probe_trace_loss; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('pysparselp_tpu.') or "
             "m == 'pysparselp_tpu' for m in sys.modules), 'JAX package'")
@@ -77,7 +87,8 @@ def test_no_port_file_imports_jax():
                    os.path.join("scripts", "time_presolve.py"),
                    os.path.join("scripts", "compare_kernels.py"),
                    os.path.join("scripts", "probe_dca_sweep.py"),
-                   os.path.join("scripts", "probe_csr_batch_orders.py")):
+                   os.path.join("scripts", "probe_csr_batch_orders.py"),
+                   os.path.join("scripts", "probe_trace_loss.py")):
         with open(os.path.join(REPO, script)) as f:
             text = f.read()
         assert "import jax" not in text and "pysparselp_tpu." not in (
@@ -111,19 +122,6 @@ def test_default_device_is_cuda():
         pytest.skip("this machine has CUDA; the default device works")
     with pytest.raises(RuntimeError, match="cuda"):
         lp.solve(method="chambolle_pock_ppd", nb_iter=10)
-
-
-@pytest.mark.parametrize("method", sorted(_NOT_PORTED))
-def test_unported_methods_name_their_roadmap_item(method):
-    """Only the optional bridges are left unported: with their package
-    installed they are valid methods that raise naming their ROADMAP item;
-    without it (as here) they are not valid methods at all."""
-    if method in solving_methods:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            _tiny_lp().solve(method=method, nb_iter=10, device="cpu")
-    else:
-        with pytest.raises(ValueError, match="available methods"):
-            _tiny_lp().solve(method=method, nb_iter=10, device="cpu")
 
 
 @pytest.mark.parametrize("method", ["admm_blocks", "dual_gradient_ascent",
