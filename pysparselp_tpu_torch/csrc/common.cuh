@@ -32,10 +32,23 @@ __device__ __forceinline__ T dia_row(const T* __restrict__ vals,
   return acc;
 }
 
+// torch.clamp(v, lo, hi) with tensor bounds as ATen's CUDA kernel computes
+// it: a NaN in v, else in lo, else in hi comes out as it is; otherwise
+// ::min(::max(v, lo), hi), the same device functions, so a signed zero
+// comes out as the twin's does on the card.
 template <typename T>
 __device__ __forceinline__ T clamp(T v, T lo, T hi) {
-  v = v > lo ? v : lo;
-  return v < hi ? v : hi;
+  if (isnan(v)) return v;
+  if (isnan(lo)) return lo;
+  if (isnan(hi)) return hi;
+  return ::min(::max(v, lo), hi);
+}
+
+// torch.clamp_min(v, 0.0) as ATen's CUDA kernel computes it: a NaN comes
+// out as it is, else ::max(v, 0).
+template <typename T>
+__device__ __forceinline__ T clamp_min0(T v) {
+  return isnan(v) ? v : ::max(v, T(0));
 }
 
 }  // namespace pslp

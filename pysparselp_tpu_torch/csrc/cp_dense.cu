@@ -235,7 +235,7 @@ __global__ void __launch_bounds__(kMaxThreads) cp_dense_kernel(DenseArgs<T> a) {
       if (i < m && l2 == 0) {
         const int q = i < me ? i : me_p + (i - me);
         T yn = y[q] + sig[i] * (acc - b[i]);
-        if (i >= me) yn = yn > T(0) ? yn : T(0);
+        if (i >= me) yn = pslp::clamp_min0<T>(yn);
         y[q] = yn;
         if (sums) sy[i] = sy[i] + yn;
       }

@@ -77,7 +77,7 @@ __global__ void cp_dual_kernel(int rows, const T* x3, int n,
   if (i < m) {
     const T r = dia_row<T>(v, off, nd, m, x3, n, i) - b[i];
     T yn = y[i] + s[i] * r;
-    yn = yn > T(0) ? yn : T(0);
+    yn = pslp::clamp_min0<T>(yn);
     y[i] = yn;
     if (sy != nullptr) sy[i] = sy[i] + yn;
   }

@@ -403,7 +403,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       if (i < m) {
         const T r = taps<T>(v_s, a.offs[1], a.nd, W, l, i, n, x3_cur) - b_s[l];
         T yn = y_prev[l] + s_s[l] * r;
-        yn = yn > T(0) ? yn : T(0);
+        yn = pslp::clamp_min0<T>(yn);
         push<T>(hy, k, E, W, R, l, yn);
         if (sums) sy_s[l] = sy_s[l] + yn;
       }

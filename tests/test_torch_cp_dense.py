@@ -16,9 +16,10 @@ from pysparselp_tpu_torch.ops.cp_dense import (SMEM_LIMIT, cp_dense_chunk,
                                                cp_dense_eligible,
                                                dense_layout)
 from pysparselp_tpu_torch.utils.convert import problem_from_jax_arrays
-from torch_port_helpers import (assert_close, cuda_or_skip, host_system,
-                                      jax_problem, port_problem, sc105_lp,
-                                      start_point, torch_pre)
+from torch_port_helpers import (assert_close, assert_same_bits,
+                                cuda_or_skip, host_system, jax_problem,
+                                nan_signed_zero_case, port_problem, sc105_lp,
+                                start_point, torch_pre)
 
 torch.set_num_threads(1)
 
@@ -146,3 +147,48 @@ def test_kernel_matches_twin_on_cuda(dtype, rtol, name):
                 scale = max(1.0, float(w.abs().max()))
                 assert float((g - w).abs().max()) <= rtol * scale, (name,
                                                                      lanes)
+
+
+def _diagonal_system(n=48, me=12, mi=24, seed=13):
+    """A dense LP whose rows each hold one entry, each in its own column:
+    every product of the kernel and of the twin adds one term and zeros,
+    in any order the same bits."""
+    rng = np.random.RandomState(seed)
+    vals = rng.rand(me + mi) + 0.5
+    a = scipy.sparse.csr_matrix((vals, (np.arange(me + mi),
+                                        np.arange(me + mi))),
+                                shape=(me + mi, n))
+    return dict(a_eq=a[:me], beq=rng.rand(me), a_ineq=a[me:],
+                b_ineq=rng.rand(mi) + 0.5, c=rng.randn(n), lb=np.zeros(n),
+                ub=np.ones(n))
+
+
+def test_twin_keeps_a_nan_cost_and_bound():
+    sys_, start = nan_signed_zero_case(_diagonal_system(), seed=4)
+    prob, pre = port_problem(sys_, "dense", torch.float64)
+    x = cp_dense_chunk(prob, pre, *(torch.as_tensor(v, dtype=torch.float64)
+                                    for v in start), 1, 1.0)[0]
+    assert torch.isnan(x[3]) and torch.isnan(x[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsteps", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_keeps_nan_and_signed_zeros_on_cuda(dtype, nsteps):
+    """H-CPDENSE against the twin on the card, bit for bit, on a NaN cost,
+    a NaN bound and costs, bounds and iterates at -0.0 and +0.0 (a
+    one-entry-per-row system, so the sums cannot differ by order)."""
+    dev = cuda_or_skip()
+    sys_, start = nan_signed_zero_case(_diagonal_system(), seed=4)
+    prob, pre = port_problem(sys_, "dense", dtype, dev)
+    args = [torch.as_tensor(v, dtype=dtype, device=dev) for v in start]
+    want = cp_dense_chunk_reference(prob, pre, *args, nsteps, 1.0,
+                                    with_sums=True)
+    for lanes in (None, 1):
+        kw = {} if lanes is None else dict(lanes=lanes)
+        got = cp_dense_chunk(prob, pre, *args, nsteps, 1.0, with_sums=True,
+                             **kw)
+        nans, negzeros = assert_same_bits(got, want, what=f"lanes={lanes}")
+        # the dense products carry the NaN to every entry by the second
+        # iteration, so the signed zeros show after the first
+        assert nans and (negzeros or nsteps > 1)

@@ -17,9 +17,10 @@ from pysparselp_tpu_torch.ops.cp_dia import (TWO_LAUNCH, cp_dia_chunk,
                                              cp_dia_eligible, cp_dia_plan,
                                              cp_dia_resident_chunk)
 from pysparselp_tpu_torch.utils.convert import problem_from_jax_arrays
-from torch_port_helpers import (assert_close, cuda_or_skip, host_system,
-                                      jax_problem, port_problem, start_point,
-                                      torch_pre)
+from torch_port_helpers import (assert_close, assert_same_bits,
+                                cuda_or_skip, host_system, jax_problem,
+                                nan_signed_zero_case, port_problem,
+                                start_point, torch_pre)
 
 torch.set_num_threads(1)
 F32 = torch.float32
@@ -112,3 +113,41 @@ def test_kernel_matches_twin_on_cuda(dtype, make):
         assert counted.launches == launches + 1
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _nan_case(make, dtype, dev):
+    sys_, start = nan_signed_zero_case(make(), seed=3)
+    prob, pre = port_problem(sys_, "dia", dtype, dev)
+    args = [torch.as_tensor(v, dtype=dtype, device=dev) for v in start]
+    if prob.a_eq is None:
+        args[1] = args[1][:0]
+    return prob, pre, args
+
+
+@pytest.mark.parametrize("make", [_potts_ineq, _multilabel])
+def test_twin_keeps_a_nan_cost_and_bound(make):
+    """The twin's projections (``torch.clamp``, ``torch.clamp_min``) keep a
+    NaN: one NaN cost and one NaN lower bound reach x after one
+    iteration, as JAX's ``jnp.clip`` keeps them."""
+    prob, pre, args = _nan_case(make, torch.float64, "cpu")
+    x = cp_dia_chunk(prob, pre, *args, 1, 1.0)[0]
+    assert torch.isnan(x[3]) and torch.isnan(x[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsteps", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("make", [_potts_ineq, _multilabel])
+def test_kernel_keeps_nan_and_signed_zeros_on_cuda(make, dtype, nsteps):
+    """The two-launch kernel and the planned tier against the twin on the
+    card, bit for bit, on a NaN cost, a NaN bound and costs, bounds and
+    iterates at -0.0 and +0.0: NaN positions and signed zeros included."""
+    dev = cuda_or_skip()
+    prob, pre, args = _nan_case(make, dtype, dev)
+    want = cp_dia_chunk_reference(prob, pre, *args, nsteps, 1.0,
+                                  with_sums=True)
+    for plan in (TWO_LAUNCH, cp_dia_plan(prob, dtype)):
+        got = cp_dia_chunk(prob, pre, *args, nsteps, 1.0, with_sums=True,
+                           plan=plan)
+        nans, negzeros = assert_same_bits(got, want, what=str(plan))
+        assert nans and negzeros

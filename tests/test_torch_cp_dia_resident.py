@@ -25,8 +25,9 @@ from pysparselp_tpu_torch.ops.cp_dia import (cp_dia_chunk,
                                              cp_dia_chunk_reference,
                                              cp_dia_plan,
                                              cp_dia_resident_chunk)
-from torch_port_helpers import (cuda_or_skip, host_system, port_problem,
-                                start_point)
+from torch_port_helpers import (assert_same_bits, cuda_or_skip,
+                                host_system, nan_signed_zero_case,
+                                port_problem, start_point)
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -311,3 +312,28 @@ def test_potts20_restart_solve_runs_the_resident_kernel_on_cuda():
             1.0, float(np.max(np.abs(values)))))
     np.testing.assert_allclose(lp.distance_to_ground_truth, want_dist,
                                rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsteps", [1, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("key", ["potts20", "multilabel16"])
+def test_resident_kernel_keeps_nan_and_signed_zeros_on_cuda(key, dtype,
+                                                            nsteps):
+    """H-CPDIA-R against the twin on the card, bit for bit, on a NaN cost,
+    a NaN bound and costs, bounds and iterates at -0.0 and +0.0."""
+    dev = cuda_or_skip()
+    sys_, start = nan_signed_zero_case(_system(key), seed=3)
+    prob, pre = port_problem(sys_, "dia", dtype, dev)
+    assert cp_dia_plan(prob, dtype).tier == "resident"
+    args = [torch.as_tensor(v, dtype=dtype, device=dev) for v in start]
+    if prob.a_eq is None:
+        args[1] = args[1][:0]
+    for with_sums in (True, False):
+        want = cp_dia_chunk_reference(prob, pre, *args, nsteps, 1.0,
+                                      with_sums)
+        launches = cp_dia_resident_chunk.launches
+        got = cp_dia_chunk(prob, pre, *args, nsteps, 1.0, with_sums)
+        assert cp_dia_resident_chunk.launches == launches + 1
+        nans, negzeros = assert_same_bits(got, want, what=key)
+        assert nans and negzeros

@@ -180,3 +180,47 @@ def assert_close(got, want, rtol, atol=0.0, what=""):
         np.testing.assert_allclose(np.asarray(g, np.float64),
                                    np.asarray(w, np.float64), rtol=rtol,
                                    atol=atol, err_msg=f"{what} output {i}")
+
+
+def nan_signed_zero_case(sys_, seed):
+    """``(sys_, (x, y_eq, y_ineq))``: a copy of a host system with one NaN
+    cost, one NaN lower bound, and a run of costs, bounds, right-hand sides
+    and start entries at -0.0 and +0.0, beside its start: the inputs on
+    which a projection's handling of NaN and of signed zeros shows."""
+    sys_ = dict(sys_)
+    c = np.array(sys_["c"], np.float64)
+    lb = np.array(sys_["lb"], np.float64)
+    x, ye, yi = start_point(sys_, seed)
+    c[0::5], c[1::5] = -0.0, 0.0
+    lb[0::4], lb[2::4] = 0.0, -0.0
+    x[0::3], x[1::3] = -0.0, 0.0
+    c[3], lb[5] = np.nan, np.nan
+    for name, y in (("beq", ye), ("b_ineq", yi)):
+        if sys_[name] is not None:
+            b = np.array(sys_[name], np.float64)
+            b[0::3] = 0.0
+            sys_[name] = b
+            y[0::2], y[1::2] = -0.0, 0.0
+    sys_.update(c=c, lb=lb)
+    return sys_, (x, ye, yi)
+
+
+def assert_same_bits(got, want, what=""):
+    """Each output of ``got`` equals ``want``'s bit for bit: NaN at the same
+    positions, every other entry with the same bits (signed zeros
+    included).  Returns the NaN count and the -0.0 count of ``want``."""
+    nans = negzeros = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.detach().cpu(), w.detach().cpu()
+        assert g.shape == w.shape and g.dtype == w.dtype, f"{what} output {i}"
+        gn, wn = torch.isnan(g), torch.isnan(w)
+        assert torch.equal(gn, wn), f"{what} output {i}: NaN positions differ"
+        ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+        gb = g[~gn].contiguous().view(ints[g.dtype])
+        wb = w[~wn].contiguous().view(ints[w.dtype])
+        assert torch.equal(gb, wb), (
+            f"{what} output {i}: {int((gb != wb).sum())} entries differ")
+        nans += int(wn.sum())
+        negzeros += int(((w == 0) & torch.signbit(w)).sum())
+    return nans, negzeros
+
