@@ -7,10 +7,11 @@ Models sparse LPs
 with the same host modeling layer as the JAX package and solves them with
 PyTorch on an NVIDIA GPU, where the hot loops run hand-written Hopper
 kernels (``csrc/``).  Ported: every method of ``SparseLP.solve`` —
-``chambolle_pock_ppd`` (one device, or row-sharded with ``mesh=``),
-``mehrotra``, ``admm`` (also ``inner="gauss_seidel"``, a host mode),
-``admm2``, ``admm_blocks``, ``dual_gradient_ascent`` and
-``dual_coordinate_ascent`` on one device; the host bridges
+``chambolle_pock_ppd``, ``mehrotra``, ``admm`` (also
+``inner="gauss_seidel"``, a host mode), ``admm2``, ``admm_blocks``,
+``dual_gradient_ascent`` and ``dual_coordinate_ascent``, on one device or,
+with ``mesh=``, over the ranks of a ``torch.distributed`` group
+(:mod:`.parallel`); the host bridges
 ``scipy_simplex`` / ``scipy_interior_point`` and, where their packages are
 installed, ``osqp`` and cvxpy's ``ECOS`` / ``SCS`` / ``CVXOPT`` — batched
 serving (:func:`solve_cp_batch`), checkpoints (:func:`save_checkpoint`,
@@ -18,8 +19,9 @@ serving (:func:`solve_cp_batch`), checkpoints (:func:`save_checkpoint`,
 format is the JAX package's), the instrumentation of :mod:`.utils`
 (``profile_trace`` on ``torch.profiler``, ``debug_mode``), the benchmark
 driver :mod:`.benchmarks`, I/O (MPS, netlib, LPsparse text) and the
-examples.  Not yet: ``mesh=`` with any other method (ROADMAP M9).  The
-package imports ``torch`` and never ``jax``.
+examples.  Not yet: the JAX package's position-sharded windowed CP for
+aligned float32 grids (``mesh=`` runs CP row-sharded there; ROADMAP M9).
+The package imports ``torch`` and never ``jax``.
 """
 
 from .batch import solve_cp_batch

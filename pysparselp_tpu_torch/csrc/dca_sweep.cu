@@ -644,7 +644,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
 
 // One colour group: one warp per row (the rows' columns are disjoint, so
 // no two warps write one c_bar entry; padding slots, value 0, write
-// nothing).
+// nothing).  Row r's tie is element tie_offset + r of the group's draw: a
+// rank of a mesh runs its slice of a group, which starts at tie_offset.
 template <typename T>
 __global__ void __launch_bounds__(32 * kColorWarps)
     dca_color_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
@@ -652,7 +653,8 @@ __global__ void __launch_bounds__(32 * kColorWarps)
                      const uint8_t* __restrict__ active, T* y, T* cbar,
                      const T* __restrict__ lb, const T* __restrict__ ub,
                      const int* __restrict__ rows, int n_rows, int K,
-                     uint32_t s1, uint32_t s2, int project) {
+                     uint32_t s1, uint32_t s2, uint32_t tie_offset,
+                     int project) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x * (blockDim.x >> 5) + warp;
@@ -662,7 +664,8 @@ __global__ void __launch_bounds__(32 * kColorWarps)
   const int i = rows[r];
   const long long off = static_cast<long long>(i) * K;
   const Slot<T> first = load_slot(vals, cols, lb, ub, off, lane, K);
-  const T tie = lane == 0 ? uniform_at<T>(s1, s2, static_cast<uint32_t>(r))
+  const T tie = lane == 0 ? uniform_at<T>(s1, s2,
+                                          tie_offset + static_cast<uint32_t>(r))
                           : T(0);
   const T alpha =
       row_alpha(vals, cols, lb, ub, off, K, first, b[i], cbar, tie, w, lane);
@@ -748,7 +751,8 @@ template <typename T>
 int launch_color(const T* vals, const int* cols, const T* b,
                  const uint8_t* active, T* y, T* cbar, const T* lb,
                  const T* ub, const int* rows, int n_rows, int K, uint32_t s1,
-                 uint32_t s2, int project, void* stream) {
+                 uint32_t s2, uint32_t tie_offset, int project,
+                 void* stream) {
   if (K < 1 || K > kMaxRow) return static_cast<int>(cudaErrorInvalidValue);
   const long long per_warp = scratch_entries<T>(K) * sizeof(T);
   const int warps = static_cast<int>(
@@ -762,7 +766,7 @@ int launch_color(const T* vals, const int* cols, const T* b,
   dca_color_kernel<T><<<grid, 32 * warps, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       vals, cols, b, active, y, cbar, lb, ub, rows, n_rows, K, s1, s2,
-      project);
+      tie_offset, project);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -801,10 +805,10 @@ PSLP_EXPORT int pslp_dca_color_step_f32(const float* vals, const int* cols,
                                         float* y, float* cbar, const float* lb,
                                         const float* ub, const int* rows,
                                         int n_rows, int K, uint32_t s1,
-                                        uint32_t s2, int project,
-                                        void* stream) {
+                                        uint32_t s2, uint32_t tie_offset,
+                                        int project, void* stream) {
   return launch_color<float>(vals, cols, b, active, y, cbar, lb, ub, rows,
-                             n_rows, K, s1, s2, project, stream);
+                             n_rows, K, s1, s2, tie_offset, project, stream);
 }
 
 PSLP_EXPORT int pslp_dca_color_step_f64(const double* vals, const int* cols,
@@ -812,8 +816,10 @@ PSLP_EXPORT int pslp_dca_color_step_f64(const double* vals, const int* cols,
                                         double* y, double* cbar,
                                         const double* lb, const double* ub,
                                         const int* rows, int n_rows, int K,
-                                        uint32_t s1, uint32_t s2, int project,
+                                        uint32_t s1, uint32_t s2,
+                                        uint32_t tie_offset, int project,
                                         void* stream) {
   return launch_color<double>(vals, cols, b, active, y, cbar, lb, ub, rows,
-                              n_rows, K, s1, s2, project, stream);
+                              n_rows, K, s1, s2, tie_offset, project,
+                              stream);
 }

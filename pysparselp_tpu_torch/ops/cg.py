@@ -26,7 +26,8 @@ def _nonzero(v):
     return torch.where(v == 0, torch.ones_like(v), v)
 
 
-def conjgrad(matvec, b, x0=None, maxiter=100, tol=1e-10, precond=None):
+def conjgrad(matvec, b, x0=None, maxiter=100, tol=1e-10, precond=None,
+             dot=None):
     """Preconditioned conjugate gradient for SPD ``A x = b``.
 
     Args:
@@ -38,19 +39,27 @@ def conjgrad(matvec, b, x0=None, maxiter=100, tol=1e-10, precond=None):
         the JAX loop).
       tol: relative residual tolerance.
       precond: optional function computing ``M⁻¹ v``.
+      dot: the inner product of two vectors (``torch.dot`` when None);
+        a mesh solve over row-sharded vectors passes one that reduces
+        over the ranks, and the norms are then ``sqrt(dot(v, v))``.
 
     Returns the solution estimate.  ``conjgrad.calls``, ``conjgrad.steps``
     and ``conjgrad.syncs`` count the solves, the steps they ran (a step
     past the exit, at most ``CHECK_EVERY - 1`` per solve, included) and
     the host reads of the stopping flag.
     """
+    if dot is None:
+        dot, norm = torch.dot, torch.linalg.norm
+    else:
+        def norm(v):
+            return torch.sqrt(dot(v, v))
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     z = precond(r) if precond is not None else r
     p = z
-    rz = torch.dot(r, z)
-    thresh = tol * torch.clamp_min(torch.linalg.norm(b), 1e-300)
-    active = torch.linalg.norm(r) > thresh
+    rz = dot(r, z)
+    thresh = tol * torch.clamp_min(norm(b), 1e-300)
+    active = norm(r) > thresh
     conjgrad.calls += 1
     for k in range(int(maxiter)):
         if k % CHECK_EVERY == 0:
@@ -58,15 +67,15 @@ def conjgrad(matvec, b, x0=None, maxiter=100, tol=1e-10, precond=None):
             if not bool(active):
                 break
         ap = matvec(p)
-        alpha = rz / _nonzero(torch.dot(p, ap))
+        alpha = rz / _nonzero(dot(p, ap))
         x = torch.where(active, x + alpha * p, x)
         r_new = r - alpha * ap
         z_new = precond(r_new) if precond is not None else r_new
-        rz_new = torch.dot(r_new, z_new)
+        rz_new = dot(r_new, z_new)
         p = torch.where(active, z_new + rz_new / _nonzero(rz) * p, p)
         r = torch.where(active, r_new, r)
         rz = torch.where(active, rz_new, rz)
-        active = active & (torch.linalg.norm(r) > thresh)
+        active = active & (norm(r) > thresh)
         conjgrad.steps += 1
     return x
 

@@ -32,7 +32,11 @@ the same bits (:func:`dca_sweep_levels_reference` shows it on the CPU).
   the levels), the key split once per row, active or not, as in JAX; it
   returns ``(y, c̄, key)`` with the key after the last row.
 * :func:`dca_color_step` runs one colour group (rows with pairwise
-  disjoint columns), its ``(rows,)`` ties drawn from the group's sub key.
+  disjoint columns), its ``(rows,)`` ties drawn from the group's sub key;
+  ``tie_offset`` starts them at that element of the draw (a mesh rank's
+  slice of a group: ``jax.random.uniform``'s element ``i`` hashes the
+  counter ``(0, i)`` whatever the draw's size, so a slice of the group's
+  draw is a draw from ``tie_offset``).
 
 On CUDA tensors both launch the kernels (``launches`` counts them) or
 raise; on CPU tensors they run :func:`dca_sweep_reference` /
@@ -71,10 +75,10 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 # n, k1, k2, work, key_out, project, stream
 _ARGTYPES_SWEEP = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _U, _U, _P, _P, _I, _P)
-# vals, cols, b, active, y, c_bar, lb, ub, rows, n_rows, K, k1, k2, project,
-# stream
-_ARGTYPES_COLOR = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _I,
-                   _P)
+# vals, cols, b, active, y, c_bar, lb, ub, rows, n_rows, K, k1, k2,
+# tie_offset, project, stream
+_ARGTYPES_COLOR = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U,
+                   _I, _P)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,11 +260,12 @@ def dca_sweep_levels_reference(ell, b, active, y, c_bar, lb, ub, key,
 
 
 def dca_color_step_reference(ell, b, active, y, c_bar, lb, ub, rows, sub,
-                             project):
+                             project, tie_offset=0):
     """Plain twin of :func:`dca_color_step`: the group's rows searched as
-    one batch, their ties ``uniform(sub, (rows,))``."""
+    one batch, their ties ``uniform(sub, (tie_offset + rows,))[tie_offset:]``."""
     rows = rows.long()
-    tie = uniform(sub, rows.shape, c_bar.dtype, c_bar.device)
+    tie = uniform(sub, rows.shape, c_bar.dtype, c_bar.device,
+                  offset=tie_offset)
     v, cl = ell.vals[rows], ell.cols[rows].long()
     y_new, diff = _row_step(v, cl, b[rows], active[rows], y[rows], c_bar, lb,
                             ub, tie, project)
@@ -325,14 +330,14 @@ dca_sweep.launches = 0
 
 
 def dca_color_step(ell: EllRows, b, active, y, c_bar, lb, ub, rows, sub,
-                   project):
+                   project, tie_offset=0):
     """One colour group ``rows`` (int32, pairwise disjoint columns) of the
-    blocked sweep, its ties drawn from the sub key ``sub``: returns new
-    ``(y, c̄)``."""
+    blocked sweep, its ties drawn from the sub key ``sub`` starting at
+    element ``tie_offset``: returns new ``(y, c̄)``."""
     dev = ell.vals.device
     if dev.type == "cpu":
         return dca_color_step_reference(ell, b, active, y, c_bar, lb, ub,
-                                        rows, sub, project)
+                                        rows, sub, project, tie_offset)
     if dev.type != "cuda":
         raise ValueError(f"dca_color_step runs on CUDA or the CPU, not {dev}")
     k = ell.vals.shape[1]
@@ -347,7 +352,8 @@ def dca_color_step(ell: EllRows, b, active, y, c_bar, lb, ub, rows, sub,
         fn(ell.vals.data_ptr(), ell.cols.data_ptr(), b.data_ptr(),
            active.data_ptr(), y.data_ptr(), c_bar.data_ptr(), lb.data_ptr(),
            ub.data_ptr(), rows.data_ptr(), rows.numel(), k, sub[0], sub[1],
-           int(project), _build.stream(_build.device_index(dev)))
+           int(tie_offset), int(project),
+           _build.stream(_build.device_index(dev)))
         dca_color_step.launches += 1
     return y, c_bar
 

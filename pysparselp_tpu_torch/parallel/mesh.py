@@ -4,9 +4,10 @@
 The JAX package's mesh is a ``jax.sharding.Mesh`` over the devices of one
 process, and ``shard_map`` runs one program body per device.  Here each rank
 is a process that holds one shard: :class:`Mesh` names the group, this
-rank's place in it and its device, and supplies the two collectives the
-row-sharded solver uses, :meth:`Mesh.psum` and :meth:`Mesh.pmax`
-(``dist.all_reduce`` with SUM and MAX).
+rank's place in it and its device, and supplies the collectives the sharded
+solvers use: :meth:`Mesh.psum`, :meth:`Mesh.pmax` and :meth:`Mesh.pmin`
+(``dist.all_reduce`` with SUM, MAX and MIN) and :meth:`Mesh.all_gather`
+(``dist.all_gather``, the JAX ``all_gather(..., tiled=True)``).
 
 The backend is always the caller's choice; nothing here switches one for
 another.  NCCL takes one GPU per rank.  Several ranks on one GPU need
@@ -17,8 +18,10 @@ own staging (gloo's SUM and MAX of 0-d and 1-D CUDA tensors are tested on
 the card: ``tests/test_torch_sharded.py``).
 
 :func:`spawn` starts one process per rank (the tests, ``chip_smoke.py``).
-The JAX package's ``pad_gather_width`` serves its sharded ADMM and IPM
-layouts, which are not ported yet (ROADMAP.md, Queue 1, M9).
+:func:`pad_gather_width` is the JAX package's, verbatim: the host helper
+that pads per-shard gather tables to one width for ``shard_map``'s uniform
+shards.  The port's ranks are processes, each holding its own tables, so
+its sharded layouts do not need it.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import tempfile
 import time
 import traceback
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -44,8 +48,9 @@ class Mesh:
     """One rank's view of a 1-D mesh over ``group`` (``None``: the default
     group), computing on ``device``.
 
-    ``calls`` counts the all-reduces this rank issued, keyed by
-    ``(op, numel)`` (``("sum", n)`` is the iteration's n-vector psum)."""
+    ``calls`` counts the collectives this rank issued, keyed by
+    ``(op, numel)`` (``("sum", n)`` is the iteration's n-vector psum,
+    ``("gather", k)`` an all-gather of ``k`` entries a rank)."""
 
     def __init__(self, device="cuda", group=None, axis_name="rows"):
         if not dist.is_initialized():
@@ -79,6 +84,40 @@ class Mesh:
     def pmax(self, t):
         """The elementwise maximum of ``t`` over the ranks (a new tensor)."""
         return self._all_reduce(t, dist.ReduceOp.MAX, "max")
+
+    def pmin(self, t):
+        """The elementwise minimum of ``t`` over the ranks (a new tensor)."""
+        return self._all_reduce(t, dist.ReduceOp.MIN, "min")
+
+    def all_gather(self, t):
+        """Every rank's ``t`` (at least 1-D, one shape on every rank),
+        concatenated along the first axis in rank order: ``(size *
+        t.shape[0], ...)``."""
+        src = t.detach().clone(memory_format=torch.contiguous_format)
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(parts, src, group=self.group)
+        self.calls[("gather", src.numel())] += 1
+        return torch.cat(parts)
+
+
+def pad_gather_width(mats_v, mats_i, k_max=None):
+    """Stack per-shard (rows, K_i, ...) value/index pairs after padding
+    every K_i to a common gather width (zero values, index 0) — shard_map
+    requires shape-uniform shards.  Shared by the sharded ADMM tile
+    builder and the sharded-IPM ELL builder."""
+    if k_max is None:
+        k_max = max(v.shape[1] for v in mats_v)
+    out_v, out_i = [], []
+    for v, i in zip(mats_v, mats_i):
+        pad = k_max - v.shape[1]
+        if pad:
+            v = np.concatenate(
+                [v, np.zeros((v.shape[0], pad) + v.shape[2:], v.dtype)], 1)
+            i = np.concatenate(
+                [i, np.zeros((i.shape[0], pad), i.dtype)], 1)
+        out_v.append(v)
+        out_i.append(i)
+    return np.stack(out_v), np.stack(out_i)
 
 
 def default_mesh(device="cuda", group=None, axis_name="rows") -> Mesh:

@@ -94,8 +94,41 @@ def local_rows(v, sys_, rank):
     return out
 
 
+def place_system(sys_, dtype, device, keys=("b", "row_mask", "sigma"),
+                 fused=False):
+    """One rank's shard of a system (a host dict of :func:`_host_system`)
+    on ``device``: its ``keys`` vectors and its operator, the CSR of its
+    rows (``csr``; ``fused``: its CPU twin rounds as the dual solvers'
+    products do, ``CsrMatrix.from_scipy``) or its DIA planes with their
+    prepared forward and window products (``dia_fwd``, ``dia_win``)."""
+    def vec(v):
+        return torch.as_tensor(np.array(v, np.float64), dtype=dtype,
+                               device=device)
+
+    def i32(v):
+        return torch.as_tensor(np.array(v, np.int32), device=device)
+
+    placed = {k: vec(sys_[k]) for k in keys}
+    if "csr" in sys_:
+        placed["csr"] = CsrMatrix.from_scipy(sys_["csr"], dtype, device,
+                                             fused=fused)
+        return placed
+    placed.update(dia_vals=vec(sys_["dia_vals"]),
+                  dia_offs=i32(sys_["dia_offs"]),
+                  dia_vals_t=vec(sys_["dia_vals_t"]),
+                  dia_offs_t=i32(sys_["dia_offs_t"]),
+                  dia_wlo=int(sys_["dia_wlo"]))
+    # the shard's forward and window products, checked once
+    placed.update(
+        dia_fwd=DiaOperand(placed["dia_vals"], placed["dia_offs"],
+                           sys_["rows_loc"]),
+        dia_win=DiaOperand(placed["dia_vals_t"], placed["dia_offs_t"],
+                           placed["dia_vals_t"].shape[1]))
+    return placed
+
+
 def place_shard(c, lb, ub, diag_t, theta, systems, x0, x30, ys, dtype,
-                device):
+                device, fused=False):
     """``(data, state)`` of one rank on ``device``: the replicated vectors,
     this rank's systems (``systems[name]``: host shard dicts as
     :func:`build_sharded_cp_data` makes them, with ``sigma``) and the
@@ -106,9 +139,6 @@ def place_shard(c, lb, ub, diag_t, theta, systems, x0, x30, ys, dtype,
         return torch.as_tensor(np.array(v, np.float64), dtype=dtype,
                                device=dev)
 
-    def i32(v):
-        return torch.as_tensor(np.array(v, np.int32), device=dev)
-
     data = dict(c=vec(c), lb=vec(lb), ub=vec(ub), diag_t=vec(diag_t),
                 theta=vec(theta))
     n = data["c"].shape[0]
@@ -117,22 +147,7 @@ def place_shard(c, lb, ub, diag_t, theta, systems, x0, x30, ys, dtype,
     for name, sys_ in systems.items():
         if sys_ is None:
             continue
-        placed = {k: vec(sys_[k]) for k in ("b", "row_mask", "sigma")}
-        if "csr" in sys_:
-            placed["csr"] = CsrMatrix.from_scipy(sys_["csr"], dtype, dev)
-        else:
-            placed.update(dia_vals=vec(sys_["dia_vals"]),
-                          dia_offs=i32(sys_["dia_offs"]),
-                          dia_vals_t=vec(sys_["dia_vals_t"]),
-                          dia_offs_t=i32(sys_["dia_offs_t"]),
-                          dia_wlo=int(sys_["dia_wlo"]))
-            # the shard's forward and window products, checked once
-            placed.update(
-                dia_fwd=DiaOperand(placed["dia_vals"], placed["dia_offs"],
-                                   placed["b"].shape[0]),
-                dia_win=DiaOperand(placed["dia_vals_t"], placed["dia_offs_t"],
-                                   placed["dia_vals_t"].shape[1]))
-        data[name] = placed
+        data[name] = place_system(sys_, dtype, dev, fused=fused)
         data[name + "_m"] = sys_["m"]
         data[name + "_m_pad"] = sys_["m_pad"]
         state["y_" + name] = vec(ys[name])
@@ -142,7 +157,7 @@ def place_shard(c, lb, ub, diag_t, theta, systems, x0, x30, ys, dtype,
 def build_sharded_cp_data(c, a_eq, b_eq, a_ineq, b_ineq, lb, ub, mesh,
                           alpha=1.0, dtype=None, x0=None, theta=1.0,
                           y_eq0=None, y_ineq0=None, x30=None,
-                          operator="tiles"):
+                          operator="tiles", fused=False):
     """Partition the (one-sided) LP by constraint rows over ``mesh`` and
     return this rank's ``(data, state)`` on ``mesh.device``.
 
@@ -152,7 +167,8 @@ def build_sharded_cp_data(c, a_eq, b_eq, a_ineq, b_ineq, lb, ub, mesh,
     (``eq_m``) and padded row count (``eq_m_pad``).  ``state`` holds the
     replicated ``x``, ``x3`` and this rank's duals ``y_eq``/``y_ineq``
     (from the global ``y_eq0``/``y_ineq0`` when given).  The diagonal
-    preconditioners are computed on the host over the whole system."""
+    preconditioners are computed on the host over the whole system.
+    ``fused`` goes to the CSR shards (:func:`place_system`)."""
     from ..solvers.chambolle_pock import host_preconditioners
 
     mesh = check_mesh(mesh)
@@ -170,7 +186,7 @@ def build_sharded_cp_data(c, a_eq, b_eq, a_ineq, b_ineq, lb, ub, mesh,
             systems[name] = dict(sys_, sigma=local_rows(sig, sys_, rank))
             ys[name] = local_rows(y0, sys_, rank)
     return place_shard(c, lb, ub, diag_t, theta, systems, x0, x30, ys, dt,
-                       mesh.device)
+                       mesh.device, fused=fused)
 
 
 def _local_matvec(sys_l, x, n):

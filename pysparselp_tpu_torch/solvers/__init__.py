@@ -1,16 +1,19 @@
 """Solver dispatch (mirrors ``pysparselp_tpu/solvers/__init__.py``).
 
-Ported so far:
+Ported so far, each on one device or, with ``mesh=`` (a
+:class:`~pysparselp_tpu_torch.parallel.mesh.Mesh`), over a
+``torch.distributed`` group whose device the mesh decides:
 
-* ``chambolle_pock_ppd``, on one device or, with ``mesh=`` (a
-  :class:`~pysparselp_tpu_torch.parallel.mesh.Mesh`), row-sharded over a
-  ``torch.distributed`` group (``parallel.sharded_cp``);
+* ``chambolle_pock_ppd`` (row-sharded: ``parallel.sharded_cp``);
 * ``mehrotra`` (:mod:`.mehrotra`, the interior point on the normal
-  equations: dense Cholesky or device CG);
-* ``admm`` and ``admm2`` (:mod:`.admm`) and ``admm_blocks``
-  (:mod:`.admm_blocks`, consensus ADMM over the model's blocks);
+  equations: dense Cholesky or device CG; column-sharded:
+  ``parallel.sharded_mehrotra``);
+* ``admm`` and ``admm2`` (:mod:`.admm`; row-sharded:
+  ``parallel.sharded_admm``) and ``admm_blocks`` (:mod:`.admm_blocks`,
+  consensus ADMM over the model's blocks; the block batch sharded);
 * ``dual_gradient_ascent`` and ``dual_coordinate_ascent`` (both modes;
-  :mod:`.dual_ascent`);
+  :mod:`.dual_ascent`; row-sharded DGA, ``parallel.sharded_dga``, and
+  blocked DCA with its colour groups split, ``parallel.sharded_dca``);
 * the host bridges ``scipy_simplex`` / ``scipy_interior_point`` (HiGHS
   through scipy, :mod:`.scipy_bridge`) and, where their packages are
   installed, ``osqp`` (:mod:`.osqp_bridge`) and ``ECOS`` / ``SCS`` /
@@ -22,9 +25,13 @@ package's: CP-PPD removes fixed variables (warm starts mapped into the
 reduced space), Mehrotra removes fixed variables and converts to slack
 form, DCA removes fixed variables, and every solution and callback
 iterate is mapped back with ``x_original = m_change @ x_new + shift``;
-ADMM, dual gradient ascent and the bridges take the full LP.  ``mesh=``
-with any method but ``chambolle_pock_ppd`` raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item.
+ADMM, dual gradient ascent and the bridges take the full LP.  With
+``mesh=``, a ``device`` that disagrees with ``mesh.device`` raises; DCA
+runs the blocked mode whatever ``mode`` says, and ADMM's host mode
+(``inner="gauss_seidel"``) ignores the mesh, as in the JAX package.  The
+one mesh behaviour that differs from the JAX package's: CP on aligned
+float32 grids takes the row-sharded path, not the position-sharded
+windowed one (``parallel/sharded_cp.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +53,21 @@ def _same_option(a, b) -> bool:
     ):
         return a == b
     return False
+
+
+def _check_mesh_device(mesh, device):
+    """The mesh decides the device: a ``device`` that disagrees with
+    ``mesh.device`` raises."""
+    from ..parallel.mesh import check_mesh
+
+    check_mesh(mesh)
+    want = torch.device(device)
+    if want.type != mesh.device.type or (
+            want.index is not None and want != mesh.device):
+        raise ValueError(
+            f"device={device!r} disagrees with mesh.device="
+            f"{mesh.device}; the mesh decides the device, pass "
+            f"device={str(mesh.device)!r} or leave them equal")
 
 
 def _csr(blocked):
@@ -109,6 +131,11 @@ def dispatch(
         return solve_cvxpy(lp, method, nb_iter=nb_iter,
                            callback_func=callback_func, start_time=start_time)
 
+    mesh = solver_kwargs.get("mesh")
+    if mesh is not None and not (method == "admm" and solver_kwargs.get(
+            "inner") == "gauss_seidel"):
+        _check_mesh_device(mesh, device)
+
     if method in ("admm", "admm2", "admm_blocks"):
         from .admm import lp_admm, lp_admm2
         from .admm_blocks import lp_admm_block_decomposition
@@ -134,10 +161,6 @@ def dispatch(
 
     mesh = solver_kwargs.pop("mesh", None)
     if method == "mehrotra":
-        if mesh is not None:
-            raise NotImplementedError(
-                "mehrotra with mesh= (sharded_mehrotra.py) is not ported to "
-                "PyTorch yet; see ROADMAP.md Queue 1, M9")
         from .mehrotra import mpc_sol
 
         lp_slack = copy.deepcopy(lp)
@@ -149,7 +172,14 @@ def dispatch(
             callback_func(niter, x, float(lp.costsvector.dot(x)), 0.0,
                           kw.get("elapsed", 0.0), 0.0, 0.0)
 
-        _f, x, _y, _s, _n = mpc_sol(
+        if mesh is not None:
+            # column-shard the standard-form system over the mesh
+            from ..parallel.sharded_mehrotra import mpc_sol_sharded
+
+            solve, where = mpc_sol_sharded, dict(mesh=mesh)
+        else:
+            solve, where = mpc_sol, dict(device=device)
+        _f, x, _y, _s, _n = solve(
             lp_slack.a_equalities.tocsr(),
             lp_slack.b_equalities,
             lp_slack.costsvector,
@@ -158,7 +188,7 @@ def dispatch(
             dtype=dtype,
             start_time=start_time,
             max_time=max_time,
-            device=device,
+            **where,
             **solver_kwargs,
         )
         return m_change1 @ (m_change2 @ x + shift2) + shift1
@@ -167,18 +197,6 @@ def dispatch(
         return _dual_ascent(lp, method, x0, nb_iter, max_time,
                             callback_func, nb_iter_plot, start_time, dtype,
                             device, dict(solver_kwargs, mesh=mesh))
-
-    if mesh is not None:
-        from ..parallel.mesh import check_mesh
-
-        check_mesh(mesh)
-        want = torch.device(device)
-        if want.type != mesh.device.type or (
-                want.index is not None and want != mesh.device):
-            raise ValueError(
-                f"device={device!r} disagrees with mesh.device="
-                f"{mesh.device}; the mesh decides the device, pass "
-                f"device={str(mesh.device)!r} or leave them equal")
 
     # method == "chambolle_pock_ppd"
     from .chambolle_pock import chambolle_pock_ppd
@@ -273,7 +291,8 @@ def _dual_ascent(lp, method, x0, nb_iter, max_time, callback_func,
     """The dual ascent branches of :func:`dispatch` (JAX's
     ``solvers/__init__.py:270-310``): DGA on the full LP, DCA on the LP
     with its fixed variables removed, its solution and callback iterates
-    mapped back.  Both solvers refuse ``mesh=`` (ROADMAP M9)."""
+    mapped back.  With ``mesh=`` DCA runs the blocked mode (``mode`` is
+    dropped, as in the JAX package)."""
     from .dual_ascent import dual_coordinate_ascent, dual_gradient_ascent
 
     y_eq = solver_kwargs.pop("y_eq", None)
@@ -293,6 +312,11 @@ def _dual_ascent(lp, method, x0, nb_iter, max_time, callback_func,
 
     def back(niter, sol, e1, e2, dur, mveq, mvineq):
         callback_func(niter, m_change @ sol + shift, e1, e2, dur, mveq, mvineq)
+
+    if solver_kwargs.get("mesh") is not None:
+        # mesh= implies the blocked (graph-colored) mode: the sequential
+        # sweep is one chain through c̄
+        solver_kwargs.pop("mode", None)
 
     x, _y_eq, _y_ineq = dual_coordinate_ascent(
         x=x0_r, lp=lp_reduced, nb_max_iter=nb_iter, callback_func=back,

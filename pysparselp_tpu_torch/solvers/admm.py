@@ -17,8 +17,12 @@
 
 ``lp_admm(inner="gauss_seidel")`` is the JAX package's host mode: the
 native bounded Gauss-Seidel sweep (:mod:`pysparselp_tpu_torch.native`) on
-the host, whatever ``device`` says.  Not ported here: ``mesh=``
-(``sharded_admm.py``, ROADMAP M9), which raises.
+the host, whatever ``device`` says (and, as in the JAX package, whatever
+``mesh`` says).  ``mesh=`` (a
+:class:`~pysparselp_tpu_torch.parallel.mesh.Mesh`) row-shards the standard
+form over a ``torch.distributed`` group
+(:mod:`pysparselp_tpu_torch.parallel.sharded_admm`); the mesh decides the
+device.
 """
 
 from __future__ import annotations
@@ -38,9 +42,13 @@ from .base import (HostLoop, ToleranceStop, chunk_schedule, emit_callback,
                    to_np)
 
 
-def _not_ported(what, item):
-    raise NotImplementedError(f"{what} is not ported to PyTorch yet; see "
-                              f"ROADMAP.md {item}")
+def _device(mesh, device):
+    """The solve's device: the mesh's, or ``device`` resolved."""
+    if mesh is not None:
+        from ..parallel.mesh import check_mesh
+
+        return check_mesh(mesh).device
+    return resolve_device(device)
 
 
 # ----------------------------------------------------------------------
@@ -149,13 +157,13 @@ def lp_admm(
     is the sequential bounded Gauss-Seidel host mode (native C++ sweeps,
     :mod:`pysparselp_tpu_torch.native.gauss_seidel`), the algorithmic twin
     of the reference's default inner solver.  As in the JAX package it runs
-    on the host in float64 whatever ``device`` and ``dtype`` say: a
-    sequential sweep cannot use the card.  ``device`` is still resolved,
-    so ``"cuda"`` without a card raises as everywhere else.  ``mesh=`` is
-    not ported and raises (with either ``inner``)."""
-    if mesh is not None:
-        _not_ported("admm with mesh= (sharded_admm.py)", "Queue 1, M9")
-    dev = resolve_device(device)
+    on the host in float64 whatever ``device``, ``dtype`` and ``mesh``
+    say: a sequential sweep cannot use the card.  ``device`` is still
+    resolved, so ``"cuda"`` without a card raises as everywhere else.
+    ``mesh`` row-shards the constraint system: the Jacobi sweeps run with
+    one ``psum`` each (:mod:`~pysparselp_tpu_torch.parallel.sharded_admm`)."""
+    dev = resolve_device(device) if inner == "gauss_seidel" else _device(
+        mesh, device)
     dtype = resolve_dtype(dtype, dev)
     n = np.asarray(c).size
     c2, a, b, lb2, ub2, x02 = admm_system(
@@ -197,17 +205,31 @@ def lp_admm(
         c=vec(c2), lb=vec(lb2), ub=vec(ub2),
         gamma_eq=vec(gamma_eq), gamma_ineq=vec(gamma_ineq),
         inv_diag=vec(1.0 / diag_m), omega=vec(omega), atb=vec(at @ b),
-        a=ell_from_scipy(a, dtype, dev), b=vec(b),
     )
     x = vec(x02)
     xp = torch.clamp(x, data["lb"], data["ub"])
-    state = (x, xp, torch.zeros(a.shape[0], dtype=dtype, device=dev))
+    if mesh is not None:
+        from ..parallel.sharded_admm import (admm_chunk_sharded,
+                                             build_sharded_system)
+
+        data["sys"], rows_loc, _m_pad, _op = build_sharded_system(
+            a, b, mesh, dtype)
+        state = (x, xp, torch.zeros(rows_loc, dtype=dtype, device=dev))
+
+        def run_chunk(state, nsteps):
+            return admm_chunk_sharded(data, state, mesh, nsteps, nb_inner)
+    else:
+        data.update(a=ell_from_scipy(a, dtype, dev), b=vec(b))
+        state = (x, xp, torch.zeros(a.shape[0], dtype=dtype, device=dev))
+
+        def run_chunk(state, nsteps):
+            return _admm_chunk(data, state, nsteps, nb_inner)
 
     loop = HostLoop(start_time=start_time, max_time=max_time)
     tstop = ToleranceStop(stop_tol)
     niter = 0
     for nsteps in chunk_schedule(nb_iter, nb_iter_plot):
-        state, metrics = _admm_chunk(data, state, nsteps, nb_inner)
+        state, metrics = run_chunk(state, nsteps)
         niter += nsteps
         emit_callback(
             callback_func, niter, state[0][:n],
@@ -380,11 +402,12 @@ def lp_admm2(
     """ADMM with exact equality subproblem; signature parity with
     ``ADMM.py:272`` (plus ``device``).  ``adaptive_rho=True`` doubles the
     penalty when the primal residual dominates the dual one by 10x and
-    halves it in the opposite case, checked once per chunk.  ``mesh=`` is
-    not ported and raises."""
-    if mesh is not None:
-        _not_ported("admm2 with mesh= (sharded_admm.py)", "Queue 1, M9")
-    dev = resolve_device(device)
+    halves it in the opposite case, checked once per chunk.  ``mesh``
+    row-shards the constraint system: the Schur solve runs sharded CG (one
+    ``psum`` of an n-vector per CG step) or, in the dense regime, gathers
+    the sharded rhs once per iteration
+    (:mod:`~pysparselp_tpu_torch.parallel.sharded_admm`)."""
+    dev = _device(mesh, device)
     dtype = resolve_dtype(dtype, dev)
     n = np.asarray(c).size
     c2, a, b, lb2, ub2, x02 = admm2_system(
@@ -401,17 +424,33 @@ def lp_admm2(
 
     data = dict(
         c=vec(c2), lb=vec(lb2), ub=vec(ub2), gamma=vec(gamma_ineq),
-        alpha=vec(alpha), ridge=vec(ridge), a=ell_from_scipy(a, dtype, dev),
-        b=vec(b),
+        alpha=vec(alpha), ridge=vec(ridge),
     )
-    if use_dense:
-        # Schur complement S = A Aᵀ (+ridge), factored once (the analogue
-        # of the reference's one-time splu of the KKT system, ADMM.py:342)
-        s = (a @ a.T).toarray() + ridge * np.eye(m)
-        data["chol"] = cholesky_upper(vec(s))[0]
+    if mesh is not None:
+        from ..parallel.sharded_admm import (admm2_chunk_sharded,
+                                             build_sharded_system, schur_data)
+
+        data["sys"], _rows_loc, m_pad, _op = build_sharded_system(
+            a, b, mesh, dtype)
+        data.update(schur_data(a, ridge, m_pad, use_dense, dtype, dev))
+
+        def run_chunk(data, state, nsteps):
+            return admm2_chunk_sharded(data, state, mesh, nsteps, use_dense,
+                                       data_static_cg_iters)
     else:
-        diag_s = np.asarray((a.multiply(a)).sum(axis=1)).ravel() + ridge
-        data["schur_inv_diag"] = vec(1.0 / diag_s)
+        data.update(a=ell_from_scipy(a, dtype, dev), b=vec(b))
+        if use_dense:
+            # Schur complement S = A Aᵀ (+ridge), factored once (the
+            # analogue of the reference's one-time splu of the KKT system,
+            # ADMM.py:342)
+            s = (a @ a.T).toarray() + ridge * np.eye(m)
+            data["chol"] = cholesky_upper(vec(s))[0]
+        else:
+            diag_s = np.asarray((a.multiply(a)).sum(axis=1)).ravel() + ridge
+            data["schur_inv_diag"] = vec(1.0 / diag_s)
+
+        def run_chunk(data, state, nsteps):
+            return _admm2_chunk(data, state, nsteps, use_dense)
     x = vec(x02)
     xp = torch.clamp(x, data["lb"], data["ub"])
     state = (x, xp, torch.zeros(x.shape, dtype=dtype, device=dev))
@@ -421,7 +460,7 @@ def lp_admm2(
     gamma = float(gamma_ineq)
     niter = 0
     for nsteps in chunk_schedule(nb_iter, nb_iter_plot):
-        state, metrics = _admm2_chunk(data, state, nsteps, use_dense)
+        state, metrics = run_chunk(data, state, nsteps)
         niter += nsteps
         if adaptive_rho:
             rp, rd = float(metrics["r_primal"]), float(metrics["r_dual"])

@@ -19,8 +19,14 @@ card sums a variable's copies in slot order, as JAX's scatter-add does on
 the CPU, where ``index_add_`` on CUDA would add them through atomics in no
 fixed order.
 
-``mesh=`` (``_pad_blocks_to`` / ``_admm_blocks_chunk_sharded``) is not
-ported here (ROADMAP M9) and raises.
+``mesh=`` (a :class:`~pysparselp_tpu_torch.parallel.mesh.Mesh`) shards the
+block batch over a ``torch.distributed`` group, as the JAX package's
+``_admm_blocks_chunk_sharded`` does: the batch is padded to a multiple of
+the rank count (:func:`_pad_blocks_to`), each rank factors and solves its
+own blocks and sums their copies into the consensus locally (its own
+consensus map), and one ``psum`` of the (n + 1)-vector a iteration merges
+the sums.  The mesh decides the device; on one rank the chunk is the
+one-device chunk bit for bit.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 from ..ops.linear_solve import cholesky_upper
 from ..preconditioning import convert_to_standard_form_with_bounds
 from ..problem import CsrMatrix, resolve_device, resolve_dtype
+from ..parallel.mesh import check_mesh
 from .base import HostLoop, ToleranceStop, chunk_schedule, emit_callback, to_np
 
 
@@ -76,6 +83,24 @@ def _build_blocks(a, beq):
     )
 
 
+# _pad_blocks_to: verbatim copy of pysparselp_tpu/solvers/admm_blocks.py:87-101
+def _pad_blocks_to(blocks, nb_pad):
+    """Pad the block batch dim to ``nb_pad`` (for even mesh sharding)."""
+    nb = blocks["nb_blocks"]
+    if nb_pad == nb:
+        return blocks
+    pad = nb_pad - nb
+    out = dict(blocks)
+    for k in ("sub_a", "ids", "row_mask", "col_mask", "beq_pad"):
+        v = blocks[k]
+        padv = np.zeros((pad,) + v.shape[1:], dtype=v.dtype)
+        if k == "ids":
+            padv += v.max()  # dummy slot index n
+        out[k] = np.concatenate([v, padv], axis=0)
+    out["nb_blocks"] = nb_pad
+    return out
+
+
 def consensus_map(ids, col_mask, n, dtype, device):
     """``S``, the ``(B·mc) × (n + 1)`` 0/1 map of the blocks' used column
     slots (``col_mask``) to their variables ``ids``: ``S.rmatvec(v)`` is the
@@ -88,7 +113,10 @@ def consensus_map(ids, col_mask, n, dtype, device):
     return CsrMatrix.from_scipy(s, dtype, device)
 
 
-def _admm_blocks_chunk(data, state, nsteps: int):
+def _admm_blocks_chunk(data, state, nsteps: int, mesh=None):
+    """``nsteps`` iterations over the blocks in ``data``: all of them, or
+    with ``mesh`` this rank's, their consensus sums merged by one psum an
+    iteration and the metrics' sum and maximum by one psum and one pmax."""
     sub_a, sub_at, ids = data["sub_a"], data["sub_at"], data["ids"]
     chol, sel = data["chol"], data["sel"]
     col_mask, row_mask = data["col_mask"], data["row_mask"]
@@ -115,6 +143,8 @@ def _admm_blocks_chunk(data, state, nsteps: int):
         # only zeroes xp where nb_used > 0), so they descend along −c/γ until
         # they hit their bound.
         acc = sel.rmatvec(((x_b + lam_b / gamma) * col_mask).reshape(-1))
+        if mesh is not None:
+            acc = mesh.psum(acc)
         base = torch.where(data["used_mask"], acc[:n], xp[:n])
         xp = (base - c_ext[:n] / gamma) * inv_used
         xp = torch.minimum(torch.maximum(xp, lb_ext[:n]), ub_ext[:n])
@@ -123,13 +153,15 @@ def _admm_blocks_chunk(data, state, nsteps: int):
     state = (x_b, lam_b, xp)
 
     diff = x_b - xp[ids] * col_mask
-    energy1 = torch.dot(c_ext[:-1], xp[:-1]) + torch.sum(
-        (0.5 * gamma * diff**2 + lam_b * diff) * col_mask)
+    spread = torch.sum((0.5 * gamma * diff**2 + lam_b * diff) * col_mask)
     # residual of the original equalities at the consensus point
     r = (bmv(sub_a, xp[ids] * col_mask) - beq) * row_mask
+    worst = torch.max(torch.abs(r))
+    if mesh is not None:
+        spread, worst = mesh.psum(spread), mesh.pmax(worst)
     metrics = dict(
-        energy1=energy1,
-        max_violated_equality=torch.max(torch.abs(r)),
+        energy1=torch.dot(c_ext[:-1], xp[:-1]) + spread,
+        max_violated_equality=worst,
         max_violated_inequality=xp.new_zeros(()),
     )
     return state, metrics
@@ -161,14 +193,14 @@ def lp_admm_block_decomposition(
     device="cuda",
 ):
     """Consensus ADMM over the model's block structure; signature parity with
-    ``ADMMBlocks.py:45`` (plus ``device``).  ``mesh=`` raises (ROADMAP
-    M9)."""
+    ``ADMMBlocks.py:45`` (plus ``device``).  ``mesh`` shards the block
+    batch over its ranks (on the mesh's device)."""
     del use_preconditioning, use_lu  # dense-Cholesky path covers both
     if mesh is not None:
-        raise NotImplementedError(
-            "admm_blocks with mesh= (_admm_blocks_chunk_sharded) is not "
-            "ported to PyTorch yet; see ROADMAP.md Queue 1, M9")
-    dev = resolve_device(device)
+        mesh = check_mesh(mesh)
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
     dtype = resolve_dtype(dtype, dev)
     c = np.asarray(c, np.float64)
     n0 = c.size
@@ -185,8 +217,16 @@ def lp_admm_block_decomposition(
     n = a.shape[1]
 
     blocks = _build_blocks(a, b)
+    mine = slice(None)
+    if mesh is not None:
+        nb_loc = -(-blocks["nb_blocks"] // mesh.size)
+        blocks = _pad_blocks_to(blocks, nb_loc * mesh.size)
+        mine = slice(mesh.rank * nb_loc, (mesh.rank + 1) * nb_loc)
+    ridge = 1e-9 + 1e-12 * float(np.abs(blocks["sub_a"]).sum())
+    # this rank's blocks (every block without a mesh)
+    blocks.update({k: blocks[k][mine] for k in (
+        "sub_a", "ids", "row_mask", "col_mask", "beq_pad")})
     sub_a = blocks["sub_a"]
-    ridge = 1e-9 + 1e-12 * float(np.abs(sub_a).sum())
     # batched one-time factorization of all block Schur complements
     # S_b = A_b A_bᵀ: the JAX package's einsum product, by BLAS (numpy's
     # einsum loop takes minutes on Potts-50's four (2450, 7400) blocks)
@@ -226,7 +266,7 @@ def lp_admm_block_decomposition(
     tstop = ToleranceStop(stop_tol)
     niter = 0
     for nsteps in chunk_schedule(nb_iter, nb_iter_plot):
-        state, metrics = _admm_blocks_chunk(data, state, nsteps)
+        state, metrics = _admm_blocks_chunk(data, state, nsteps, mesh)
         niter += nsteps
         emit_callback(
             callback_func, niter, state[2][:n0],

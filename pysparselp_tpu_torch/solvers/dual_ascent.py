@@ -28,8 +28,12 @@
 The random draws are ``jax.random``'s, bit for bit
 (:mod:`~pysparselp_tpu_torch.utils.jax_prng`): the key chain runs on the
 host, a draw of n ties on the device, and the sequential sweep's per-row
-draws inside H-DCA, which hands the key back.  ``mesh=`` is not ported
-here (``sharded_dga.py`` / ``sharded_dca.py``, ROADMAP M9).
+draws inside H-DCA, which hands the key back.  ``mesh=`` (a
+:class:`~pysparselp_tpu_torch.parallel.mesh.Mesh`) runs DGA row-sharded
+(:mod:`~pysparselp_tpu_torch.parallel.sharded_dga`) and DCA in the blocked
+mode with each colour group split over the ranks
+(:mod:`~pysparselp_tpu_torch.parallel.sharded_dca`); the mesh decides the
+device.
 """
 
 from __future__ import annotations
@@ -78,12 +82,6 @@ def _dual_energy(c_bar, lb, ub, lin_term):
 def _vec(v, dtype, device):
     return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
                            device=device)
-
-
-def _not_ported_mesh(method):
-    raise NotImplementedError(
-        f"{method} with mesh= (sharded_{'dga' if 'gradient' in method else 'dca'}"
-        ".py) is not ported to PyTorch yet; see ROADMAP.md Queue 1, M9")
 
 
 # ----------------------------------------------------------------------
@@ -210,9 +208,17 @@ def dual_gradient_ascent(
 ):
     """Gradient ascent in the dual with exact line search; returns ``(x,
     y_eq, y_ineq)``.  Signature parity with ``DualGradientAscent.py:68``
-    (plus ``device``); ``mesh=`` raises (ROADMAP M9)."""
+    (plus ``device``); ``mesh`` runs it row-sharded
+    (:func:`~pysparselp_tpu_torch.parallel.sharded_dga.
+    dual_gradient_ascent_sharded`, on the mesh's device)."""
     if mesh is not None:
-        _not_ported_mesh("dual_gradient_ascent")
+        from ..parallel.sharded_dga import dual_gradient_ascent_sharded
+
+        return dual_gradient_ascent_sharded(
+            x, lp, mesh, nb_max_iter=nb_max_iter,
+            callback_func=callback_func, y_eq=y_eq, y_ineq=y_ineq,
+            max_time=max_time, nb_iter_plot=nb_iter_plot, dtype=dtype,
+            start_time=start_time, seed=seed, stop_tol=stop_tol)
     dev = resolve_device(device)
     dtype = resolve_dtype(dtype, dev)
     if lp.b_lower is not None and np.asarray(lp.b_lower).size:
@@ -331,6 +337,11 @@ def _sweep(data, which, active, y, c_bar, key):
     ell, b = data[f"ell_{which}"], data[f"b_{which}"]
     lb, ub, project = data["lb"], data["ub"], which == "ineq"
     groups = data.get(f"{which}_groups")
+    if groups is not None and data.get("mesh") is not None:
+        from ..parallel.sharded_dca import sharded_color_sweep
+
+        return sharded_color_sweep(ell, b, active, y, c_bar, lb, ub, key,
+                                   groups, project, data["mesh"])
     if groups is not None:
         return _dca_color_sweep(ell, b, active, y, c_bar, lb, ub, key,
                                 groups, project)
@@ -429,61 +440,47 @@ def _dca_chunk(data, y_eq, y_ineq, key, prev_energy, nsweeps: int):
             return y_eq, y_ineq, key, i, done, metrics
 
 
-def dual_coordinate_ascent(
-    x,
-    lp,
-    nb_max_iter=20,
-    callback_func=None,
-    y_eq=None,
-    y_ineq=None,
-    max_time=None,
-    nb_iter_plot=1,
-    dtype=None,
-    start_time=None,
-    seed=1,
-    use_greedy_round=True,
-    mode="sequential",
-    mesh=None,
-    device="cuda",
-):
-    """Coordinate ascent in the LP dual; returns ``(x, y_eq, y_ineq)``.
-
-    Signature parity with ``DualCoordinateAscent.py:39`` (plus ``device``).
-    On dual stall, attempts greedy integer rounding on the host like the
-    reference (``DualCoordinateAscent.py:287-294``).  ``mode`` is
-    ``"sequential"`` (one H-DCA sweep per system and outer iteration, on
-    the row view's level schedule) or
-    ``"blocked"`` (graph-coloured: one colour step per group of rows with
-    disjoint columns).  ``mesh=`` raises (ROADMAP M9).
-    """
-    if mesh is not None:
-        _not_ported_mesh("dual_coordinate_ascent")
-    dev = resolve_device(device)
-    dtype = resolve_dtype(dtype, dev)
-    lp2 = copy.deepcopy(lp)
-    lp2.convert_to_one_sided_inequality_system()
-
+def dca_setup(lp2, dtype, dev, mode, mesh=None):
+    """The device data of the coordinate ascent on the one-sided LP
+    ``lp2``: the costs, bounds and tie midpoints, and per present system
+    its :class:`CsrMatrix` (``a_*``), its row view (``ell_*``), ``b_*`` and,
+    in the blocked mode, its colour groups (``*_groups``: each group's rows,
+    or with ``mesh`` each group's split over the ranks,
+    :func:`~pysparselp_tpu_torch.parallel.sharded_dca.shard_groups`)."""
     data = dict(c=_vec(lp2.costsvector, dtype, dev),
                 lb=_vec(lp2.lower_bounds, dtype, dev),
                 ub=_vec(lp2.upper_bounds, dtype, dev))
     data["mid"] = _safe_mid(data["lb"], data["ub"])
-    m_eq = lp2.a_equalities.shape[0] if lp2.a_equalities is not None else 0
-    m_in = lp2.a_inequalities.shape[0] if lp2.a_inequalities is not None else 0
     if mode not in ("sequential", "blocked"):
         raise ValueError(f"unknown DCA mode {mode!r}")
-    for which, m, a, b in (("eq", m_eq, lp2.a_equalities, lp2.b_equalities),
-                           ("ineq", m_in, lp2.a_inequalities, lp2.b_upper)):
-        if not m:
+    if mesh is not None:
+        from ..parallel.sharded_dca import shard_groups
+
+        data["mesh"] = mesh
+    for which, a, b in (("eq", lp2.a_equalities, lp2.b_equalities),
+                        ("ineq", lp2.a_inequalities, lp2.b_upper)):
+        if a is None or not a.shape[0]:
             continue
         a = a.tocsr()
         data[f"a_{which}"] = CsrMatrix.from_scipy(a, dtype, dev, fused=True)
         data[f"ell_{which}"] = EllRows.from_scipy(a, dtype, dev)
         data[f"b_{which}"] = _vec(b, dtype, dev)
         if mode == "blocked":
-            data[f"{which}_groups"] = tuple(
-                torch.as_tensor(g, dtype=torch.int32, device=dev)
-                for g in _color_rows(a))
+            groups = _color_rows(a)
+            data[f"{which}_groups"] = (
+                shard_groups(groups, a, mesh) if mesh is not None else tuple(
+                    torch.as_tensor(g, dtype=torch.int32, device=dev)
+                    for g in groups))
+    return data
 
+
+def dca_run(data, lp2, nb_max_iter, callback_func, y_eq, y_ineq, max_time,
+            nb_iter_plot, start_time, seed, use_greedy_round):
+    """The outer loop of the coordinate ascent on :func:`dca_setup`'s
+    ``data``; returns ``(x, y_eq, y_ineq)``."""
+    dtype, dev = data["c"].dtype, data["c"].device
+    m_eq = lp2.a_equalities.shape[0] if lp2.a_equalities is not None else 0
+    m_in = lp2.a_inequalities.shape[0] if lp2.a_inequalities is not None else 0
     y_eq = torch.zeros(m_eq, dtype=dtype, device=dev) if y_eq is None \
         else _vec(y_eq, dtype, dev)
     y_ineq = torch.zeros(m_in, dtype=dtype, device=dev) if y_ineq is None \
@@ -556,3 +553,53 @@ def dual_coordinate_ascent(
         energy = new_energy
 
     return x_out, to_np(y_eq), to_np(y_ineq)
+
+
+def dual_coordinate_ascent(
+    x,
+    lp,
+    nb_max_iter=20,
+    callback_func=None,
+    y_eq=None,
+    y_ineq=None,
+    max_time=None,
+    nb_iter_plot=1,
+    dtype=None,
+    start_time=None,
+    seed=1,
+    use_greedy_round=True,
+    mode="sequential",
+    mesh=None,
+    device="cuda",
+):
+    """Coordinate ascent in the LP dual; returns ``(x, y_eq, y_ineq)``.
+
+    Signature parity with ``DualCoordinateAscent.py:39`` (plus ``device``).
+    On dual stall, attempts greedy integer rounding on the host like the
+    reference (``DualCoordinateAscent.py:287-294``).  ``mode`` is
+    ``"sequential"`` (one H-DCA sweep per system and outer iteration, on
+    the row view's level schedule) or
+    ``"blocked"`` (graph-coloured: one colour step per group of rows with
+    disjoint columns).  ``mesh`` implies the blocked mode and splits each
+    colour group over the ranks
+    (:func:`~pysparselp_tpu_torch.parallel.sharded_dca.
+    dual_coordinate_ascent_sharded`, on the mesh's device; ``mode`` is not
+    read).
+    """
+    if mesh is not None:
+        from ..parallel.sharded_dca import dual_coordinate_ascent_sharded
+
+        return dual_coordinate_ascent_sharded(
+            x, lp, mesh, nb_max_iter=nb_max_iter,
+            callback_func=callback_func, y_eq=y_eq, y_ineq=y_ineq,
+            max_time=max_time, nb_iter_plot=nb_iter_plot, dtype=dtype,
+            start_time=start_time, seed=seed,
+            use_greedy_round=use_greedy_round)
+    dev = resolve_device(device)
+    dtype = resolve_dtype(dtype, dev)
+    lp2 = copy.deepcopy(lp)
+    lp2.convert_to_one_sided_inequality_system()
+    data = dca_setup(lp2, dtype, dev, mode)
+    return dca_run(data, lp2, nb_max_iter, callback_func, y_eq, y_ineq,
+                   max_time, nb_iter_plot, start_time, seed,
+                   use_greedy_round)

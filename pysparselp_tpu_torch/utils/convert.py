@@ -16,8 +16,13 @@ block, and the gather layouts (``EllMatrix``, ``SegmentedEllMatrix``,
 :func:`state_from_numpy` carries the ``(x, x3, y_eq, y_ineq)`` state and the
 restart controller's ``rstate``; :func:`state_to_numpy` goes back.  Together
 they let both packages run on the same lowered problem.
-:func:`sharded_from_jax` carries one rank's shard of the JAX row-sharded
-solver's data and state (its per-shard DIA layout) to the port's.
+:func:`sharded_from_jax` carries one rank's shard of a JAX sharded
+solver's data and state to the port's, for each sharded layout: the
+row-sharded CP solver's per-shard DIA (``layout="cp"``), the interior
+point's column blocks (``"ipm"``), the ADMM row system's block-ELL tiles
+(``"admm"``), the blocked DCA's padded colour groups (``"dca"``) and
+``admm_blocks``' padded block batch (``"blocks"``); the port's rank count
+may differ from the JAX mesh's.
 :func:`key_from_jax` / :func:`key_to_jax` carry a ``jax.random`` key (its
 two uint32 words, as numpy) to the port's key pair and back, and
 :func:`ell_rows_from_jax` a JAX ``EllMatrix``'s padded rows to the
@@ -163,12 +168,20 @@ def state_to_numpy(tree):
     return tree.detach().to(device="cpu", dtype=torch.float64).numpy()
 
 
-def sharded_from_jax(data, state, ndev, rank, dtype=None, device="cpu"):
-    """Rank ``rank`` of an ``ndev``-rank mesh: the port's ``(data, state)``
-    (as ``parallel.sharded_cp.build_sharded_cp_data`` returns them) for
-    the JAX package's ``build_sharded_cp_data(..., operator="dia")`` data
-    and its (possibly advanced) state, both read as numpy arrays with the
-    JAX mesh axis first.
+def sharded_from_jax(data, state, ndev, rank, dtype=None, device="cpu",
+                     layout="cp", **kw):
+    """Rank ``rank`` of an ``ndev``-rank mesh: the port's shard of a JAX
+    sharded solver's data and state, read as numpy arrays with the JAX
+    mesh axis first.  ``layout`` names the solver: ``"cp"`` (below),
+    ``"ipm"`` (:func:`_ipm_from_jax`), ``"admm"``
+    (:func:`_admm_from_jax`), ``"dca"`` (:func:`_dca_from_jax`) or
+    ``"blocks"`` (:func:`_blocks_from_jax`); ``kw`` goes to the layout's
+    function.
+
+    ``"cp"``: the port's ``(data, state)`` (as
+    ``parallel.sharded_cp.build_sharded_cp_data`` returns them) for the JAX
+    package's ``build_sharded_cp_data(..., operator="dia")`` data and its
+    (possibly advanced) state.
 
     The JAX shard height is rounded up to 128 rows and its values padded
     to the TPU kernel's layout; the port's shard height is ``ceil(m /
@@ -180,6 +193,10 @@ def sharded_from_jax(data, state, ndev, rank, dtype=None, device="cpu"):
 
     dev = resolve_device(device)
     dt = resolve_dtype(dtype, dev)
+    if layout != "cp":
+        convert = {"ipm": _ipm_from_jax, "admm": _admm_from_jax,
+                   "dca": _dca_from_jax, "blocks": _blocks_from_jax}[layout]
+        return convert(data, state, ndev, rank, dt, dev, **kw)
     n = np.asarray(data["c"]).size
     systems, ys = {}, {}
     for name in ("eq", "ineq"):
@@ -207,6 +224,125 @@ def sharded_from_jax(data, state, ndev, rank, dtype=None, device="cpu"):
     return place_shard(data["c"], data["lb"], data["ub"], data["diag_t"],
                        data["theta"], systems, _np(state["x"]),
                        _np(state["x3"]), ys, dt, dev)
+
+
+def _tile_shards_csr(tiles, cols, rows_loc, n):
+    """The CSR of the rows ``rows_loc`` a shard of JAX block-ELL tiles
+    (``tiles[d, r, k][t, m] = A_d[r·tm + m, cols[d, r, k]·tn + t]``,
+    ``parallel/sharded_admm.py``) hold, the shards stacked in order."""
+    tiles, cols = _np(tiles), np.asarray(cols, np.int64)
+    ndev, _, _, tn, tm = tiles.shape
+    flat = np.flatnonzero(tiles)
+    d, r, k, t, m = np.unravel_index(flat, tiles.shape)
+    row = r * tm + m
+    keep = row < rows_loc
+    return _csr((d * rows_loc + row)[keep],
+                (cols[d, r, k] * tn + t)[keep], tiles.ravel()[flat][keep],
+                (ndev * rows_loc, n))
+
+
+def _ipm_from_jax(data, state, ndev, rank, dtype, device, n,
+                  dense_threshold=4096):
+    """``layout="ipm"``: the JAX ``build_sharded_ipm_data`` column blocks
+    (dense ``a`` or the ELL tables ``ell_vals`` / ``ell_cols``) and the
+    iterate ``(x, y, s)`` (x and s column-sharded) of a standard form with
+    ``n`` columns, as the port's rank ``rank`` of ``ndev`` holds them
+    (``parallel.sharded_mehrotra.build_ipm_shard``): ``(data, n_loc,
+    use_dense, (x, y, s))``, or without ``state`` the first three."""
+    from ..parallel.sharded_mehrotra import build_ipm_shard
+
+    b = _np(data["b"])
+    c_j = _np(data["c"])
+    n_loc_j = c_j.shape[1]
+    if "a" in data:
+        a = np.concatenate(list(_np(data["a"])), axis=1)[:, :n]
+        a = scipy.sparse.csr_matrix(a)
+    else:
+        vals, cols = _np(data["ell_vals"]), np.asarray(data["ell_cols"],
+                                                       np.int64)
+        d, r, k = np.nonzero(vals)
+        a = _csr(r, d * n_loc_j + cols[d, r, k], vals[d, r, k],
+                 (b.size, c_j.size))[:, :n]
+    out = build_ipm_shard(a, b, c_j.reshape(-1)[:n], ndev, rank, dtype,
+                          device, dense_threshold)
+    if state is None:
+        return out
+    n_loc = out[1]
+
+    def cols_of(v):
+        full = np.zeros(n_loc * ndev)
+        full[:n] = _np(v).reshape(-1)[:n]
+        return torch.as_tensor(full[rank * n_loc:(rank + 1) * n_loc],
+                               dtype=dtype, device=device)
+
+    x, y, s = state
+    return out + ((cols_of(x), torch.as_tensor(_np(y), dtype=dtype,
+                                               device=device), cols_of(s)),)
+
+
+def _admm_from_jax(data, state, ndev, rank, dtype, device, m, n):
+    """``layout="admm"``: the JAX ``sharded_admm.build_sharded_system``
+    data (its rows' block-ELL ``tiles`` / ``cols``, ``b``) of an ``m × n``
+    system, and ``state`` None or the row-sharded ``lam`` of
+    ``admm_chunk_sharded``, as the port's rank ``rank`` of ``ndev`` holds
+    them (``parallel.sharded_admm.build_sharded_system``, CSR shards):
+    ``(sys_l, rows_loc, lam)``."""
+    from ..parallel.sharded_cp import _host_system, local_rows, place_system
+
+    rows_j = np.asarray(data["b"]).shape[1]
+    a = _tile_shards_csr(data["tiles"], data["cols"], rows_j, n)[:m]
+    b = _np(data["b"]).reshape(-1)[:m]
+    sys_ = _host_system(a, b, "tiles", ndev, rank)
+    sys_l = place_system(sys_, dtype, device, keys=("b", "row_mask"))
+    lam = None
+    if state is not None:
+        lam = torch.as_tensor(local_rows(_np(state).reshape(-1)[:m], sys_,
+                                         rank), dtype=dtype, device=device)
+    return sys_l, sys_["rows_loc"], lam
+
+
+def _dca_from_jax(data, state, ndev, rank, dtype, device, m):
+    """``layout="dca"``: the JAX ``sharded_dca.pad_groups`` colour groups
+    (each ``(ndev_jax, rg_loc)``, dummy id ``m``) as the port's colour
+    groups: a list of row-id arrays, the dummies dropped (pass it to
+    ``parallel.sharded_dca.shard_groups`` with the port's mesh).  The
+    groups are the same on every rank; ``state`` is not read."""
+    del state, ndev, rank, dtype, device
+    groups = []
+    for g in data:
+        g = np.asarray(g).reshape(-1)
+        groups.append(g[g < m].astype(np.int64))
+    return groups
+
+
+def _blocks_from_jax(data, state, ndev, rank, dtype, device, nb_blocks):
+    """``layout="blocks"``: the JAX ``admm_blocks`` block batch padded for
+    its mesh (``sub_a``, ``ids``, ``row_mask``, ``col_mask``, ``beq_pad``,
+    the real block count ``nb_blocks`` first) and its state ``(x_b,
+    lam_b, xp)``, padded again for ``ndev`` port ranks
+    (``solvers.admm_blocks._pad_blocks_to``), rank ``rank``'s blocks:
+    ``(blocks, (x_b, lam_b, xp))`` with ``blocks`` numpy and the state
+    tensors (``xp`` whole)."""
+    from ..solvers.admm_blocks import _pad_blocks_to
+
+    keys = ("sub_a", "ids", "row_mask", "col_mask", "beq_pad")
+    blocks = {k: np.asarray(data[k])[:nb_blocks] for k in keys}
+    blocks["nb_blocks"] = nb_blocks
+    nb_loc = -(-nb_blocks // ndev)
+    blocks = _pad_blocks_to(blocks, nb_loc * ndev)
+    mine = slice(rank * nb_loc, (rank + 1) * nb_loc)
+    blocks.update({k: blocks[k][mine] for k in keys})
+    if state is None:
+        return blocks, None
+    x_b, lam_b, xp = (_np(v) for v in state)
+
+    def rows(v):
+        v = np.concatenate([v[:nb_blocks], np.zeros(
+            (nb_loc * ndev - nb_blocks,) + v.shape[1:])])
+        return torch.as_tensor(v[mine], dtype=dtype, device=device)
+
+    return blocks, (rows(x_b), rows(lam_b),
+                    torch.as_tensor(xp, dtype=dtype, device=device))
 
 
 def key_from_jax(key):

@@ -86,16 +86,19 @@ def uniform_at_zero(keys, dtype):
     return mant.to(dtype) * scale
 
 
-def uniform(key, shape, dtype, device="cpu"):
+def uniform(key, shape, dtype, device="cpu", offset=0):
     """``jax.random.uniform(key, shape, dtype)`` on ``device``: element
-    ``i`` (row-major) hashes the counter ``(0, i)``."""
+    ``i`` (row-major) hashes the counter ``(0, i)``.  ``offset`` draws
+    elements ``offset + i`` instead: the slice ``[offset:]`` of a longer
+    draw of the same key."""
     shape = tuple(int(s) for s in shape)
     size = 1
     for s in shape:
         size *= s
-    if size >= 2 ** 32:
+    if offset + size >= 2 ** 32:
         raise ValueError("uniform: more than 2**32 draws")
-    count = torch.arange(size, dtype=torch.int64, device=device)
+    count = torch.arange(offset, offset + size, dtype=torch.int64,
+                         device=device)
     b1, b2 = threefry2x32(key, torch.zeros_like(count), count)
     mant, scale = _float_bits(b1, b2, dtype)
     # the mantissa is an exact integer of the dtype; the product is the

@@ -18,7 +18,7 @@ from pysparselp_tpu_torch.examples import basis_pursuit_denoising as pbpdn
 from pysparselp_tpu_torch.examples import kmedians as pkmedians
 from pysparselp_tpu_torch.modeling import SparseLP as TorchLP
 from pysparselp_tpu_torch.solvers.admm import lp_admm
-from torch_port_helpers import sc105_lp
+from torch_port_helpers import one_rank_mesh, sc105_lp
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -133,16 +133,27 @@ def test_basis_pursuit_denoising_beats_generator(monkeypatch):
 
 
 @pytest.mark.parametrize("method,kw,item", [
-    # inner="gauss_seidel" is ported (tests/test_torch_gauss_seidel.py);
-    # with mesh= it is still refused
-    ("admm", dict(inner="gauss_seidel", mesh=object()), "M9"),
-    ("admm", dict(mesh=object()), "M9"),
-    ("admm2", dict(mesh=object()), "M9"),
+    # inner="gauss_seidel" is the host mode, which ignores mesh= as the JAX
+    # package's does; the other two run row-sharded (sharded_admm.py)
+    ("admm", dict(inner="gauss_seidel", mesh=True), "M9"),
+    ("admm", dict(mesh=True), "M9"),
+    ("admm2", dict(mesh=True), "M9"),
 ])
 def test_unported_options_name_their_roadmap_item(method, kw, item):
+    """``mesh=`` (ROADMAP ``item``, once refused here) runs: SC105 on a
+    one-rank gloo mesh against the JAX package's ``lp.solve(mesh=...)`` on
+    the conftest's 8 CPU devices, float64, 20 iterations: x within 1e-9."""
+    from pysparselp_tpu.parallel.mesh import default_mesh
+
+    assert item == "M9"
     lp, _ = sc105_lp(port=True)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
-        lp.solve(method=method, nb_iter=5, device="cpu", **kw)
+    jlp, _ = sc105_lp()
+    run = dict(method=method, nb_iter=20, nb_iter_plot=10, dtype=np.float64)
+    with one_rank_mesh() as mesh:
+        got, _ = lp.solve(device="cpu", **run, **dict(kw, mesh=mesh))
+    want, _ = jlp.solve(**run, **dict(kw, mesh=default_mesh(8)))
+    np.testing.assert_allclose(got, want, atol=1e-9)
+    assert lp.itrn_curve == [10, 20]
 
 
 def test_default_device_is_cuda():

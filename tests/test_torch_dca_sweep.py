@@ -18,7 +18,8 @@ import torch
 
 from pysparselp_tpu_torch.ops import dca_sweep as pdca
 from pysparselp_tpu_torch.solvers.dual_ascent import _color_rows
-from pysparselp_tpu_torch.utils.jax_prng import prng_key, split
+from pysparselp_tpu_torch.utils.convert import key_from_jax
+from pysparselp_tpu_torch.utils.jax_prng import prng_key, split, uniform
 from torch_port_helpers import cuda_or_skip
 
 torch.set_num_threads(1)
@@ -368,3 +369,72 @@ def test_kernel_refuses_rows_past_its_limit():
         pdca.dca_color_step(ell, z, active, z, zn, zn, zn + 1,
                             torch.arange(2, dtype=torch.int32, device=dev),
                             prng_key(0), True)
+
+
+@pytest.mark.parametrize("case", ["potts20", "matching"])
+def test_color_step_offset_draws_the_slice_of_the_group(case):
+    """A group split in slices, each run with ``tie_offset`` at its first
+    row, gives the whole group's step: the ties are the slices of the
+    group's draw (``jax.random.uniform``'s element i hashes (0, i) whatever
+    the draw's size), and the rows write disjoint entries."""
+    host, d = _state(case, torch.float64)
+    rows = torch.as_tensor(_color_rows(host["a"])[0], dtype=torch.int32)
+    sub = split(prng_key(4))[1]
+    want_y, want_c = pdca.dca_color_step_reference(
+        d["ell"], d["b"], d["active"], d["y"], d["c_bar"], d["lb"],
+        d["ub"], rows, sub, True)
+    y, c_bar = d["y"], d["c_bar"]
+    cut = [0, 1, rows.numel() // 3, rows.numel()]
+    for lo, hi in zip(cut, cut[1:]):
+        y, c_bar = pdca.dca_color_step(d["ell"], d["b"], d["active"], y,
+                                       c_bar, d["lb"], d["ub"], rows[lo:hi],
+                                       sub, True, tie_offset=lo)
+    assert torch.equal(y, want_y) and torch.equal(c_bar, want_c)
+    draws = uniform(sub, (rows.numel(),), torch.float64)
+    assert torch.equal(uniform(sub, (rows.numel() - 5,), torch.float64,
+                               offset=5), draws[5:])
+
+
+def test_offset_draw_matches_jax_slice():
+    """``uniform(key, shape, offset=k)`` is ``jax.random.uniform(key,
+    (k + size,))[k:]``, float32 and float64."""
+    import jax
+    import jax.numpy as jnp
+
+    key = jax.random.PRNGKey(9)
+    for jdt, tdt in ((jnp.float32, torch.float32),
+                     (jnp.float64, torch.float64)):
+        want = np.asarray(jax.random.uniform(key, (1000,), dtype=jdt))[337:]
+        got = uniform(key_from_jax(key), (663,), tdt, offset=337)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", ["potts20", "matching", "long"])
+def test_kernel_color_step_with_offset_matches_twin(case, dtype):
+    """The colour step on slices of each group with their ``tie_offset``
+    (a mesh rank's share) against the twin on the same slices, bit for
+    bit, and the slices together against the whole group's step."""
+    dev = cuda_or_skip()
+    _npdt, tdt = DTYPES[dtype]
+    host, d = _state(case, tdt, device=dev)
+    key = prng_key(3)
+    for rows in _color_rows(host["a"]):
+        key, sub = split(key)
+        rows = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+        whole = pdca.dca_color_step(d["ell"], d["b"], d["active"], d["y"],
+                                    d["c_bar"], d["lb"], d["ub"], rows, sub,
+                                    True)
+        y, c_bar = d["y"], d["c_bar"]
+        wy, wc = y, c_bar
+        half = (rows.numel() + 1) // 2
+        for lo, hi in ((0, half), (half, rows.numel())):
+            y, c_bar = pdca.dca_color_step(
+                d["ell"], d["b"], d["active"], y, c_bar, d["lb"], d["ub"],
+                rows[lo:hi], sub, True, tie_offset=lo)
+            wy, wc = pdca.dca_color_step_reference(
+                d["ell"], d["b"], d["active"], wy, wc, d["lb"], d["ub"],
+                rows[lo:hi], sub, True, tie_offset=lo)
+            assert torch.equal(y, wy) and torch.equal(c_bar, wc)
+        assert torch.equal(y, whole[0]) and torch.equal(c_bar, whole[1])

@@ -30,6 +30,10 @@ def test_import_leaves_jax_out():
             "pysparselp_tpu_torch.parallel.mesh, "
             "pysparselp_tpu_torch.parallel.sharded_dia, "
             "pysparselp_tpu_torch.parallel.sharded_cp, "
+            "pysparselp_tpu_torch.parallel.sharded_mehrotra, "
+            "pysparselp_tpu_torch.parallel.sharded_admm, "
+            "pysparselp_tpu_torch.parallel.sharded_dga, "
+            "pysparselp_tpu_torch.parallel.sharded_dca, "
             "pysparselp_tpu_torch.batch, "
             "pysparselp_tpu_torch.solvers.scipy_bridge, "
             "pysparselp_tpu_torch.solvers.highs_bridge, "
@@ -127,9 +131,25 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("method", ["admm_blocks", "dual_gradient_ascent",
                                     "dual_coordinate_ascent"])
 def test_mesh_with_dual_and_block_methods_names_m9(method):
-    """These methods run on one device; ``mesh=`` (their sharded JAX
-    solvers) is refused naming ROADMAP M9."""
-    with pytest.raises(NotImplementedError, match="M9"):
+    """``mesh=`` with these methods (ROADMAP M9, once refused here) runs:
+    on a one-rank gloo mesh the tiny LP's solve equals the JAX package's
+    ``lp.solve(mesh=...)`` on the conftest's 8 CPU devices within 1e-9
+    (float64, 10 iterations), and a ``mesh`` that is not the port's
+    ``Mesh`` is refused with a ``TypeError``."""
+    from pysparselp_tpu.modeling import SparseLP as JaxLP
+    from pysparselp_tpu.parallel.mesh import default_mesh
+    from torch_port_helpers import one_rank_mesh
+
+    run = dict(method=method, nb_iter=10, nb_iter_plot=10, dtype=np.float64)
+    with one_rank_mesh() as mesh:
+        got, _ = _tiny_lp().solve(device="cpu", mesh=mesh, **run)
+    jlp = JaxLP()
+    x = jlp.add_variables_array(4, 0, 1, costs=np.array([1.0, -1, 2, -2]))
+    jlp.add_inequality_constraints(x[None, :], np.ones((1, 4)),
+                                   upper_bounds=np.array([1.5]))
+    want, _ = jlp.solve(mesh=default_mesh(8), **run)
+    np.testing.assert_allclose(got, want, atol=1e-9)
+    with pytest.raises(TypeError, match="Mesh"):
         _tiny_lp().solve(method=method, nb_iter=10, device="cpu",
                          mesh=object())
 

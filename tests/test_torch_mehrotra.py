@@ -20,7 +20,7 @@ from pysparselp_tpu_torch.examples import sparse_inv_covariance as pclime
 from pysparselp_tpu_torch.examples.potts import build_linear_program
 from pysparselp_tpu_torch.solvers import mehrotra as pm
 from pysparselp_tpu_torch.utils.random_lp import generate_random_lp
-from torch_port_helpers import sc105_lp
+from torch_port_helpers import one_rank_mesh, sc105_lp
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -187,9 +187,22 @@ def test_failed_cholesky_goes_to_the_retry(monkeypatch):
 
 
 def test_mesh_names_its_roadmap_item():
+    """``mesh=`` (ROADMAP M9, once refused here) runs the column-sharded
+    interior point: SC105 on a one-rank gloo mesh against the JAX
+    package's ``lp.solve(mesh=...)`` on the conftest's 8 CPU devices,
+    float64, 30 IPM iterations: x within 1e-8 relative to its largest
+    entry, the same IPM iterations."""
+    from pysparselp_tpu.parallel.mesh import default_mesh
+
     lp, _ = sc105_lp(port=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, M9"):
-        lp.solve(method="mehrotra", nb_iter=5, device="cpu", mesh=object())
+    jlp, _ = sc105_lp()
+    run = dict(method="mehrotra", nb_iter=30, nb_iter_plot=1,
+               dtype=np.float64)
+    with one_rank_mesh() as mesh:
+        got, _ = lp.solve(device="cpu", mesh=mesh, **run)
+    want, _ = jlp.solve(mesh=default_mesh(8), **run)
+    np.testing.assert_allclose(got, want, atol=1e-8 * np.abs(want).max())
+    assert lp.itrn_curve == jlp.itrn_curve
 
 
 def test_default_device_is_cuda():

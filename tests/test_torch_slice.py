@@ -460,6 +460,24 @@ def test_verbatim_host_copies(rel):
     assert copy_ == original
 
 
+@pytest.mark.parametrize("port,original,name", [
+    ("parallel.mesh", "parallel.mesh", "pad_gather_width"),
+    ("parallel.sharded_dca", "parallel.sharded_dca", "pad_groups"),
+    ("solvers.admm_blocks", "solvers.admm_blocks", "_pad_blocks_to"),
+])
+def test_verbatim_function_copies(port, original, name):
+    """Host helpers the mesh solvers keep verbatim: the port's function is
+    the JAX package's, text for text."""
+    import importlib
+    import inspect
+
+    got = getattr(importlib.import_module(f"pysparselp_tpu_torch.{port}"),
+                  name)
+    want = getattr(importlib.import_module(f"pysparselp_tpu.{original}"),
+                   name)
+    assert inspect.getsource(got) == inspect.getsource(want)
+
+
 def test_propagation_copies():
     """``integer/_propagate.cpp`` is the original byte for byte;
     ``integer/propagation.py`` is the original with two header lines and

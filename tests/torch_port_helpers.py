@@ -9,7 +9,10 @@ cuda`` over the three kernel test files), where only the port-side helpers
 are used.
 """
 
+import contextlib
 import copy
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -224,3 +227,21 @@ def assert_same_bits(got, want, what=""):
         negzeros += int(((w == 0) & torch.signbit(w)).sum())
     return nans, negzeros
 
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A port :class:`~pysparselp_tpu_torch.parallel.mesh.Mesh` on the CPU
+    over a one-rank gloo group in this process, the group destroyed on
+    exit (so a later test of the same process finds none)."""
+    import torch.distributed as dist
+
+    from pysparselp_tpu_torch.parallel.mesh import Mesh
+
+    with tempfile.TemporaryDirectory(prefix="pslp_mesh_") as tmp:
+        dist.init_process_group(
+            "gloo", init_method="file://" + os.path.join(tmp, "rendezvous"),
+            world_size=1, rank=0)
+        try:
+            yield Mesh(device="cpu")
+        finally:
+            dist.destroy_process_group()

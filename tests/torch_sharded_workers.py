@@ -1,4 +1,5 @@
-"""Rank bodies for the row-sharded solver's tests (``tests/test_torch_sharded.py``).
+"""Rank bodies for the mesh solvers' tests (``tests/test_torch_sharded.py``,
+``tests/test_torch_sharded_solvers.py``).
 
 ``pysparselp_tpu_torch.parallel.mesh.spawn`` runs these in fresh processes,
 which import this module and never jax: every input arrives as numpy/scipy
@@ -98,8 +99,116 @@ def _mesh_checks(mesh):
     return out
 
 
+def make_lp(spec):
+    """The port LP of a spec: ``("random", kwargs)`` (the one-sided
+    ``generate_random_lp``, the JAX package's verbatim), ``("assign", n,
+    seed)`` (an n x n assignment with row sums 1), ``("blocky",)`` (the
+    4-block LP of ``tests/test_admm.py``) or ``("args", args)``
+    (:func:`port_lp`)."""
+    import copy
+
+    from pysparselp_tpu_torch.utils.random_lp import generate_random_lp
+
+    if spec[0] == "random":
+        lp, _ = generate_random_lp(**spec[1])
+        lp = copy.deepcopy(lp)
+        lp.convert_to_one_sided_inequality_system()
+        return lp
+    if spec[0] == "assign":
+        _, n, seed = spec
+        cost = np.random.RandomState(seed).rand(n, n)
+        lp = SparseLP()
+        x = lp.add_variables_array(cost.shape, 0, 1, costs=cost)
+        lp.add_equality_constraints(x, np.ones_like(cost), b=np.ones(n))
+        return lp
+    if spec[0] == "blocky":
+        np.random.seed(5)
+        lp = SparseLP()
+        lp.add_variables_array(40, 0, 1, costs=np.random.randn(40))
+        for _k in range(4):
+            cols = np.zeros((5, 3), dtype=int)
+            for r in range(5):
+                cols[r] = np.random.choice(40, 3, replace=False)
+            lp.add_inequality_constraints(
+                cols, np.ones((5, 3)), lower_bounds=None, upper_bounds=2.0)
+        return lp
+    return port_lp(spec[1])
+
+
+def _lp_solve(mesh, spec, kwargs):
+    """``SparseLP.solve(mesh=...)`` of the spec's LP: x, the curves and
+    the collectives by ``(op, numel)``."""
+    lp = make_lp(spec)
+    mesh.calls.clear()
+    x, _ = lp.solve(mesh=mesh, device=mesh.device.type, **kwargs)
+    return dict(x=x, itrn=list(lp.itrn_curve),
+                dobj=[float(v) for v in lp.dobj_curve],
+                pobj=[float(v) for v in lp.pobj_curve],
+                calls=dict(mesh.calls))
+
+
+def _mpc(mesh, a, b, c, kwargs):
+    """``mpc_sol_sharded`` on the standard form ``(a, b, c)``."""
+    from pysparselp_tpu_torch.parallel import sharded_mehrotra
+
+    f, x, y, s, niter = sharded_mehrotra.mpc_sol_sharded(a, b, c, mesh,
+                                                         **kwargs)
+    return dict(f=f, x=x, y=y, s=s, niter=niter,
+                info=dict(sharded_mehrotra.last_run_info))
+
+
+def _dga_dia(mesh, spec, kwargs):
+    """``dual_gradient_ascent_sharded`` with each layout forced: the
+    shards' DIA planes (H-DIA's twin with shard offsets) and their CSR."""
+    from pysparselp_tpu_torch.parallel import sharded_dga
+
+    out = {}
+    for op in ("dia", "tiles"):
+        x, y_eq, y_in = sharded_dga.dual_gradient_ascent_sharded(
+            None, make_lp(spec), mesh, operator=op, **kwargs)
+        out[op] = dict(x=x, y_eq=y_eq, y_ineq=y_in,
+                       info=dict(sharded_dga.last_run_info))
+    return out
+
+
+def _admm_layouts(mesh, spec, nsteps):
+    """The ADMM chunk on one standard form with the shards in each layout
+    (DIA planes, CSR): x after ``nsteps`` iterations, and the duals of this
+    rank's rows."""
+    from pysparselp_tpu_torch.parallel import sharded_admm
+    from pysparselp_tpu_torch.solvers.admm import admm_system
+
+    lp = make_lp(spec)
+    c2, a, b, lb, ub, x0 = admm_system(
+        lp.costsvector, lp.a_equalities.tocsr(), lp.b_equalities,
+        lp.a_inequalities.tocsr(), lp.b_lower, lp.b_upper, lp.lower_bounds,
+        lp.upper_bounds)
+    at = scipy.sparse.csr_matrix(a).T.tocsr()
+    f64 = dict(dtype=torch.float64, device=mesh.device)
+
+    def vec(v):
+        return torch.as_tensor(np.asarray(v, np.float64), **f64)
+
+    diag_m = 2.0 * np.asarray(scipy.sparse.csr_matrix(a).multiply(a).sum(
+        axis=0)).ravel() + 3.0
+    out = {}
+    for op in ("dia", "tiles"):
+        sys_l, rows_loc, _m_pad, got = sharded_admm.build_sharded_system(
+            a, b, mesh, torch.float64, operator=op)
+        data = dict(c=vec(c2), lb=vec(lb), ub=vec(ub), gamma_eq=vec(2.0),
+                    gamma_ineq=vec(3.0), inv_diag=vec(1.0 / diag_m),
+                    omega=vec(0.5), atb=vec(at @ b), sys=sys_l)
+        x = torch.clamp(vec(x0), data["lb"], data["ub"])
+        (x, _xp, lam), metrics = sharded_admm.admm_chunk_sharded(
+            data, (x, x, torch.zeros(rows_loc, **f64)), mesh, nsteps, 2)
+        out[op] = dict(x=x.numpy(), operator=got,
+                       energy=float(metrics["energy1"]))
+    return out
+
+
 RUNNERS = {"solve": _solve, "dispatch": _dispatch, "resume": _resume,
-           "mesh_checks": _mesh_checks}
+           "mesh_checks": _mesh_checks, "lp_solve": _lp_solve, "mpc": _mpc,
+           "dga_dia": _dga_dia, "admm_layouts": _admm_layouts}
 
 
 def run_cases(mesh, cases):
