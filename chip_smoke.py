@@ -309,17 +309,12 @@ def cuda_ms(torch, fn, reps):
 
 class KernelRecord:
     """One kernel of a trace: its name and its start and end on the device
-    (µs); ``time_range`` is the record itself, as on the profiler's own
-    events."""
+    (µs)."""
 
     def __init__(self, event):
         self.name = event["name"]
         self.start = float(event["ts"])
         self.end = self.start + float(event.get("dur", 0.0))
-
-    @property
-    def time_range(self):
-        return self
 
     def elapsed_us(self):
         return self.end - self.start
@@ -392,7 +387,7 @@ def call_times(torch, fn, reps=200, host_reps=1000):
     torch.cuda.synchronize()
     dev = profiled_kernels(torch, fn, reps)
     per_call = max(round(len(dev) / reps), 1)
-    device_us = (sum(e.time_range.elapsed_us() for e in dev) / len(dev)
+    device_us = (sum(e.elapsed_us() for e in dev) / len(dev)
                  * per_call)
     return dict(events_us=events_us, host_us=host_us, device_us=device_us,
                 kernels_per_call=len(dev) / reps,
@@ -1491,7 +1486,7 @@ def pair_times(torch, fa, fb, reps=200, host_reps=1000):
     torch.cuda.synchronize()
     dev = profiled_kernels(torch, pair, reps)
     per = max(round(len(dev) / reps), 1)
-    us = [e.time_range.elapsed_us() for e in dev]
+    us = [e.elapsed_us() for e in dev]
     out = dict(events_us=events_us, host_us=host_us,
                device_us=sum(us) / len(us) * per,
                device_a_us=None, device_b_us=None,
@@ -1555,7 +1550,7 @@ def cold_times(torch, fn, names, flush, reps=50):
         raise AssertionError(f"no device event of {names} with the L2 "
                              "flushed")
     per = max(round(len(dev) / reps), 1)
-    device_us = sum(e.time_range.elapsed_us() for e in dev) / len(dev) * per
+    device_us = sum(e.elapsed_us() for e in dev) / len(dev) * per
     return dict(events_us=events_us, device_us=device_us)
 
 
@@ -3121,7 +3116,7 @@ def dca_sweep_split(torch, fn, reps=3):
     events = profiled_kernels(torch, fn, reps)
     out = {}
     for part, name in DCA_SWEEP_KERNELS.items():
-        dev = [e.time_range.elapsed_us() for e in events if name in e.name]
+        dev = [e.elapsed_us() for e in events if name in e.name]
         if not dev:
             raise AssertionError(f"H-DCA: the profiler saw no {name}")
         out[part] = sum(dev) / len(dev) * 1e-3
@@ -3160,7 +3155,7 @@ def device_ms(torch, fn, name, counter, reps=3):
     fn()
     per_call = counter.launches - before
     dev = [e for e in profiled_kernels(torch, fn, reps) if name in e.name]
-    return (sum(e.time_range.elapsed_us() for e in dev) / len(dev)
+    return (sum(e.elapsed_us() for e in dev) / len(dev)
             * per_call * 1e-3)
 
 
