@@ -63,19 +63,31 @@ iterations, against the twin and against the two-launch kernel forced on
 the same inputs; times, kernels per chunk (1), the three bounds and the
 cost of the cluster barrier alone.
 
-The mesh solve (``lp.solve(mesh=...)``, ``parallel/sharded_cp.py``) adds:
+The mesh solve (``lp.solve(mesh=...)``, ``parallel/sharded_cp.py``;
+float32 aligned DIA systems in the position-sharded regime,
+``parallel/sharded_cp_windowed.py``, everything else row-sharded) adds:
 
 * in phase 2, H-DIA on each of the 4 row shards of the aligned Potts-300
   system (``parallel/sharded_dia.py``: K5's function), forward and
-  transpose window, float32 and float64, timed beside cuSPARSE;
+  transpose window, float32 and float64, timed beside cuSPARSE; and
+  H-CPDIA's shard entry (:func:`phase_shard_kernels`: K3 per shard) over
+  4 position shards of the same system in this process, the halos copied
+  by hand, 100 iterations bit-equal to the two-launch chunk entry and
+  within RTOL of the twin, float32 and float64, timed on the whole
+  system as one shard and on a quarter shard;
 * ``main_path_mesh1``, after phase 3: the Potts-300 solve on one device
   and then with ``mesh=`` a one-rank NCCL group in this process (the
-  overhead of the row-sharded path; ``bench.py``'s
-  ``measure_sharded_overhead``), held against phase 3's float64 run, its
-  H-DIA launches and all-reduces against the prediction;
+  position-sharded regime: ``bench.py``'s ``measure_sharded_overhead``),
+  held against phase 3's float64 run, its shard entry and H-DIA launches
+  and its collectives (none an iteration) against the prediction; then
+  ``main_path_mesh1_rows``: the float64 solve on the same rank, which both
+  packages send to the row-sharded path (H-DIA with shard offsets),
+  held against the same run;
 * ``main_path_mesh4``: 4 gloo ranks on the one card (``parallel.mesh.
-  spawn``), Potts-300 on per-shard DIA and the unstructured LP on per-shard
-  CSR, 200 iterations each, held against the same solves on one device;
+  spawn``), Potts-300 and the multi-label 64 x 64, K = 4 grid (eq +
+  ineq) position-sharded and the unstructured LP on per-shard CSR, 200
+  iterations each, held against the same solves on one device, halo
+  exchanges and all-reduces against the prediction;
   then ``main_path_mesh4_methods``: the other mesh methods (``mehrotra``,
   ``admm``, ``admm2``, DGA, DCA, ``admm_blocks``) at small sizes in
   float64 on the 4 ranks, each held against the same solve on a one-rank
@@ -178,7 +190,9 @@ then ``phase9_s``.  The benchmark driver and ``potts.run`` call
 The launch counters are set to 0 just before each solve and read just
 after it; the kernel table takes H-DIA's and H-CPDIA's counts from the
 Potts-300 solve, H-CPDIA-R's from the Potts-50 restart solve (and
-``main_path_potts50``'s under ``launches_by_run``), H-DIA (K5)'s from the one-rank mesh solve, H-CPDENSE's
+``main_path_potts50``'s under ``launches_by_run``), H-CPDIA (shard)'s from
+the one-rank float32 mesh solve, H-DIA (K5)'s from the one-rank float64
+mesh solve, H-CPDENSE's
 from the SC105 solve, H-CSR's from the transport solve, H-BSR's from the
 CLIME solve, H-DIA-B's from the banded batch solve and H-CSR-B's from the
 unstructured batch solve, H-DCA's from the sequential and H-DCA-C's
@@ -230,11 +244,17 @@ KERNELS = {
     "H-DIA (K5)": dict(source="pysparselp_tpu_torch/csrc/dia_spmv.cu",
                        replaces="pysparselp_tpu/ops/dia_pallas.py:232",
                        tpu_kernels={"K5": "ported"},
-                       launches_run="main_path_mesh1"),
+                       launches_run="main_path_mesh1_rows"),
     "H-CPDIA": dict(source="pysparselp_tpu_torch/csrc/cp_dia.cu",
                     replaces="pysparselp_tpu/ops/cp_windowed.py:392",
                     tpu_kernels={"K3": "ported"},
                     launches_run="main_path_potts300"),
+    # H-CPDIA's shard entry: K3 as the position-sharded mesh solve runs it
+    # per shard (pysparselp_tpu/parallel/sharded_cp_windowed.py:493, :811)
+    "H-CPDIA (shard)": dict(source="pysparselp_tpu_torch/csrc/cp_dia.cu",
+                            replaces="pysparselp_tpu/ops/cp_windowed.py:392",
+                            tpu_kernels={"K3": "ported"},
+                            launches_run="main_path_mesh1"),
     "H-CPDIA-R": dict(source="pysparselp_tpu_torch/csrc/cp_dia_resident.cu",
                       replaces="pysparselp_tpu/ops/cp_fused.py:192",
                       tpu_kernels={"K2": "ported"},
@@ -2214,6 +2234,173 @@ def phase_k5(torch, lp, table):
     table["H-DIA (K5)"].update({k: float(np.mean(v)) for k, v in agg.items()})
 
 
+def shard_system(lp, seed=7):
+    """The aligned Potts system with a seeded start, and the position
+    shard plan of MESH_RANKS ranks."""
+    import numpy as np
+    import torch
+
+    from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
+
+    sys_ = aligned_potts(lp)
+    rng = np.random.RandomState(seed)
+    n, m = sys_["c"].size, sys_["a_ineq"].shape[0]
+    sys_ = dict(sys_, x0=rng.rand(n), x30=None, y_ineq0=rng.rand(m) * 0.1,
+                y_eq0=None)
+    info = scw.position_shard_plan(sys_["a_eq"], sys_["a_ineq"], n, 0, m,
+                                   MESH_RANKS, torch.float32)
+    if info is None or info["dia_eq"] is not None:
+        raise AssertionError("Potts-300 did not plan the position shards")
+    return sys_, info
+
+
+def run_shards(torch, glob, ndev, dtype, nsteps, twin=False):
+    """``nsteps`` iterations of H-CPDIA's shard entry (or its twin) on each
+    of ``ndev`` ranks' slices in this process, the halos copied between
+    them by hand (``Mesh.halo_exchange``'s packets); the whole ``(x, x3,
+    y)`` from the interiors."""
+    from pysparselp_tpu_torch.ops import cp_dia
+    from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
+    from pysparselp_tpu_torch.parallel.mesh import halo_pack, halo_unpack
+
+    step = (cp_dia.cp_dia_shard_step_reference if twin
+            else cp_dia.cp_dia_shard_step)
+    ranks = [scw.place_position_shard(glob, ndev, r, dtype, "cuda")
+             for r in range(ndev)]
+    empty = torch.zeros(0, dtype=dtype, device="cuda")
+    for _ in range(nsteps):
+        items = [scw.state_halo_items(d, st) for d, st in ranks]
+        packets = [halo_pack(i) for i in items]
+        for r, it in enumerate(items):
+            halo_unpack(it, packets[r - 1] if r else None,
+                        packets[r + 1] if r + 1 < ndev else None)
+        for d, st in ranks:
+            step(d["shard"], d["pre"], st["x"], st["x3"], empty,
+                 st["y_ineq"], d["theta"])
+    return [torch.cat([st[k][slice(*d["shard"].interior)]
+                       for d, st in ranks])[:size]
+            for k, size in (("x", glob["n"]), ("x3", glob["n"]),
+                            ("y_ineq", glob["m"]))]
+
+
+def whole_problem(torch, glob, dtype):
+    """The one-device inequality problem, steps and start of ``glob``."""
+    from pysparselp_tpu_torch.problem import DiaMatrix, LPProblem
+
+    def vec(v):
+        return torch.as_tensor(v, dtype=dtype, device="cuda")
+
+    d = glob["dia"]
+    a = DiaMatrix.from_planes(d["vals"], d["offsets"], d["vals_t"],
+                              d["offsets_t"], glob["m"], glob["n"], dtype,
+                              "cuda")
+    prob = LPProblem(c=vec(glob["c"]), lb=vec(glob["lb"]),
+                     ub=vec(glob["ub"]), a_eq=None, b_eq=None, a_ineq=a,
+                     b_lower=None, b_upper=vec(glob["b_ineq"]), n=glob["n"],
+                     m_eq=0, m_ineq=glob["m"])
+    pre = dict(diag_t=vec(glob["diag_t"]), sigma_ineq=vec(glob["sigma_ineq"]))
+    return prob, pre, vec(glob["x"]), vec(glob["y_ineq"])
+
+
+def shard_bound(data, itemsize):
+    """``(bound_ms, bound_by)`` of one shard entry call without sums: the
+    Aᵀ planes over the primal range's columns and the A planes over the
+    interior's rows; per column c, diag_t, lb, ub and x read, x and x3
+    written; y read once over the slice; per row b and sigma read, y
+    written.  Only positions inside the problem count.  Operations: two a
+    stored plane entry, and per column one add into d, T d, its
+    subtraction, the clip's two, x3's three; per row the residual's
+    subtraction, the product with sigma, the add, the max."""
+    sh = data["shard"]
+    (p0, p1), (i0, i1) = sh.primal, sh.interior
+
+    def inside(a, b, size):
+        return max(0, min(sh.g0 + b, size) - max(sh.g0 + a, 0))
+
+    cols, rows = inside(p0, p1, sh.n), inside(i0, i1, sh.m)
+    planes = (len(sh.a_ineq.offsets_t) * cols
+              + len(sh.a_ineq.offsets) * rows)
+    nbytes = itemsize * (planes + 7 * cols + inside(0, sh.length, sh.m)
+                         + 3 * rows)
+    return bound(nbytes, 2 * planes + 8 * cols + 4 * rows)
+
+
+def phase_shard_kernels(torch, lp, table):
+    """Phase 2 for H-CPDIA's shard entry (``cp_dia.cp_dia_shard_step``, K3
+    per shard in the position-sharded mesh solve) on the aligned Potts-300
+    system: 100 iterations over MESH_RANKS shards in this process, the
+    halos copied by hand, bit-equal to the two-launch chunk entry on the
+    whole system and within RTOL of the twin on the same inputs, float32
+    and float64; then, in float32, one call (one iteration, two launches)
+    timed on the whole system as one shard (the one-rank mesh solve's
+    shape) and on an inner quarter shard, by events and profiler device
+    time, beside the twin, the two-launch chunk per iteration and the
+    bound (:func:`shard_bound`)."""
+    from pysparselp_tpu_torch.ops import cp_dia
+    from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
+
+    sys_, info = shard_system(lp)
+    glob = scw.position_system(sys_, info)
+    nsteps = 100
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[1]
+        got = run_shards(torch, glob, MESH_RANKS, dt, nsteps)
+        prob, pre, x0, y0 = whole_problem(torch, glob, dt)
+        out = cp_dia.cp_dia_chunk(prob, pre, x0, x0.new_zeros(0), y0, nsteps,
+                                  1.0, plan=cp_dia.TWO_LAUNCH)
+        want = [out[0], out[1], out[3]]
+        same = all(torch.equal(torch.isnan(g), torch.isnan(w))
+                   and torch.equal(g[~torch.isnan(g)], w[~torch.isnan(w)])
+                   and torch.equal(torch.signbit(g), torch.signbit(w))
+                   for g, w in zip(got, want))
+        twin = run_shards(torch, glob, MESH_RANKS, dt, nsteps, twin=True)
+        err = compare(torch, got, twin, name, "H-CPDIA (shard) potts300")
+        rec = dict(kernel="H-CPDIA (shard)", problem="potts300_aligned",
+                   dtype=name, ranks=MESH_RANKS, nsteps=nsteps,
+                   plan=info["plan"], bit_equal_to_chunk=same,
+                   max_abs_err=err)
+        table["H-CPDIA (shard)"]["max_abs_err"] = max(
+            table["H-CPDIA (shard)"]["max_abs_err"], err)
+        if not same:
+            emit("kernels", **rec)
+            raise AssertionError(f"H-CPDIA (shard) over {MESH_RANKS} shards "
+                                 f"({name}) differs from the chunk entry")
+        if dt == torch.float32:
+            for shard, ndev, rank in (("whole", 1, 0),
+                                      ("quarter", MESH_RANKS, 1)):
+                data, st = scw.place_position_shard(glob, ndev, rank, dt,
+                                                    "cuda")
+                sh, empty = data["shard"], x0.new_zeros(0)
+                tw = {k: v.clone() for k, v in st.items()}
+
+                # the mesh solve's call: the stepper, checked once
+                kern = cp_dia.cp_dia_shard_stepper(
+                    sh, data["pre"], st["x"], st["x3"], empty, st["y_ineq"],
+                    1.0)
+
+                def plain(sh=sh, data=data, tw=tw):
+                    cp_dia.cp_dia_shard_step_reference(
+                        sh, data["pre"], tw["x"], tw["x3"], empty,
+                        tw["y_ineq"], 1.0)
+
+                times = timings(torch, kern, plain, 200)
+                times.update(call_times(torch, kern))
+                rec[shard] = dict(times, positions=sh.length,
+                                  interior=list(sh.interior),
+                                  primal=list(sh.primal))
+                rec[shard]["bound_ms"], rec[shard]["bound_by"] = \
+                    shard_bound(data, 4)
+            rec["chunk_ms_per_iteration"] = cuda_ms(
+                torch, lambda: cp_dia.cp_dia_chunk(
+                    prob, pre, x0, x0.new_zeros(0), y0, nsteps, 1.0,
+                    plan=cp_dia.TWO_LAUNCH), 3) / nsteps
+            whole = rec["whole"]
+            table["H-CPDIA (shard)"].update(
+                ms=whole["ms"], plain_ms=whole["plain_ms"],
+                bound_ms=whole["bound_ms"], bound_by=whole["bound_by"])
+        emit("kernels", **rec)
+
+
 class one_rank_group:
     """A one-rank ``torch.distributed`` group in this process (``backend``,
     a ``file://`` rendezvous in a temporary directory) and the port's mesh
@@ -2250,28 +2437,41 @@ def allreduces(calls):
     return {f"{op}[{numel}]": v for (op, numel), v in sorted(calls.items())}
 
 
-def vector_allreduces(calls):
-    """The n-vector all-reduces in a mesh's ``calls`` counter: the sums of
-    the largest size (the packed checkpoint scalars are at most 4)."""
-    n = max(numel for (_op, numel) in calls)
-    return sum(v for (op, numel), v in calls.items()
-               if op == "sum" and numel == n)
+def collectives(calls):
+    """A mesh's ``calls`` counter by kind: halo exchanges, scalar
+    all-reduces (at most 6 entries: the packed checkpoint and restart
+    scalars), vector all-reduces (more) and all-gathers."""
+    out = {"halo": 0, "scalar_allreduces": 0, "vector_allreduces": 0,
+           "gather": 0}
+    for (op, numel), v in calls.items():
+        if op in ("halo", "gather"):
+            out[op] += v
+        else:
+            out["scalar_allreduces" if numel <= 6
+                else "vector_allreduces"] += v
+    return out
 
 
 def phase_mesh1(torch, lp, want, counted_solve):
     """``main_path_mesh1``: Potts-300, float32, 2,000 ``light_metrics``
     iterations with a checkpoint every 1,000, on one device and then with
     ``mesh=`` a one-rank NCCL group on the card (in this process), as
-    ``bench.py::measure_sharded_overhead`` compares them.  The mesh solve's
-    checkpoints are held against the port's float64 CPU run (``want``),
-    its H-DIA launches and its all-reduces against what the row-sharded
-    iteration predicts.  Returns the mesh solve's launch counts."""
+    ``bench.py::measure_sharded_overhead`` compares them.  The float32
+    aligned system takes the position-sharded regime, as in the JAX
+    package.  The mesh solve's checkpoints are held against the port's
+    float64 CPU run (``want``), its launches and collectives against the
+    prediction.  Then ``main_path_mesh1_rows``: the same LP in float64,
+    1,000 iterations, which both packages send to the row-sharded path
+    (H-DIA with shard offsets, K5's function), its checkpoint held against
+    ``want`` and its launches and all-reduces against the prediction.
+    Returns the two mesh solves' launch counts."""
     import numpy as np
 
     from pysparselp_tpu_torch.parallel import sharded_cp
 
     run = dict(method="chambolle_pock_ppd", nb_iter=2000, nb_iter_plot=1000,
                light_metrics=True, dtype=np.float32, device="cuda")
+    rows_run = dict(run, nb_iter=1000, dtype=np.float64)
     with one_rank_group("nccl") as mesh:
         wall_1, n_1 = counted_solve(lp, **run)
         its_1 = steady_rate(lp)
@@ -2279,54 +2479,103 @@ def phase_mesh1(torch, lp, want, counted_solve):
         wall_m, n_m = counted_solve(lp, mesh=mesh, **run)
         its_m = steady_rate(lp)
         calls = dict(mesh.calls)
-    got = curves(lp)
-    info = dict(sharded_cp.last_run_info)
-    if lp.itrn_curve != [1000, 2000]:
-        raise AssertionError(f"mesh1 checkpoints {lp.itrn_curve}")
+        got = curves(lp)
+        itrn = list(lp.itrn_curve)
+        info = dict(sharded_cp.last_run_info)
+        mesh.calls.clear()
+        wall_r, n_r = counted_solve(lp, mesh=mesh, **rows_run)
+        calls_r = dict(mesh.calls)
+        got_r = curves(lp)
+        itrn_r = list(lp.itrn_curve)
+        info_r = dict(sharded_cp.last_run_info)
+    if itrn != [1000, 2000]:
+        raise AssertionError(f"mesh1 checkpoints {itrn}")
     worst = checkpoint_diffs(got, want)
-    # per iteration one rmatvec (the window) and one matvec per shard, and
-    # four products at each checkpoint; one n-vector all-reduce per
-    # iteration and one per checkpoint, whose scalars are packed into one
-    # sum and one max
-    predicted = {"H-DIA": 2 * 2000 + 4 * 2,
-                 "vector_allreduces": 2000 + 2,
-                 "scalar_allreduces": 2 * 2}
-    n_vec = vector_allreduces(calls)
-    counted = {"H-DIA": n_m["H-DIA"], "vector_allreduces": n_vec,
-               "scalar_allreduces": sum(calls.values()) - n_vec}
+    # per iteration one shard entry call (two launches) and no collective
+    # on one rank; per checkpoint four interior products (Aᵀ y over the
+    # primal range, A x, A x4, A round(x)), one psum and one pmax of
+    # packed scalars
+    predicted = {"H-CPDIA (shard)": 2 * 2000, "H-CPDIA": 0, "H-DIA": 4 * 2,
+                 "halo": 0, "vector_allreduces": 0,
+                 "scalar_allreduces": 2 * 2, "gather": 0}
+    counted = dict(collectives(calls), **{
+        k: n_m[k] for k in ("H-CPDIA (shard)", "H-CPDIA", "H-DIA")})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
     emit("main_path_mesh1", n=lp.nb_variables,
          regime=info["regime"], backend="nccl", ranks=1,
+         positions=info["positions"],
+         positions_per_rank=info["positions_per_rank"],
+         x_halo=info["x_halo"], y_halo=info["y_halo"],
          single_iters_per_s_steady=its_1, mesh1_iters_per_s_steady=its_m,
-         overhead_frac=1.0 - its_m / its_1, single_wall_s=wall_1,
-         mesh1_wall_s=wall_m, presolve_s=info["presolve_s"],
-         build_s=info["build_s"], single_launches=n_1, launches=n_m,
-         allreduces={f"{op}[{numel}]": v for (op, numel), v in calls.items()},
+         mesh1_over_single=its_m / its_1, overhead_frac=1.0 - its_m / its_1,
+         single_wall_s=wall_1, mesh1_wall_s=wall_m,
+         presolve_s=info["presolve_s"], build_s=info["build_s"],
+         single_launches=n_1, launches=n_m, allreduces=allreduces(calls),
          counted=counted, predicted=predicted,
-         per_iteration={"H-DIA": n_m["H-DIA"] / 2000,
-                        "vector_allreduces": counted["vector_allreduces"]
+         per_iteration={"H-CPDIA (shard)": n_m["H-CPDIA (shard)"] / 2000,
+                        "collectives": (sum(calls.values())
+                                        - predicted["scalar_allreduces"])
                         / 2000},
-         itrn=list(lp.itrn_curve), f32_mesh1=got, f64_cpu=want,
-         worst_rel_diff=worst, rel_limit=MAIN_RTOL)
-    if info["regime"] != "row-sharded-dia":
+         itrn=itrn, f32_mesh1=got, f64_cpu=want, worst_rel_diff=worst,
+         rel_limit=MAIN_RTOL, nvidia_smi=smi)
+    if info["regime"] != "position-sharded":
         raise AssertionError(f"mesh1 ran {info['regime']}")
     if not all(v <= MAIN_RTOL for v in worst.values()):
         raise AssertionError(f"Potts-300 mesh1 f32 vs f64 CPU: {worst}")
     if counted != predicted:
         raise AssertionError(f"mesh1 counted {counted}, predicted {predicted}")
-    return n_m
+
+    if itrn_r != [1000]:
+        raise AssertionError(f"mesh1 rows checkpoints {itrn_r}")
+    worst_r = checkpoint_diffs(got_r, want)
+    # per iteration one rmatvec (the window) and one matvec per shard, and
+    # four products at the checkpoint; one n-vector all-reduce per
+    # iteration and one at the checkpoint, whose scalars are packed into
+    # one sum and one max
+    predicted_r = {"H-DIA": 2 * 1000 + 4, "H-CPDIA (shard)": 0,
+                   "halo": 0, "vector_allreduces": 1000 + 1,
+                   "scalar_allreduces": 2, "gather": 0}
+    counted_r = dict(collectives(calls_r), **{
+        k: n_r[k] for k in ("H-DIA", "H-CPDIA (shard)")})
+    emit("main_path_mesh1_rows", n=lp.nb_variables, dtype="float64",
+         regime=info_r["regime"], backend="nccl", ranks=1,
+         rows_loc=info_r["rows_loc"], wall_s=wall_r,
+         iters_per_s=1000 / wall_r, launches=n_r,
+         allreduces=allreduces(calls_r), counted=counted_r,
+         predicted=predicted_r, itrn=itrn_r, f64_mesh1=got_r, f64_cpu=want,
+         worst_rel_diff=worst_r, rel_limit=MAIN_RTOL)
+    if info_r["regime"] != "row-sharded-dia":
+        raise AssertionError(f"mesh1 float64 ran {info_r['regime']}")
+    if not all(v <= MAIN_RTOL for v in worst_r.values()):
+        raise AssertionError(f"Potts-300 mesh1 f64 vs f64 CPU: {worst_r}")
+    if counted_r != predicted_r:
+        raise AssertionError(f"mesh1 rows counted {counted_r}, predicted "
+                             f"{predicted_r}")
+    return n_m, n_r
 
 
 MESH4_RUN = dict(method="chambolle_pock_ppd", nb_iter=200, nb_iter_plot=100,
                  dtype="float32", device="cuda")
 MESH4_CASES = {"potts300": dict(permute="align"),
+               "multilabel64": dict(permute="align"),
                "unstructured": dict(permute=False)}
+# what each MESH4_CASES solve runs: the regime and its kernel
+MESH4_REGIME = {"potts300": ("position-sharded", "H-CPDIA (shard)"),
+                "multilabel64": ("position-sharded", "H-CPDIA (shard)"),
+                "unstructured": ("row-sharded-csr", "H-CSR")}
 
 
 def mesh4_lp(name):
-    if name == "potts300":
-        from pysparselp_tpu_torch.examples.potts import build_linear_program
+    from pysparselp_tpu_torch.examples.potts import (
+        build_linear_program, build_multilabel_linear_program)
 
+    if name == "potts300":
         return build_linear_program(300, 0.5, 500)[0]
+    if name == "multilabel64":
+        return build_multilabel_linear_program(64, 4)[0]
     return unstructured_lp()
 
 
@@ -2390,7 +2639,7 @@ def mesh4_rank(mesh, names):
     import numpy as np
     import torch
 
-    from pysparselp_tpu_torch.ops import csr_spmv, dia_spmv
+    from pysparselp_tpu_torch.ops import cp_dia, csr_spmv, dia_spmv
     from pysparselp_tpu_torch.parallel import sharded_cp
 
     torch.set_num_threads(2)
@@ -2399,7 +2648,8 @@ def mesh4_rank(mesh, names):
         t0 = time.perf_counter()
         lp = mesh4_lp(name)
         model_s = time.perf_counter() - t0
-        for fn in (dia_spmv.dia_spmv, csr_spmv.csr_spmv):
+        for fn in (dia_spmv.dia_spmv, csr_spmv.csr_spmv,
+                   cp_dia.cp_dia_shard_step):
             fn.launches = 0
         mesh.calls.clear()
         t0 = time.perf_counter()
@@ -2417,10 +2667,9 @@ def mesh4_rank(mesh, names):
             curves=curves(lp), itrn=list(lp.itrn_curve),
             iters_per_s_steady=steady_rate(lp), info=info,
             launches={"H-DIA": dia_spmv.dia_spmv.launches,
-                      "H-CSR": csr_spmv.csr_spmv.launches},
-            allreduces={f"{op}[{numel}]": v
-                        for (op, numel), v in calls.items()},
-            vector_allreduces=vector_allreduces(calls),
+                      "H-CSR": csr_spmv.csr_spmv.launches,
+                      "H-CPDIA (shard)": cp_dia.cp_dia_shard_step.launches},
+            allreduces=allreduces(calls), collectives=collectives(calls),
             host_s_per_rank={k: per_rank[:, i].tolist() for i, k in
                              enumerate(("model", "presolve", "build",
                                         "solve_wall"))})
@@ -2447,8 +2696,6 @@ def phase_mesh4(torch):
     ranks = spawn(mesh4_rank, MESH_RANKS, "gloo", "cuda", list(MESH4_CASES))
     spawn_s = time.perf_counter() - t0
     small, small_s = ranks.pop("small"), ranks.pop("small_s")
-    want_regime = {"potts300": ("row-sharded-dia", "H-DIA"),
-                   "unstructured": ("row-sharded-csr", "H-CSR")}
     for name, got in ranks.items():
         lp = mesh4_lp(name)
         lp.solve(**MESH4_RUN, **MESH4_CASES[name])
@@ -2457,21 +2704,40 @@ def phase_mesh4(torch):
             raise AssertionError(f"mesh4 {name}: checkpoints {got['itrn']} "
                                  f"vs {lp.itrn_curve}")
         worst = checkpoint_diffs(got["curves"], want)
-        regime, kernel = want_regime[name]
-        per_op = 2 * 200 + 4 * 2
+        regime, kernel = MESH4_REGIME[name]
+        if regime == "position-sharded":
+            # per iteration one shard entry call (two launches) and one
+            # halo exchange; per checkpoint one more exchange, four
+            # interior products per system, one psum and one pmax, and an
+            # all-gather of x for the recording callback (it wants the
+            # solution), one more at the end
+            systems = 2 if name == "multilabel64" else 1
+            predicted = {kernel: 2 * 200, "H-DIA": 4 * systems * 2,
+                         "halo": 200 + 2, "vector_allreduces": 0,
+                         "scalar_allreduces": 2 * 2, "gather": 2 + 1}
+        else:
+            # per iteration one product pair and one n-vector all-reduce;
+            # per checkpoint four products and one n-vector all-reduce,
+            # its scalars packed into one sum and one max
+            predicted = {kernel: 2 * 200 + 4 * 2, "halo": 0,
+                         "vector_allreduces": 200 + 2,
+                         "scalar_allreduces": 2 * 2, "gather": 0}
+        counted = dict(got["collectives"],
+                       **{k: got["launches"][k] for k in predicted
+                          if k in got["launches"]})
         emit("main_path_mesh4", problem=name, ranks=MESH_RANKS,
              backend="gloo", device="cuda (one card, every rank)",
-             note="all-reduces go through host memory (gloo's staging of "
+             note="collectives go through host memory (gloo's staging of "
                   "CUDA tensors): a transport-bound rate, not a multi-GPU "
                   "figure",
-             regime=got["info"]["regime"], rows_loc=got["info"]["rows_loc"],
+             regime=got["info"]["regime"],
+             shard={k: got["info"].get(k) for k in (
+                 "rows_loc", "positions_per_rank", "x_halo", "y_halo")},
              host_s_per_rank=got["host_s_per_rank"], spawn_wall_s=spawn_s,
              iters_per_s_steady=got["iters_per_s_steady"],
              single_device_iters_per_s_steady=steady_rate(lp),
-             launches_rank0=got["launches"], launches_predicted={
-                 kernel: per_op},
-             allreduces_rank0=got["allreduces"],
-             vector_allreduces_per_iteration=got["vector_allreduces"] / 200,
+             launches_rank0=got["launches"], counted=counted,
+             predicted=predicted, allreduces_rank0=got["allreduces"],
              itrn=got["itrn"], f32_mesh4=got["curves"],
              f32_single_device=want, worst_rel_diff=worst,
              rel_limit=MAIN_RTOL)
@@ -2479,14 +2745,9 @@ def phase_mesh4(torch):
             raise AssertionError(f"mesh4 {name} ran {got['info']['regime']}")
         if not all(v <= MAIN_RTOL for v in worst.values()):
             raise AssertionError(f"mesh4 {name} vs one device: {worst}")
-        if got["launches"][kernel] != per_op:
-            raise AssertionError(f"mesh4 {name}: {kernel} launched "
-                                 f"{got['launches'][kernel]}, predicted "
-                                 f"{per_op}")
-        if got["vector_allreduces"] != 200 + 2:
-            raise AssertionError(f"mesh4 {name}: "
-                                 f"{got['vector_allreduces']} n-vector "
-                                 "all-reduces, predicted 202")
+        if counted != predicted:
+            raise AssertionError(f"mesh4 {name}: counted {counted}, "
+                                 f"predicted {predicted}")
     # the other methods: MESH_RANKS ranks against one (gloo, this process)
     t0 = time.perf_counter()
     with one_rank_group("gloo") as mesh:
@@ -4121,6 +4382,7 @@ def kernel_counters():
                                           csr_spmv, dca_sweep, dia_spmv)
 
     return {"H-DIA": dia_spmv.dia_spmv, "H-CPDIA": cp_dia.cp_dia_chunk,
+            "H-CPDIA (shard)": cp_dia.cp_dia_shard_step,
             "H-CPDIA-R": cp_dia.cp_dia_resident_chunk,
             "H-CPDENSE": cp_dense.cp_dense_chunk,
             "H-CSR": csr_spmv.csr_spmv, "H-BSR": bsr_spmv.bsr_spmv,
@@ -4221,6 +4483,7 @@ def main() -> int:
     from pysparselp_tpu_torch.problem import apply_rcm_permutation
     phase_bsr(torch, apply_rcm_permutation(folded(clime))[0]["a_ineq"], table)
     phase_k5(torch, problems["potts300"], table)
+    phase_shard_kernels(torch, problems["potts300"], table)
     phase_batch_kernels(torch, batch_lps, table)
     phase_f64_kernels(torch, {
         "potts300_slack": mehrotra_slack(problems["potts300"])[0],
@@ -4259,9 +4522,13 @@ def main() -> int:
         table[key]["launches"] = n300[key]
     lap("3_potts300")
 
-    # phase 3b: the mesh solve, one NCCL rank, then four gloo ranks
-    table["H-DIA (K5)"]["launches"] = phase_mesh1(torch, lp300, want,
-                                                  counted_solve)["H-DIA"]
+    # phase 3b: the mesh solve, one NCCL rank (position-sharded in
+    # float32, row-sharded in float64), then four gloo ranks
+    n_pos, n_rows = phase_mesh1(torch, lp300, want, counted_solve)
+    table["H-CPDIA (shard)"]["launches"] = n_pos["H-CPDIA (shard)"]
+    table["H-DIA"].setdefault("launches_by_run", {})[
+        "main_path_mesh1"] = n_pos["H-DIA"]
+    table["H-DIA (K5)"]["launches"] = n_rows["H-DIA"]
     phase_mesh4(torch)
     lap("3b_mesh")
 

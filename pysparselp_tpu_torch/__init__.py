@@ -19,9 +19,7 @@ serving (:func:`solve_cp_batch`), checkpoints (:func:`save_checkpoint`,
 format is the JAX package's), the instrumentation of :mod:`.utils`
 (``profile_trace`` on ``torch.profiler``, ``debug_mode``), the benchmark
 driver :mod:`.benchmarks`, I/O (MPS, netlib, LPsparse text) and the
-examples.  Not yet: the JAX package's position-sharded windowed CP for
-aligned float32 grids (``mesh=`` runs CP row-sharded there; ROADMAP M9).
-The package imports ``torch`` and never ``jax``.
+examples.  The package imports ``torch`` and never ``jax``.
 """
 
 from .batch import solve_cp_batch

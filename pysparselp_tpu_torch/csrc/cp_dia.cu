@@ -26,6 +26,19 @@
 // barrier that the TPU kernel obtained from recomputing a halo.  The host
 // loop below launches all 2 * nsteps kernels onto one stream, so Python pays
 // one call per chunk.
+//
+// The shard entry (pslp_cp_dia_shard_step_*) runs one such iteration on one
+// rank's slice of the position space, the counterpart of K3 run per shard
+// by pysparselp_tpu/parallel/sharded_cp_windowed.py.  The slice holds global
+// positions [g0, g0 + len): the rank's interior [i0, i1) and a halo on each
+// side that the caller refreshes from the neighbouring ranks before the
+// call.  The primal launch runs over [p0, p1), the interior widened by the
+// reach of A's taps (the dual reads x3 there), and reads y inside the halo;
+// the dual launch and the running sums run over the interior.  A position
+// computes the operations of the one-device kernels above in the same
+// order, and a tap whose global position lies outside the matrix adds
+// vals * 0 as dia_row does, so one call equals one iteration of the chunk
+// entry on the whole system bit for bit, on any number of ranks.
 #include "common.cuh"
 
 namespace {
@@ -110,7 +123,115 @@ int chunk(int n, int m, int me, const T* c, const T* t, const T* lb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One row of a DIA product on a rank's slice: local index jl holds global
+// position g; tap k reads v at local index jl + offs[k] when its global
+// position lies in [0, nv), else zero (dia_row's arithmetic, with the
+// planes and v indexed locally, the bounds globally).
+template <typename T>
+__device__ __forceinline__ T dia_row_local(const T* __restrict__ vals,
+                                           const int* __restrict__ offs,
+                                           int ndiag, int stride, const T* v,
+                                           int nv, long long g, int jl) {
+  T acc = T(0);
+  for (int k = 0; k < ndiag; ++k) {
+    const int o = offs[k];
+    const long long c = g + o;
+    const T xv = (c >= 0 && c < nv) ? v[jl + o] : T(0);
+    acc = acc + vals[static_cast<long long>(k) * stride + jl] * xv;
+  }
+  return acc;
+}
+
+template <typename T>
+__global__ void cp_shard_primal_kernel(
+    int len, int g0, int p0, int p1, int i0, int i1, int n,
+    const T* __restrict__ c, const T* __restrict__ t,
+    const T* __restrict__ lb, const T* __restrict__ ub,
+    const T* __restrict__ vte, const int* __restrict__ offte, int ndte,
+    const T* ye, int me, const T* __restrict__ vt,
+    const int* __restrict__ offt, int ndt, const T* y, int m, T theta, T* x,
+    T* x3, T* sx) {
+  const int jl = p0 + blockIdx.x * blockDim.x + threadIdx.x;
+  if (jl >= p1) return;
+  const long long g = static_cast<long long>(g0) + jl;
+  if (g < 0 || g >= n) return;
+  T d = c[jl];
+  if (me > 0) d = d + dia_row_local<T>(vte, offte, ndte, len, ye, me, g, jl);
+  if (m > 0) d = d + dia_row_local<T>(vt, offt, ndt, len, y, m, g, jl);
+  const T xo = x[jl];
+  const T x2 = pslp::clamp<T>(xo - t[jl] * d, lb[jl], ub[jl]);
+  x3[jl] = (T(1) + theta) * x2 - theta * xo;
+  x[jl] = x2;
+  if (sx != nullptr && jl >= i0 && jl < i1) sx[jl] = sx[jl] + x2;
+}
+
+template <typename T>
+__global__ void cp_shard_dual_kernel(
+    int len, int g0, int i0, int i1, int n, const T* x3,
+    const T* __restrict__ ve, const int* __restrict__ offe, int nde,
+    const T* __restrict__ be, const T* __restrict__ se, T* ye, T* sye, int me,
+    const T* __restrict__ v, const int* __restrict__ off, int nd,
+    const T* __restrict__ b, const T* __restrict__ s, T* y, T* sy, int m) {
+  const int il = i0 + blockIdx.x * blockDim.x + threadIdx.x;
+  if (il >= i1) return;
+  const long long g = static_cast<long long>(g0) + il;
+  if (g < 0) return;
+  if (g < me) {
+    const T r = dia_row_local<T>(ve, offe, nde, len, x3, n, g, il) - be[il];
+    const T yn = ye[il] + se[il] * r;
+    ye[il] = yn;
+    if (sye != nullptr) sye[il] = sye[il] + yn;
+  }
+  if (g < m) {
+    const T r = dia_row_local<T>(v, off, nd, len, x3, n, g, il) - b[il];
+    T yn = y[il] + s[il] * r;
+    yn = pslp::clamp_min0<T>(yn);
+    y[il] = yn;
+    if (sy != nullptr) sy[il] = sy[il] + yn;
+  }
+}
+
+template <typename T>
+int shard_step(int len, int g0, int p0, int p1, int i0, int i1, int n, int m,
+               int me, const T* c, const T* lb, const T* ub, const T* vt,
+               const int* offt, int ndt, const T* v, const int* off, int nd,
+               const T* b, const T* vte, const int* offte, int ndte,
+               const T* ve, const int* offe, int nde, const T* be, const T* t,
+               const T* s, const T* se, T* x, T* x3, T* y, T* ye, T* sx,
+               T* sy, T* sye, T theta, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p1 > p0) {
+    cp_shard_primal_kernel<T>
+        <<<pslp::grid_for(p1 - p0), pslp::kBlock, 0, st>>>(
+            len, g0, p0, p1, i0, i1, n, c, t, lb, ub, vte, offte, ndte, ye,
+            me, vt, offt, ndt, y, m, theta, x, x3, sx);
+  }
+  if (i1 > i0) {
+    cp_shard_dual_kernel<T><<<pslp::grid_for(i1 - i0), pslp::kBlock, 0, st>>>(
+        len, g0, i0, i1, n, x3, ve, offe, nde, be, se, ye, sye, me, v, off,
+        nd, b, s, y, sy, m);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+#define PSLP_CP_DIA_SHARD(SUFFIX, T)                                          \
+  PSLP_EXPORT int pslp_cp_dia_shard_step_##SUFFIX(                            \
+      int len, int g0, int p0, int p1, int i0, int i1, int n, int m, int me,  \
+      const T* c, const T* lb, const T* ub, const T* vt, const int* offt,     \
+      int ndt, const T* v, const int* off, int nd, const T* b, const T* vte,  \
+      const int* offte, int ndte, const T* ve, const int* offe, int nde,      \
+      const T* be, const T* t, const T* s, const T* se, T* x, T* x3, T* y,    \
+      T* ye, T* sx, T* sy, T* sye, T theta, void* stream) {                   \
+    return shard_step<T>(len, g0, p0, p1, i0, i1, n, m, me, c, lb, ub, vt,    \
+                         offt, ndt, v, off, nd, b, vte, offte, ndte, ve,      \
+                         offe, nde, be, t, s, se, x, x3, y, ye, sx, sy, sye,  \
+                         theta, stream);                                      \
+  }
+
+PSLP_CP_DIA_SHARD(f32, float)
+PSLP_CP_DIA_SHARD(f64, double)
 
 #define PSLP_CP_DIA(SUFFIX, T)                                               \
   PSLP_EXPORT int pslp_cp_dia_chunk_##SUFFIX(                                \

@@ -15,6 +15,14 @@ Both have the call contract of ``cp_windowed._cp_windowed_call_full``:
 launches the planned tier for CUDA tensors and runs
 :func:`cp_dia_chunk_reference`, its plain PyTorch twin, for CPU tensors.
 Inputs are never modified.
+
+The two-launch tier has a second entry for the position-sharded mesh
+solver (``parallel/sharded_cp_windowed.py``, where JAX runs K3 per shard):
+:func:`cp_dia_shard_step` runs one iteration on one rank's
+:class:`CpDiaShard`, a halo-padded slice of the position space, updating
+the rank's state in place; :func:`cp_dia_shard_step_reference` is its
+twin.  On every rank count it equals :func:`cp_dia_chunk` on the whole
+system bit for bit (``csrc/cp_dia.cu``).
 """
 
 from __future__ import annotations
@@ -311,3 +319,188 @@ def cp_dia_resident_chunk(prob, pre, x, y_eq, y, nsteps, theta,
 
 
 cp_dia_resident_chunk.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class CpDiaShard:
+    """One rank's slice of an anchor-aligned DIA problem for
+    :func:`cp_dia_shard_step`.  Local index k holds global position ``g0 +
+    k`` for k in ``[0, length)``.  ``interior`` ``(i0, i1)`` is the range
+    the rank owns: its duals and running sums.  ``primal`` ``(p0, p1)`` is
+    the interior widened by the reach of A's taps: the step computes x and
+    x3 there, since the dual reads x3 there.  The caller keeps the halos
+    fresh: x over ``primal`` and each y over the reach of Aᵀ's taps from it
+    (``[0, length)`` at most).  ``n``, ``m``, ``me`` are the global sizes; a
+    system absent from the problem has ``m`` (``me``) 0.  ``c``, ``lb``,
+    ``ub``, ``b_ineq``, ``b_eq`` are the local slices, zero outside the
+    matrix, and ``a_ineq`` / ``a_eq`` the local planes as a
+    :class:`~pysparselp_tpu_torch.problem.DiaMatrix` of ``length`` rows
+    and columns (``vals[d, k]`` is A's entry of global row ``g0 + k``)."""
+
+    g0: int
+    length: int
+    primal: tuple
+    interior: tuple
+    n: int
+    m: int
+    me: int
+    c: torch.Tensor
+    lb: torch.Tensor
+    ub: torch.Tensor
+    a_ineq: object
+    b_ineq: torch.Tensor
+    a_eq: object = None
+    b_eq: torch.Tensor = None
+    # the C entry with this shard's constant arguments bound (first launch)
+    entry: object = dataclasses.field(default=None, init=False, repr=False,
+                                      compare=False)
+
+    def __post_init__(self):
+        (p0, p1), (i0, i1) = self.primal, self.interior
+        ops = [op for op in (self.a_ineq, self.a_eq) if op is not None]
+        fwd = [o for op in ops for o in op.offsets]
+        bwd = [o for op in ops for o in op.offsets_t]
+        if not (0 <= p0 + min(bwd) and p1 + max(bwd) <= self.length
+                and p0 <= i0 + min(fwd) and i1 + max(fwd) <= p1):
+            raise ValueError(
+                f"CpDiaShard: primal {self.primal} and interior "
+                f"{self.interior} do not hold the taps' reach in "
+                f"{self.length} positions")
+
+
+# kernels one cp_dia_shard_step launches: the primal and the dual
+SHARD_LAUNCHES = 2
+
+
+def _local_taps(vals, offsets, v, g0, nv, lo, hi):
+    """``Σ_k vals[k, lo:hi] · v[lo + o_k : hi + o_k]`` (local indices),
+    a tap whose global position ``g0 + j + o_k`` lies outside ``[0, nv)``
+    reading zero; H-CPDIA's ``dia_row_local`` order."""
+    g = torch.arange(g0 + lo, g0 + hi, device=v.device)
+    acc = torch.zeros(hi - lo, dtype=vals.dtype, device=vals.device)
+    zero = torch.zeros((), dtype=v.dtype, device=v.device)
+    for k, o in enumerate(offsets):
+        inside = (g + o >= 0) & (g + o < nv)
+        acc = acc + vals[k, lo:hi] * torch.where(inside, v[lo + o:hi + o],
+                                                 zero)
+    return acc
+
+
+def cp_dia_shard_step_reference(sh: CpDiaShard, pre, x, x3, y_eq, y, theta,
+                                sums=None):
+    """Plain twin of :func:`cp_dia_shard_step`, in the kernel's operation
+    order; updates ``x``, ``x3``, ``y_eq``, ``y`` and ``sums`` in place."""
+    (p0, p1), (i0, i1) = sh.primal, sh.interior
+    ae, ai = sh.a_eq, sh.a_ineq
+    g = torch.arange(sh.g0 + p0, sh.g0 + p1, device=x.device)
+    keep = (g >= 0) & (g < sh.n)
+    d = sh.c[p0:p1]
+    if sh.me > 0:
+        d = d + _local_taps(ae.vals_t, ae.offsets_t, y_eq, sh.g0, sh.me, p0,
+                            p1)
+    if sh.m > 0:
+        d = d + _local_taps(ai.vals_t, ai.offsets_t, y, sh.g0, sh.m, p0, p1)
+    xo = x[p0:p1]
+    x2 = torch.clamp(xo - pre["diag_t"][p0:p1] * d, sh.lb[p0:p1],
+                     sh.ub[p0:p1])
+    x3_new = (1.0 + theta) * x2 - theta * xo
+    x3[p0:p1] = torch.where(keep, x3_new, x3[p0:p1])
+    x[p0:p1] = torch.where(keep, x2, xo)
+    gi = torch.arange(sh.g0 + i0, sh.g0 + i1, device=x.device)
+    sx, se, si = sums if sums is not None else (None, None, None)
+    if sx is not None:
+        kept = keep[i0 - p0:i1 - p0]
+        sx[i0:i1] = torch.where(kept, sx[i0:i1] + x[i0:i1], sx[i0:i1])
+    if sh.me > 0:
+        r = _local_taps(ae.vals, ae.offsets, x3, sh.g0, sh.n, i0,
+                        i1) - sh.b_eq[i0:i1]
+        rows = (gi >= 0) & (gi < sh.me)
+        y_eq[i0:i1] = torch.where(
+            rows, y_eq[i0:i1] + pre["sigma_eq"][i0:i1] * r, y_eq[i0:i1])
+        if se is not None:
+            se[i0:i1] = torch.where(rows, se[i0:i1] + y_eq[i0:i1], se[i0:i1])
+    if sh.m > 0:
+        r = _local_taps(ai.vals, ai.offsets, x3, sh.g0, sh.n, i0,
+                        i1) - sh.b_ineq[i0:i1]
+        rows = (gi >= 0) & (gi < sh.m)
+        y[i0:i1] = torch.where(
+            rows, torch.clamp_min(y[i0:i1] + pre["sigma_ineq"][i0:i1] * r,
+                                  0.0), y[i0:i1])
+        if si is not None:
+            si[i0:i1] = torch.where(rows, si[i0:i1] + y[i0:i1], si[i0:i1])
+
+
+def _shard_entry(sh: CpDiaShard, dt):
+    """The C shard entry with ``sh``'s constant arguments bound."""
+    def sys_args(op, b):
+        if op is None:
+            return [None, None, 0, None, None, 0, None]
+        return [op.vals_t, op.offs_t, len(op.offsets_t), op.vals, op.offs,
+                len(op.offsets), b]
+
+    (p0, p1), (i0, i1) = sh.primal, sh.interior
+    head = ([sh.length, sh.g0, p0, p1, i0, i1, sh.n, sh.m, sh.me, sh.c,
+             sh.lb, sh.ub] + sys_args(sh.a_ineq, sh.b_ineq)
+            + sys_args(sh.a_eq, sh.b_eq))
+    argtypes = ([_I] * 9 + [_P] * 3 + [_P, _P, _I, _P, _P, _I, _P] * 2
+                + [_P] * 10 + [_build.scalar(dt), _P])
+    return _build.Entry(f"pslp_cp_dia_shard_step_{_build.suffix(dt)}",
+                        argtypes, *head)
+
+
+def cp_dia_shard_stepper(sh: CpDiaShard, pre, x, x3, y_eq, y, theta,
+                         sums=None):
+    """:func:`cp_dia_shard_step` on these tensors, checked once: a callable
+    whose every call runs one iteration in place (so repeated calls
+    advance the state; a loop pays no per-iteration checks)."""
+    if x.device.type == "cpu":
+        return lambda: cp_dia_shard_step_reference(sh, pre, x, x3, y_eq, y,
+                                                   theta, sums)
+    if x.device.type != "cuda":
+        raise ValueError(f"cp_dia_shard_step runs on CUDA or the CPU, not "
+                         f"{x.device}")
+    ye = y_eq if sh.me > 0 else None
+    yi = y if sh.m > 0 else None
+    sx, se, si = sums if sums is not None else (None, None, None)
+    if sh.me == 0:
+        se = None
+    if sh.m == 0:
+        si = None
+    t, s, s_eq = (pre["diag_t"], pre.get("sigma_ineq") if sh.m else None,
+                  pre.get("sigma_eq") if sh.me else None)
+    state = [v for v in (x, x3, ye, yi, sx, se, si, t, s, s_eq)
+             if v is not None]
+    _build.check_cuda(*state, dtype=sh.c.dtype, device=sh.c.device)
+    if any(v.shape != (sh.length,) for v in state):
+        raise ValueError(f"cp_dia_shard_step: every vector must have "
+                         f"{sh.length} entries")
+    if sh.entry is None:
+        _build.check_cuda(sh.c, sh.lb, sh.ub, sh.b_ineq, sh.b_eq,
+                          dtype=sh.c.dtype, device=sh.c.device)
+        object.__setattr__(sh, "entry", _shard_entry(sh, sh.c.dtype))
+    ptrs = tuple(None if v is None else v.data_ptr()
+                 for v in (t, s, s_eq, x, x3, yi, ye, sx, si, se))
+    index = _build.device_index(x.device)
+
+    def step():
+        sh.entry(*ptrs, theta, _build.stream(index))
+        cp_dia_shard_step.launches += SHARD_LAUNCHES
+
+    return step
+
+
+def cp_dia_shard_step(sh: CpDiaShard, pre, x, x3, y_eq, y, theta,
+                      sums=None):
+    """One CP iteration on a rank's slice (H-CPDIA's shard entry, two
+    launches), in place: x and x3 over ``sh.primal``, ``y_eq`` / ``y`` and
+    the running ``sums`` ``(sx, s_eq, s_ineq)`` over ``sh.interior``.
+    ``pre`` holds the local step vectors ``diag_t``, ``sigma_ineq`` and
+    ``sigma_eq`` (for a present system).  Every tensor has ``sh.length``
+    entries; an absent system's dual (and its sum) may be any tensor of
+    the dtype.  CPU tensors run :func:`cp_dia_shard_step_reference`; CUDA
+    tensors launch the kernel or raise (:func:`cp_dia_shard_stepper`
+    checks once for a loop of iterations)."""
+    cp_dia_shard_stepper(sh, pre, x, x3, y_eq, y, theta, sums)()
+
+
+cp_dia_shard_step.launches = 0

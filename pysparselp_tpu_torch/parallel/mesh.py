@@ -6,8 +6,11 @@ process, and ``shard_map`` runs one program body per device.  Here each rank
 is a process that holds one shard: :class:`Mesh` names the group, this
 rank's place in it and its device, and supplies the collectives the sharded
 solvers use: :meth:`Mesh.psum`, :meth:`Mesh.pmax` and :meth:`Mesh.pmin`
-(``dist.all_reduce`` with SUM, MAX and MIN) and :meth:`Mesh.all_gather`
-(``dist.all_gather``, the JAX ``all_gather(..., tiled=True)``).
+(``dist.all_reduce`` with SUM, MAX and MIN), :meth:`Mesh.all_gather`
+(``dist.all_gather``, the JAX ``all_gather(..., tiled=True)``) and
+:meth:`Mesh.halo_exchange`, the neighbour exchange of the position-sharded
+solver (JAX's two ``lax.ppermute`` per array), every array's edges packed
+into one ``dist.all_gather``.
 
 The backend is always the caller's choice; nothing here switches one for
 another.  NCCL takes one GPU per rank.  Several ranks on one GPU need
@@ -50,7 +53,8 @@ class Mesh:
 
     ``calls`` counts the collectives this rank issued, keyed by
     ``(op, numel)`` (``("sum", n)`` is the iteration's n-vector psum,
-    ``("gather", k)`` an all-gather of ``k`` entries a rank)."""
+    ``("gather", k)`` an all-gather of ``k`` entries a rank, ``("halo",
+    k)`` a halo exchange that sends ``k`` entries a rank)."""
 
     def __init__(self, device="cuda", group=None, axis_name="rows"):
         if not dist.is_initialized():
@@ -98,6 +102,51 @@ class Mesh:
         dist.all_gather(parts, src, group=self.group)
         self.calls[("gather", src.numel())] += 1
         return torch.cat(parts)
+
+    def halo_exchange(self, items):
+        """Refresh halos in place, the counterpart of JAX's
+        ``sharded_cp_windowed._halo_refresh``.  ``items`` holds ``(t, lo,
+        hi, left, right)``: a 1-D tensor whose rank-owned range is ``[lo,
+        hi)``; ``t[lo - left:lo]`` receives rank - 1's ``t[hi - left:hi]``
+        and ``t[hi:hi + right]`` rank + 1's ``t[lo:lo + right]`` (the ranks
+        agree on the widths).  Every item's edges travel in one all-gather
+        (:func:`halo_pack`), counted as ``("halo", k)``.  The halo a mesh
+        edge faces has no neighbour and is left as it is: its positions lie
+        outside the problem, where the callers' arrays hold zeros, the
+        global layout's neutral padding (JAX's ``ppermute`` delivers zeros
+        there).  One rank issues no collective."""
+        if self.size == 1:
+            return
+        packet = halo_pack(items)
+        parts = [torch.empty_like(packet) for _ in range(self.size)]
+        dist.all_gather(parts, packet, group=self.group)
+        self.calls[("halo", packet.numel())] += 1
+        last = self.size - 1
+        halo_unpack(items, parts[self.rank - 1] if self.rank > 0 else None,
+                    parts[self.rank + 1] if self.rank < last else None)
+
+
+def halo_pack(items):
+    """One rank's packet for :meth:`Mesh.halo_exchange`: each item's
+    right edge ``t[hi - left:hi]`` (rank + 1's left halo), then each
+    item's left edge ``t[lo:lo + right]`` (rank - 1's right halo)."""
+    return torch.cat([t[hi - left:hi] for t, _lo, hi, left, _r in items]
+                     + [t[lo:lo + right] for t, lo, _hi, _l, right in items])
+
+
+def halo_unpack(items, from_prev, from_next):
+    """Write the halos of ``items`` from the packets (:func:`halo_pack`)
+    of rank - 1 (``from_prev``) and rank + 1 (``from_next``); ``None``
+    leaves that side as it is."""
+    k = 0
+    for t, lo, _hi, left, _right in items:
+        if from_prev is not None:
+            t[lo - left:lo] = from_prev[k:k + left]
+        k += left
+    for t, _lo, hi, _left, right in items:
+        if from_next is not None:
+            t[hi:hi + right] = from_next[k:k + right]
+        k += right
 
 
 def pad_gather_width(mats_v, mats_i, k_max=None):

@@ -14,6 +14,9 @@ rows:
   all-reduce per operation at each evaluation.
 
 One CP iteration therefore costs exactly one all-reduce of an n-vector.
+Float32 solves of anchor-aligned DIA systems go instead to the
+position-sharded regime (:mod:`.sharded_cp_windowed`), as in the JAX
+package; float64 and every other system stay here.
 
 Shard layouts (``operator``): ``"dia"`` (per-shard diagonal storage on
 H-DIA, :mod:`.sharded_dia`; taken after the anchor-aligned embedding) and
@@ -576,11 +579,38 @@ def chambolle_pock_ppd_sharded(
                 def callback_func(niter, xp, *rest):
                     user_cb(niter, xp, *rest)
             mirror_callback_attrs(callback_func, user_cb)
-    # The JAX package's position-sharded windowed regime
-    # (sharded_cp_windowed.py: the whole-iteration kernel per shard with a
-    # halo exchange) runs only on a TPU; it is ROADMAP.md Queue 1, M9's
-    # next step, so every mesh solve here takes the row-sharded path.
     presolve_s = time.perf_counter() - t0
+    # position-sharded regime: for aligned DIA systems in float32, H-CPDIA
+    # runs per shard with a halo exchange (O(halo) entries an iteration
+    # instead of the replicated primal's all-reduce), the PDLP restart
+    # controller included (parallel/sharded_cp_windowed.py)
+    if restart in (None, "average") and resolve_dtype(
+            dtype, mesh.device) == torch.float32:
+        from . import sharded_cp_windowed as scw
+
+        info = scw.position_shard_plan(
+            a_eq, a_one, c.size, a_eq.shape[0] if a_eq is not None else 0,
+            a_one.shape[0] if a_one is not None else 0, mesh.size,
+            torch.float32, device=mesh.device)
+        if info is not None:
+            sys_w = dict(a_eq=a_eq, beq=beq, a_ineq=a_one, b_ineq=b_ineq,
+                         c=c, lb=lb, ub=ub, x0=x0, x30=x30,
+                         y_eq0=y_eq0, y_ineq0=y_ineq0)
+            x_final, best = scw.run_position_sharded(
+                sys_w, mesh, info, nb_max_iter=nb_max_iter,
+                nb_iter_plot=nb_iter_plot, callback_func=callback_func,
+                max_time=max_time, start_time=loop.start,
+                force_integer=force_integer, stop_tol=stop_tol,
+                light_metrics=light_metrics, theta=theta, alpha=alpha,
+                omega=omega, restart=restart,
+                restart_period=restart_period)
+            last_run_info = dict(scw.last_run_info,
+                                 permutation=choice, presolve_s=presolve_s)
+            if inv_cols is not None:
+                x_final = x_final[inv_cols]
+                if best is not None:
+                    best = best[inv_cols]
+            return (x_final, best) if force_integer else x_final
     t0 = time.perf_counter()
     data, state = build_sharded_cp_data(
         c, a_eq, beq, a_one, b_ineq, lb, ub, mesh,

@@ -4,7 +4,9 @@ Ported so far, each on one device or, with ``mesh=`` (a
 :class:`~pysparselp_tpu_torch.parallel.mesh.Mesh`), over a
 ``torch.distributed`` group whose device the mesh decides:
 
-* ``chambolle_pock_ppd`` (row-sharded: ``parallel.sharded_cp``);
+* ``chambolle_pock_ppd`` (position-sharded for float32 aligned DIA
+  systems, ``parallel.sharded_cp_windowed``, else row-sharded,
+  ``parallel.sharded_cp``);
 * ``mehrotra`` (:mod:`.mehrotra`, the interior point on the normal
   equations: dense Cholesky or device CG; column-sharded:
   ``parallel.sharded_mehrotra``);
@@ -28,10 +30,7 @@ iterate is mapped back with ``x_original = m_change @ x_new + shift``;
 ADMM, dual gradient ascent and the bridges take the full LP.  With
 ``mesh=``, a ``device`` that disagrees with ``mesh.device`` raises; DCA
 runs the blocked mode whatever ``mode`` says, and ADMM's host mode
-(``inner="gauss_seidel"``) ignores the mesh, as in the JAX package.  The
-one mesh behaviour that differs from the JAX package's: CP on aligned
-float32 grids takes the row-sharded path, not the position-sharded
-windowed one (``parallel/sharded_cp.py``).
+(``inner="gauss_seidel"``) ignores the mesh, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -20,9 +20,10 @@ they let both packages run on the same lowered problem.
 solver's data and state to the port's, for each sharded layout: the
 row-sharded CP solver's per-shard DIA (``layout="cp"``), the interior
 point's column blocks (``"ipm"``), the ADMM row system's block-ELL tiles
-(``"admm"``), the blocked DCA's padded colour groups (``"dca"``) and
-``admm_blocks``' padded block batch (``"blocks"``); the port's rank count
-may differ from the JAX mesh's.
+(``"admm"``), the blocked DCA's padded colour groups (``"dca"``),
+``admm_blocks``' padded block batch (``"blocks"``) and the
+position-sharded CP's padded window layout (``"position"``); the port's
+rank count may differ from the JAX mesh's.
 :func:`key_from_jax` / :func:`key_to_jax` carry a ``jax.random`` key (its
 two uint32 words, as numpy) to the port's key pair and back, and
 :func:`ell_rows_from_jax` a JAX ``EllMatrix``'s padded rows to the
@@ -175,8 +176,8 @@ def sharded_from_jax(data, state, ndev, rank, dtype=None, device="cpu",
     mesh axis first.  ``layout`` names the solver: ``"cp"`` (below),
     ``"ipm"`` (:func:`_ipm_from_jax`), ``"admm"``
     (:func:`_admm_from_jax`), ``"dca"`` (:func:`_dca_from_jax`) or
-    ``"blocks"`` (:func:`_blocks_from_jax`); ``kw`` goes to the layout's
-    function.
+    ``"blocks"`` (:func:`_blocks_from_jax`) or ``"position"``
+    (:func:`_position_from_jax`); ``kw`` goes to the layout's function.
 
     ``"cp"``: the port's ``(data, state)`` (as
     ``parallel.sharded_cp.build_sharded_cp_data`` returns them) for the JAX
@@ -195,7 +196,8 @@ def sharded_from_jax(data, state, ndev, rank, dtype=None, device="cpu",
     dt = resolve_dtype(dtype, dev)
     if layout != "cp":
         convert = {"ipm": _ipm_from_jax, "admm": _admm_from_jax,
-                   "dca": _dca_from_jax, "blocks": _blocks_from_jax}[layout]
+                   "dca": _dca_from_jax, "blocks": _blocks_from_jax,
+                   "position": _position_from_jax}[layout]
         return convert(data, state, ndev, rank, dt, dev, **kw)
     n = np.asarray(data["c"]).size
     systems, ys = {}, {}
@@ -224,6 +226,53 @@ def sharded_from_jax(data, state, ndev, rank, dtype=None, device="cpu",
     return place_shard(data["c"], data["lb"], data["ub"], data["diag_t"],
                        data["theta"], systems, _np(state["x"]),
                        _np(state["x3"]), ys, dt, dev)
+
+
+def _position_from_jax(data, state, ndev, rank, dtype, device):
+    """``layout="position"``: the JAX ``build_position_sharded`` data and
+    its (possibly advanced) state, arrays stacked over the JAX shards in
+    the padded window layout (``(ndev, (nw_l + 2)·wq, 128)``, value planes
+    tiled per window with ``hq`` halo rows), as the port's rank ``rank``
+    of ``ndev`` holds them (``parallel.sharded_cp_windowed.
+    place_position_shard``): each vector and plane is read back to its
+    global positions from the shards' interior windows, then cut again."""
+    from ..parallel.sharded_cp_windowed import place_position_shard
+
+    wq, hq, _gq, nw_l = (int(v) for v in data["plan"])
+    n, m, m_eq = int(data["n"]), int(data["m"]), int(data["m_eq"])
+    has_eq = bool(data["has_eq"])
+
+    def vec(stacked, size):
+        """JAX's ``_unshard_vec``: the interior windows, concatenated."""
+        return _np(stacked)[:, wq:(nw_l + 1) * wq, :].reshape(-1)[:size]
+
+    def planes(tiles, size):
+        """(ndev, nw_l, ndiag, qc, 128) window tiles -> (ndiag, size):
+        rows ``hq:hq + wq`` of tile (s, j) are window ``s·nw_l + j``."""
+        t = _np(tiles)[:, :, :, hq:hq + wq, :]
+        return np.moveaxis(t, 2, 0).reshape(t.shape[2], -1)[:, :size]
+
+    def dia(vt_tiles, v_tiles, offsets, offsets_t, rows):
+        return dict(offsets=tuple(int(o) for o in offsets),
+                    vals=planes(v_tiles, rows),
+                    offsets_t=tuple(int(o) for o in offsets_t),
+                    vals_t=planes(vt_tiles, n))
+
+    consts, tiles = data["consts"], data["planes"]
+    glob = dict(n=n, m=m, m_eq=m_eq, theta=float(data["theta"]),
+                dia=dia(tiles[0], tiles[1], data["offsets"],
+                        data["offsets_t"], m),
+                dia_eq=(dia(tiles[2], tiles[3], data["eq_offsets"],
+                            data["eq_offsets_t"], m_eq) if has_eq else None),
+                c=vec(consts[0], n), diag_t=vec(consts[1], n),
+                lb=vec(consts[2], n), ub=vec(consts[3], n),
+                sigma_ineq=vec(consts[4], m), b_ineq=vec(consts[5], m),
+                x=vec(state["x"], n), x3=vec(state["x3"], n),
+                y_ineq=vec(state["y_ineq"], m))
+    if has_eq:
+        glob.update(sigma_eq=vec(consts[6], m_eq), beq=vec(consts[7], m_eq),
+                    y_eq=vec(state["y_eq"], m_eq))
+    return place_position_shard(glob, ndev, rank, dtype, device)
 
 
 def _tile_shards_csr(tiles, cols, rows_loc, n):

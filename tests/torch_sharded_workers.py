@@ -1,5 +1,6 @@
 """Rank bodies for the mesh solvers' tests (``tests/test_torch_sharded.py``,
-``tests/test_torch_sharded_solvers.py``).
+``tests/test_torch_sharded_solvers.py``,
+``tests/test_torch_sharded_windowed.py``).
 
 ``pysparselp_tpu_torch.parallel.mesh.spawn`` runs these in fresh processes,
 which import this module and never jax: every input arrives as numpy/scipy
@@ -206,9 +207,82 @@ def _admm_layouts(mesh, spec, nsteps):
     return out
 
 
+def _position_shard(mesh, jdata, jstate):
+    """This rank's position-sharded ``(data, state)`` (float32) of a JAX
+    ``build_position_sharded`` data and state (numpy); the plan's CPU
+    gate opened as the JAX tests open ``_FORCE_INTERPRET``."""
+    from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
+
+    scw._FORCE_CPU = mesh.device.type == "cpu"
+    return sharded_from_jax(jdata, jstate, mesh.size, mesh.rank,
+                            dtype=torch.float32, device=mesh.device,
+                            layout="position")
+
+
+def _pos_chunk(mesh, jdata, jstate, nsteps):
+    """``sharded_windowed_chunk`` from a JAX state: the global state and
+    the halo exchanges counted."""
+    from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
+
+    data, state = _position_shard(mesh, jdata, jstate)
+    mesh.calls.clear()
+    state = scw.sharded_windowed_chunk(data, state, mesh, nsteps)
+    calls = dict(mesh.calls)
+    return dict(zip(("x", "x3", "y_eq", "y"),
+                    scw.unshard_state(data, state, mesh)), calls=calls)
+
+
+def _pos_restart(mesh, jdata, jstate, mu0, nsteps, period):
+    """``sharded_windowed_chunk_restart`` from a JAX state at ω = 1."""
+    from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
+
+    data, st = _position_shard(mesh, jdata, jstate)
+    f32 = dict(dtype=torch.float32, device=mesh.device)
+    rs = dict(state=st, omega=torch.tensor(1.0, **f32),
+              mu_restart=torch.tensor(mu0, **f32),
+              mu_last=torch.tensor(np.inf, **f32), zx=st["x"],
+              zeq=st.get("y_eq"), zineq=st["y_ineq"])
+    seeded = float(scw.sharded_kkt_score(data, st, mesh))
+    rs = scw.sharded_windowed_chunk_restart(data, rs, mesh, nsteps, period)
+    return dict(zip(("x", "x3", "y_eq", "y"),
+                    scw.unshard_state(data, rs["state"], mesh)),
+                omega=float(rs["omega"]), mu_restart=float(rs["mu_restart"]),
+                mu_last=float(rs["mu_last"]), kkt0=seeded)
+
+
+def _pos_metrics(mesh, jdata, jstate):
+    """``sharded_windowed_metrics`` of a JAX state."""
+    from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
+
+    data, state = _position_shard(mesh, jdata, jstate)
+    return {k: float(v) for k, v in
+            scw.sharded_windowed_metrics(data, state, mesh).items()}
+
+
+def _pos_solve(mesh, c, a, b, kwargs):
+    """``SparseLP.solve(mesh=...)`` of ``min cx, A x <= b, 0 <= x <= 2``
+    (the JAX tests' end-to-end LP) with the plan's CPU gate open: x, the
+    curves, what ran and the collectives."""
+    from pysparselp_tpu_torch.parallel import sharded_cp, sharded_cp_windowed
+
+    sharded_cp_windowed._FORCE_CPU = mesh.device.type == "cpu"
+    lp = SparseLP()
+    lp.add_variables_array(len(c), lower_bounds=0, upper_bounds=2, costs=c)
+    lp.add_inequality_constraints_sparse(a, None, b)
+    mesh.calls.clear()
+    x, _ = lp.solve(method=CP, mesh=mesh, device=mesh.device.type, **kwargs)
+    return dict(x=x, itrn=list(lp.itrn_curve),
+                curves={k: [float(v) for v in getattr(lp, k)]
+                        for k in ("pobj_curve", "dobj_curve",
+                                  "max_violated_inequality")},
+                info=dict(sharded_cp.last_run_info), calls=dict(mesh.calls))
+
+
 RUNNERS = {"solve": _solve, "dispatch": _dispatch, "resume": _resume,
            "mesh_checks": _mesh_checks, "lp_solve": _lp_solve, "mpc": _mpc,
-           "dga_dia": _dga_dia, "admm_layouts": _admm_layouts}
+           "dga_dia": _dga_dia, "admm_layouts": _admm_layouts,
+           "pos_chunk": _pos_chunk, "pos_restart": _pos_restart,
+           "pos_metrics": _pos_metrics, "pos_solve": _pos_solve}
 
 
 def run_cases(mesh, cases):
