@@ -70,11 +70,13 @@ float32 aligned DIA systems in the position-sharded regime,
 * in phase 2, H-DIA on each of the 4 row shards of the aligned Potts-300
   system (``parallel/sharded_dia.py``: K5's function), forward and
   transpose window, float32 and float64, timed beside cuSPARSE; and
-  H-CPDIA's shard entry (:func:`phase_shard_kernels`: K3 per shard) over
-  4 position shards of the same system in this process, the halos copied
-  by hand, 100 iterations bit-equal to the two-launch chunk entry and
-  within RTOL of the twin, float32 and float64, timed on the whole
-  system as one shard and on a quarter shard;
+  H-CPDIA's shard entry (:func:`phase_shard_kernels`: K3 per shard) in
+  this process, the halos copied by hand, over 4 position shards of the
+  same system, over the whole system as one shard and over 4 shards of
+  the multi-label 64 x 64, K = 4 grid's (eq + ineq), 100 iterations each
+  bit-equal to the two-launch chunk entry and within RTOL of the twin,
+  float32 and float64, timed on Potts-300 as one shard and on a quarter
+  shard;
 * ``main_path_mesh1``, after phase 3: the Potts-300 solve on one device
   and then with ``mesh=`` a one-rank NCCL group in this process (the
   position-sharded regime: ``bench.py``'s ``measure_sharded_overhead``),
@@ -85,8 +87,9 @@ float32 aligned DIA systems in the position-sharded regime,
   held against the same run;
 * ``main_path_mesh4``: 4 gloo ranks on the one card (``parallel.mesh.
   spawn``), Potts-300 and the multi-label 64 x 64, K = 4 grid (eq +
-  ineq) position-sharded and the unstructured LP on per-shard CSR, 200
-  iterations each, held against the same solves on one device, halo
+  ineq) position-sharded, Potts-300 in float64 row-sharded on DIA (H-DIA
+  with nonzero shard offsets) and the unstructured LP on per-shard CSR,
+  200 iterations each, held against the same solves on one device, halo
   exchanges and all-reduces against the prediction;
   then ``main_path_mesh4_methods``: the other mesh methods (``mehrotra``,
   ``admm``, ``admm2``, DGA, DCA, ``admm_blocks``) at small sizes in
@@ -192,7 +195,7 @@ after it; the kernel table takes H-DIA's and H-CPDIA's counts from the
 Potts-300 solve, H-CPDIA-R's from the Potts-50 restart solve (and
 ``main_path_potts50``'s under ``launches_by_run``), H-CPDIA (shard)'s from
 the one-rank float32 mesh solve, H-DIA (K5)'s from the one-rank float64
-mesh solve, H-CPDENSE's
+mesh solve (and the 4-rank one's under ``launches_by_run``), H-CPDENSE's
 from the SC105 solve, H-CSR's from the transport solve, H-BSR's from the
 CLIME solve, H-DIA-B's from the banded batch solve and H-CSR-B's from the
 unstructured batch solve, H-DCA's from the sequential and H-DCA-C's
@@ -2235,7 +2238,8 @@ def phase_k5(torch, lp, table):
 
 
 def shard_system(lp, seed=7):
-    """The aligned Potts system with a seeded start, and the position
+    """The aligned system of a Potts LP (the one the mesh solve with
+    ``permute="align"`` shards) with a seeded start, and its position
     shard plan of MESH_RANKS ranks."""
     import numpy as np
     import torch
@@ -2245,12 +2249,13 @@ def shard_system(lp, seed=7):
     sys_ = aligned_potts(lp)
     rng = np.random.RandomState(seed)
     n, m = sys_["c"].size, sys_["a_ineq"].shape[0]
+    m_eq = sys_["a_eq"].shape[0] if sys_["a_eq"] is not None else 0
     sys_ = dict(sys_, x0=rng.rand(n), x30=None, y_ineq0=rng.rand(m) * 0.1,
-                y_eq0=None)
-    info = scw.position_shard_plan(sys_["a_eq"], sys_["a_ineq"], n, 0, m,
+                y_eq0=rng.rand(m_eq) * 0.1 if m_eq else None)
+    info = scw.position_shard_plan(sys_["a_eq"], sys_["a_ineq"], n, m_eq, m,
                                    MESH_RANKS, torch.float32)
-    if info is None or info["dia_eq"] is not None:
-        raise AssertionError("Potts-300 did not plan the position shards")
+    if info is None:
+        raise AssertionError("the Potts LP did not plan the position shards")
     return sys_, info
 
 
@@ -2258,7 +2263,7 @@ def run_shards(torch, glob, ndev, dtype, nsteps, twin=False):
     """``nsteps`` iterations of H-CPDIA's shard entry (or its twin) on each
     of ``ndev`` ranks' slices in this process, the halos copied between
     them by hand (``Mesh.halo_exchange``'s packets); the whole ``(x, x3,
-    y)`` from the interiors."""
+    y_eq, y)`` from the interiors (no ``y_eq`` without equalities)."""
     from pysparselp_tpu_torch.ops import cp_dia
     from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
     from pysparselp_tpu_torch.parallel.mesh import halo_pack, halo_unpack
@@ -2275,31 +2280,43 @@ def run_shards(torch, glob, ndev, dtype, nsteps, twin=False):
             halo_unpack(it, packets[r - 1] if r else None,
                         packets[r + 1] if r + 1 < ndev else None)
         for d, st in ranks:
-            step(d["shard"], d["pre"], st["x"], st["x3"], empty,
-                 st["y_ineq"], d["theta"])
+            step(d["shard"], d["pre"], st["x"], st["x3"],
+                 st.get("y_eq", empty), st["y_ineq"], d["theta"])
+    keys = (("x", glob["n"]), ("x3", glob["n"]), ("y_eq", glob["m_eq"]),
+            ("y_ineq", glob["m"]))
     return [torch.cat([st[k][slice(*d["shard"].interior)]
                        for d, st in ranks])[:size]
-            for k, size in (("x", glob["n"]), ("x3", glob["n"]),
-                            ("y_ineq", glob["m"]))]
+            for k, size in keys if size]
 
 
 def whole_problem(torch, glob, dtype):
-    """The one-device inequality problem, steps and start of ``glob``."""
+    """The one-device problem, steps and start ``(x, y_eq, y)`` of
+    ``glob`` (``y_eq`` empty without equalities)."""
     from pysparselp_tpu_torch.problem import DiaMatrix, LPProblem
 
     def vec(v):
         return torch.as_tensor(v, dtype=dtype, device="cuda")
 
-    d = glob["dia"]
-    a = DiaMatrix.from_planes(d["vals"], d["offsets"], d["vals_t"],
-                              d["offsets_t"], glob["m"], glob["n"], dtype,
-                              "cuda")
+    def dia(d, rows):
+        return DiaMatrix.from_planes(d["vals"], d["offsets"], d["vals_t"],
+                                     d["offsets_t"], rows, glob["n"], dtype,
+                                     "cuda")
+
+    has_eq = glob["dia_eq"] is not None
     prob = LPProblem(c=vec(glob["c"]), lb=vec(glob["lb"]),
-                     ub=vec(glob["ub"]), a_eq=None, b_eq=None, a_ineq=a,
-                     b_lower=None, b_upper=vec(glob["b_ineq"]), n=glob["n"],
-                     m_eq=0, m_ineq=glob["m"])
+                     ub=vec(glob["ub"]),
+                     a_eq=dia(glob["dia_eq"], glob["m_eq"]) if has_eq
+                     else None,
+                     b_eq=vec(glob["beq"]) if has_eq else None,
+                     a_ineq=dia(glob["dia"], glob["m"]), b_lower=None,
+                     b_upper=vec(glob["b_ineq"]), n=glob["n"],
+                     m_eq=glob["m_eq"], m_ineq=glob["m"])
     pre = dict(diag_t=vec(glob["diag_t"]), sigma_ineq=vec(glob["sigma_ineq"]))
-    return prob, pre, vec(glob["x"]), vec(glob["y_ineq"])
+    if has_eq:
+        pre["sigma_eq"] = vec(glob["sigma_eq"])
+    ye = (vec(glob["y_eq"]) if has_eq
+          else torch.zeros(0, dtype=dtype, device="cuda"))
+    return prob, pre, vec(glob["x"]), ye, vec(glob["y_ineq"])
 
 
 def shard_bound(data, itemsize):
@@ -2325,80 +2342,101 @@ def shard_bound(data, itemsize):
     return bound(nbytes, 2 * planes + 8 * cols + 4 * rows)
 
 
-def phase_shard_kernels(torch, lp, table):
+# the shard entry's check cases: (problem, ranks); Potts-300 (inequalities
+# only) over the mesh solve's MESH_RANKS and as the one-rank solve's single
+# shard (both halos outside the problem), the multi-label grid (eq + ineq:
+# the equality taps and rows) over MESH_RANKS
+SHARD_CASES = (("potts300", MESH_RANKS), ("potts300", 1),
+               ("multilabel64", MESH_RANKS))
+
+
+def phase_shard_kernels(torch, problems, table):
     """Phase 2 for H-CPDIA's shard entry (``cp_dia.cp_dia_shard_step``, K3
-    per shard in the position-sharded mesh solve) on the aligned Potts-300
-    system: 100 iterations over MESH_RANKS shards in this process, the
-    halos copied by hand, bit-equal to the two-launch chunk entry on the
-    whole system and within RTOL of the twin on the same inputs, float32
-    and float64; then, in float32, one call (one iteration, two launches)
-    timed on the whole system as one shard (the one-rank mesh solve's
-    shape) and on an inner quarter shard, by events and profiler device
-    time, beside the twin, the two-launch chunk per iteration and the
-    bound (:func:`shard_bound`)."""
+    per shard in the position-sharded mesh solve) on the aligned systems
+    of SHARD_CASES: 100 iterations over the case's shards in this process,
+    the halos copied by hand, bit-equal to the two-launch chunk entry on
+    the whole system and within RTOL of the twin on the same inputs,
+    float32 and float64; then, in float32 on Potts-300, one call (one
+    iteration, two launches) timed on the whole system as one shard (the
+    one-rank mesh solve's shape) and on an inner quarter shard, by events
+    and profiler device time, beside the twin, the two-launch chunk per
+    iteration and the bound (:func:`shard_bound`)."""
     from pysparselp_tpu_torch.ops import cp_dia
     from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
 
-    sys_, info = shard_system(lp)
-    glob = scw.position_system(sys_, info)
+    systems = {}
+    for key in sorted({k for k, _ in SHARD_CASES}):
+        sys_, info = shard_system(problems[key])
+        systems[key] = (scw.position_system(sys_, info), info)
     nsteps = 100
-    for dt in (torch.float32, torch.float64):
-        name = str(dt).split(".")[1]
-        got = run_shards(torch, glob, MESH_RANKS, dt, nsteps)
-        prob, pre, x0, y0 = whole_problem(torch, glob, dt)
-        out = cp_dia.cp_dia_chunk(prob, pre, x0, x0.new_zeros(0), y0, nsteps,
-                                  1.0, plan=cp_dia.TWO_LAUNCH)
-        want = [out[0], out[1], out[3]]
-        same = all(torch.equal(torch.isnan(g), torch.isnan(w))
-                   and torch.equal(g[~torch.isnan(g)], w[~torch.isnan(w)])
-                   and torch.equal(torch.signbit(g), torch.signbit(w))
-                   for g, w in zip(got, want))
-        twin = run_shards(torch, glob, MESH_RANKS, dt, nsteps, twin=True)
-        err = compare(torch, got, twin, name, "H-CPDIA (shard) potts300")
-        rec = dict(kernel="H-CPDIA (shard)", problem="potts300_aligned",
-                   dtype=name, ranks=MESH_RANKS, nsteps=nsteps,
-                   plan=info["plan"], bit_equal_to_chunk=same,
-                   max_abs_err=err)
-        table["H-CPDIA (shard)"]["max_abs_err"] = max(
-            table["H-CPDIA (shard)"]["max_abs_err"], err)
-        if not same:
+    for key, ndev in SHARD_CASES:
+        glob, info = systems[key]
+        timed = key == "potts300" and ndev == MESH_RANKS
+        for dt in (torch.float32, torch.float64):
+            name = str(dt).split(".")[1]
+            got = run_shards(torch, glob, ndev, dt, nsteps)
+            prob, pre, x0, ye0, y0 = whole_problem(torch, glob, dt)
+            out = cp_dia.cp_dia_chunk(prob, pre, x0, ye0, y0, nsteps, 1.0,
+                                      plan=cp_dia.TWO_LAUNCH)
+            want = [out[0], out[1]] + ([out[2]] if glob["m_eq"] else []) \
+                + [out[3]]
+            same = all(torch.equal(torch.isnan(g), torch.isnan(w))
+                       and torch.equal(g[~torch.isnan(g)], w[~torch.isnan(w)])
+                       and torch.equal(torch.signbit(g), torch.signbit(w))
+                       for g, w in zip(got, want))
+            twin = run_shards(torch, glob, ndev, dt, nsteps, twin=True)
+            err = compare(torch, got, twin, name,
+                          f"H-CPDIA (shard) {key} over {ndev}")
+            rec = dict(kernel="H-CPDIA (shard)", problem=f"{key}_aligned",
+                       dtype=name, ranks=ndev, nsteps=nsteps,
+                       m_eq=glob["m_eq"], m_ineq=glob["m"],
+                       plan=scw.shard_width(info["plan"], ndev),
+                       bit_equal_to_chunk=same, max_abs_err=err)
+            table["H-CPDIA (shard)"]["max_abs_err"] = max(
+                table["H-CPDIA (shard)"]["max_abs_err"], err)
+            if not same:
+                emit("kernels", **rec)
+                raise AssertionError(f"H-CPDIA (shard) {key} over {ndev} "
+                                     f"shards ({name}) differs from the "
+                                     "chunk entry")
+            if timed and dt == torch.float32:
+                shard_times(torch, glob, rec, x0)
+                rec["chunk_ms_per_iteration"] = cuda_ms(
+                    torch, lambda: cp_dia.cp_dia_chunk(
+                        prob, pre, x0, ye0, y0, nsteps, 1.0,
+                        plan=cp_dia.TWO_LAUNCH), 3) / nsteps
+                whole = rec["whole"]
+                table["H-CPDIA (shard)"].update(
+                    ms=whole["ms"], plain_ms=whole["plain_ms"],
+                    bound_ms=whole["bound_ms"], bound_by=whole["bound_by"])
             emit("kernels", **rec)
-            raise AssertionError(f"H-CPDIA (shard) over {MESH_RANKS} shards "
-                                 f"({name}) differs from the chunk entry")
-        if dt == torch.float32:
-            for shard, ndev, rank in (("whole", 1, 0),
-                                      ("quarter", MESH_RANKS, 1)):
-                data, st = scw.place_position_shard(glob, ndev, rank, dt,
-                                                    "cuda")
-                sh, empty = data["shard"], x0.new_zeros(0)
-                tw = {k: v.clone() for k, v in st.items()}
 
-                # the mesh solve's call: the stepper, checked once
-                kern = cp_dia.cp_dia_shard_stepper(
-                    sh, data["pre"], st["x"], st["x3"], empty, st["y_ineq"],
-                    1.0)
 
-                def plain(sh=sh, data=data, tw=tw):
-                    cp_dia.cp_dia_shard_step_reference(
-                        sh, data["pre"], tw["x"], tw["x3"], empty,
-                        tw["y_ineq"], 1.0)
+def shard_times(torch, glob, rec, x0):
+    """Time one shard entry call (float32) on the whole system as one
+    shard and on an inner quarter shard into ``rec``."""
+    from pysparselp_tpu_torch.ops import cp_dia
+    from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
 
-                times = timings(torch, kern, plain, 200)
-                times.update(call_times(torch, kern))
-                rec[shard] = dict(times, positions=sh.length,
-                                  interior=list(sh.interior),
-                                  primal=list(sh.primal))
-                rec[shard]["bound_ms"], rec[shard]["bound_by"] = \
-                    shard_bound(data, 4)
-            rec["chunk_ms_per_iteration"] = cuda_ms(
-                torch, lambda: cp_dia.cp_dia_chunk(
-                    prob, pre, x0, x0.new_zeros(0), y0, nsteps, 1.0,
-                    plan=cp_dia.TWO_LAUNCH), 3) / nsteps
-            whole = rec["whole"]
-            table["H-CPDIA (shard)"].update(
-                ms=whole["ms"], plain_ms=whole["plain_ms"],
-                bound_ms=whole["bound_ms"], bound_by=whole["bound_by"])
-        emit("kernels", **rec)
+    dt = torch.float32
+    for shard, ndev, rank in (("whole", 1, 0), ("quarter", MESH_RANKS, 1)):
+        data, st = scw.place_position_shard(glob, ndev, rank, dt, "cuda")
+        sh, empty = data["shard"], x0.new_zeros(0)
+        tw = {k: v.clone() for k, v in st.items()}
+
+        # the mesh solve's call: the stepper, checked once
+        kern = cp_dia.cp_dia_shard_stepper(
+            sh, data["pre"], st["x"], st["x3"], empty, st["y_ineq"], 1.0)
+
+        def plain(sh=sh, data=data, tw=tw):
+            cp_dia.cp_dia_shard_step_reference(
+                sh, data["pre"], tw["x"], tw["x3"], empty, tw["y_ineq"], 1.0)
+
+        times = timings(torch, kern, plain, 200)
+        times.update(call_times(torch, kern))
+        rec[shard] = dict(times, positions=sh.length,
+                          interior=list(sh.interior), primal=list(sh.primal))
+        rec[shard]["bound_ms"], rec[shard]["bound_by"] = shard_bound(data, 4)
 
 
 class one_rank_group:
@@ -2559,20 +2597,29 @@ def phase_mesh1(torch, lp, want, counted_solve):
 
 MESH4_RUN = dict(method="chambolle_pock_ppd", nb_iter=200, nb_iter_plot=100,
                  dtype="float32", device="cuda")
+# each case's settings over MESH4_RUN's; Potts-300 in float64 keeps the
+# row-sharded DIA path (H-DIA with shard offsets, K5's function) on
+# MESH_RANKS ranks, as both packages route float64
 MESH4_CASES = {"potts300": dict(permute="align"),
+               "potts300_f64": dict(permute="align", dtype="float64"),
                "multilabel64": dict(permute="align"),
                "unstructured": dict(permute=False)}
 # what each MESH4_CASES solve runs: the regime and its kernel
 MESH4_REGIME = {"potts300": ("position-sharded", "H-CPDIA (shard)"),
+                "potts300_f64": ("row-sharded-dia", "H-DIA"),
                 "multilabel64": ("position-sharded", "H-CPDIA (shard)"),
                 "unstructured": ("row-sharded-csr", "H-CSR")}
+
+
+def mesh4_run(name):
+    return dict(MESH4_RUN, **MESH4_CASES[name])
 
 
 def mesh4_lp(name):
     from pysparselp_tpu_torch.examples.potts import (
         build_linear_program, build_multilabel_linear_program)
 
-    if name == "potts300":
+    if name.startswith("potts300"):
         return build_linear_program(300, 0.5, 500)[0]
     if name == "multilabel64":
         return build_multilabel_linear_program(64, 4)[0]
@@ -2653,7 +2700,7 @@ def mesh4_rank(mesh, names):
             fn.launches = 0
         mesh.calls.clear()
         t0 = time.perf_counter()
-        lp.solve(mesh=mesh, **MESH4_RUN, **MESH4_CASES[name])
+        lp.solve(mesh=mesh, **mesh4_run(name))
         wall = time.perf_counter() - t0
         info = dict(sharded_cp.last_run_info)
         calls = dict(mesh.calls)
@@ -2682,12 +2729,13 @@ def mesh4_rank(mesh, names):
 def phase_mesh4(torch):
     """``main_path_mesh4``: MESH_RANKS gloo ranks on the one card (CUDA
     tensors, all-reduces staged through the host by gloo), each solving
-    Potts-300 (``permute="align"``: the per-shard DIA layout, so K5's
-    function with nonzero shard offsets) and the unstructured LP
-    (``permute=False``: the general layout, H-CSR per shard), 200
-    iterations in float32; each run's checkpoints held against the same
-    solve on one device within MAIN_RTOL.  Returns the Potts-300 run's
-    launch counts (per rank)."""
+    the MESH4_CASES for 200 iterations: Potts-300 and the multi-label grid
+    (``permute="align"``) position-sharded in float32, Potts-300 in
+    float64 row-sharded on DIA (K5's function with nonzero shard offsets),
+    the unstructured LP (``permute=False``: H-CSR per shard); each run's
+    checkpoints held against the same solve on one device within
+    MAIN_RTOL, its launches and collectives against the prediction.
+    Returns each case's launch counts (rank 0)."""
     from pysparselp_tpu_torch.parallel.mesh import spawn
 
     import numpy as np
@@ -2698,7 +2746,7 @@ def phase_mesh4(torch):
     small, small_s = ranks.pop("small"), ranks.pop("small_s")
     for name, got in ranks.items():
         lp = mesh4_lp(name)
-        lp.solve(**MESH4_RUN, **MESH4_CASES[name])
+        lp.solve(**mesh4_run(name))
         want = curves(lp)
         if got["itrn"] != list(lp.itrn_curve):
             raise AssertionError(f"mesh4 {name}: checkpoints {got['itrn']} "
@@ -2738,8 +2786,8 @@ def phase_mesh4(torch):
              single_device_iters_per_s_steady=steady_rate(lp),
              launches_rank0=got["launches"], counted=counted,
              predicted=predicted, allreduces_rank0=got["allreduces"],
-             itrn=got["itrn"], f32_mesh4=got["curves"],
-             f32_single_device=want, worst_rel_diff=worst,
+             dtype=mesh4_run(name)["dtype"], itrn=got["itrn"],
+             mesh4=got["curves"], single_device=want, worst_rel_diff=worst,
              rel_limit=MAIN_RTOL)
         if got["info"]["regime"] != regime:
             raise AssertionError(f"mesh4 {name} ran {got['info']['regime']}")
@@ -2779,7 +2827,7 @@ def phase_mesh4(torch):
     if bad:
         raise AssertionError(f"mesh4: {bad} differ from the one-rank "
                              "solve past their limits")
-    return ranks["potts300"]["launches"]
+    return {name: got["launches"] for name, got in ranks.items()}
 
 
 # ----------------------------------------------------------------------
@@ -4483,7 +4531,7 @@ def main() -> int:
     from pysparselp_tpu_torch.problem import apply_rcm_permutation
     phase_bsr(torch, apply_rcm_permutation(folded(clime))[0]["a_ineq"], table)
     phase_k5(torch, problems["potts300"], table)
-    phase_shard_kernels(torch, problems["potts300"], table)
+    phase_shard_kernels(torch, problems, table)
     phase_batch_kernels(torch, batch_lps, table)
     phase_f64_kernels(torch, {
         "potts300_slack": mehrotra_slack(problems["potts300"])[0],
@@ -4529,7 +4577,9 @@ def main() -> int:
     table["H-DIA"].setdefault("launches_by_run", {})[
         "main_path_mesh1"] = n_pos["H-DIA"]
     table["H-DIA (K5)"]["launches"] = n_rows["H-DIA"]
-    phase_mesh4(torch)
+    n_mesh4 = phase_mesh4(torch)
+    table["H-DIA (K5)"].setdefault("launches_by_run", {})[
+        "main_path_mesh4/potts300_f64"] = n_mesh4["potts300_f64"]["H-DIA"]
     lap("3b_mesh")
 
     # phase 4: bench.py's non-grid workloads at its sizes

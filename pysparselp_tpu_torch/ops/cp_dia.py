@@ -486,6 +486,8 @@ def cp_dia_shard_stepper(sh: CpDiaShard, pre, x, x3, y_eq, y, theta,
         sh.entry(*ptrs, theta, _build.stream(index))
         cp_dia_shard_step.launches += SHARD_LAUNCHES
 
+    # the launches read these tensors' memory by address: hold them
+    step.tensors = state
     return step
 
 

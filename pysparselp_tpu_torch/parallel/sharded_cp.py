@@ -386,9 +386,10 @@ def sharded_cp_chunk_restart_device(data, rstate, mesh, nsteps: int,
     restart point (``zx`` replicated, ``zeq``/``zineq`` this rank's rows).
     Step sizes in ``data`` must be unscaled (ω is applied inside).
     Returns ``(rstate, metrics)``."""
+    from ..solvers.chambolle_pock import pdlp_restart
+
     ctx = _make_ctx(data, check_mesh(mesh))
     c = ctx["c"]
-    beta_suf, beta_nec = 0.2, 0.8
     nblocks = max(nsteps // period, 0)
     rem = nsteps - nblocks * period
     carry = _unpack_state(rstate["state"])
@@ -415,35 +416,23 @@ def sharded_cp_chunk_restart_device(data, rstate, mesh, nsteps: int,
         ax, ae, ai = sx * inv, se * inv, si * inv
         s_cur = _kkt_local(ctx, s[0], s[2], s[3])
         s_avg = _kkt_local(ctx, ax, ae, ai)
-        mu_c = torch.minimum(s_cur, s_avg)
-        do = (mu_c <= beta_suf * rsl["mu_restart"]) | (
-            (mu_c <= beta_nec * rsl["mu_restart"]) & (mu_c > rsl["mu_last"])
-        )
-        use_avg = s_avg < s_cur
-        zx = torch.where(use_avg, ax, s[0])
-        zeq = torch.where(use_avg, ae, s[2])
-        zineq = torch.where(use_avg, ai, s[3])
-        dx = torch.linalg.norm(zx - rsl["zx"])
-        dy = torch.sqrt(ctx["mesh"].psum(
-            torch.sum((zeq - rsl["zeq"]) ** 2)
-            + torch.sum((zineq - rsl["zineq"]) ** 2)))
-        valid = (dx > 1e-30) & (dy > 1e-30)
-        # ω is the PRIMAL weight (diag_t scales with ω): the PDLP
-        # movement update uses Δx/Δy
-        om_new = torch.where(
-            do & valid,
-            torch.exp(0.5 * torch.log(dx / torch.clamp_min(dy, 1e-30))
-                      + 0.5 * torch.log(omega)),
-            omega,
-        )
+
+        def candidate(use_avg):
+            z = tuple(torch.where(use_avg, a, v)
+                      for a, v in zip((ax, ae, ai), (s[0], s[2], s[3])))
+            dx = torch.linalg.norm(z[0] - rsl["zx"])
+            dy = torch.sqrt(ctx["mesh"].psum(
+                torch.sum((z[1] - rsl["zeq"]) ** 2)
+                + torch.sum((z[2] - rsl["zineq"]) ** 2)))
+            return z, dx, dy
+
+        do, (zx, zeq, zineq), scalars = pdlp_restart(rsl, s_cur, s_avg,
+                                                     candidate)
         return {
             "state": (torch.where(do, zx, s[0]), torch.where(do, zx, s[1]),
                       torch.where(do, zeq, s[2]),
                       torch.where(do, zineq, s[3])),
-            "omega": om_new,
-            "mu_restart": torch.where(do, mu_c, rsl["mu_restart"]),
-            "mu_last": torch.where(do, torch.full_like(mu_c, float("inf")),
-                                   mu_c),
+            **scalars,
             "zx": torch.where(do, zx, rsl["zx"]),
             "zeq": torch.where(do, zeq, rsl["zeq"]),
             "zineq": torch.where(do, zineq, rsl["zineq"]),

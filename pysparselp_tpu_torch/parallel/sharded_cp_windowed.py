@@ -88,19 +88,24 @@ def halo_plan(systems, n, m, m_eq, ndev):
     """The shard geometry of ``ndev`` ranks, or None: ``positions`` P,
     ``width`` W, ``x_halo`` (left, right), the reach of A's taps, and
     ``y_halo``, that plus the reach of Aᵀ's (over every present system in
-    ``systems``, :func:`_host_dia` dicts).  A rank supplies its neighbours'
-    halos from its own range, so more than one rank needs ``W`` at least
-    as wide as the widest halo (JAX's ``nw >= ndev``)."""
+    ``systems``, :func:`_host_dia` dicts); :func:`shard_width` checks W."""
     fwd = [o for s in systems if s is not None for o in s["offsets"]]
     bwd = [o for s in systems if s is not None for o in s["offsets_t"]]
     rl, rr = max(0, -min(fwd)), max(0, max(fwd))
     y_halo = (rl + max(0, -min(bwd)), rr + max(0, max(bwd)))
-    positions = max(n, m, m_eq)
-    width = -(-positions // ndev)
-    if ndev > 1 and width < max(y_halo):
+    return shard_width(dict(positions=max(n, m, m_eq), x_halo=(rl, rr),
+                            y_halo=y_halo), ndev)
+
+
+def shard_width(plan, ndev):
+    """``plan`` with the width W of ``ndev`` ranks, or None.  A rank
+    supplies its neighbours' halos from its own range, so more than one
+    rank needs W at least as wide as the widest halo (JAX's ``nw >=
+    ndev``)."""
+    width = -(-plan["positions"] // ndev)
+    if ndev > 1 and width < max(plan["y_halo"]):
         return None
-    return dict(positions=positions, width=width, x_halo=(rl, rr),
-                y_halo=y_halo)
+    return dict(plan, width=width)
 
 
 def position_shard_plan(a_eq, a_ineq, n, m_eq, m_ineq, ndev, dtype,
@@ -147,8 +152,9 @@ def position_shard_plan(a_eq, a_ineq, n, m_eq, m_ineq, ndev, dtype,
 def position_system(sys_d, plan_info, alpha=1.0, theta=1.0, omega=1.0):
     """The whole system as every rank cuts it (host arrays): the sizes,
     the planes of ``plan_info``, the vectors, the diagonal preconditioners
-    (the single-device formulas, ``omega`` applied statically) and the
-    starting state.  ``sys_d`` is the aligned system dict (``a_eq, beq,
+    (the single-device formulas, ``omega`` applied statically), the
+    starting state and the plan's halos (:func:`place_position_shard`
+    sets the width of its rank count).  ``sys_d`` is the aligned system dict (``a_eq, beq,
     a_ineq, b_ineq, c, lb, ub, x0, x30, y_eq0, y_ineq0``)."""
     from ..solvers.chambolle_pock import host_preconditioners
 
@@ -166,7 +172,7 @@ def position_system(sys_d, plan_info, alpha=1.0, theta=1.0, omega=1.0):
 
     x0 = vec("x0", n)
     glob = dict(n=n, m=m, m_eq=m_eq, theta=float(theta),
-                dia=plan_info["dia"], dia_eq=de,
+                plan=plan_info["plan"], dia=plan_info["dia"], dia_eq=de,
                 c=vec("c", n), lb=vec("lb", n), ub=vec("ub", n),
                 diag_t=diag_t, sigma_ineq=sigma_ineq, b_ineq=vec("b_ineq", m),
                 x=x0, x3=vec("x30", n) if sys_d.get("x30") is not None
@@ -185,7 +191,7 @@ def place_position_shard(glob, ndev, rank, dtype=torch.float32,
     problem; the state's halos start filled from ``glob``."""
     n, m, m_eq = glob["n"], glob["m"], glob["m_eq"]
     di, de = glob["dia"], glob["dia_eq"]
-    plan = halo_plan([di, de], n, m, m_eq, ndev)
+    plan = shard_width(glob["plan"], ndev)
     if plan is None:
         raise ValueError(f"{ndev} ranks are narrower than their halos")
     width = plan["width"]
@@ -331,12 +337,6 @@ def state_halo_items(data, state):
     return halo_items(data, xs=(x,), ys=(y, ye) if data["has_eq"] else (y,))
 
 
-def _refresh(data, mesh, xs=(), ys=()):
-    """Refresh the halos of ``xs`` and ``ys`` (:func:`halo_items`) in one
-    exchange."""
-    mesh.halo_exchange(halo_items(data, xs, ys))
-
-
 def _iterate(data, mesh, pre, x, x3, y, ye, nsteps, sums=None):
     """``nsteps`` iterations in place, each the halo exchange of x, y and
     y_eq (none on one rank), then one call of the shard entry."""
@@ -439,10 +439,11 @@ def sharded_windowed_chunk_restart(data, rstate, mesh, nsteps: int,
     ``rstate`` carries the sharded ``state``, the sharded restart point
     (``zx``/``zeq``/``zineq``) and the replicated 0-d ``omega``,
     ``mu_restart`` and ``mu_last``; ``data`` holds the unscaled steps."""
+    from ..solvers.chambolle_pock import pdlp_restart
+
     assert nsteps >= 1 and period >= 1
     mesh = check_mesh(mesh)
     has_eq = data["has_eq"]
-    beta_suf, beta_nec = 0.2, 0.8
     nblocks, rem = divmod(nsteps, period)
     x, x3, y, ye = (t.clone() for t in _unpack(rstate["state"]))
     rs = dict(rstate, zeq=rstate.get("zeq"))
@@ -453,46 +454,36 @@ def sharded_windowed_chunk_restart(data, rstate, mesh, nsteps: int,
         return torch.sum((_interior(data, a) - _interior(data, b)) ** 2)
 
     for _ in range(nblocks):
-        om = rs["omega"]
-        pre = _scaled(data["pre"], om)
+        pre = _scaled(data["pre"], rs["omega"])
         sums = (torch.zeros_like(x), torch.zeros_like(ye),
                 torch.zeros_like(y))
         _iterate(data, mesh, pre, x, x3, y, ye, period, sums)
         inv = 1.0 / period
         ax, aye, ay = (s * inv for s in sums)
-        _refresh(data, mesh, xs=(x, ax),
-                 ys=(y, ay, ye, aye) if has_eq else (y, ay))
+        mesh.halo_exchange(halo_items(
+            data, xs=(x, ax), ys=(y, ay, ye, aye) if has_eq else (y, ay)))
         scores = mesh.psum(torch.cat([_score_parts(data, x, y, ye),
                                       _score_parts(data, ax, ay, aye)]))
-        s_cur, s_avg = _score(scores[:3]), _score(scores[3:])
-        mu_c = torch.minimum(s_cur, s_avg)
-        do = (mu_c <= beta_suf * rs["mu_restart"]) | (
-            (mu_c <= beta_nec * rs["mu_restart"]) & (mu_c > rs["mu_last"]))
-        use_avg = s_avg < s_cur
-        zx = torch.where(use_avg, ax, x)
-        zineq = torch.where(use_avg, ay, y)
-        zeq = torch.where(use_avg, aye, ye) if has_eq else ye
-        dy2 = movement(zineq, rs["zineq"])
-        if has_eq:
-            dy2 = dy2 + movement(zeq, rs["zeq"])
-        dx, dy = torch.sqrt(mesh.psum(torch.stack(
-            [movement(zx, rs["zx"]), dy2])))
-        valid = (dx > 1e-30) & (dy > 1e-30)
-        om_new = torch.where(
-            do & valid,
-            torch.exp(0.5 * torch.log(dx / torch.clamp_min(dy, 1e-30))
-                      + 0.5 * torch.log(om)),
-            om)
+
+        def candidate(use_avg):
+            z = tuple(torch.where(use_avg, a, v)
+                      for a, v in zip((ax, ay, aye), (x, y, ye)))
+            dy2 = movement(z[1], rs["zineq"])
+            if has_eq:
+                dy2 = dy2 + movement(z[2], rs["zeq"])
+            dx, dy = torch.sqrt(mesh.psum(torch.stack(
+                [movement(z[0], rs["zx"]), dy2])))
+            return z, dx, dy
+
+        do, (zx, zineq, zeq), scalars = pdlp_restart(
+            rs, _score(scores[:3]), _score(scores[3:]), candidate)
         x3 = torch.where(do, zx, x3)
         x = torch.where(do, zx, x)
         y = torch.where(do, zineq, y)
         if has_eq:
             ye = torch.where(do, zeq, ye)
         rs = dict(
-            rs, omega=om_new,
-            mu_restart=torch.where(do, mu_c, rs["mu_restart"]),
-            mu_last=torch.where(do, torch.full_like(mu_c, float("inf")),
-                                mu_c),
+            rs, **scalars,
             zx=torch.where(do, zx, rs["zx"]),
             zeq=torch.where(do, zeq, rs["zeq"]) if has_eq else rs["zeq"],
             zineq=torch.where(do, zineq, rs["zineq"]))
@@ -522,7 +513,8 @@ def sharded_windowed_metrics(data, state, mesh):
     (p0, p1) = sh.primal
     has_eq = data["has_eq"]
     x, _x3, y, ye = (t.clone() for t in _unpack(state))
-    _refresh(data, mesh, xs=(x,), ys=(y, ye) if has_eq else (y,))
+    mesh.halo_exchange(halo_items(data, xs=(x,),
+                                  ys=(y, ye) if has_eq else (y,)))
     d = _dual_direction(data, y, ye)
     x4 = torch.zeros_like(x)
     x4[p0:p1] = torch.where(d < 0, sh.ub[p0:p1], sh.lb[p0:p1])

@@ -182,6 +182,43 @@ def _fused_chunk(use_fused, prob, pre, state, nsteps, theta_f, with_sums):
     return (new, out[4:]) if with_sums else new
 
 
+def pdlp_restart(rs, s_cur, s_avg, candidate):
+    """The PDLP restart decision of every CP restart controller (one
+    device, row-sharded, position-sharded), as 0-d device tensors: no
+    host synchronization.
+
+    ``rs`` holds the controller scalars ``omega`` (the primal weight),
+    ``mu_restart`` (the score at the last restart) and ``mu_last`` (the
+    last candidate's score); ``s_cur`` and ``s_avg`` are the KKT scores of
+    the current point and of the running average.  ``candidate(use_avg)``
+    returns ``(z, dx, dy)``: the restart candidate (the average where
+    ``use_avg``, else the current point) and its primal and dual movement
+    from the last restart point.  Returns ``(do, z, scalars)``, the
+    decision, the candidate and the new ``omega``, ``mu_restart`` and
+    ``mu_last``."""
+    beta_suf, beta_nec = 0.2, 0.8
+    mu_c = torch.minimum(s_cur, s_avg)
+    do = (mu_c <= beta_suf * rs["mu_restart"]) | (
+        (mu_c <= beta_nec * rs["mu_restart"]) & (mu_c > rs["mu_last"])
+    )
+    z, dx, dy = candidate(s_avg < s_cur)
+    valid = (dx > 1e-30) & (dy > 1e-30)
+    # ω here is the PRIMAL weight (diag_t scales with ω), so the PDLP
+    # movement update uses Δx/Δy: when the primal iterate moves farther
+    # than the dual, primal steps should grow
+    omega = torch.where(
+        do & valid,
+        torch.exp(0.5 * torch.log(dx / torch.clamp_min(dy, 1e-30))
+                  + 0.5 * torch.log(rs["omega"])),
+        rs["omega"],
+    )
+    return do, z, dict(
+        omega=omega,
+        mu_restart=torch.where(do, mu_c, rs["mu_restart"]),
+        mu_last=torch.where(do, torch.full_like(mu_c, float("inf")), mu_c),
+    )
+
+
 def _cp_chunk_restart_device(prob: LPProblem, pre_base, rstate, nsteps: int,
                              period: int, use_fused=None,
                              theta_f: float = 1.0):
@@ -190,8 +227,7 @@ def _cp_chunk_restart_device(prob: LPProblem, pre_base, rstate, nsteps: int,
     0-d device tensor fed to ``torch.where`` — no host synchronization
     inside the chunk.  ``rstate`` carries the solver state plus the
     controller scalars (ω, score at last restart, last candidate score) and
-    the last restart point."""
-    beta_suf, beta_nec = 0.2, 0.8
+    the last restart point (:func:`pdlp_restart` decides)."""
     nblocks = max(nsteps // period, 0)
     rem = nsteps - nblocks * period
 
@@ -214,27 +250,17 @@ def _cp_chunk_restart_device(prob: LPProblem, pre_base, rstate, nsteps: int,
         avg = (sx * inv, se * inv, si * inv)
         s_cur = _kkt_score(prob, state[0], state[2], state[3])
         s_avg = _kkt_score(prob, *avg)
-        mu_c = torch.minimum(s_cur, s_avg)
-        do = (mu_c <= beta_suf * rs["mu_restart"]) | (
-            (mu_c <= beta_nec * rs["mu_restart"]) & (mu_c > rs["mu_last"])
-        )
-        use_avg = s_avg < s_cur
-        zx = torch.where(use_avg, avg[0], state[0])
-        zeq = torch.where(use_avg, avg[1], state[2])
-        zineq = torch.where(use_avg, avg[2], state[3])
-        dx = torch.linalg.norm(zx - rs["zx"])
-        dy = torch.sqrt(torch.sum((zeq - rs["zeq"]) ** 2)
-                        + torch.sum((zineq - rs["zineq"]) ** 2))
-        valid = (dx > 1e-30) & (dy > 1e-30)
-        # ω here is the PRIMAL weight (diag_t scales with ω), so the PDLP
-        # movement update uses Δx/Δy: when the primal iterate moves farther
-        # than the dual, primal steps should grow
-        om_new = torch.where(
-            do & valid,
-            torch.exp(0.5 * torch.log(dx / torch.clamp_min(dy, 1e-30))
-                      + 0.5 * torch.log(rs["omega"])),
-            rs["omega"],
-        )
+
+        def candidate(use_avg):
+            z = tuple(torch.where(use_avg, a, v)
+                      for a, v in zip(avg, (state[0], state[2], state[3])))
+            dx = torch.linalg.norm(z[0] - rs["zx"])
+            dy = torch.sqrt(torch.sum((z[1] - rs["zeq"]) ** 2)
+                            + torch.sum((z[2] - rs["zineq"]) ** 2))
+            return z, dx, dy
+
+        do, (zx, zeq, zineq), scalars = pdlp_restart(rs, s_cur, s_avg,
+                                                     candidate)
         new_state = (
             torch.where(do, zx, state[0]),
             torch.where(do, zx, state[1]),
@@ -243,10 +269,7 @@ def _cp_chunk_restart_device(prob: LPProblem, pre_base, rstate, nsteps: int,
         )
         return {
             "state": new_state,
-            "omega": om_new,
-            "mu_restart": torch.where(do, mu_c, rs["mu_restart"]),
-            "mu_last": torch.where(do, torch.full_like(mu_c, float("inf")),
-                                   mu_c),
+            **scalars,
             "zx": torch.where(do, zx, rs["zx"]),
             "zeq": torch.where(do, zeq, rs["zeq"]),
             "zineq": torch.where(do, zineq, rs["zineq"]),

@@ -236,7 +236,8 @@ def _position_from_jax(data, state, ndev, rank, dtype, device):
     of ``ndev`` holds them (``parallel.sharded_cp_windowed.
     place_position_shard``): each vector and plane is read back to its
     global positions from the shards' interior windows, then cut again."""
-    from ..parallel.sharded_cp_windowed import place_position_shard
+    from ..parallel.sharded_cp_windowed import (halo_plan,
+                                                place_position_shard)
 
     wq, hq, _gq, nw_l = (int(v) for v in data["plan"])
     n, m, m_eq = int(data["n"]), int(data["m"]), int(data["m_eq"])
@@ -272,6 +273,8 @@ def _position_from_jax(data, state, ndev, rank, dtype, device):
     if has_eq:
         glob.update(sigma_eq=vec(consts[6], m_eq), beq=vec(consts[7], m_eq),
                     y_eq=vec(state["y_eq"], m_eq))
+    # the halos of these planes (one rank's plan: any count has them)
+    glob["plan"] = halo_plan([glob["dia"], glob["dia_eq"]], n, m, m_eq, 1)
     return place_position_shard(glob, ndev, rank, dtype, device)
 
 
