@@ -157,8 +157,13 @@ The dual ascent solvers and ``admm_blocks`` add:
   level order) and the levels, per row
   and per level, the three-part bound (bytes, levels, chain: DCA_* below),
   the twin's time over 1,000 rows extrapolated per sweep; the full
-  Potts-300 sweep against the level-by-level twin and the colour sweep
-  against its twin, in float32;
+  Potts-300 sweep against the level-by-level twin, in float32; H-DCA-C,
+  the colour sweep in one launch, against its twin on Potts-50 (float32,
+  float64), the matching LP (a warp a row) and Potts-300 (float32), the
+  one-group entry of the mesh path on Potts-50 (whole groups and halves
+  from their ``tie_offset``) and on Potts-300; the colour sweep's device,
+  events and host time, its plan's bytes, and its two-part bound
+  (``dca_color_bound``);
 * phase 8, last: ``main_path_dga_potts`` (Potts-50 float64 on the card
   against the CPU, Potts-300 float32: rate, launches, busy share),
   ``main_path_admm_blocks_l1svm`` (the L1-SVM example's accuracy, rate
@@ -299,6 +304,9 @@ KERNELS = {
                     tpu_kernels={},
                     launches_run="main_path_dca_potts"),
 }
+# the kernel table's row of a launch counter that is not a row of its own:
+# H-DCA-C's one-group entry (the mesh path's) under H-DCA-C
+TABLE_ROW = {"H-DCA-C (group)": "H-DCA-C"}
 # the mesh phases: ranks of main_path_mesh4 (gloo, all on the one card)
 # and the row-shard count of the K5 kernel phase
 MESH_RANKS = 4
@@ -3407,6 +3415,35 @@ DCA_SWEEP_KERNELS = {"chain": "dca_chain_kernel", "stage": "dca_stage_kernel",
                      "levels": "dca_levels"}
 
 
+# H-DCA-C's least time (dca_color_bound) is the larger of two: the bytes
+# of a colour sweep on its staged rows (dca_color_bytes); and its groups,
+# one after another, each at least an L2 round trip for c̄ (200 cycles, as
+# DCA_LEVEL_CYCLES), a short row's dependent arithmetic (40) and a grid
+# barrier: every block's arrival reaching L2 and the release coming back,
+# two more round trips (400).
+DCA_GROUP_CYCLES = 200 + 40 + 400
+
+
+def dca_color_bytes(a, k, itemsize, groups):
+    """The least bytes of a colour sweep over the rows of ``a`` staged in
+    colour order, padded to ``k`` slots: each staged slot's value, int32
+    column and the bounds at it, and each row's b read once; the order
+    (int32) and the active flags read, y read and written per row; c̄ read
+    and written at each stored entry; each group's key."""
+    m = a.shape[0]
+    return (m * k * (3 * itemsize + 4) + m * (3 * itemsize + 4 + 1)
+            + a.nnz * 2 * itemsize + groups * 8)
+
+
+def dca_color_bound(nbytes, groups, sm_mhz):
+    """H-DCA-C's two least times of a colour sweep in ms (``bytes``,
+    ``groups``), the larger (``bound_ms``) and which binds."""
+    parts = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3,
+                 groups=groups * DCA_GROUP_CYCLES / sm_mhz * 1e-3)
+    binds = max(parts, key=parts.get)
+    return dict(parts, bound_ms=parts[binds], binds=binds)
+
+
 def dca_bound(nbytes, m, levels, cbar_in_smem, sm_mhz):
     """H-DCA's three least times of a sequential sweep in ms (``bytes``,
     ``levels``, ``chain``), the largest (``bound_ms``) and which binds."""
@@ -3471,16 +3508,20 @@ def device_ms(torch, fn, name, counter, reps=3):
 def phase_dca_kernels(torch, table, sm_mhz):
     """H-DCA against its twin on the card: the sequential sweep (three
     launches per system: key chain, draws and staging, levels) on SC105's
-    one-sided systems, Potts-20, Potts-50 and the 50 x 50 matching LP, the
-    colour steps of Potts-50, and Potts-300's first 2,000 rows (c̄ past
-    shared memory), float32 and float64, compared bit for bit (y and c̄ as
-    integers, and the returned key); device time per sweep and its split
-    over the three kernels, per row and per level, the three-part bound, the
-    twin's time on the card over 1,000 rows extrapolated per sweep; then
-    Potts-300 in float32 (the main path's): the full sequential sweep
-    against the level-by-level twin (itself equal to the row-by-row twin on
-    the first 2,000 rows here and on every CPU test), its levels and
-    schedule seconds, and the colour sweep against its twin."""
+    one-sided systems, Potts-20, Potts-50 and the 50 x 50 matching LP, and
+    Potts-300's first 2,000 rows (c̄ past shared memory), float32 and
+    float64, compared bit for bit (y and c̄ as integers, and the returned
+    key); device time per sweep and its split over the three kernels, per
+    row and per level, the three-part bound, the twin's time on the card
+    over 1,000 rows extrapolated per sweep; H-DCA-C's one-launch colour
+    sweep against its twin on Potts-50 and the matching LP (float32,
+    float64), and its one-group entry on Potts-50's groups, whole and in
+    halves from their ``tie_offset``; then Potts-300 in float32 (the main
+    path's): the full sequential sweep against the level-by-level twin
+    (itself equal to the row-by-row twin on the first 2,000 rows here and
+    on every CPU test), its levels and schedule seconds, the colour sweep
+    and the group-by-group entry against the twin, the colour sweep's
+    device, events and host time, and its bound."""
     import numpy as np
 
     from pysparselp_tpu_torch.examples.potts import build_linear_program
@@ -3550,24 +3591,56 @@ def phase_dca_kernels(torch, table, sm_mhz):
                                 **timed(args, system[0][:m], project,
                                         itemsize)))
 
-    # the colour steps of Potts-50, group by group against the twin
-    a, b, c, lb, ub = systems["potts50_ineq"]
-    groups = [torch.as_tensor(g, dtype=torch.int32, device="cuda")
-              for g in _color_rows(a)]
+    # the colour sweep (H-DCA-C): one launch a sweep against its twin, bit
+    # for bit, on Potts-50 (float32, float64) and the matching LP (rows of
+    # 50, a warp a row); then the one-group entry of the mesh path on
+    # Potts-50, group by group and on halves of each group from their
+    # tie_offset
+    def plan_of(args, system):
+        groups = _color_rows(system[0])
+        return dca.ColorPlan.build(args[0], groups, args[1], args[5],
+                                   args[6])
+
+    for name in ("potts50_ineq", "matching50_ineq"):
+        for dt in (torch.float32, torch.float64):
+            args = dca_state(torch, systems[name], dt)
+            plan = plan_of(args, systems[name])
+            cargs = (args[0], plan, *args[1:], key, True)
+            dca.dca_color_sweep.launches = 0
+            got = dca.dca_color_sweep(*cargs)
+            same(got, dca.dca_color_sweep_reference(*cargs),
+                 f"{name} colour sweep {dt}")
+            if dca.dca_color_sweep.launches != 1:
+                raise AssertionError("H-DCA-C: not one launch a sweep")
+            records.append(dict(system=name, mode="blocked", dtype=str(dt),
+                                groups=len(plan.groups),
+                                width=args[0].vals.shape[1],
+                                staged=plan.staged is not None,
+                                bit_equal=True))
     for dt in (torch.float32, torch.float64):
-        ell, bt, active, y, cb, lbt, ubt = dca_state(torch, systems[
-            "potts50_ineq"], dt)
+        ell, bt, active, y, cb, lbt, ubt = args = dca_state(
+            torch, systems["potts50_ineq"], dt)
+        plan = plan_of(args, systems["potts50_ineq"])
         ky, wy, kc, wc = y, y, cb, cb
+        oy, oc = y, cb
         k = key
-        for g in groups:
+        for g in plan.groups:
             k, sub = split(k)
             ky, kc = dca.dca_color_step(ell, bt, active, ky, kc, lbt, ubt, g,
                                         sub, True)
             wy, wc = dca.dca_color_step_reference(ell, bt, active, wy, wc,
                                                   lbt, ubt, g, sub, True)
             same((ky, kc), (wy, wc), f"potts50 colour step {str(dt)}")
-    records.append(dict(system="potts50_ineq", mode="blocked",
-                        groups=len(groups), bit_equal=True))
+            half = (g.numel() + 1) // 2
+            for lo, hi in ((0, half), (half, g.numel())):
+                oy, oc = dca.dca_color_step(ell, bt, active, oy, oc, lbt,
+                                            ubt, g[lo:hi], sub, True,
+                                            tie_offset=lo)
+            same((oy, oc), (wy, wc), f"potts50 colour step halves {dt}")
+    records.append(dict(system="potts50_ineq", mode="blocked, one group a "
+                        "call (mesh entry), whole and halves with "
+                        "tie_offset", groups=len(plan.groups),
+                        bit_equal=True))
 
     # the main path's shapes: Potts-300's whole sweep in float32
     a, b, c, lb, ub = systems["potts300_ineq"]
@@ -3582,45 +3655,60 @@ def phase_dca_kernels(torch, table, sm_mhz):
     torch.cuda.synchronize()
     twin_s = time.perf_counter() - t0
     same(got, want, "potts300 float32 sequential sweep")
-    groups = [torch.as_tensor(g, dtype=torch.int32, device="cuda")
-              for g in _color_rows(a)]
+    plan = plan_of(args, systems["potts300_ineq"])
+    cargs = (ell, plan, *args[1:], key, True)
 
     def colour_sweep():
+        return dca.dca_color_sweep(*cargs)
+
+    def colour_twin():
+        return dca.dca_color_sweep_reference(*cargs)
+
+    def colour_groups():
         yy, cc, k = args[3], args[4], key
-        for g in groups:
+        for g in plan.groups:
             k, sub = split(k)
             yy, cc = dca.dca_color_step(ell, args[1], args[2], yy, cc,
                                         args[5], args[6], g, sub, True)
-        return yy, cc
-
-    def colour_twin():
-        yy, cc, k = args[3], args[4], key
-        for g in groups:
-            k, sub = split(k)
-            yy, cc = dca.dca_color_step_reference(ell, args[1], args[2], yy,
-                                                  cc, args[5], args[6], g,
-                                                  sub, True)
-        return yy, cc
+        return yy, cc, k
 
     got, want = colour_sweep(), colour_twin()
     same(got, want, "potts300 colour sweep float32")
+    same(colour_groups(), want, "potts300 colour steps float32")
     seq = timed(args, a, True, 4, reps=2)
     sub = dca_state(torch, systems["potts300_ineq"], torch.float32,
                     rows=1000)
     seq_plain = cuda_ms(torch, lambda: dca.dca_sweep_reference(
         *sub, key, True), 1) / 1000 * a.shape[0]
-    col_ms = device_ms(torch, colour_sweep, "dca_color_kernel",
-                       dca.dca_color_step)
+    col_ms = device_ms(torch, colour_sweep, "dca_color_sweep",
+                       dca.dca_color_sweep)
+    col_groups_ms = device_ms(torch, colour_groups, "dca_color_sweep",
+                              dca.dca_color_step)
+    col_calls = call_times(torch, colour_sweep, reps=50, host_reps=50)
     col_plain = cuda_ms(torch, colour_twin, 2)
+    col_bound = dca_color_bound(
+        dca_color_bytes(a, ell.vals.shape[1], 4, len(plan.groups)),
+        len(plan.groups), sm_mhz)
     level_sizes = np.diff(ell.schedule.ptr.cpu().numpy())
     records.append(dict(system="potts300_ineq", dtype="float32",
-                        groups=len(groups), **seq,
+                        groups=len(plan.groups), **seq,
                         level_rows_median=float(np.median(level_sizes)),
                         level_rows_max=int(level_sizes.max()),
                         first_sweep_wall_s=first_s,
                         level_twin_wall_s=twin_s,
                         plain_ms_per_sweep=seq_plain,
                         colour_device_ms_per_sweep=col_ms,
+                        colour_events_ms_per_call=col_calls["events_us"]
+                        * 1e-3,
+                        colour_host_ms_per_call=col_calls["host_us"] * 1e-3,
+                        colour_kernels_per_call=col_calls[
+                            "kernels_per_call"],
+                        colour_group_entry_device_ms_per_sweep=col_groups_ms,
+                        colour_plan_bytes=dca.color_plan_bytes(plan),
+                        colour_plan_s=plan.seconds,
+                        colour_rows_max=plan.max_rows,
+                        colour_bound=col_bound,
+                        colour_bound_share=col_bound["bound_ms"] / col_ms,
                         colour_plain_ms_per_sweep=col_plain))
     emit("kernels_dca", records=records,
          library="none: no one PyTorch call runs a coordinate sweep")
@@ -3628,9 +3716,11 @@ def phase_dca_kernels(torch, table, sm_mhz):
     table["H-DCA"].update(max_abs_err=0.0, ms=seq["device_ms_per_sweep"],
                           plain_ms=seq_plain, bound_ms=bound["bound_ms"],
                           bound_by="operations", library_ms=None)
-    table["H-DCA-C"].update(max_abs_err=0.0, ms=col_ms, plain_ms=col_plain,
-                            bound_ms=bound["bytes"], bound_by="bytes",
-                            library_ms=None)
+    table["H-DCA-C"].update(
+        max_abs_err=0.0, ms=col_ms, plain_ms=col_plain,
+        bound_ms=col_bound["bound_ms"],
+        bound_by="bytes" if col_bound["binds"] == "bytes" else "operations",
+        library_ms=None)
 
 
 def golden_curves(size):
@@ -3734,20 +3824,28 @@ def phase_dca_potts(torch, counted_solve):
                                      launches=launches)
         t = [0.0] + [float(v) for v in lp.opttime_curve]
         per_sweep = [b - a for a, b in zip(t, t[1:])]
+        # the 3-sweep solve's curves, before the steady window's solves
+        # replace them
+        energy = [float(v) for v in lp.dobj_curve]
+        dist = [float(v) for v in lp.distance_to_ground_truth]
         window = steady_window(torch, lambda k, m=mode: lp.solve(
             method="dual_coordinate_ascent", nb_iter=k, nb_iter_plot=k,
             mode=m, dtype=np.float32, device="cuda"), 1, 2)
         window["busy"] = window["device_us"] * 1e-6 / per_sweep[-1]
         modes[mode] = dict(
-            wall_s=wall, s_per_sweep=per_sweep,
-            dual_energy=[float(v) for v in lp.dobj_curve],
-            dist=[float(v) for v in lp.distance_to_ground_truth],
-            launches=launches, per_sweep=window)
+            wall_s=wall, s_per_sweep=per_sweep, dual_energy=energy,
+            dist=dist, launches=launches, per_sweep=window)
         counts[mode] = launches
     emit("main_path_dca_potts", potts20_f64=p20, potts300_f32=dict(
         n=lp.nb_variables, sweeps=3, **modes))
     if not counts["sequential"]["H-DCA"] or not counts["blocked"]["H-DCA-C"]:
         raise AssertionError(f"Potts-300 DCA did not run on H-DCA: {counts}")
+    # the blocked mode: one H-DCA-C launch a sweep, no group-by-group entry
+    sweeps = len(modes["blocked"]["dual_energy"])
+    if (counts["blocked"]["H-DCA-C"] != sweeps
+            or counts["blocked"]["H-DCA-C (group)"]):
+        raise AssertionError(f"blocked DCA: {counts['blocked']}, "
+                             f"{sweeps} sweeps")
     return counts
 
 
@@ -3926,7 +4024,7 @@ def phase_mesh_solvers(torch, counted_solve):
         check("dca_potts300_blocked", bit_equal, "not bit-equal")
         check("dca_potts300_blocked", calls == predicted, calls)
         check("dca_potts300_blocked",
-              launches["H-DCA-C"] == colours * sweeps, launches)
+              launches["H-DCA-C (group)"] == colours * sweeps, launches)
 
         # Mehrotra, Potts-300's slack form, the CG path
         from pysparselp_tpu_torch.examples.potts import build_linear_program
@@ -4436,7 +4534,8 @@ def kernel_counters():
             "H-CSR": csr_spmv.csr_spmv, "H-BSR": bsr_spmv.bsr_spmv,
             "H-DIA-B": dia_spmv.dia_spmm, "H-CSR-B": csr_spmv.csr_spmm,
             "H-DCA": dca_sweep.dca_sweep,
-            "H-DCA-C": dca_sweep.dca_color_step}
+            "H-DCA-C": dca_sweep.dca_color_sweep,
+            "H-DCA-C (group)": dca_sweep.dca_color_step}
 
 
 def main() -> int:
@@ -4649,7 +4748,8 @@ def main() -> int:
              phase_admm_kmedians(torch, counted_solve))):
         for key, n in launches.items():
             if n:
-                table[key].setdefault("launches_by_run", {})[run] = n
+                table[TABLE_ROW.get(key, key)].setdefault(
+                    "launches_by_run", {})[run] = n
     lap("7_mehrotra_admm")
 
     # phase 8: the dual ascent solvers and admm_blocks
@@ -4660,7 +4760,8 @@ def main() -> int:
              phase_admm_blocks_l1svm(torch, counted_solve))):
         for key, n in launches.items():
             if n:
-                table[key].setdefault("launches_by_run", {})[run] = n
+                table[TABLE_ROW.get(key, key)].setdefault(
+                    "launches_by_run", {})[run] = n
     dca_counts = phase_dca_potts(torch, counted_solve)
     table["H-DCA"]["launches"] = dca_counts["sequential"]["H-DCA"]
     table["H-DCA-C"]["launches"] = dca_counts["blocked"]["H-DCA-C"]
@@ -4673,7 +4774,8 @@ def main() -> int:
     for run, launches in phase_mesh_solvers(torch, counted_solve).items():
         for key, n in launches.items():
             if n:
-                table["H-DIA (K5)" if key == "H-DIA" else key].setdefault(
+                table["H-DIA (K5)" if key == "H-DIA"
+                      else TABLE_ROW.get(key, key)].setdefault(
                     "launches_by_run", {})[
                     f"main_path_mesh_solvers/{run}"] = n
     lap("8b_mesh_solvers")
@@ -4692,7 +4794,8 @@ def main() -> int:
     for run, launches in runs.items():
         for key, n in launches.items():
             if n:
-                table[key].setdefault("launches_by_run", {})[run] = n
+                table[TABLE_ROW.get(key, key)].setdefault(
+                    "launches_by_run", {})[run] = n
     emit("phase9", phase9_s=time.perf_counter() - t9)
     lap("9_host_observability")
     emit("phase_seconds", total_s=sum(phase_s.values()), **phase_s)

@@ -5,9 +5,9 @@
 // compiled loops compute: _dca_sweep_eq / _dca_sweep_ineq
 // (pysparselp_tpu/solvers/dual_ascent.py:323 and :342, a fori_loop over
 // every row in order, chained through the reduced costs c_bar) and one
-// colour group of _dca_color_sweep (:285).  PyTorch has no device loop, and
+// colour sweep _dca_color_sweep (:285).  PyTorch has no device loop, and
 // written as tensor operations a row step is some 20 launches; a sequential
-// sweep here is three launches, and a colour group one.
+// sweep here is three launches, and a colour sweep one.
 //
 // Row i of the padded row view (width K = the longest row; padding slots
 // hold value 0 at column 0, as the JAX EllMatrix) takes the step of
@@ -64,12 +64,31 @@
 // when it fits (Potts-20/50, SC105, the matching LP), else in global memory
 // (Potts-300: 1.08 MB in float32, L2-resident), read with plain coherent
 // loads: __syncthreads orders global memory within the block.
-// A colour group has disjoint columns, so its rows step in parallel, one
-// warp each, across a grid.
+//
+// The colour sweep (H-DCA-C) runs every group of a sweep in ONE launch, a
+// persistent cooperative grid (as many blocks as can be resident, no more
+// than the largest group needs) with a grid barrier between groups: a
+// group's rows share no column, so they step at once.  Rows of up to 16
+// slots take a thread each, in registers (short_row_alpha, the sequential
+// sweep's arithmetic), their static data (values, columns, the bounds at
+// the columns, b) staged slot-major in colour order once per system
+// (ops/dca_sweep.py::ColorPlan) and loaded ahead across the barrier with
+// y_i, the active flag and the draw; longer rows take a warp each
+// (row_alpha) and read their rows in place.  Group g's row r draws
+// uniform(sub_g, (rows,))[r] = threefry(sub_g, (0, r)) itself; the host
+// passes the G sub keys.  Bound (chip_smoke.dca_color_bound): the bytes of
+// the staged sweep against G dependent groups, each at least an L2 round
+// trip for c_bar, a short row's arithmetic and a grid barrier.  The
+// one-group entry of a mesh rank (dca_color_step, a slice of a group from
+// its tie_offset) is the same kernel with G = 1, its rows read in place.
+
+#include <cooperative_groups.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -77,7 +96,8 @@ constexpr int kMaxRow = 1024;      // the longest row taken (MAX_ROW)
 constexpr int kScanBase = 16;      // XLA CPU's scan rows (SCAN_BASE)
 constexpr int kScanTmp = 128;      // the recursive scans' row totals
 constexpr int kSmemLimit = 232448; // a block's dynamic shared memory
-constexpr int kColorWarps = 4;     // rows (warps) per colour block
+constexpr int kColorWarps = 4;     // rows (warps) per colour block, long rows
+constexpr int kColorThreads = 256; // rows (threads) per colour block, short rows
 constexpr int kMaxWarps = 32;      // rows (warps) per level pass, wide rows
 constexpr int kStageBlock = 256;   // threads per staging block
 
@@ -215,11 +235,11 @@ __device__ __forceinline__ Slot<T> load_slot(const T* __restrict__ vals,
   return s;
 }
 
-template <typename T>
-__device__ __forceinline__ void slot_pieces(const Slot<T>& s, const T* cb,
+template <typename T, typename Read>
+__device__ __forceinline__ void slot_pieces(const Slot<T>& s, Read cb,
                                             Scratch<T>& w, int j) {
   const bool m = s.v != T(0);
-  const T cbv = cb[s.c];
+  const T cbv = cb(s.c);
   const T dau = m ? s.v * s.u : T(0);
   const T dal = m ? s.v * s.l : T(0);
   w.a[j] = m ? (-cbv) / s.v : inf<T>();
@@ -229,13 +249,14 @@ __device__ __forceinline__ void slot_pieces(const Slot<T>& s, const T* cb,
 
 // The exact step of a row (exact_dual_line_search over its K slots): the
 // warp fills the slots' breakpoints (slot `lane` from `first`, which the
-// caller loaded, the others here) and their sorted ranks; lane 0 scans,
-// searches and returns alpha (other lanes return 0).
-template <typename T>
+// caller loaded, the others here; c_bar at column c is cb(c)) and their
+// sorted ranks; lane 0 scans, searches and returns alpha (other lanes
+// return 0).
+template <typename T, typename Read>
 __device__ T row_alpha(const T* __restrict__ vals, const int* __restrict__ cols,
                        const T* __restrict__ lb, const T* __restrict__ ub,
                        long long off, int K, const Slot<T>& first, T b_i,
-                       const T* cb, T tie, Scratch<T>& w, int lane) {
+                       Read cb, T tie, Scratch<T>& w, int lane) {
   if (lane < K) slot_pieces(first, cb, w, lane);
   for (int j = lane + 32; j < K; j += 32)
     slot_pieces(load_slot(vals, cols, lb, ub, off, j, K), cb, w, j);
@@ -290,8 +311,9 @@ __device__ __forceinline__ T step_y(T alpha, bool active, T yi, int project,
                                     T* diff) {
   alpha = (active && isfinite(alpha)) ? alpha : T(0);
   if (project) {
+    // jnp.maximum(y + alpha, 0) as XLA computes it: -0 gives +0, NaN stays
     T ynew = yi + alpha;
-    ynew = ynew < T(0) ? T(0) : ynew;
+    ynew = ynew <= T(0) ? T(0) : ynew;
     *diff = ynew - yi;
     return ynew;
   }
@@ -446,27 +468,26 @@ __device__ __forceinline__ void load_row(RowIn<T, KM>& r, int q,
   r.act = w.sa[q] != 0;
 }
 
-// One row of K <= KM <= kScanBase slots on one thread, in registers:
-// exact_dual_line_search's steps as row_alpha takes them (short scans are
-// plain left-to-right sums), then y_i and c_bar at the row's columns,
-// slot by slot (a column met twice, padding, takes its updates in order).
+// The exact step of a row of K <= KM <= kScanBase slots on one thread, in
+// registers, from its values v, c_bar cv, lb l and ub u at its columns, b
+// and the tie draw t: exact_dual_line_search's steps as row_alpha takes them
+// (short scans are plain left-to-right sums).
 template <typename T, int KM>
-__device__ __forceinline__ void thread_row(const RowIn<T, KM>& r, T* cb,
-                                           const Work<T>& w, T* y, int m,
-                                           int K, int project) {
-  T cv[KM], a[KM], lo[KM], hi[KM], d[KM + 1];
+__device__ __forceinline__ T short_row_alpha(const T (&v)[KM],
+                                             const T (&cv)[KM],
+                                             const T (&l)[KM],
+                                             const T (&u)[KM], T b, T t,
+                                             int K) {
+  T a[KM], lo[KM], hi[KM], d[KM + 1];
   int rank[KM];
 #pragma unroll
   for (int j = 0; j < KM; ++j) {
-    cv[j] = a[j] = lo[j] = hi[j] = T(0);
+    a[j] = lo[j] = hi[j] = T(0);
     if (j < K) {
-      const long long at = static_cast<long long>(j) * m + r.q;
-      const T v = r.v[j];
-      cv[j] = cb[r.c[j]];
-      const bool nz = v != T(0);
-      const T dau = nz ? v * w.su[at] : T(0);
-      const T dal = nz ? v * w.sl[at] : T(0);
-      a[j] = nz ? (-cv[j]) / v : inf<T>();
+      const bool nz = v[j] != T(0);
+      const T dau = nz ? v[j] * u[j] : T(0);
+      const T dal = nz ? v[j] * l[j] : T(0);
+      a[j] = nz ? (-cv[j]) / v[j] : inf<T>();
       lo[j] = nan_min(dau, dal);
       hi[j] = nan_max(dau, dal);
     }
@@ -482,7 +503,7 @@ __device__ __forceinline__ void thread_row(const RowIn<T, KM>& r, T* cb,
   // d[p] = ((-b) + suffix_p) + prefix_p over the sorted slots: suffix_p =
   // hs[K-1] + ... + hs[p] from the last, prefix_p = ls[0] + ... + ls[p-1]
   // from the first, each 0 past its end
-  const T nb = -r.b;
+  const T nb = -b;
 #pragma unroll
   for (int p = 0; p <= KM; ++p) d[p] = p == K ? nb + T(0) : T(0);
   T suf = T(0);
@@ -500,8 +521,8 @@ __device__ __forceinline__ void thread_row(const RowIn<T, KM>& r, T* cb,
     if (p <= K) {
       d[p] = d[p] + pre;
       if (p < K) {
-        const T l = pick_rank(lo, rank, p);
-        pre = p == 0 ? l : pre + l;
+        const T lv = pick_rank(lo, rank, p);
+        pre = p == 0 ? lv : pre + lv;
       }
     }
   }
@@ -512,18 +533,25 @@ __device__ __forceinline__ void thread_row(const RowIn<T, KM>& r, T* cb,
   int low = 0, high = L;
   for (int it = 0; it < levels; ++it) {
     const int mid = (low + high) / 2;
-    const T v = -pick(d, mid);
-    if (v >= T(0) || isnan(v)) high = mid;
+    const T dv = -pick(d, mid);
+    if (dv >= T(0) || isnan(dv)) high = mid;
     else low = mid;
   }
   const int k = min(max(high, 1), K);
   const T alo = pick_rank(a, rank, k - 1);
   const T ahi = pick_rank(a, rank, min(k, K - 1));
   const bool is_tie = pick(d, k) == T(0) && k < K && isfinite(ahi);
-  const T alpha = is_tie ? fma(r.t, ahi, (T(1) - r.t) * alo) : alo;
-  T diff;
-  y[r.i] = step_y(alpha, r.act, r.y, project, &diff);
-  T nv[KM];
+  return is_tie ? fma(t, ahi, (T(1) - t) * alo) : alo;
+}
+
+// c_bar at a row's columns after its step: slot j adds diff v_j to the
+// value before it (c_bar's, or the row's own earlier slot at that column:
+// a column met twice, padding, takes its updates in order).
+template <typename T, int KM>
+__device__ __forceinline__ void chain_updates(const T (&v)[KM],
+                                              const int (&c)[KM],
+                                              const T (&cv)[KM], T diff,
+                                              int K, T (&nv)[KM]) {
 #pragma unroll
   for (int j = 0; j < KM; ++j) {
     nv[j] = T(0);
@@ -531,10 +559,35 @@ __device__ __forceinline__ void thread_row(const RowIn<T, KM>& r, T* cb,
       T base = cv[j];
 #pragma unroll
       for (int q = 0; q < j; ++q)
-        if (r.c[q] == r.c[j]) base = nv[q];
-      nv[j] = base + diff * r.v[j];
+        if (c[q] == c[j]) base = nv[q];
+      nv[j] = base + diff * v[j];
     }
   }
+}
+
+// One row of K <= KM <= kScanBase slots of a level on one thread, in
+// registers (short_row_alpha), then y_i and c_bar at the row's columns,
+// slot by slot.
+template <typename T, int KM>
+__device__ __forceinline__ void thread_row(const RowIn<T, KM>& r, T* cb,
+                                           const Work<T>& w, T* y, int m,
+                                           int K, int project) {
+  T cv[KM], l[KM], u[KM];
+#pragma unroll
+  for (int j = 0; j < KM; ++j) {
+    cv[j] = l[j] = u[j] = T(0);
+    if (j < K) {
+      const long long at = static_cast<long long>(j) * m + r.q;
+      cv[j] = cb[r.c[j]];
+      l[j] = w.sl[at];
+      u[j] = w.su[at];
+    }
+  }
+  const T alpha = short_row_alpha<T, KM>(r.v, cv, l, u, r.b, r.t, K);
+  T diff;
+  y[r.i] = step_y(alpha, r.act, r.y, project, &diff);
+  T nv[KM];
+  chain_updates<T, KM>(r.v, r.c, cv, diff, K, nv);
 #pragma unroll
   for (int j = 0; j < KM; ++j)
     if (j < K) cb[r.c[j]] = nv[j];
@@ -625,8 +678,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       const long long off = static_cast<long long>(i) * K;
       const Slot<T> first = load_slot(vals, cols, lb, ub, off, lane, K);
       const T tie = lane == 0 ? draws[q] : T(0);
-      const T alpha =
-          row_alpha(vals, cols, lb, ub, off, K, first, b[i], cb, tie, w, lane);
+      const T alpha = row_alpha(vals, cols, lb, ub, off, K, first, b[i],
+                                [cb](int c) { return cb[c]; }, tie, w, lane);
       if (lane == 0) {
         const T diff = take_step(alpha, active[i] != 0, y, i, project);
         for (int j = 0; j < K; ++j) {
@@ -642,43 +695,318 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
     for (int c = tid; c < n; c += nt) cbar[c] = cb_smem[c];
 }
 
-// One colour group: one warp per row (the rows' columns are disjoint, so
-// no two warps write one c_bar entry; padding slots, value 0, write
-// nothing).  Row r's tie is element tie_offset + r of the group's draw: a
-// rank of a mesh runs its slice of a group, which starts at tie_offset.
+// ---------------------------------------------------------------------
+// the colour sweep (H-DCA-C): every colour group of a sweep in one launch
+// ---------------------------------------------------------------------
+
+// What one launch of the colour sweep reads.  Group g is positions
+// [ptr[g], ptr[g + 1]) of `order` (no ptr: one group of n_rows positions),
+// its rows' ties drawn from the key (keys[2 g], keys[2 g + 1]) (no keys:
+// (k1, k2)) starting at element tie_offset.  sv, sc, sl, su, sb: the rows
+// of up to kScanBase slots staged slot-major in `order` (slot j of position
+// q at j n_rows + q; ops/dca_sweep.py::ColorPlan), or null (the rows read
+// in place).  flips: a word a group for column 0 (col0_update), set when
+// it holds `epoch`.
 template <typename T>
-__global__ void __launch_bounds__(32 * kColorWarps)
-    dca_color_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
-                     const T* __restrict__ b,
-                     const uint8_t* __restrict__ active, T* y, T* cbar,
-                     const T* __restrict__ lb, const T* __restrict__ ub,
-                     const int* __restrict__ rows, int n_rows, int K,
-                     uint32_t s1, uint32_t s2, uint32_t tie_offset,
-                     int project) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (r >= n_rows) return;
-  Scratch<T> w(reinterpret_cast<T*>(smem_raw) + warp * scratch_entries<T>(K),
-               K);
-  const int i = rows[r];
-  const long long off = static_cast<long long>(i) * K;
-  const Slot<T> first = load_slot(vals, cols, lb, ub, off, lane, K);
-  const T tie = lane == 0 ? uniform_at<T>(s1, s2,
-                                          tie_offset + static_cast<uint32_t>(r))
-                          : T(0);
-  const T alpha =
-      row_alpha(vals, cols, lb, ub, off, K, first, b[i], cbar, tie, w, lane);
-  T diff = T(0);
-  if (lane == 0) diff = take_step(alpha, active[i] != 0, y, i, project);
-  diff = __shfl_sync(0xffffffffu, diff, 0);
-  for (int j = lane; j < K; j += 32) {
-    const T v = vals[off + j];
-    if (v != T(0)) {
-      const int c = cols[off + j];
-      cbar[c] = cbar[c] + diff * v;
+struct ColorArgs {
+  const T* vals;
+  const int* cols;
+  const T* b;
+  const uint8_t* active;
+  T* y;
+  T* cb;
+  const T* lb;
+  const T* ub;
+  const int* order;
+  const int* ptr;
+  int n_groups, n_rows;
+  const uint32_t* keys;
+  uint32_t k1, k2, tie_offset;
+  const T *sv, *sl, *su, *sb;
+  const int* sc;
+  int* flips;
+  int epoch, K, project;
+};
+
+template <typename T>
+__device__ __forceinline__ int group_lo(const ColorArgs<T>& a, int g) {
+  return a.ptr ? a.ptr[g] : 0;
+}
+
+template <typename T>
+__device__ __forceinline__ int group_hi(const ColorArgs<T>& a, int g) {
+  return a.ptr ? a.ptr[g + 1] : a.n_rows;
+}
+
+// The tie of position q of group g (lo its first position).
+template <typename T>
+__device__ __forceinline__ T group_tie(const ColorArgs<T>& a, int g, int q,
+                                       int lo) {
+  const uint32_t k1 = a.keys ? a.keys[2 * g] : a.k1;
+  const uint32_t k2 = a.keys ? a.keys[2 * g + 1] : a.k2;
+  return uniform_at<T>(k1, k2, a.tie_offset + static_cast<uint32_t>(q - lo));
+}
+
+template <typename T>
+__device__ __forceinline__ bool neg_zero(T x) {
+  return x == T(0) && signbit(x);
+}
+
+template <typename T>
+struct Bits;
+
+template <>
+struct Bits<float> {
+  using U = unsigned int;
+  static __device__ __forceinline__ U of(float x) { return __float_as_uint(x); }
+  static __device__ __forceinline__ float from(U u) { return __uint_as_float(u); }
+};
+
+template <>
+struct Bits<double> {
+  using U = unsigned long long;
+  static __device__ __forceinline__ U of(double x) {
+    return static_cast<U>(__double_as_longlong(x));
+  }
+  static __device__ __forceinline__ double from(U u) {
+    return __longlong_as_double(static_cast<long long>(u));
+  }
+};
+
+// c_bar at column c as group g sees it: read from L2 (other SMs wrote it in
+// earlier groups), and at column 0 a -0 that an earlier group's padding
+// turned to +0 (fix0; col0_update) read as +0.
+template <typename T>
+__device__ __forceinline__ T cb_read(const T* cb, int c, bool fix0) {
+  const T x = __ldcg(cb + c);
+  return (c == 0 && fix0 && neg_zero(x)) ? T(0) : x;
+}
+
+// Column 0 in a colour group.  A group's rows share no column, but every
+// padding slot is column 0, so many rows may add to c_bar[0]: the twin adds
+// z = diff * v of every slot (index_add_), a real row's nonzero z and the
+// padding's +-0 (NaN where diff is infinite).  Adding zeros is exact and
+// order-free (x + -0 = x; x + +0 = x except -0 + +0 = +0), and at most one
+// row of a group has a nonzero z there, so the sum is that row's chain,
+// then +0 if some padding gave +0 and the result is -0.  So a row whose z
+// there (zs calls f(z) for each, in slot order) are all -0 writes nothing;
+// one with only +-0 and a +0 records the flip in flips[g] when c_bar[0] is
+// -0 (it stays -0 in memory: cb_read reads it as +0 in later groups, the
+// end of the launch writes it); any other row takes its chain by
+// compare-and-swap (a NaN padding z and the real row may both write).
+template <typename T, typename Zs>
+__device__ __forceinline__ void col0_update(T* cb, int* flips, int g,
+                                            int epoch, bool fix0, Zs zs) {
+  using U = typename Bits<T>::U;
+  bool nontrivial = false, pos_zero = false;
+  zs([&](T z) {
+    if (z != T(0) || isnan(z)) nontrivial = true;
+    else if (!signbit(z)) pos_zero = true;
+  });
+  if (nontrivial) {
+    U* at = reinterpret_cast<U*>(cb);
+    U cur = Bits<T>::of(__ldcg(cb));
+    while (true) {
+      T x = Bits<T>::from(cur);
+      if (fix0 && neg_zero(x)) x = T(0);
+      zs([&](T z) { x = x + z; });
+      const U seen = atomicCAS(at, cur, Bits<T>::of(x));
+      if (seen == cur) break;
+      cur = seen;
+    }
+  } else if (pos_zero && neg_zero(cb_read(cb, 0, fix0))) {
+    flips[g] = epoch;
+  }
+}
+
+// A row of up to KM slots of a colour group: what its thread loads before
+// the group starts (none of it changes in earlier groups: y_i changes only
+// in row i's group).
+template <typename T, int KM>
+struct ColorRow {
+  T v[KM], l[KM], u[KM];
+  int c[KM];
+  T b, y, t;
+  int i;
+  bool act;
+};
+
+template <typename T, int KM>
+__device__ __forceinline__ void load_color_row(ColorRow<T, KM>& r,
+                                               const ColorArgs<T>& a, int g,
+                                               int q, int lo) {
+  const int K = a.K;
+  const int i = a.order[q];
+  r.i = i;
+  if (a.sv != nullptr) {
+#pragma unroll
+    for (int j = 0; j < KM; ++j) {
+      const long long at = static_cast<long long>(j) * a.n_rows + q;
+      r.v[j] = j < K ? a.sv[at] : T(0);
+      r.c[j] = j < K ? a.sc[at] : 0;
+      r.l[j] = j < K ? a.sl[at] : T(0);
+      r.u[j] = j < K ? a.su[at] : T(0);
+    }
+    r.b = a.sb[q];
+  } else {
+    const long long off = static_cast<long long>(i) * K;
+#pragma unroll
+    for (int j = 0; j < KM; ++j) {
+      r.v[j] = j < K ? a.vals[off + j] : T(0);
+      r.c[j] = j < K ? a.cols[off + j] : 0;
+      r.l[j] = j < K ? a.lb[r.c[j]] : T(0);
+      r.u[j] = j < K ? a.ub[r.c[j]] : T(0);
+    }
+    r.b = a.b[i];
+  }
+  r.y = a.y[i];
+  r.act = a.active[i] != 0;
+  r.t = group_tie(a, g, q, lo);
+}
+
+// One row of a colour group on one thread: the step (short_row_alpha), y_i,
+// c_bar at its columns other than 0 (no other row of the group writes
+// them), then column 0 (col0_update).
+template <typename T, int KM>
+__device__ __forceinline__ void color_row(const ColorRow<T, KM>& r,
+                                          const ColorArgs<T>& a, int g,
+                                          bool fix0) {
+  const int K = a.K;
+  T cv[KM];
+#pragma unroll
+  for (int j = 0; j < KM; ++j) cv[j] = j < K ? cb_read(a.cb, r.c[j], fix0) : T(0);
+  const T alpha = short_row_alpha<T, KM>(r.v, cv, r.l, r.u, r.b, r.t, K);
+  T diff;
+  a.y[r.i] = step_y(alpha, r.act, r.y, a.project, &diff);
+  T nv[KM];
+  chain_updates<T, KM>(r.v, r.c, cv, diff, K, nv);
+  bool any0 = false;
+#pragma unroll
+  for (int j = 0; j < KM; ++j) {
+    if (j < K) {
+      if (r.c[j] != 0) a.cb[r.c[j]] = nv[j];
+      else any0 = true;
     }
   }
+  if (any0)
+    col0_update(a.cb, a.flips, g, a.epoch, fix0, [&](auto f) {
+#pragma unroll
+      for (int j = 0; j < KM; ++j)
+        if (j < K && r.c[j] == 0) f(diff * r.v[j]);
+    });
+}
+
+// Before group g: group g - 1's column-0 flip carries into g's word (one
+// thread), and whether c_bar[0]'s -0 reads as +0 in g.
+template <typename T>
+__device__ __forceinline__ bool group_start(const ColorArgs<T>& a, int g) {
+  if (g == 0) return false;
+  const bool fix0 = __ldcg(a.flips + g - 1) == a.epoch;
+  if (fix0 && blockIdx.x == 0 && threadIdx.x == 0) a.flips[g] = a.epoch;
+  return fix0;
+}
+
+// After the last group's barrier: c_bar[0]'s pending flip, written.
+template <typename T>
+__device__ __forceinline__ void sweep_end(const ColorArgs<T>& a) {
+  if (blockIdx.x == 0 && threadIdx.x == 0 && a.n_groups > 0 &&
+      __ldcg(a.flips + a.n_groups - 1) == a.epoch && neg_zero(__ldcg(a.cb)))
+    a.cb[0] = T(0);
+}
+
+// The colour sweep, rows of up to KM <= kScanBase slots, one thread a row,
+// on a persistent cooperative grid: group g's positions in strides of the
+// grid, a grid barrier between groups.  Each thread loads its next row
+// (this group's next, or the next group's first) before it steps the
+// current one, so a group starts at its gathers of c_bar.
+template <typename T, int KM>
+__global__ void __launch_bounds__(kColorThreads)
+    dca_color_sweep_kernel(ColorArgs<T> a) {
+  cg::grid_group grid = cg::this_grid();
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nt = gridDim.x * blockDim.x;
+  ColorRow<T, KM> next;
+  int lo = a.n_groups ? group_lo(a, 0) : 0;
+  int hi = a.n_groups ? group_hi(a, 0) : 0;
+  if (lo + tid < hi) load_color_row(next, a, 0, lo + tid, lo);
+  for (int g = 0; g < a.n_groups; ++g) {
+    const bool fix0 = group_start(a, g);
+    const bool more = g + 1 < a.n_groups;
+    const int lo2 = more ? group_lo(a, g + 1) : 0;
+    const int hi2 = more ? group_hi(a, g + 1) : 0;
+    for (int q = lo + tid; q < hi; q += nt) {
+      const ColorRow<T, KM> cur = next;
+      if (q + nt < hi)
+        load_color_row(next, a, g, q + nt, lo);
+      else if (lo2 + tid < hi2)
+        load_color_row(next, a, g + 1, lo2 + tid, lo2);
+      color_row(cur, a, g, fix0);
+    }
+    if (lo + tid >= hi && lo2 + tid < hi2)
+      load_color_row(next, a, g + 1, lo2 + tid, lo2);
+    grid.sync();
+    lo = lo2;
+    hi = hi2;
+  }
+  sweep_end(a);
+}
+
+// The colour sweep, rows past kScanBase slots, one warp a row read in place
+// (row_alpha), on a persistent cooperative grid.  Lane j + 32 s writes c_bar
+// at slot j's column (not 0) where j is its first slot there, the row's
+// slots at that column chained in order; lane 0 takes column 0.
+template <typename T>
+__global__ void __launch_bounds__(32 * kColorWarps)
+    dca_color_sweep_warp_kernel(ColorArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::grid_group grid = cg::this_grid();
+  const int K = a.K;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * (blockDim.x >> 5) + warp;
+  const int nw = gridDim.x * (blockDim.x >> 5);
+  Scratch<T> w(reinterpret_cast<T*>(smem_raw) + warp * scratch_entries<T>(K),
+               K);
+  for (int g = 0; g < a.n_groups; ++g) {
+    const bool fix0 = group_start(a, g);
+    const int lo = group_lo(a, g), hi = group_hi(a, g);
+    for (int q = lo + gw; q < hi; q += nw) {
+      const int i = a.order[q];
+      const long long off = static_cast<long long>(i) * K;
+      const T* rv = a.vals + off;
+      const int* rc = a.cols + off;
+      const Slot<T> first = load_slot(a.vals, a.cols, a.lb, a.ub, off, lane, K);
+      const T tie = lane == 0 ? group_tie(a, g, q, lo) : T(0);
+      const T* cb = a.cb;
+      const T alpha = row_alpha(
+          a.vals, a.cols, a.lb, a.ub, off, K, first, a.b[i],
+          [cb, fix0](int c) { return cb_read(cb, c, fix0); }, tie, w, lane);
+      T diff = T(0);
+      if (lane == 0) diff = take_step(alpha, a.active[i] != 0, a.y, i, a.project);
+      diff = __shfl_sync(0xffffffffu, diff, 0);
+      for (int j = lane; j < K; j += 32) {
+        const int c = rc[j];
+        bool first_use = c != 0;
+        for (int p = 0; p < j && first_use; ++p) first_use = rc[p] != c;
+        if (!first_use) continue;
+        T nv = cb_read(a.cb, c, false);
+        for (int p = j; p < K; ++p)
+          if (rc[p] == c) nv = nv + diff * rv[p];
+        a.cb[c] = nv;
+      }
+      if (lane == 0) {
+        bool any0 = false;
+        for (int j = 0; j < K && !any0; ++j) any0 = rc[j] == 0;
+        if (any0)
+          col0_update(a.cb, a.flips, g, a.epoch, fix0, [&](auto f) {
+            for (int j = 0; j < K; ++j)
+              if (rc[j] == 0) f(diff * rv[j]);
+          });
+      }
+      __syncwarp();
+    }
+    grid.sync();
+  }
+  sweep_end(a);
 }
 
 struct SweepArgs {
@@ -747,27 +1075,64 @@ int launch_sweep(const T* vals, const int* cols, const T* b,
                                w.draws, s);
 }
 
+// A colour sweep kernel on a cooperative grid of the blocks that can be
+// resident at once, and no more than the largest group needs
+// (rows_per_block rows a block a pass).  A grid the card cannot hold
+// resident is refused by the launch, which returns the error.
+template <typename T, typename Kernel>
+int launch_cooperative(Kernel kernel, int threads, int smem, int max_rows,
+                       int rows_per_block, const ColorArgs<T>& a,
+                       cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const int need = max(1, (max_rows + rows_per_block - 1) / rows_per_block);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(min(per_sm * sms, need));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The colour sweep's one launch: a thread a row of up to kScanBase slots,
+// a warp a longer row.
 template <typename T>
-int launch_color(const T* vals, const int* cols, const T* b,
-                 const uint8_t* active, T* y, T* cbar, const T* lb,
-                 const T* ub, const int* rows, int n_rows, int K, uint32_t s1,
-                 uint32_t s2, uint32_t tie_offset, int project,
-                 void* stream) {
-  if (K < 1 || K > kMaxRow) return static_cast<int>(cudaErrorInvalidValue);
-  const long long per_warp = scratch_entries<T>(K) * sizeof(T);
+int launch_color_sweep(const ColorArgs<T>& a, int max_rows, void* stream) {
+  if (a.K < 1 || a.K > kMaxRow) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.K <= 4)
+    return launch_cooperative<T>(dca_color_sweep_kernel<T, 4>, kColorThreads,
+                                 0, max_rows, kColorThreads, a, s);
+  if (a.K <= 8)
+    return launch_cooperative<T>(dca_color_sweep_kernel<T, 8>, kColorThreads,
+                                 0, max_rows, kColorThreads, a, s);
+  if (a.K <= kScanBase)
+    return launch_cooperative<T>(dca_color_sweep_kernel<T, kScanBase>,
+                                 kColorThreads, 0, max_rows, kColorThreads, a,
+                                 s);
+  const long long per_warp = scratch_entries<T>(a.K) * sizeof(T);
   const int warps = static_cast<int>(
       min(static_cast<long long>(kColorWarps), kSmemLimit / per_warp));
-  const long long smem = per_warp * warps;
-  cudaError_t err = cudaFuncSetAttribute(
-      dca_color_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (n_rows + warps - 1) / warps;
-  dca_color_kernel<T><<<grid, 32 * warps, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      vals, cols, b, active, y, cbar, lb, ub, rows, n_rows, K, s1, s2,
-      tie_offset, project);
-  return static_cast<int>(cudaGetLastError());
+  return launch_cooperative<T>(dca_color_sweep_warp_kernel<T>, 32 * warps,
+                               static_cast<int>(per_warp * warps), max_rows,
+                               warps, a, s);
 }
 
 }  // namespace
@@ -800,26 +1165,20 @@ PSLP_EXPORT int pslp_dca_sweep_f64(const double* vals, const int* cols,
                               k2, work, key_out);
 }
 
-PSLP_EXPORT int pslp_dca_color_step_f32(const float* vals, const int* cols,
-                                        const float* b, const uint8_t* active,
-                                        float* y, float* cbar, const float* lb,
-                                        const float* ub, const int* rows,
-                                        int n_rows, int K, uint32_t s1,
-                                        uint32_t s2, uint32_t tie_offset,
-                                        int project, void* stream) {
-  return launch_color<float>(vals, cols, b, active, y, cbar, lb, ub, rows,
-                             n_rows, K, s1, s2, tie_offset, project, stream);
-}
+#define PSLP_DCA_COLOR_SWEEP(NAME, T)                                         \
+  PSLP_EXPORT int NAME(                                                       \
+      const T* vals, const int* cols, const T* b, const uint8_t* active,     \
+      T* y, T* cbar, const T* lb, const T* ub, const int* order,              \
+      const int* ptr, int n_groups, int n_rows, int max_rows,                 \
+      const uint32_t* keys, uint32_t k1, uint32_t k2, uint32_t tie_offset,    \
+      const T* sv, const int* sc, const T* sl, const T* su, const T* sb,      \
+      int* flips, int epoch, int K, int project, void* stream) {              \
+    const ColorArgs<T> a{vals, cols, b,  active, y,  cbar,     lb,         \
+                         ub,   order, ptr, n_groups, n_rows, keys, k1,      \
+                         k2,   tie_offset, sv, sl, su, sb, sc,  flips,      \
+                         epoch, K, project};                                  \
+    return launch_color_sweep<T>(a, max_rows, stream);                        \
+  }
 
-PSLP_EXPORT int pslp_dca_color_step_f64(const double* vals, const int* cols,
-                                        const double* b, const uint8_t* active,
-                                        double* y, double* cbar,
-                                        const double* lb, const double* ub,
-                                        const int* rows, int n_rows, int K,
-                                        uint32_t s1, uint32_t s2,
-                                        uint32_t tie_offset, int project,
-                                        void* stream) {
-  return launch_color<double>(vals, cols, b, active, y, cbar, lb, ub, rows,
-                              n_rows, K, s1, s2, tie_offset, project,
-                              stream);
-}
+PSLP_DCA_COLOR_SWEEP(pslp_dca_color_sweep_f32, float)
+PSLP_DCA_COLOR_SWEEP(pslp_dca_color_sweep_f64, double)

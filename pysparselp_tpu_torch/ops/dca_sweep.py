@@ -31,16 +31,20 @@ the same bits (:func:`dca_sweep_levels_reference` shows it on the CPU).
   system (the key chain; the draws, with the rows staged in level order;
   the levels), the key split once per row, active or not, as in JAX; it
   returns ``(y, c̄, key)`` with the key after the last row.
-* :func:`dca_color_step` runs one colour group (rows with pairwise
-  disjoint columns), its ``(rows,)`` ties drawn from the group's sub key;
-  ``tie_offset`` starts them at that element of the draw (a mesh rank's
-  slice of a group: ``jax.random.uniform``'s element ``i`` hashes the
+* :func:`dca_color_sweep` runs the blocked sweep (H-DCA-C): every colour
+  group (rows with pairwise disjoint columns) of a :class:`ColorPlan`, built
+  once per system, in one launch, each group's ``(rows,)`` ties drawn from
+  its own split of the key; it returns ``(y, c̄, key)``.
+* :func:`dca_color_step` runs one colour group, or a slice of one:
+  ``tie_offset`` starts its ties at that element of the group's draw (a
+  mesh rank's slice: ``jax.random.uniform``'s element ``i`` hashes the
   counter ``(0, i)`` whatever the draw's size, so a slice of the group's
   draw is a draw from ``tie_offset``).
 
-On CUDA tensors both launch the kernels (``launches`` counts them) or
-raise; on CPU tensors they run :func:`dca_sweep_reference` /
-:func:`dca_color_step_reference`, the JAX loop body in PyTorch.
+On CUDA tensors they launch the kernels (``launches`` counts them) or
+raise; on CPU tensors they run :func:`dca_sweep_reference`,
+:func:`dca_color_sweep_reference` and :func:`dca_color_step_reference`,
+the JAX loop bodies in PyTorch.
 """
 
 from __future__ import annotations
@@ -75,10 +79,11 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 # n, k1, k2, work, key_out, project, stream
 _ARGTYPES_SWEEP = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _U, _U, _P, _P, _I, _P)
-# vals, cols, b, active, y, c_bar, lb, ub, rows, n_rows, K, k1, k2,
-# tie_offset, project, stream
-_ARGTYPES_COLOR = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U,
-                   _I, _P)
+# vals, cols, b, active, y, c_bar, lb, ub, order, ptr, n_groups, n_rows,
+# max_rows, keys, k1, k2, tie_offset, sv, sc, sl, su, sb, flips, epoch, K,
+# project, stream
+_ARGTYPES_COLOR = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                   _U, _U, _U, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,6 +181,65 @@ class EllRows:
         return EllRows.from_tables(vals, cols, n, dtype, device)
 
 
+@dataclasses.dataclass(frozen=True)
+class ColorPlan:
+    """The colour groups of one system as H-DCA-C runs them, built once
+    (:meth:`build`): ``order`` (int32, every row once, group by group, each
+    group in its given order), ``ptr`` (int32, ``len(groups) + 1`` offsets
+    into ``order``), ``groups`` (each group's rows, views of ``order``),
+    ``max_rows`` (the largest group).  For rows of up to ``SCAN_BASE``
+    slots, ``staged``: the rows' static data in that order, slot-major
+    (slot ``j`` of position ``q`` at ``[j, q]``): ``vals``, ``cols`` and
+    ``lb`` / ``ub`` at the columns, each ``(K, m)``, and ``b`` ``(m,)``;
+    None for longer rows, which the kernel reads in place.  Only ``active``,
+    ``y`` and ``c̄`` change from sweep to sweep, so nothing is staged per
+    sweep.  ``seconds`` is the build's host time."""
+
+    order: torch.Tensor
+    ptr: torch.Tensor
+    groups: tuple
+    max_rows: int
+    staged: dict | None
+    seconds: float
+
+    @staticmethod
+    def build(ell: "EllRows", groups, b, lb, ub) -> "ColorPlan":
+        """The plan of ``groups`` (row-id arrays that together hold every
+        row of ``ell`` once), staged from ``b``, ``lb`` and ``ub``: the
+        sweep must be given these same vectors."""
+        t0 = time.perf_counter()
+        dev = ell.vals.device
+        m, k = ell.vals.shape
+        sizes = [len(g) for g in groups]
+        order = (np.concatenate([np.asarray(g, np.int64) for g in groups])
+                 if groups else np.zeros(0, np.int64))
+        if not np.array_equal(np.sort(order), np.arange(m)):
+            raise ValueError("ColorPlan: the groups must hold every row once")
+        ptr = np.zeros(len(groups) + 1, np.int64)
+        np.cumsum(sizes, out=ptr[1:])
+        order_t = torch.as_tensor(order.astype(np.int32), device=dev)
+        staged = None
+        if k <= SCAN_BASE:
+            rows = order_t.long()
+            cols = ell.cols[rows].T.contiguous()
+            at = cols.long()
+            staged = dict(vals=ell.vals[rows].T.contiguous(), cols=cols,
+                          lb=lb[at], ub=ub[at], b=b[rows])
+        return ColorPlan(
+            order=order_t,
+            ptr=torch.as_tensor(ptr.astype(np.int32), device=dev),
+            groups=tuple(order_t[lo:hi] for lo, hi in zip(ptr, ptr[1:])),
+            max_rows=max(sizes, default=0), staged=staged,
+            seconds=time.perf_counter() - t0)
+
+
+def color_plan_bytes(plan: ColorPlan) -> int:
+    """The device bytes a plan holds (its order, offsets and staged
+    rows)."""
+    tensors = [plan.order, plan.ptr, *(plan.staged or {}).values()]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def sweep_work_bytes(m, width, itemsize) -> int:
     """The bytes of a sequential sweep's workspace (``Work`` in
     csrc/dca_sweep.cu): each row's key (two uint32) and draw, and for rows
@@ -204,7 +268,9 @@ def _row_step(vals, cols, b_i, active_i, y_i, c_bar, lb, ub, tie_t, project):
                                    lb[cols], tie_t)
     alpha = torch.where(active_i & torch.isfinite(alpha), alpha, 0.0)
     if project:
-        y_new = torch.clamp_min(y_i + alpha, 0.0)
+        # jnp.maximum(s, 0.0) as XLA computes it: -0 gives +0, NaN stays
+        s = y_i + alpha
+        y_new = torch.where(s <= 0, 0.0, s)
         return y_new, y_new - y_i
     return y_i + alpha, alpha
 
@@ -275,6 +341,17 @@ def dca_color_step_reference(ell, b, active, y, c_bar, lb, ub, rows, sub,
     return y, c_bar
 
 
+def dca_color_sweep_reference(ell, plan, b, active, y, c_bar, lb, ub, key,
+                              project):
+    """Plain twin of :func:`dca_color_sweep`: per group of ``plan``, one
+    split of the key and :func:`dca_color_step_reference`."""
+    for rows in plan.groups:
+        key, sub = split(key)
+        y, c_bar = dca_color_step_reference(ell, b, active, y, c_bar, lb, ub,
+                                            rows, sub, project)
+    return y, c_bar, key
+
+
 def _check(ell, tensors, what):
     if ell.vals.shape[1] > MAX_ROW:
         raise ValueError(
@@ -329,32 +406,104 @@ def dca_sweep(ell: EllRows, b, active, y, c_bar, lb, ub, key, project):
 dca_sweep.launches = 0
 
 
+def _color_launch(ell, b, active, y, c_bar, lb, ub, project, order, ptr,
+                  n_groups, max_rows, keys, key, tie_offset, staged, what):
+    """One launch of H-DCA-C on ``order``'s rows: returns new ``(y, c̄)``.
+    ``ptr`` None runs them as one group; ``keys`` (int32 pairs, one a
+    group) None draws from ``key``; ``staged`` None reads the rows in
+    place."""
+    dev = ell.vals.device
+    k = ell.vals.shape[1]
+    if active.dtype not in (torch.bool, torch.uint8):
+        raise ValueError(f"{what}: active must be bool or uint8")
+    _check(ell, (ell.cols, b, active, y, c_bar, lb, ub, order), what)
+    y, c_bar = y.clone(), c_bar.clone()
+    flips, epoch = _flip_words(dev, n_groups)
+    st = staged or {}
+    ptrs = [st[name].data_ptr() if st else None
+            for name in ("vals", "cols", "lb", "ub", "b")]
+    fn = _build.entry(f"pslp_dca_color_sweep_{_build.suffix(ell.vals.dtype)}",
+                      _ARGTYPES_COLOR)
+    fn(ell.vals.data_ptr(), ell.cols.data_ptr(), b.data_ptr(),
+       active.data_ptr(), y.data_ptr(), c_bar.data_ptr(), lb.data_ptr(),
+       ub.data_ptr(), order.data_ptr(),
+       None if ptr is None else ptr.data_ptr(), n_groups, order.numel(),
+       max_rows, None if keys is None else keys.data_ptr(), key[0], key[1],
+       int(tie_offset), *ptrs, flips.data_ptr(), epoch, k, int(project),
+       _build.stream(_build.device_index(dev)))
+    return y, c_bar
+
+
+_FLIPS: dict = {}
+
+
+def _flip_words(dev, n_groups):
+    """The kernel's column-0 words (one a group, ``csrc/dca_sweep.cu``
+    ``col0_update``) on ``dev`` and this launch's epoch: a word is set when
+    it holds the epoch, so the words are never cleared (zeroed once when
+    they grow; the epoch counts launches on the device's stream order)."""
+    words, epoch = _FLIPS.get(dev, (None, 0))
+    if words is None or words.numel() < n_groups:
+        words = torch.zeros(max(n_groups, 64), dtype=torch.int32, device=dev)
+        epoch = 0
+    epoch = epoch % 0x7FFFFFFF + 1
+    _FLIPS[dev] = (words, epoch)
+    return words, epoch
+
+
+def dca_color_sweep(ell: EllRows, plan: ColorPlan, b, active, y, c_bar, lb,
+                    ub, key, project):
+    """The blocked sweep over ``plan``'s colour groups: returns new ``(y,
+    c̄, key)`` (the inputs are not modified), each group's ties drawn from
+    its own split of ``key``.  ``b``, ``lb`` and ``ub`` are the vectors the
+    plan was built from.  On the card: ONE launch of H-DCA-C for every
+    group, a cooperative grid with a grid barrier between groups; a launch
+    the card refuses raises."""
+    dev = ell.vals.device
+    if dev.type == "cpu":
+        return dca_color_sweep_reference(ell, plan, b, active, y, c_bar, lb,
+                                         ub, key, project)
+    if dev.type != "cuda":
+        raise ValueError(f"dca_color_sweep runs on CUDA or the CPU, not {dev}")
+    subs = []
+    for _ in plan.groups:
+        key, sub = split(key)
+        subs.append(sub)
+    if plan.max_rows:
+        keys = torch.as_tensor(np.asarray(subs, np.uint32).view(np.int32),
+                               device=dev)
+        y, c_bar = _color_launch(ell, b, active, y, c_bar, lb, ub, project,
+                                 plan.order, plan.ptr, len(plan.groups),
+                                 plan.max_rows, keys, (0, 0), 0, plan.staged,
+                                 "dca_color_sweep")
+        dca_color_sweep.launches += 1
+    else:
+        y, c_bar = y.clone(), c_bar.clone()
+    return y, c_bar, key
+
+
+dca_color_sweep.launches = 0
+
+
 def dca_color_step(ell: EllRows, b, active, y, c_bar, lb, ub, rows, sub,
                    project, tie_offset=0):
     """One colour group ``rows`` (int32, pairwise disjoint columns) of the
     blocked sweep, its ties drawn from the sub key ``sub`` starting at
-    element ``tie_offset``: returns new ``(y, c̄)``."""
+    element ``tie_offset``: returns new ``(y, c̄)``.  On the card: H-DCA-C
+    on this one group, its rows read in place."""
     dev = ell.vals.device
     if dev.type == "cpu":
         return dca_color_step_reference(ell, b, active, y, c_bar, lb, ub,
                                         rows, sub, project, tie_offset)
     if dev.type != "cuda":
         raise ValueError(f"dca_color_step runs on CUDA or the CPU, not {dev}")
-    k = ell.vals.shape[1]
-    active = active.to(torch.uint8)
     rows = rows.to(torch.int32)
-    _check(ell, (ell.cols, b, active, y, c_bar, lb, ub, rows),
-           "dca_color_step")
-    y, c_bar = y.clone(), c_bar.clone()
-    if rows.numel():
-        fn = _build.entry(f"pslp_dca_color_step_{_build.suffix(ell.vals.dtype)}",
-                          _ARGTYPES_COLOR)
-        fn(ell.vals.data_ptr(), ell.cols.data_ptr(), b.data_ptr(),
-           active.data_ptr(), y.data_ptr(), c_bar.data_ptr(), lb.data_ptr(),
-           ub.data_ptr(), rows.data_ptr(), rows.numel(), k, sub[0], sub[1],
-           int(tie_offset), int(project),
-           _build.stream(_build.device_index(dev)))
-        dca_color_step.launches += 1
+    if not rows.numel():
+        return y.clone(), c_bar.clone()
+    y, c_bar = _color_launch(ell, b, active, y, c_bar, lb, ub, project, rows,
+                             None, 1, rows.numel(), None, sub, tie_offset,
+                             None, "dca_color_step")
+    dca_color_step.launches += 1
     return y, c_bar
 
 

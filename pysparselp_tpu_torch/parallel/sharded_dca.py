@@ -63,7 +63,10 @@ def pad_groups(groups, ndev, m):
 
 def _written_cols(csr, rows):
     """The columns the rows ``rows`` of ``csr`` write in c̄: their entries
-    with a nonzero value (the colour step skips zero slots)."""
+    with a nonzero value.  A zero-valued slot (padding, or a stored zero)
+    adds ±0, which changes an entry only from -0 to +0; the merge keeps
+    the entry's old bits there, so a mesh sweep departs from the
+    one-device sweep only where c̄ holds -0 at such a column."""
     sub = csr[rows]
     return np.unique(sub.indices[sub.data != 0])
 

@@ -15,8 +15,9 @@
   (reference ``pysparselp/DualCoordinateAscent.py:39-367``).  A sweep over a
   system's rows is one H-DCA sweep (``ops/dca_sweep.py``: the key chain,
   the draws, then the rows level by level on the level schedule built once
-  with the row view at set-up), in the sequential mode, or one launch per
-  colour group in the blocked mode; the
+  with the row view at set-up), in the sequential mode, or one H-DCA-C
+  launch for every colour group (on a colour plan built at set-up) in the
+  blocked mode; the
   metrics use the :class:`~pysparselp_tpu_torch.problem.CsrMatrix` products
   (H-CSR; on the CPU their twin rounds each row as a fused multiply-add
   chain, as the JAX package's products round there), and the sweeps walk
@@ -44,7 +45,7 @@ import numpy as np
 import scipy.sparse
 import torch
 
-from ..ops.dca_sweep import EllRows, dca_color_step, dca_sweep
+from ..ops.dca_sweep import ColorPlan, EllRows, dca_color_sweep, dca_sweep
 from ..ops.linesearch import exact_dual_line_search
 from ..problem import (CsrMatrix, ell_from_scipy, resolve_device,
                        resolve_dtype)
@@ -322,29 +323,28 @@ def _color_rows(csr):
     return groups
 
 
-def _dca_color_sweep(ell, b, active, y, c_bar, lb, ub, key, groups, project):
-    """Blocked sweep: one H-DCA colour step per group, each with its own
-    split of the key; groups chain through c̄ like the sequential sweep
-    chains through rows."""
-    for rows in groups:
-        key, sub = split(key)
-        y, c_bar = dca_color_step(ell, b, active, y, c_bar, lb, ub, rows,
-                                  sub, project)
-    return y, c_bar, key
+def _dca_color_sweep(ell, b, active, y, c_bar, lb, ub, key, plan, project):
+    """Blocked sweep: every colour group of ``plan`` (a
+    :class:`~pysparselp_tpu_torch.ops.dca_sweep.ColorPlan`) in one H-DCA-C
+    launch, each group with its own split of the key; groups chain through
+    c̄ like the sequential sweep chains through rows."""
+    return dca_color_sweep(ell, plan, b, active, y, c_bar, lb, ub, key,
+                           project)
 
 
 def _sweep(data, which, active, y, c_bar, key):
     ell, b = data[f"ell_{which}"], data[f"b_{which}"]
     lb, ub, project = data["lb"], data["ub"], which == "ineq"
     groups = data.get(f"{which}_groups")
-    if groups is not None and data.get("mesh") is not None:
+    if groups is not None:
         from ..parallel.sharded_dca import sharded_color_sweep
 
         return sharded_color_sweep(ell, b, active, y, c_bar, lb, ub, key,
                                    groups, project, data["mesh"])
-    if groups is not None:
-        return _dca_color_sweep(ell, b, active, y, c_bar, lb, ub, key,
-                                groups, project)
+    plan = data.get(f"{which}_plan")
+    if plan is not None:
+        return _dca_color_sweep(ell, b, active, y, c_bar, lb, ub, key, plan,
+                                project)
     return dca_sweep(ell, b, active, y, c_bar, lb, ub, key, project)
 
 
@@ -444,8 +444,9 @@ def dca_setup(lp2, dtype, dev, mode, mesh=None):
     """The device data of the coordinate ascent on the one-sided LP
     ``lp2``: the costs, bounds and tie midpoints, and per present system
     its :class:`CsrMatrix` (``a_*``), its row view (``ell_*``), ``b_*`` and,
-    in the blocked mode, its colour groups (``*_groups``: each group's rows,
-    or with ``mesh`` each group's split over the ranks,
+    in the blocked mode, its colour groups: on one device their
+    :class:`~pysparselp_tpu_torch.ops.dca_sweep.ColorPlan` (``*_plan``),
+    with ``mesh`` each group's split over the ranks (``*_groups``,
     :func:`~pysparselp_tpu_torch.parallel.sharded_dca.shard_groups`)."""
     data = dict(c=_vec(lp2.costsvector, dtype, dev),
                 lb=_vec(lp2.lower_bounds, dtype, dev),
@@ -467,10 +468,12 @@ def dca_setup(lp2, dtype, dev, mode, mesh=None):
         data[f"b_{which}"] = _vec(b, dtype, dev)
         if mode == "blocked":
             groups = _color_rows(a)
-            data[f"{which}_groups"] = (
-                shard_groups(groups, a, mesh) if mesh is not None else tuple(
-                    torch.as_tensor(g, dtype=torch.int32, device=dev)
-                    for g in groups))
+            if mesh is not None:
+                data[f"{which}_groups"] = shard_groups(groups, a, mesh)
+            else:
+                data[f"{which}_plan"] = ColorPlan.build(
+                    data[f"ell_{which}"], groups, data[f"b_{which}"],
+                    data["lb"], data["ub"])
     return data
 
 

@@ -44,7 +44,12 @@ events, summed over the kernels a sweep launches: one in a checkout
 before the level schedule, the key chain, the draws and the levels
 after), CUDA events over whole calls, and the sequential DCA solve of
 Potts-300 for 3 sweeps (float32): its dual energy after each sweep,
-printed exactly, and its seconds a sweep (:func:`time_dca`).
+printed exactly, and its seconds a sweep (:func:`time_dca`); then H-DCA-C,
+a colour sweep of the same state through the checkout's entry (one launch
+where it has ``dca_color_sweep``, a launch a group before), and the
+blocked solve's dual energies and seconds a sweep
+(:func:`time_dca_colour`; the colouring kept in ``build/`` for the
+checkouts after the first).
 The batched products (``--sections batch``): H-DIA-B on
 ``chip_smoke.BATCH``'s banded operator (B = 16) and the DIA block of its
 assignment system (B = 8), H-CSR-B on the unstructured one (B = 8), both
@@ -383,7 +388,7 @@ def time_dca(smoke, torch, np, repo, smi, build_linear_program, reps=3):
                     if "dca" in e.name and "color" not in e.name})
     per_kernel = {}
     for name in names:
-        dur = [e.time_range.elapsed_us() for e in events if e.name == name]
+        dur = [e.elapsed_us() for e in events if e.name == name]
         per_kernel[name] = sum(dur) / len(dur) * 1e-3
     events_ms = smoke.cuda_ms(torch, sweep, reps)
     run = dict(method="dual_coordinate_ascent", nb_iter=3, nb_iter_plot=1,
@@ -395,6 +400,92 @@ def time_dca(smoke, torch, np, repo, smi, build_linear_program, reps=3):
         repo=repo, nvidia_smi=smi, kernel="H-DCA", problem="potts300_ineq",
         rows=system[0].shape[0], device_ms_per_sweep=sum(per_kernel.values()),
         device_ms_per_kernel=per_kernel, events_ms_per_call=events_ms,
+        solve_dual_energy=[float(v) for v in lp.dobj_curve],
+        solve_s_per_sweep=[b - a for a, b in zip(t, t[1:])])), flush=True)
+    time_dca_colour(smoke, torch, np, repo, smi, lp, gt, idx, system, args,
+                    key, reps)
+
+
+def cached_colouring(np):
+    """Make the checkout's ``_color_rows`` (~25 s at Potts-300) keep its
+    groups in ``build/dca_colours_<sha1>.npz`` of this checkout, by the
+    matrix's bytes, so the checkouts timed in turns colour each system
+    once."""
+    import hashlib
+
+    import scipy.sparse
+
+    from pysparselp_tpu_torch.solvers import dual_ascent
+
+    colour = dual_ascent._color_rows
+
+    def cached(csr):
+        csr = scipy.sparse.csr_matrix(csr)
+        sha = hashlib.sha1(b"".join(memoryview(v).cast("B") for v in (
+            csr.indptr, csr.indices, csr.data))).hexdigest()
+        path = ROOT / "build" / f"dca_colours_{sha}.npz"
+        if path.is_file():
+            with np.load(path) as z:
+                return [z[f"g{i}"] for i in range(len(z.files))]
+        groups = colour(csr)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(path, **{f"g{i}": g for i, g in enumerate(groups)})
+        return groups
+
+    dual_ascent._color_rows = cached
+    return cached
+
+
+def time_dca_colour(smoke, torch, np, repo, smi, lp, gt, idx, system, args,
+                    key, reps):
+    """H-DCA-C on Potts-300's one-sided rows (float32, the mid-solve state
+    of :func:`time_dca`): a colour sweep through the checkout's entry (one
+    launch on a ``ColorPlan`` where the checkout has it, else one
+    ``dca_color_step`` a group), the profiler's device ms of its kernels
+    (names holding ``dca_color``) and their launches, CUDA events and host
+    ms per sweep (``chip_smoke.call_times``); then the blocked DCA solve of
+    Potts-300 for 3 sweeps: its dual energy after each sweep, printed
+    exactly, and its seconds a sweep."""
+    from pysparselp_tpu_torch.ops import dca_sweep as dca
+    from pysparselp_tpu_torch.utils.jax_prng import split
+
+    groups = cached_colouring(np)(system[0])
+    ell = args[0]
+    if hasattr(dca, "dca_color_sweep"):
+        plan = dca.ColorPlan.build(ell, groups, args[1], args[5], args[6])
+
+        def sweep():
+            return dca.dca_color_sweep(ell, plan, *args[1:], key, True)
+    else:
+        rows = [torch.as_tensor(g, dtype=torch.int32, device="cuda")
+                for g in groups]
+
+        def sweep():
+            y, c_bar, k = args[3], args[4], key
+            for g in rows:
+                k, sub = split(k)
+                y, c_bar = dca.dca_color_step(ell, args[1], args[2], y,
+                                              c_bar, args[5], args[6], g,
+                                              sub, True)
+            return y, c_bar, k
+
+    events = smoke.profiled_kernels(torch, sweep, reps)
+    dev = [e for e in events if "dca_color" in e.name]
+    calls = smoke.call_times(torch, sweep, reps=50, host_reps=50)
+    run = dict(method="dual_coordinate_ascent", nb_iter=3, nb_iter_plot=1,
+               mode="blocked", dtype=np.float32, device="cuda",
+               ground_truth=gt, ground_truth_indices=idx)
+    lp.solve(**run)
+    t = [0.0] + [float(v) for v in lp.opttime_curve]
+    print(json.dumps(dict(
+        repo=repo, nvidia_smi=smi, kernel="H-DCA-C",
+        problem="potts300_ineq", groups=len(groups),
+        device_ms_per_sweep=sum(e.elapsed_us() for e in dev) / reps * 1e-3,
+        launches_per_sweep=len(dev) / reps,
+        kernel_names=sorted({e.name for e in dev}),
+        events_ms_per_call=calls["events_us"] * 1e-3,
+        host_ms_per_call=calls["host_us"] * 1e-3,
+        kernels_per_call=calls["kernels_per_call"],
         solve_dual_energy=[float(v) for v in lp.dobj_curve],
         solve_s_per_sweep=[b - a for a, b in zip(t, t[1:])])), flush=True)
 

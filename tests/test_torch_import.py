@@ -68,7 +68,7 @@ def test_import_leaves_jax_out():
             "sys.path.insert(0, 'scripts'); import probe_csr_spmv, "
             "probe_bsr_spmv, profile_port, profile_mesh, time_presolve, "
             "compare_kernels, probe_dca_sweep, probe_csr_batch_orders, "
-            "probe_trace_loss; "
+            "probe_trace_loss, profile_dca_blocked; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('pysparselp_tpu.') or "
             "m == 'pysparselp_tpu' for m in sys.modules), 'JAX package'")
@@ -92,7 +92,8 @@ def test_no_port_file_imports_jax():
                    os.path.join("scripts", "compare_kernels.py"),
                    os.path.join("scripts", "probe_dca_sweep.py"),
                    os.path.join("scripts", "probe_csr_batch_orders.py"),
-                   os.path.join("scripts", "probe_trace_loss.py")):
+                   os.path.join("scripts", "probe_trace_loss.py"),
+                   os.path.join("scripts", "profile_dca_blocked.py")):
         with open(os.path.join(REPO, script)) as f:
             text = f.read()
         assert "import jax" not in text and "pysparselp_tpu." not in (
