@@ -16,14 +16,20 @@ pairwise disjoint columns, so
   entries where that rank wrote and zeros elsewhere.  The entries travel
   as their bit patterns (int32 or int64 sums, exact whatever the order of
   the additions), so every rank takes each written entry with the bits the
-  writing rank computed;
+  writing rank computed.  A rank writes every column its rows' slots
+  touch, zero-valued ones too (a stored zero adds ±0, which turns a -0 to
+  +0).  Column 0 alone may be touched on several ranks: every padding
+  slot lies there.  One rank writes its bits (:func:`_column0`), and where
+  others touch it too the c̄ psum carries one more word, their flags
+  (:func:`_merge_cbar`), so no two ranks' bit patterns meet in a sum;
 * everything between the groups (the active sets, the c̄ rebuilds, the
   primal guess, the metrics) is the one-device solver's code on
   replicated data.
 
 Communication per outer iteration: 2·#colours psums per constraint
-system.  A group's ties are drawn at its whole size and each rank takes
-its slice (the colour step's ``tie_offset``), so every rank count draws
+system (the c̄ psum of a group whose column 0 several ranks touch holds
+n + 1 words).  A group's ties are drawn at its whole size and each rank
+takes its slice (the colour step's ``tie_offset``), so every rank count draws
 the one-device blocked sweep's ties, and a one-rank mesh is that sweep bit
 for bit.
 """
@@ -61,25 +67,48 @@ def pad_groups(groups, ndev, m):
     return tuple(out)
 
 
-def _written_cols(csr, rows):
-    """The columns the rows ``rows`` of ``csr`` write in c̄: their entries
-    with a nonzero value.  A zero-valued slot (padding, or a stored zero)
-    adds ±0, which changes an entry only from -0 to +0; the merge keeps
-    the entry's old bits there, so a mesh sweep departs from the
-    one-device sweep only where c̄ holds -0 at such a column."""
+def _written_cols(csr, rows, width):
+    """The columns the rows ``rows`` of ``csr`` write in c̄: every stored
+    entry's, zero-valued ones too, and column 0 where a row has fewer than
+    ``width`` entries (its padding slots; ``EllRows``' width)."""
     sub = csr[rows]
-    return np.unique(sub.indices[sub.data != 0])
+    cols = sub.indices
+    if (np.diff(sub.indptr) < width).any():
+        cols = np.append(cols, 0)
+    return np.unique(cols)
+
+
+def _column0(csr, slices, width):
+    """Which rank writes column 0's bits for a group split into
+    ``slices`` (one row-id array a rank), and whether other ranks touch it
+    too: ``(writer, shared)``.  The writer is the rank whose row stores an
+    entry at column 0 (a group's rows share no stored column, so at most
+    one), else the first rank whose rows have padding; ``writer`` is None
+    where no rank touches column 0."""
+    touch, owner = [], None
+    for r, rows in enumerate(slices):
+        sub = csr[rows]
+        if (sub.indices == 0).any():
+            owner = r
+        if (sub.indices == 0).any() or (np.diff(sub.indptr) < width).any():
+            touch.append(r)
+    if not touch:
+        return None, False
+    return (owner if owner is not None else touch[0]), len(touch) > 1
 
 
 def shard_groups(groups, a, mesh):
     """Each colour group (row ids) split over the mesh as :func:`pad_groups`
     splits it, as this rank needs it on ``mesh.device``: ``rows`` (its
-    slice, int32), ``offset`` (its first tie), and the int64 index tensors
+    slice, int32), ``offset`` (its first tie), the int64 index tensors
     of the y rows and c̄ columns it writes (``my_rows``, ``my_cols``) and
-    that the whole group writes (``all_rows``, ``all_cols``)."""
+    that the whole group writes (``all_rows``, ``all_cols``), and column
+    0's merge: ``col0_shared`` (ranks other than its writer touch it) and
+    ``col0_flag`` (this rank is one of them)."""
     mesh = check_mesh(mesh)
     csr = scipy.sparse.csr_matrix(a)
     m = csr.shape[0]
+    width = max(int(np.diff(csr.indptr).max(initial=0)), 1)
     dev = mesh.device
 
     def idx(v, dtype=torch.int64):
@@ -87,27 +116,71 @@ def shard_groups(groups, a, mesh):
 
     out = []
     for g, padded in zip(groups, pad_groups(groups, mesh.size, m)):
-        mine = padded[mesh.rank]
-        mine = mine[mine < m]
+        slices = [p[p < m] for p in padded]
+        mine = slices[mesh.rank]
+        writer, shared = _column0(csr, slices, width)
+        cols = _written_cols(csr, mine, width)
+        if writer != mesh.rank:
+            cols = cols[cols != 0]
         out.append(dict(
             rows=idx(mine, torch.int32),
             offset=mesh.rank * padded.shape[1],
-            my_rows=idx(mine), my_cols=idx(_written_cols(csr, mine)),
+            my_rows=idx(mine), my_cols=idx(cols),
             all_rows=idx(np.asarray(g)),
-            all_cols=idx(_written_cols(csr, np.asarray(g)))))
+            all_cols=idx(_written_cols(csr, np.asarray(g), width)),
+            col0_shared=shared,
+            col0_flag=shared and writer != mesh.rank
+            and 0 in _written_cols(csr, mine, width)))
     return tuple(out)
 
 
-def _merge(mesh, old, new, mine, written):
+def _merge(mesh, old, new, mine, written, flags=None):
     """``old`` with the entries ``written`` (over all ranks) set to the
     values the writing rank holds in its ``new`` (at ``mine``): one psum of
-    the bit patterns."""
+    the bit patterns.  ``flags``: one more word in the psum (this rank's
+    flag word, or 0), returned summed over the ranks."""
     ints = _BITS[old.dtype]
-    bits = torch.zeros(old.shape, dtype=ints, device=old.device)
+    n = old.shape[0]
+    bits = torch.zeros(n + (flags is not None), dtype=ints, device=old.device)
     bits[mine] = new.view(ints)[mine]
+    if flags is not None:
+        bits[n] = flags
     bits = mesh.psum(bits)
     out = old.clone()
     out.view(ints)[written] = bits[written]
+    return out, (bits[n] if flags is not None else None)
+
+
+# a rank's column-0 flags: its padding turned c̄[0] from -0 to +0 (+1), or
+# to NaN (+_NAN_FLAG); summed over at most _NAN_FLAG - 1 ranks
+_NAN_FLAG = 1 << 16
+
+
+def _merge_cbar(mesh, old, new, g):
+    """c̄ after a group: :func:`_merge` of the columns, then column 0 as one
+    device gives it where several ranks touch it.  Adding zeros is exact
+    and order-free but for -0 + +0 = +0 and a NaN, and only the writer may
+    add a nonzero there, so one device's c̄[0] is the writer's, made +0
+    where it is -0 and another rank's padding added a +0, and NaN where
+    another rank's padding gave a NaN (a NaN's bits are the arithmetic's
+    own, as on the card)."""
+    if not g["col0_shared"]:
+        return _merge(mesh, old, new, g["my_cols"], g["all_cols"])[0]
+    ints = _BITS[old.dtype]
+    if g["col0_flag"]:
+        o, w = old[0], new[0]
+        pos = (o == 0) & torch.signbit(o) & (w == 0) & ~torch.signbit(w)
+        nan = torch.isnan(w) & ~torch.isnan(o)
+        flags = pos.to(ints) + nan.to(ints) * _NAN_FLAG
+    else:
+        flags = torch.zeros((), dtype=ints, device=old.device)
+    out, flags = _merge(mesh, old, new, g["my_cols"], g["all_cols"], flags)
+    x = out[0]
+    x = torch.where((flags >= _NAN_FLAG) & ~torch.isnan(x),
+                    torch.full_like(x, float("nan")), x)
+    x = torch.where((flags % _NAN_FLAG > 0) & (x == 0) & torch.signbit(x),
+                    torch.zeros_like(x), x)
+    out[0] = x
     return out
 
 
@@ -121,8 +194,8 @@ def sharded_color_sweep(ell, b, active, y, c_bar, lb, ub, key, groups,
         y_r, c_r = dca_color_step(ell, b, active, y, c_bar, lb, ub,
                                   g["rows"], sub, project,
                                   tie_offset=g["offset"])
-        y = _merge(mesh, y, y_r, g["my_rows"], g["all_rows"])
-        c_bar = _merge(mesh, c_bar, c_r, g["my_cols"], g["all_cols"])
+        y = _merge(mesh, y, y_r, g["my_rows"], g["all_rows"])[0]
+        c_bar = _merge_cbar(mesh, c_bar, c_r, g)
     return y, c_bar, key
 
 

@@ -74,6 +74,32 @@ ONLY = {
 }
 
 
+def _zero_merge_system(owner):
+    """A hand-made colour-merge state, one colour group of four rows on
+    six columns: row 0 stores 1 at column 1 and a zero at column 2, rows
+    1-3 one 1 each at columns 3-5 and a padding slot at column 0 (with
+    ``owner``, row 3 stores 1 at column 0 instead of its padding).  c̄ is
+    -0 at columns 0 and 2.  Rows 0 and 1 step (row 1 by a negative step,
+    so its padding adds -0 at column 0), rows 2 and 3 are inactive (their
+    padding adds +0).  One device turns c̄[0] and c̄[2] to +0; on 2 and 4
+    ranks the first rank to touch column 0 is row 1's."""
+    rows = [0, 0, 1, 2, 3] + ([3] if owner else [])
+    cols = [1, 2, 3, 4, 5] + ([0] if owner else [])
+    vals = [1.0, 0.0, 1.0, 1.0, 1.0] + ([1.0] if owner else [])
+    return dict(a=scipy.sparse.csr_matrix((vals, (rows, cols)),
+                                          shape=(4, 6)),
+                b=np.full(4, 0.5), lb=np.zeros(6), ub=np.ones(6),
+                y=np.array([1.0, 2.0, 1.0, 1.0]),
+                c_bar=np.array([-0.0, -0.5, -0.0, 0.75, 0.25, -0.25]),
+                active=np.array([True, True, False, False]))
+
+
+# (owner, dtype, project) of the colour merge's cases
+DCA_MERGE = {f"dca_merge_{o}_{d}_{p}": (o == "owner", d, p == "ineq")
+             for o in ("padding", "owner") for d in ("float64", "float32")
+             for p in ("eq", "ineq")}
+
+
 def _standard_form(m=8, n=30, seed=7):
     """``test_sharded_mehrotra.py``'s feasible bounded standard form."""
     rng = np.random.RandomState(seed)
@@ -90,6 +116,8 @@ def _cases(world_size):
     cases += [(name, "lp_solve", spec_kw) for name, spec_kw in SOLVES.items()]
     cases += [(name, "lp_solve", (spec, kw))
               for name, (ws, spec, kw) in ONLY.items() if ws == world_size]
+    cases += [(name, "dca_merge", (_zero_merge_system(owner), dt, proj, 4))
+              for name, (owner, dt, proj) in DCA_MERGE.items()]
     if world_size > 1:
         cases += [("dga_dia", "dga_dia", (RANDOM_DUAL, dict(nb_max_iter=1,
                                                             **F64))),
@@ -384,8 +412,55 @@ def test_sharded_dca_matches_single_chip_blocked(port_runs, world_size):
     m_eq, m_in = lp.a_equalities.shape[0], lp.a_inequalities.shape[0]
     assert got["calls"][("sum", m_eq)] == colours["a_equalities"] * sweeps
     assert got["calls"][("sum", m_in)] == colours["a_inequalities"] * sweeps
-    assert got["calls"][("sum", lp.nb_variables)] == sweeps * sum(
-        colours.values())
+    n = lp.nb_variables
+    assert got["calls"].get(("sum", n), 0) + got["calls"].get(
+        ("sum", n + 1), 0) == sweeps * sum(colours.values())
+
+
+@pytest.mark.parametrize("world_size", WORLD_SIZES)
+@pytest.mark.parametrize("case", sorted(DCA_MERGE))
+def test_sharded_dca_merge_keeps_signed_zeros(port_runs, world_size, case):
+    """One colour sweep split over the ranks from a state with -0 in c̄ at
+    column 0 (padding, on several ranks) and at a stored zero's column:
+    y, c̄ and the key equal the one-device sweep bit for bit, which turns
+    both to +0 as JAX's compiled ``_dca_color_sweep`` does (float64).  A
+    group whose column 0 several ranks touch sends one more word."""
+    from test_torch_dca_sweep import _bits, _jax_sweep
+
+    from pysparselp_tpu_torch.ops import dca_sweep as pdca
+    from pysparselp_tpu_torch.utils.jax_prng import prng_key
+
+    owner, dtype, project = DCA_MERGE[case]
+    host = _zero_merge_system(owner)
+    got = _port(port_runs, world_size, case)
+    dt = getattr(torch, dtype)
+
+    def t(v):
+        return torch.as_tensor(np.asarray(v, np.float64), dtype=dt)
+
+    ell = pdca.EllRows.from_scipy(host["a"], dt, "cpu")
+    groups = _color_rows(host["a"])
+    plan = pdca.ColorPlan.build(ell, groups, t(host["b"]), t(host["lb"]),
+                                t(host["ub"]))
+    y, c_bar, key = pdca.dca_color_sweep_reference(
+        ell, plan, t(host["b"]), torch.as_tensor(host["active"]),
+        t(host["y"]), t(host["c_bar"]), t(host["lb"]), t(host["ub"]),
+        prng_key(4), project)
+    assert torch.equal(_bits(torch.as_tensor(got["y"])), _bits(y))
+    assert torch.equal(_bits(torch.as_tensor(got["c_bar"])), _bits(c_bar))
+    assert tuple(got["key"]) == tuple(key)
+    for col in (0, 2):
+        assert c_bar[col] == 0 and not torch.signbit(c_bar[col])
+    if dtype == "float64":
+        wy, wc, _ = _jax_sweep(host, np.float64, prng_key(4), project,
+                               groups)
+        assert torch.equal(_bits(torch.as_tensor(wc)), _bits(c_bar))
+        assert torch.equal(_bits(torch.as_tensor(wy)), _bits(y))
+    n = host["a"].shape[1]
+    shared = sum(got["shared"])
+    assert got["calls"].get(("sum", n), 0) == len(groups) - shared
+    assert got["calls"].get(("sum", n + 1), 0) == shared
+    assert (shared > 0) == (world_size > 1)
 
 
 def test_sharded_dca_device_count_invariance(port_runs):

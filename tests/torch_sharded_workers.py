@@ -278,11 +278,41 @@ def _pos_solve(mesh, c, a, b, kwargs):
                 info=dict(sharded_cp.last_run_info), calls=dict(mesh.calls))
 
 
+def _dca_merge(mesh, host, dtype, project, seed):
+    """One blocked colour sweep with the groups split over the ranks
+    (``sharded_dca.sharded_color_sweep``) from a given state: y, c̄, the
+    key, the collectives and which groups share column 0."""
+    from pysparselp_tpu_torch.ops.dca_sweep import EllRows
+    from pysparselp_tpu_torch.parallel.sharded_dca import (
+        shard_groups, sharded_color_sweep)
+    from pysparselp_tpu_torch.solvers.dual_ascent import _color_rows
+    from pysparselp_tpu_torch.utils.jax_prng import prng_key
+
+    dt, dev = getattr(torch, dtype), mesh.device
+
+    def t(v):
+        return torch.as_tensor(np.asarray(v, np.float64), dtype=dt,
+                               device=dev)
+
+    mesh.calls.clear()
+    a = host["a"]
+    groups = shard_groups(_color_rows(a), a, mesh)
+    y, c_bar, key = sharded_color_sweep(
+        EllRows.from_scipy(a, dt, dev), t(host["b"]),
+        torch.as_tensor(host["active"], device=dev), t(host["y"]),
+        t(host["c_bar"]), t(host["lb"]), t(host["ub"]), prng_key(seed),
+        groups, project, mesh)
+    return dict(y=y.cpu().numpy(), c_bar=c_bar.cpu().numpy(), key=key,
+                calls=dict(mesh.calls),
+                shared=[g.get("col0_shared") for g in groups])
+
+
 RUNNERS = {"solve": _solve, "dispatch": _dispatch, "resume": _resume,
            "mesh_checks": _mesh_checks, "lp_solve": _lp_solve, "mpc": _mpc,
            "dga_dia": _dga_dia, "admm_layouts": _admm_layouts,
            "pos_chunk": _pos_chunk, "pos_restart": _pos_restart,
-           "pos_metrics": _pos_metrics, "pos_solve": _pos_solve}
+           "pos_metrics": _pos_metrics, "pos_solve": _pos_solve,
+           "dca_merge": _dca_merge}
 
 
 def run_cases(mesh, cases):
