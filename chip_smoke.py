@@ -56,12 +56,29 @@ nonzero):
 
 H-CPDIA-R (``csrc/cp_dia_resident.cu``: K2's chunk in one launch of one
 thread-block cluster, ``ops/cp_dia.py::cp_dia_plan`` routing Potts-20 and
-Potts-50 to it and Potts-300 and multi-label 64 to the two-launch
-H-CPDIA) adds, in phase 2, :func:`phase_resident`: on Potts-20 and
+Potts-50 to it) adds, in phase 2, :func:`phase_resident`: on Potts-20 and
 Potts-50, float32 and float64, with and without sums, at 1, 7 and 200
 iterations, against the twin and against the two-launch kernel forced on
 the same inputs; times, kernels per chunk (1), the three bounds and the
 cost of the cluster barrier alone.
+
+The DIA planes are stored in bfloat16 where every value is exact there
+(float32 solves; the JAX package's ``allow_bf16="exact"``): H-DIA,
+H-CPDIA, H-CPDIA-R and the shard entry are each held bit for bit against
+the same kernel on the same planes in float32 (``bit_equal_f32_planes``).
+H-CPDIA-G (``csrc/cp_dia_grid.cu``: K3's chunk in one cooperative launch
+of a CTA an SM, each CTA's slab of the planes in shared memory; the plan
+routes Potts-100, Potts-300 in float32 and the multi-label 64 grid to it,
+Potts-300 in float64 to the two-launch H-CPDIA) adds, in phase 2,
+:func:`phase_grid`: on those shapes, with and without sums, at 1, 7 and
+100 iterations, bit for bit against the twin and the two-launch kernel;
+events, device and host time per iteration beside the two-launch kernel's
+in the same call, kernels per chunk (1) and the bounds.  Phase 3 prints
+the tier and the plane storage on ``main_path_potts300`` (H-CPDIA-G on
+bfloat16 planes) and adds ``main_path_potts300_f64``, the same LP in
+float64 on the card (the two-launch H-CPDIA), held against the same CPU
+run within F64_MAIN_RTOL; ``main_path_potts50``, ``converge_potts50`` and
+``main_path_mesh1`` print theirs.
 
 The mesh solve (``lp.solve(mesh=...)``, ``parallel/sharded_cp.py``;
 float32 aligned DIA systems in the position-sharded regime,
@@ -173,7 +190,7 @@ The dual ascent solvers and ``admm_blocks`` add:
 
 The host modules and the observability layer add phase 9, after phase 8:
 
-* ``main_path_checkpoint``: CP on Potts-300 (H-CPDIA) and Potts-50
+* ``main_path_checkpoint``: CP on Potts-300 (H-CPDIA-G) and Potts-50
   (H-CPDIA-R), float32, 800 iterations straight, then 400 under a
   ``CheckpointingCallback`` and 400 resumed from the checkpoint, the
   resumed x held to the straight one within MAIN_RTOL;
@@ -196,10 +213,11 @@ then ``phase9_s``.  The benchmark driver and ``potts.run`` call
 ``lp.solve`` once per method: :func:`solve_log` counts each call apart.
 
 The launch counters are set to 0 just before each solve and read just
-after it; the kernel table takes H-DIA's and H-CPDIA's counts from the
-Potts-300 solve, H-CPDIA-R's from the Potts-50 restart solve (and
-``main_path_potts50``'s under ``launches_by_run``), H-CPDIA (shard)'s from
-the one-rank float32 mesh solve, H-DIA (K5)'s from the one-rank float64
+after it; the kernel table takes H-DIA's and H-CPDIA-G's counts from
+the Potts-300 solve, H-CPDIA's from its float64 solve, H-CPDIA-R's from
+the Potts-50 restart solve (and ``main_path_potts50``'s under
+``launches_by_run``), H-CPDIA (shard)'s from the one-rank float32 mesh
+solve, H-DIA (K5)'s from the one-rank float64
 mesh solve (and the 4-rank one's under ``launches_by_run``), H-CPDENSE's
 from the SC105 solve, H-CSR's from the transport solve, H-BSR's from the
 CLIME solve, H-DIA-B's from the banded batch solve and H-CSR-B's from the
@@ -215,6 +233,7 @@ exits nonzero and prints no result.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -231,6 +250,9 @@ RTOL = {"float32": 1e-5, "float64": 1e-12}
 # checkpoint: objectives within MAIN_RTOL relative, violations within
 # MAIN_RTOL * max(1, |f64 value|)
 MAIN_RTOL = 1e-5
+# the Potts-300 f64 CUDA solve against the f64 CPU solve at its checkpoint
+# (the same iterations elementwise; the metrics summed in another order)
+F64_MAIN_RTOL = 1e-9
 # the same check for the non-grid workloads, whose random-sign data rounds
 # worse: measured at most 1.1e-6 (the transport equality violation; NVIDIA
 # H100 80GB HBM3, 700 W), the limit about ten times that
@@ -253,10 +275,18 @@ KERNELS = {
                        replaces="pysparselp_tpu/ops/dia_pallas.py:232",
                        tpu_kernels={"K5": "ported"},
                        launches_run="main_path_mesh1_rows"),
+    # K3's two tiers: H-CPDIA-G (one cooperative launch a chunk) where a
+    # slab of the planes fits shared memory, Potts-300 f32 on bf16 planes
+    # among them; the two-launch H-CPDIA elsewhere, Potts-300 f64 (its
+    # launches from the float64 solve of the main path)
+    "H-CPDIA-G": dict(source="pysparselp_tpu_torch/csrc/cp_dia_grid.cu",
+                      replaces="pysparselp_tpu/ops/cp_windowed.py:392",
+                      tpu_kernels={"K3": "ported"},
+                      launches_run="main_path_potts300"),
     "H-CPDIA": dict(source="pysparselp_tpu_torch/csrc/cp_dia.cu",
                     replaces="pysparselp_tpu/ops/cp_windowed.py:392",
                     tpu_kernels={"K3": "ported"},
-                    launches_run="main_path_potts300"),
+                    launches_run="main_path_potts300_f64"),
     # H-CPDIA's shard entry: K3 as the position-sharded mesh solve runs it
     # per shard (pysparselp_tpu/parallel/sharded_cp_windowed.py:493, :811)
     "H-CPDIA (shard)": dict(source="pysparselp_tpu_torch/csrc/cp_dia.cu",
@@ -466,6 +496,48 @@ def compare(torch, got, want, dtype_name, what):
                 f"{err:.3e} > {RTOL[dtype_name]:.0e} * {scale:.3e}")
         worst = max(worst, err)
     return worst
+
+
+def same_bits(torch, got, want):
+    """Every paired output equal bit for bit: NaN at the same positions,
+    every other entry with the same bits (signed zeros included)."""
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return False
+        gn, wn = torch.isnan(g), torch.isnan(w)
+        ints = torch.int32 if g.dtype == torch.float32 else torch.int64
+        if not (torch.equal(gn, wn) and torch.equal(
+                g[~gn].contiguous().view(ints),
+                w[~wn].contiguous().view(ints))):
+            return False
+    return True
+
+
+def f32_planes(op):
+    """A DiaMatrix with its planes stored in float32 (the same values,
+    widened): the bfloat16 operator's reference."""
+    from pysparselp_tpu_torch.problem import DiaMatrix
+
+    if op is None:
+        return None
+    return DiaMatrix.from_planes(op.vals.float(), op.offsets,
+                                 op.vals_t.float(), op.offsets_t, op.nrows,
+                                 op.ncols, op.dtype, op.vals.device)
+
+
+def planes_of(prob):
+    """The storage dtype of a DIA problem's planes, as a name."""
+    return str(prob.a_ineq.vals.dtype).split(".")[1]
+
+
+def dia_tier(lp, dtype):
+    """What a CP solve of ``lp`` in ``dtype`` runs on the card: its
+    H-CPDIA tier (``cp_dia_plan``) and the storage of its planes."""
+    from pysparselp_tpu_torch.ops import cp_dia
+
+    prob, _ = lowered(lp, dtype, "cuda")
+    return dict(tier=cp_dia.cp_dia_plan(prob, dtype).tier,
+                planes=planes_of(prob))
 
 
 def folded(lp):
@@ -805,14 +877,15 @@ def chunk_ops(prob, macs):
             + 4 * prob.m_eq)
 
 
-def chunk_bound(prob, planes, macs):
+def chunk_bound(prob, planes, macs, plane_bytes=4):
     """Bound of one CP iteration with running sums (f32): the operator's
-    ``planes`` entries, and per iteration c, diag_t, lb, ub, x read and x,
-    x3 written, the x sum read and written; b, sigma, y read, y written
-    and the y sum read and written per system; the operations of
-    :func:`chunk_ops` for ``macs`` multiply-adds."""
+    ``planes`` entries of ``plane_bytes`` each (2 on bfloat16 planes), and
+    per iteration c, diag_t, lb, ub, x read and x, x3 written, the x sum
+    read and written; b, sigma, y read, y written and the y sum read and
+    written per system; the operations of :func:`chunk_ops` for ``macs``
+    multiply-adds."""
     rows = prob.m_eq + prob.m_ineq
-    return bound(4 * (planes + 9 * prob.n + 6 * rows),
+    return bound(plane_bytes * planes + 4 * (9 * prob.n + 6 * rows),
                  chunk_ops(prob, macs))
 
 
@@ -883,8 +956,18 @@ def phase_kernels(torch, problems, table):
                                                    op.ncols)],
                       name, "H-DIA potts300")
         rec = dict(kernel="H-DIA", dtype=name, shape=[op.nrows, op.ncols],
-                   ndiag=op.ndiag, max_abs_err=err)
+                   ndiag=op.ndiag, planes=planes_of(prob), max_abs_err=err)
         if dt == torch.float32:
+            # the bfloat16 planes against the same planes in float32
+            wide = f32_planes(op)
+            rec["bit_equal_f32_planes"] = same_bits(
+                torch, [op.matvec(x), op.rmatvec(y)],
+                [wide.matvec(x), wide.rmatvec(y)])
+            if op.vals.dtype != torch.bfloat16 or not rec[
+                    "bit_equal_f32_planes"]:
+                emit("kernels", **rec)
+                raise AssertionError("H-DIA potts300: not bit-equal on "
+                                     "bfloat16 and float32 planes")
             # the main path's call: the operator's prepared forward operand
             rec.update(timings(
                 torch, lambda: op.matvec(x),
@@ -894,7 +977,8 @@ def phase_kernels(torch, problems, table):
             rec["library_ms"] = cuda_ms(torch, lambda: torch.mv(lib, x), 200)
             rec["kernel_us"] = call_times(torch, lambda: op.matvec(x))
             rec["library_us"] = call_times(torch, lambda: torch.mv(lib, x))
-            nbytes = 4 * (op.vals.numel() + op.ndiag + op.ncols + op.nrows)
+            nbytes = (op.vals.element_size() * op.vals.numel()
+                      + 4 * (op.ndiag + op.ncols + op.nrows))
             rec["bound_ms"], rec["bound_by"] = bound(nbytes,
                                                      2 * op.vals.numel())
             table["H-DIA"].update({k: rec[k] for k in (
@@ -902,17 +986,15 @@ def phase_kernels(torch, problems, table):
         table["H-DIA"]["max_abs_err"] = max(table["H-DIA"]["max_abs_err"], err)
         emit("kernels", **rec)
 
-        # H-CPDIA: Potts-300 (ineq-only; K3's shape) and multi-label Potts
-        # (eq+ineq), which must still plan the two-launch tier (K2's small
-        # grids run H-CPDIA-R: phase_resident)
+        # H-CPDIA, the two-launch kernel forced: Potts-300 (ineq-only;
+        # K3's shape) and multi-label Potts (eq+ineq), on the planes as
+        # lowered (bfloat16 in float32); phase_grid runs their planned
+        # tier, H-CPDIA-G (Potts-300 f64 plans this kernel)
         for key, nsteps in (("potts300", 100), ("multilabel64", 100)):
             prob, pre = lowered(problems[key], dt, dev)
             if not cp_dia.cp_dia_eligible(prob):
                 raise AssertionError(f"{key} did not lower to DIA operators")
             tier = cp_dia.cp_dia_plan(prob, dt).tier
-            if tier != "two_launch":
-                raise AssertionError(f"{key} ({name}) planned {tier}, not "
-                                     "the two-launch H-CPDIA")
             x0 = torch.as_tensor(rng.rand(prob.n), dtype=dt, device=dev)
             ye0 = torch.as_tensor(rng.rand(prob.m_eq) * 0.1, dtype=dt,
                                   device=dev)
@@ -921,29 +1003,48 @@ def phase_kernels(torch, problems, table):
 
             def kern(nsteps=nsteps, prob=prob, pre=pre):
                 return cp_dia.cp_dia_chunk(prob, pre, x0, ye0, yi0, nsteps,
-                                           1.0, with_sums=True)
+                                           1.0, with_sums=True,
+                                           plan=cp_dia.TWO_LAUNCH)
 
             def plain(nsteps=nsteps, prob=prob, pre=pre):
                 return cp_dia.cp_dia_chunk_reference(prob, pre, x0, ye0, yi0,
                                                      nsteps, 1.0,
                                                      with_sums=True)
 
-            err = compare(torch, kern(), plain(), name, f"H-CPDIA {key}")
+            got = kern()
+            err = compare(torch, got, plain(), name, f"H-CPDIA {key}")
             rec = dict(kernel="H-CPDIA", problem=key, dtype=name,
                        n=prob.n, m_eq=prob.m_eq, m_ineq=prob.m_ineq,
-                       nsteps=nsteps, tier=tier, max_abs_err=err)
+                       nsteps=nsteps, planned_tier=tier,
+                       planes=planes_of(prob), max_abs_err=err)
             if dt == torch.float32:
+                wide = dataclasses.replace(
+                    prob, a_eq=f32_planes(prob.a_eq),
+                    a_ineq=f32_planes(prob.a_ineq))
+                rec["bit_equal_f32_planes"] = same_bits(
+                    torch, got, cp_dia.cp_dia_chunk(
+                        wide, pre, x0, ye0, yi0, nsteps, 1.0,
+                        with_sums=True, plan=cp_dia.TWO_LAUNCH))
+                if not rec["bit_equal_f32_planes"]:
+                    emit("kernels", **rec)
+                    raise AssertionError(f"H-CPDIA {key}: not bit-equal on "
+                                         "bfloat16 and float32 planes")
                 rec.update(timings(torch, kern, plain, 3, per=nsteps))
                 rec["kernel_us"] = call_times(torch, kern, reps=3,
                                               host_reps=3)
                 planes = sum(o.vals.numel() + o.vals_t.numel()
                              for o in (prob.a_eq, prob.a_ineq)
                              if o is not None)
-                rec["bound_ms"], rec["bound_by"] = chunk_bound(prob, planes,
-                                                               planes)
+                item = prob.a_ineq.vals.element_size()
+                rec["bound_ms"], rec["bound_by"] = chunk_bound(
+                    prob, planes, planes, item)
+                rec["bound_f32_planes_ms"] = chunk_bound(prob, planes,
+                                                         planes)[0]
                 if key == "potts300":
                     table["H-CPDIA"].update({k: rec[k] for k in (
                         "ms", "plain_ms", "bound_ms", "bound_by")})
+                    table["H-CPDIA"]["bound_f32_planes_ms"] = rec[
+                        "bound_f32_planes_ms"]
             table["H-CPDIA"]["max_abs_err"] = max(
                 table["H-CPDIA"]["max_abs_err"], err)
             emit("kernels", **rec)
@@ -999,17 +1100,18 @@ def phase_kernels(torch, problems, table):
             emit("kernels", **rec)
 
 
-def chunk_io_bound(prob, planes, nsteps):
+def chunk_io_bound(prob, planes, nsteps, plane_bytes=4):
     """The least time of one ``nsteps``-iteration chunk with sums (f32), per
     iteration, as one function: each input read once (the DIA operator's
-    ``planes`` entries and offsets; c, diag_t, l, u, x; b, sigma, y per
-    system), each output written once (x, x3 and the x sum; y and its sum
-    per system), and ``nsteps`` times :func:`chunk_ops` (each plane entry
-    in one multiply-add)."""
+    ``planes`` entries of ``plane_bytes`` each, and its offsets; c,
+    diag_t, l, u, x; b, sigma, y per system), each output written once (x,
+    x3 and the x sum; y and its sum per system), and ``nsteps`` times
+    :func:`chunk_ops` (each plane entry in one multiply-add)."""
     rows = prob.m_eq + prob.m_ineq
     offsets = sum(len(o.offsets) + len(o.offsets_t)
                   for o in (prob.a_eq, prob.a_ineq) if o is not None)
-    ms, by = bound(4 * (planes + offsets + 8 * prob.n + 5 * rows),
+    ms, by = bound(plane_bytes * planes
+                   + 4 * (offsets + 8 * prob.n + 5 * rows),
                    nsteps * chunk_ops(prob, planes))
     return ms / nsteps, by
 
@@ -1095,7 +1197,20 @@ def phase_resident(torch, problems, table, sm_mhz):
                        n=prob.n, m_ineq=prob.m_ineq, cluster=plan.cluster,
                        width=plan.width, threads=plan.threads,
                        smem_bytes=plan.smem_bytes, reach=plan.reach,
-                       max_abs_err=errs)
+                       planes=planes_of(prob), max_abs_err=errs)
+            if dt == torch.float32:
+                # staged from bfloat16 planes against float32 planes
+                wide = dataclasses.replace(prob,
+                                           a_ineq=f32_planes(prob.a_ineq))
+                args = (x0, ye0, yi0, 200, 1.0, True)
+                rec["bit_equal_f32_planes"] = same_bits(
+                    torch, cp_dia.cp_dia_chunk(prob, pre, *args),
+                    cp_dia.cp_dia_chunk(wide, pre, *args))
+                if (prob.a_ineq.vals.dtype != torch.bfloat16
+                        or not rec["bit_equal_f32_planes"]):
+                    emit("kernels", **rec)
+                    raise AssertionError(f"H-CPDIA-R {key}: not bit-equal "
+                                         "on bfloat16 and float32 planes")
 
             def kern(prob=prob, pre=pre, x0=x0, yi0=yi0):
                 return cp_dia.cp_dia_chunk(prob, pre, x0, ye0, yi0, 200, 1.0,
@@ -1147,6 +1262,204 @@ def phase_resident(torch, problems, table, sm_mhz):
                         bound_stream_ms=rec["bound_stream_ms"],
                         bound_resident_ms=rec["bound_resident"]["ms"],
                         two_launch_ms=rec["pair_ms"]["two_launch"])
+            emit("kernels", **rec)
+
+
+# H-CPDIA-G's check and timing cases: the problem and its dtypes (Potts-300
+# plans the grid tier in float32 only: on bfloat16 planes)
+GRID_CASES = (("potts100", ("float32", "float64")),
+              ("potts300", ("float32",)), ("multilabel64", ("float32",)))
+GRID_STEPS = 100
+# the buffer sizes (MiB, float32) whose back-to-back reads give the L2 rate
+# H-CPDIA-G's own bound prices its L2 bytes at: the fastest of the two (a
+# 16 MiB read is short enough for its launch to show; 36 MiB is about the
+# BSR tile set, whose torch.mv read 4.55 TB/s on an H100 SXM, PERF.md K6)
+GRID_L2_PROBE_MIB = (16, 36)
+
+
+def grid_traffic(prob, plan, itemsize):
+    """``(shared, l2)``: the bytes one H-CPDIA-G iteration with sums moves
+    in shared memory (each tap a plane entry as stored and a vector entry;
+    x3's and the duals' slabs written and read there, their halos stored
+    there; the vectors the plan keeps there, read, and x and the sums also
+    written) and through L2 (x3 and the duals written, their halos read,
+    the other vectors read, and x and the sums also written)."""
+    ai, ae = prob.a_ineq, prob.a_eq
+    n = prob.n
+    m = prob.m_ineq if ai is not None else 0
+    me = prob.m_eq if ae is not None else 0
+    plane = ai.vals.element_size()
+    taps = sum(n * len(op.offsets_t) + rows * len(op.offsets)
+               for op, rows in ((ai, m), (ae, me)) if op is not None)
+    access = {"x": 2 * n, "sx": 2 * n, "sy": 2 * m, "sye": 2 * me,
+              "c": n, "t": n, "lb": n, "ub": n, "b": m, "s": m, "be": me,
+              "se": me}
+    kept = sum(access[v] for v in plan.vectors)
+    left = sum(v for k, v in access.items() if k not in plan.vectors)
+    (hlx, hrx), (hly, hry) = plan.halos
+    halos = plan.ctas * (hlx + hrx + ((m > 0) + (me > 0)) * (hly + hry))
+    slabs = n + 2 * (m + me)
+    shared = taps * (plane + itemsize) + itemsize * (kept + slabs + halos)
+    l2 = itemsize * (n + m + me + halos + left)
+    return shared, l2
+
+
+def grid_bound(prob, plan, itemsize, sm_mhz, l2_rate):
+    """H-CPDIA-G's own least time per iteration, in ms: the larger of its
+    shared-memory bytes (:func:`grid_traffic`) over the plan's CTAs at 128
+    B per clock and the card's largest SM clock, and its L2 bytes at
+    ``l2_rate`` (the fastest read rate :func:`read_rates` measured in this
+    run from an L2-resident buffer, over GRID_L2_PROBE_MIB); with the two
+    parts.  The two grid barriers are not counted."""
+    shared, l2 = grid_traffic(prob, plan, itemsize)
+    smem_ms = shared / (plan.ctas * 128 * sm_mhz * 1e6) * 1e3
+    l2_ms = l2 / l2_rate * 1e3
+    return dict(ms=max(smem_ms, l2_ms), smem_ms=smem_ms, l2_ms=l2_ms,
+                smem_bytes=shared, l2_bytes=l2)
+
+
+def grid_barrier_us(torch, nsyncs=400, reps=10):
+    """Microseconds per grid barrier of ``pslp_grid_sync_loop``: one
+    cooperative launch of H100_SMS CTAs running ``nsyncs`` grid.sync(), at
+    the block sizes H-CPDIA-G's plans take (Potts-100 320 threads, the
+    multi-label 64 grid 512, Potts-300 1,024)."""
+    import ctypes
+
+    from pysparselp_tpu_torch.ops import _build
+
+    sync = _build.entry("pslp_grid_sync_loop",
+                        [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    stream = _build.stream(_build.device_index("cuda"))
+    return {threads: cuda_ms(torch, lambda threads=threads: sync(
+        H100_SMS, threads, nsyncs, stream), reps) * 1e3 / nsyncs
+        for threads in (320, 512, 1024)}
+
+
+def phase_grid(torch, problems, table, sm_mhz):
+    """Phase 2 for H-CPDIA-G (K3's shapes whose slab fits shared memory):
+    on GRID_CASES, with and without sums, at 1, 7 and GRID_STEPS
+    iterations, bit for bit against the twin and against the two-launch
+    H-CPDIA forced on the same inputs (NaN and signed zeros included), one
+    launch a chunk; in float32, at GRID_STEPS iterations with sums, the
+    events, device and host times per iteration beside the two-launch
+    kernel's in the same call, kernels per chunk (must be 1), and the
+    bounds: the
+    contract's (each input read once a chunk), the two-launch kernel's
+    streaming bound on these planes and on float32 planes, and the tier's
+    own (:func:`grid_bound`); first the grid barrier's own cost
+    (:func:`grid_barrier_us`) and the L2 read rate the own bound uses (the
+    fastest over GRID_L2_PROBE_MIB)."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.ops import cp_dia
+
+    rng = np.random.RandomState(2)
+    dev = torch.device("cuda")
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device=dev)
+    l2_rates = {mib: read_rates(torch, mib * 1024 * 1024, flush)["l2"]
+                for mib in GRID_L2_PROBE_MIB}
+    l2_rate = max(l2_rates.values())
+    del flush
+    emit("kernels", kernel="H-CPDIA-G", l2_read_rate=l2_rate,
+         l2_read_rate_by_mib=l2_rates, barrier_us=grid_barrier_us(torch))
+    for key, dtypes in GRID_CASES:
+        for name in dtypes:
+            dt = getattr(torch, name)
+            prob, pre = lowered(problems[key], dt, dev)
+            plan = cp_dia.cp_dia_plan(prob, dt)
+            if plan.tier != "grid":
+                raise AssertionError(f"{key} ({name}) planned {plan.tier}")
+            x0 = torch.as_tensor(rng.rand(prob.n), dtype=dt, device=dev)
+            ye0 = torch.as_tensor(rng.rand(prob.m_eq) * 0.1, dtype=dt,
+                                  device=dev)
+            yi0 = torch.as_tensor(rng.rand(prob.m_ineq) * 0.1, dtype=dt,
+                                  device=dev)
+            checks = {}
+            for nsteps in (1, 7, GRID_STEPS):
+                for sums in (True, False):
+                    args = (prob, pre, x0, ye0, yi0, nsteps, 1.0, sums)
+                    before = cp_dia.cp_dia_grid_chunk.launches
+                    got = cp_dia.cp_dia_chunk(*args)
+                    launched = cp_dia.cp_dia_grid_chunk.launches - before
+                    checks[f"{nsteps}{'+sums' if sums else ''}"] = dict(
+                        launches=launched,
+                        twin=same_bits(torch, got,
+                                       cp_dia.cp_dia_chunk_reference(*args)),
+                        two_launch=same_bits(torch, got, cp_dia.cp_dia_chunk(
+                            *args, plan=cp_dia.TWO_LAUNCH)))
+            ok = all(c["launches"] == 1 and c["twin"] and c["two_launch"]
+                     for c in checks.values())
+            rec = dict(kernel="H-CPDIA-G", problem=key, dtype=name,
+                       n=prob.n, m_eq=prob.m_eq, m_ineq=prob.m_ineq,
+                       planes=planes_of(prob), ctas=plan.ctas,
+                       width=plan.width, threads=plan.threads,
+                       smem_bytes=plan.smem_bytes, halos=plan.halos,
+                       vectors=plan.vectors, checks=checks,
+                       max_abs_err=0.0 if ok else None)
+            if not ok:
+                emit("kernels", **rec)
+                raise AssertionError(f"H-CPDIA-G {key} ({name}): not bit-"
+                                     "equal to the twin and the two-launch "
+                                     "kernel in one launch")
+
+            if dt != torch.float32:
+                # float64 is checked, not timed
+                emit("kernels", **rec)
+                continue
+
+            def grid(prob=prob, pre=pre, x0=x0, ye0=ye0, yi0=yi0):
+                return cp_dia.cp_dia_chunk(prob, pre, x0, ye0, yi0,
+                                           GRID_STEPS, 1.0, True)
+
+            def two(prob=prob, pre=pre, x0=x0, ye0=ye0, yi0=yi0):
+                return cp_dia.cp_dia_chunk(prob, pre, x0, ye0, yi0,
+                                           GRID_STEPS, 1.0, True,
+                                           plan=cp_dia.TWO_LAUNCH)
+
+            def plain(prob=prob, pre=pre, x0=x0, ye0=ye0, yi0=yi0):
+                return cp_dia.cp_dia_chunk_reference(prob, pre, x0, ye0, yi0,
+                                                     GRID_STEPS, 1.0, True)
+
+            def per_iteration(times):
+                return {k: v / GRID_STEPS if k.endswith("_us") else v
+                        for k, v in times.items()}
+
+            # the two tiers in turns, per iteration
+            pair = [cuda_ms(torch, f, 5) / GRID_STEPS
+                    for f in (two, grid, grid, two)]
+            rec["pair_ms"] = dict(grid=(pair[1] + pair[2]) / 2,
+                                  two_launch=(pair[0] + pair[3]) / 2)
+            rec["kernel_us"] = per_iteration(call_times(
+                torch, grid, reps=5, host_reps=5))
+            rec["two_launch_us"] = per_iteration(call_times(
+                torch, two, reps=3, host_reps=3))
+            names = rec["kernel_us"]["kernel_names"]
+            if (round(rec["kernel_us"]["kernels_per_call"]) != 1
+                    or len(names) != 1
+                    or "cp_dia_grid_kernel" not in names[0]):
+                raise AssertionError(f"H-CPDIA-G {key}: not one kernel per "
+                                     f"chunk: {rec['kernel_us']}")
+            planes = sum(o.vals.numel() + o.vals_t.numel()
+                         for o in (prob.a_eq, prob.a_ineq) if o is not None)
+            item = prob.a_ineq.vals.element_size()
+            rec["bound_grid"] = grid_bound(prob, plan, x0.element_size(),
+                                           sm_mhz, l2_rate)
+            rec["bound_ms"], rec["bound_by"] = chunk_io_bound(
+                prob, planes, GRID_STEPS, item)
+            rec["bound_stream_ms"] = chunk_bound(prob, planes, planes,
+                                                 item)[0]
+            rec["bound_stream_f32_planes_ms"] = chunk_bound(prob, planes,
+                                                            planes)[0]
+            rec.update(timings(torch, grid, plain, 3, per=GRID_STEPS))
+            if key == "potts300":
+                table["H-CPDIA-G"].update({k: rec[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by")})
+                table["H-CPDIA-G"].update(
+                    bound_grid_ms=rec["bound_grid"]["ms"],
+                    bound_stream_ms=rec["bound_stream_ms"],
+                    bound_stream_f32_planes_ms=rec[
+                        "bound_stream_f32_planes_ms"],
+                    two_launch_ms=rec["pair_ms"]["two_launch"])
             emit("kernels", **rec)
 
 
@@ -2014,7 +2327,8 @@ def phase_batch(torch, name, lp, counters):
         if launches[key] != want_n:
             raise AssertionError(f"batch {name}: {key} launched "
                                  f"{launches[key]} times, predicted {want_n}")
-    for key in ("H-DIA", "H-CSR", "H-CPDIA", "H-CPDENSE", "H-BSR"):
+    for key in ("H-DIA", "H-CSR", "H-CPDIA", "H-CPDIA-G", "H-CPDENSE",
+                "H-BSR"):
         if launches[key]:
             raise AssertionError(f"batch {name}: the 1-D kernel {key} ran "
                                  f"{launches[key]} times")
@@ -2022,26 +2336,51 @@ def phase_batch(torch, name, lp, counters):
 
 
 def phase_clime(torch, lp, counted_solve):
-    """Phase 5: the CLIME LP through ``permute="auto"`` on the card: the
-    layout presolve's choice and the lowering, each timed as the solver
-    calls them, then one solve of 2,000 ``light_metrics`` iterations with
-    a checkpoint every 100, whose first checkpoint is held against the
-    port's own float64 CPU run of 100 iterations and whose launches
-    against those the lowered operators predict.  Returns the solve's
-    launch counts."""
+    """Phase 5: the CLIME LP through ``permute="auto"`` on the card: one
+    solve of 2,000 ``light_metrics`` iterations with a checkpoint every
+    100, whose layout presolve is the solver's own call, recorded (its
+    seconds, the systems it was given and its choice), whose first
+    checkpoint is held against the port's own float64 CPU run of 100
+    iterations and whose launches against those the lowered operators
+    predict.  The lowering is then timed on the recorded systems and
+    choice, as the solver calls it.  Returns the solve's launch counts."""
     import numpy as np
+
+    from unittest import mock
 
     from pysparselp_tpu_torch.problem import (BsrMatrix, CsrMatrix,
                                               DiaMatrix, apply_rcm_permutation,
                                               lower_systems,
                                               operator_cost_bytes)
-    from pysparselp_tpu_torch.solvers.chambolle_pock import _choose_layout
+    from pysparselp_tpu_torch.solvers import chambolle_pock
 
+    real_choose = chambolle_pock._choose_layout
+    calls = []
+
+    def recorded_choose(mats, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_choose(mats, *args, **kwargs)
+        calls.append((time.perf_counter() - t0, list(mats), out))
+        return out
+
+    nb_iter, plot = 2000, 100
+    with mock.patch.object(chambolle_pock, "_choose_layout", recorded_choose):
+        wall, launches = counted_solve(
+            lp, method="chambolle_pock_ppd", nb_iter=nb_iter,
+            nb_iter_plot=plot, light_metrics=True, permute="auto",
+            dtype=np.float32, device="cuda")
+    if len(calls) != 1:
+        raise AssertionError(f"CLIME: the solve ran the layout presolve "
+                             f"{len(calls)} times, expected once")
+    choose_s, mats, (choice, _plan, layouts) = calls[0]
     sys_ = folded(lp)
-    mats = [sys_["a_eq"], sys_["a_ineq"]]
-    t0 = time.perf_counter()
-    choice, _plan, layouts = _choose_layout(mats)
-    choose_s = time.perf_counter() - t0
+    for got_a, want_a in zip(mats, (sys_["a_eq"], sys_["a_ineq"])):
+        if (got_a is None) != (want_a is None) or (
+                got_a is not None and (got_a.shape != want_a.shape
+                                       or (got_a != want_a).nnz)):
+            raise AssertionError("CLIME: the solver gave the layout presolve "
+                                 "other systems than the LP's")
+    sys_ = dict(sys_, a_eq=mats[0], a_ineq=mats[1])
     if choice == "rcm":
         sys_ = apply_rcm_permutation(sys_)[0]
     t0 = time.perf_counter()
@@ -2053,12 +2392,7 @@ def phase_clime(torch, lp, counted_solve):
              for kind in (BsrMatrix, CsrMatrix, DiaMatrix)}
     described = {"a_eq": describe(ops[0]), "a_ineq": describe(ops[1])}
     bytes_pair = sum(operator_cost_bytes(o) for o in ops)
-    del ops, sys_
-    nb_iter, plot = 2000, 100
-    wall, launches = counted_solve(
-        lp, method="chambolle_pock_ppd", nb_iter=nb_iter,
-        nb_iter_plot=plot, light_metrics=True, permute="auto",
-        dtype=np.float32, device="cuda")
+    del ops, sys_, calls
     got, itrn = curves(lp), list(lp.itrn_curve)
     its = steady_rate(lp)
     # the same solve unpermuted (the chooser lowers it to CSR): what the
@@ -2267,11 +2601,12 @@ def shard_system(lp, seed=7):
     return sys_, info
 
 
-def run_shards(torch, glob, ndev, dtype, nsteps, twin=False):
+def run_shards(torch, glob, ndev, dtype, nsteps, twin=False, wide=False):
     """``nsteps`` iterations of H-CPDIA's shard entry (or its twin) on each
     of ``ndev`` ranks' slices in this process, the halos copied between
     them by hand (``Mesh.halo_exchange``'s packets); the whole ``(x, x3,
-    y_eq, y)`` from the interiors (no ``y_eq`` without equalities)."""
+    y_eq, y)`` from the interiors (no ``y_eq`` without equalities).
+    ``wide``: the slices' planes stored in float32, not as cut."""
     from pysparselp_tpu_torch.ops import cp_dia
     from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
     from pysparselp_tpu_torch.parallel.mesh import halo_pack, halo_unpack
@@ -2280,6 +2615,11 @@ def run_shards(torch, glob, ndev, dtype, nsteps, twin=False):
             else cp_dia.cp_dia_shard_step)
     ranks = [scw.place_position_shard(glob, ndev, r, dtype, "cuda")
              for r in range(ndev)]
+    if wide:
+        for d, _st in ranks:
+            d["shard"] = dataclasses.replace(
+                d["shard"], a_ineq=f32_planes(d["shard"].a_ineq),
+                a_eq=f32_planes(d["shard"].a_eq))
     empty = torch.zeros(0, dtype=dtype, device="cuda")
     for _ in range(nsteps):
         items = [scw.state_halo_items(d, st) for d, st in ranks]
@@ -2345,8 +2685,9 @@ def shard_bound(data, itemsize):
     cols, rows = inside(p0, p1, sh.n), inside(i0, i1, sh.m)
     planes = (len(sh.a_ineq.offsets_t) * cols
               + len(sh.a_ineq.offsets) * rows)
-    nbytes = itemsize * (planes + 7 * cols + inside(0, sh.length, sh.m)
-                         + 3 * rows)
+    nbytes = (sh.a_ineq.vals.element_size() * planes
+              + itemsize * (7 * cols + inside(0, sh.length, sh.m)
+                            + 3 * rows))
     return bound(nbytes, 2 * planes + 8 * cols + 4 * rows)
 
 
@@ -2399,14 +2740,21 @@ def phase_shard_kernels(torch, problems, table):
                        dtype=name, ranks=ndev, nsteps=nsteps,
                        m_eq=glob["m_eq"], m_ineq=glob["m"],
                        plan=scw.shard_width(info["plan"], ndev),
+                       planes=str(glob["dia"]["plane_dtype"]).split(".")[1]
+                       if dt == torch.float32 else name,
                        bit_equal_to_chunk=same, max_abs_err=err)
+            if dt == torch.float32:
+                # the slices' bfloat16 planes against float32 planes
+                same = same and same_bits(torch, got, run_shards(
+                    torch, glob, ndev, dt, nsteps, wide=True))
+                rec["bit_equal_f32_planes"] = same
             table["H-CPDIA (shard)"]["max_abs_err"] = max(
                 table["H-CPDIA (shard)"]["max_abs_err"], err)
             if not same:
                 emit("kernels", **rec)
                 raise AssertionError(f"H-CPDIA (shard) {key} over {ndev} "
                                      f"shards ({name}) differs from the "
-                                     "chunk entry")
+                                     "chunk entry or from float32 planes")
             if timed and dt == torch.float32:
                 shard_times(torch, glob, rec, x0)
                 rec["chunk_ms_per_iteration"] = cuda_ms(
@@ -2541,17 +2889,20 @@ def phase_mesh1(torch, lp, want, counted_solve):
     # on one rank; per checkpoint four interior products (Aᵀ y over the
     # primal range, A x, A x4, A round(x)), one psum and one pmax of
     # packed scalars
-    predicted = {"H-CPDIA (shard)": 2 * 2000, "H-CPDIA": 0, "H-DIA": 4 * 2,
+    predicted = {"H-CPDIA (shard)": 2 * 2000, "H-CPDIA": 0, "H-CPDIA-G": 0,
+                 "H-DIA": 4 * 2,
                  "halo": 0, "vector_allreduces": 0,
                  "scalar_allreduces": 2 * 2, "gather": 0}
     counted = dict(collectives(calls), **{
-        k: n_m[k] for k in ("H-CPDIA (shard)", "H-CPDIA", "H-DIA")})
+        k: n_m[k] for k in ("H-CPDIA (shard)", "H-CPDIA", "H-CPDIA-G",
+                            "H-DIA")})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
     emit("main_path_mesh1", n=lp.nb_variables,
-         regime=info["regime"], backend="nccl", ranks=1,
+         regime=info["regime"], tier="shard entry (two launches a call)",
+         planes=info["planes"], backend="nccl", ranks=1,
          positions=info["positions"],
          positions_per_rank=info["positions_per_rank"],
          x_halo=info["x_halo"], y_halo=info["y_halo"],
@@ -3309,13 +3660,15 @@ def phase_potts50(torch, counted_solve):
     rate = steady_rate(lp)
     window = profile_window(torch, lambda: lp.solve(**run))
     emit("main_path_potts50", n=lp.nb_variables, iterations=200_000,
-         wall_s=wall, iters_per_s_steady=rate,
+         **dia_tier(lp, torch.float32), wall_s=wall,
+         iters_per_s_steady=rate,
          us_per_iteration_steady=1e6 / rate, dist=dist, launches=launches,
          profiled=window)
     if not dist < 1e-2:
         raise AssertionError(f"Potts-50 steady run: dist {dist} (need "
                              "< 1e-2)")
-    if not launches["H-CPDIA-R"] or launches["H-CPDIA"]:
+    if (not launches["H-CPDIA-R"] or launches["H-CPDIA"]
+            or launches["H-CPDIA-G"]):
         raise AssertionError(f"Potts-50 steady run did not run on "
                              f"H-CPDIA-R alone: {launches}")
     return launches["H-CPDIA-R"]
@@ -4239,7 +4592,7 @@ def by_method(log):
 
 def phase_checkpoint(torch, counted_solve):
     """``main_path_checkpoint``: CP-PPD in float32 on the card, on
-    Potts-300 (H-CPDIA) and Potts-50 (H-CPDIA-R): 800 iterations straight,
+    Potts-300 (H-CPDIA-G) and Potts-50 (H-CPDIA-R): 800 iterations straight,
     then 400 with ``CheckpointingCallback(path, every_sec=0.0)`` and 400
     more resumed from ``load_checkpoint(path)`` (x0, y_eq0, y_ineq0, x30).
     The resumed x is held to the straight one within MAIN_RTOL · max(1,
@@ -4251,7 +4604,7 @@ def phase_checkpoint(torch, counted_solve):
 
     SCRATCH.mkdir(parents=True, exist_ok=True)
     out, runs = {}, {}
-    for size, kernel in ((300, "H-CPDIA"), (50, "H-CPDIA-R")):
+    for size, kernel in ((300, "H-CPDIA-G"), (50, "H-CPDIA-R")):
         lp = build_linear_program(size, 0.5, 500)[0]
         run = dict(method="chambolle_pock_ppd", nb_iter_plot=200,
                    dtype=np.float32, device="cuda")
@@ -4528,6 +4881,7 @@ def kernel_counters():
                                           csr_spmv, dca_sweep, dia_spmv)
 
     return {"H-DIA": dia_spmv.dia_spmv, "H-CPDIA": cp_dia.cp_dia_chunk,
+            "H-CPDIA-G": cp_dia.cp_dia_grid_chunk,
             "H-CPDIA (shard)": cp_dia.cp_dia_shard_step,
             "H-CPDIA-R": cp_dia.cp_dia_resident_chunk,
             "H-CPDENSE": cp_dense.cp_dense_chunk,
@@ -4608,6 +4962,7 @@ def main() -> int:
     t0 = time.perf_counter()
     problems = {
         "potts300": build_linear_program(300, 0.5, 500)[0],
+        "potts100": build_linear_program(100, 0.5, 500)[0],
         "potts50": build_linear_program(50, 0.5, 500)[0],
         "potts20": build_linear_program(20, 0.5, 500)[0],
         "multilabel64": build_multilabel_linear_program(64, 4)[0],
@@ -4624,6 +4979,7 @@ def main() -> int:
                      bound_by=None, library_ms=None)
              for k, v in KERNELS.items()}
     phase_kernels(torch, problems, table)
+    phase_grid(torch, problems, table, sm_mhz)
     phase_resident(torch, problems, table, sm_mhz)
     phase_csr(torch, csr_matrices({k: folded(lp)
                                    for k, lp in workloads.items()}), table)
@@ -4659,14 +5015,38 @@ def main() -> int:
     if lp300.itrn_curve != itrn[:1]:
         raise AssertionError(f"checkpoints {itrn[:1]} vs {lp300.itrn_curve}")
     worst = checkpoint_diffs(got, want)
+    tier300 = dia_tier(lp300, torch.float32)
     emit("main_path_potts300", n=lp300.nb_variables, wall_s=wall,
          iters_per_s_steady=its, itrn=itrn, f32_cuda=got, f64_cpu=want,
          worst_rel_diff=worst, rel_limit=MAIN_RTOL, cpu_wall_s=cpu_wall,
-         launches=n300)
+         **tier300, launches=n300)
     if not all(v <= MAIN_RTOL for v in worst.values()):
         raise AssertionError(f"Potts-300 f32 CUDA vs f64 CPU: {worst}")
-    for key in ("H-DIA", "H-CPDIA"):
+    if (tier300 != dict(tier="grid", planes="bfloat16")
+            or not n300["H-CPDIA-G"] or n300["H-CPDIA"]):
+        raise AssertionError(f"Potts-300 f32 did not run H-CPDIA-G alone on "
+                             f"bfloat16 planes: {tier300}, {n300}")
+    for key in ("H-DIA", "H-CPDIA-G"):
         table[key]["launches"] = n300[key]
+    # the same LP in float64 on the card: the two-launch H-CPDIA on
+    # float64 planes, its checkpoint held against the same CPU run (the
+    # iterations are elementwise the twin's; the metrics' sums run in
+    # another order: F64_MAIN_RTOL)
+    wall64, n64 = counted_solve(lp300, dtype=np.float64, device="cuda",
+                                **dict(run, nb_iter=run["nb_iter_plot"]))
+    got64 = curves(lp300)
+    worst64 = checkpoint_diffs(got64, want)
+    tier64 = dia_tier(lp300, torch.float64)
+    emit("main_path_potts300_f64", n=lp300.nb_variables, wall_s=wall64,
+         itrn=list(lp300.itrn_curve), f64_cuda=got64, f64_cpu=want,
+         worst_rel_diff=worst64, rel_limit=F64_MAIN_RTOL, **tier64,
+         launches=n64)
+    if not all(v <= F64_MAIN_RTOL for v in worst64.values()):
+        raise AssertionError(f"Potts-300 f64 CUDA vs f64 CPU: {worst64}")
+    if tier64["tier"] != "two_launch" or not n64["H-CPDIA"]:
+        raise AssertionError(f"Potts-300 f64 did not run the two-launch "
+                             f"H-CPDIA: {tier64}, {n64}")
+    table["H-CPDIA"]["launches"] = n64["H-CPDIA"]
     lap("3_potts300")
 
     # phase 3b: the mesh solve, one NCCL rank (position-sharded in
@@ -4710,6 +5090,7 @@ def main() -> int:
     dists = np.asarray(lp50.distance_to_ground_truth)
     below = np.nonzero(dists < 1e-2)[0]
     emit("converge_potts50", dist=lp50.distance_to_ground_truth,
+         **dia_tier(lp50, torch.float32),
          itrn=lp50.itrn_curve, seconds=lp50.opttime_curve, wall_s=wall,
          seconds_to_graph_cut=(float(lp50.opttime_curve[below[0]])
                                if below.size else None),
@@ -4717,7 +5098,7 @@ def main() -> int:
     if not below.size:
         raise AssertionError(f"Potts-50 reached dist {dists.min()} "
                              "(need < 1e-2)")
-    if not n50["H-CPDIA-R"] or n50["H-CPDIA"]:
+    if not n50["H-CPDIA-R"] or n50["H-CPDIA"] or n50["H-CPDIA-G"]:
         raise AssertionError(f"Potts-50 did not run on H-CPDIA-R alone: "
                              f"{n50}")
     table["H-CPDIA-R"]["launches"] = n50["H-CPDIA-R"]

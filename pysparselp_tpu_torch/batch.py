@@ -58,7 +58,9 @@ def _lower_batch(a, dtype, device, _split=True):
     if partition_geometry(csr) is not None:
         return PartitionMatrix.from_scipy(csr, dtype, device)
     if _diagonal_count(csr) <= DIA_AUTO_MAX_OFFSETS:
-        return DiaMatrix.from_scipy(csr, dtype, device)
+        # the planes in the solve dtype, as JAX's batch._dia_planes stores
+        # them: H-DIA-B reads them so
+        return DiaMatrix.from_scipy(csr, dtype, device, allow_bf16=False)
     if _split:
         _, cuts = col_split_plan(csr)
         if cuts:

@@ -1,6 +1,7 @@
 // Shared helpers of the port's hand-written Hopper kernels.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define PSLP_EXPORT extern "C" __attribute__((visibility("default")))
@@ -13,13 +14,27 @@ inline int grid_for(long long n) {
   return static_cast<int>((n + kBlock - 1) / kBlock);
 }
 
+// A plane value as the compute type T reads it: DIA planes are stored in T,
+// or in bfloat16 for a float32 solve where every value is exact in bfloat16
+// (the JAX package's allow_bf16="exact" rule); the widening is exact, so a
+// product computes bit for bit what it computes on the float32 planes.
+template <typename T, typename P>
+__device__ __forceinline__ T widen(P v) {
+  return static_cast<T>(v);
+}
+
+template <>
+__device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 // One row of a DIA product: sum_k vals[k, r] * v[r + offs[k]], diagonals in
 // ascending-offset order, out-of-range reads contributing zero (the JAX
 // kernels' zero padding).  Every product and sum is rounded separately
 // (built with --fmad=false), exactly as the PyTorch twin's
-// ``y = y + vals[k] * v_shifted`` sequence.
-template <typename T>
-__device__ __forceinline__ T dia_row(const T* __restrict__ vals,
+// ``y = y + vals[k] * v_shifted`` sequence.  P is the planes' storage type.
+template <typename T, typename P = T>
+__device__ __forceinline__ T dia_row(const P* __restrict__ vals,
                                      const int* __restrict__ offs, int ndiag,
                                      long long stride, const T* v, int nv,
                                      int r) {
@@ -27,7 +42,7 @@ __device__ __forceinline__ T dia_row(const T* __restrict__ vals,
   for (int k = 0; k < ndiag; ++k) {
     const long long c = static_cast<long long>(r) + offs[k];
     const T xv = (c >= 0 && c < nv) ? v[c] : T(0);
-    acc = acc + vals[k * stride + r] * xv;
+    acc = acc + widen<T>(vals[k * stride + r]) * xv;
   }
   return acc;
 }

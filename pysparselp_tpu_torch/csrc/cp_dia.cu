@@ -4,9 +4,13 @@
 // Replaces pysparselp_tpu/ops/cp_windowed.py::build_windowed_call (K3, one
 // iteration per launch over row windows with a recomputed halo, eq + ineq).
 // The small aligned grids of pysparselp_tpu/ops/cp_fused.py::_cp_fused_call
-// (K2) run on H-CPDIA-R (cp_dia_resident.cu), one launch per chunk; this
-// kernel pair serves every DIA problem whose state does not fit one
-// cluster's shared memory (ops/cp_dia.py::cp_dia_plan).  The iteration:
+// (K2) run on H-CPDIA-R (cp_dia_resident.cu), one launch per chunk, and the
+// grids whose slab of planes fits one CTA of a CTA-an-SM grid on H-CPDIA-G
+// (cp_dia_grid.cu), one cooperative launch per chunk; this kernel pair
+// serves every other DIA problem (ops/cp_dia.py::cp_dia_plan: Potts-300 in
+// float64, Potts-500 and up).  The planes are read as stored (P: the
+// compute type, or bfloat16 for a float32 solve whose values are exact
+// there) and widened exactly (pslp::widen).  The iteration:
 //
 //   d  = c + A_e^T y_e + A_i^T y_i
 //   x2 = clip(x - T*d, l, u);   x3 = (1 + theta) x2 - theta x;   x = x2
@@ -18,14 +22,14 @@
 //
 // Bound on the H100: memory.  One iteration streams every value plane once
 // (ndiag_t * n + ndiag * m per system) plus about a dozen vectors; at the
-// Potts-300 shape (13 + 13 planes of 360k f32) that is ~60 MB, close to the
-// 50 MB L2.  Design: each iteration is two launches with no halo.  The
-// primal kernel is one thread per column (taps of A^T over y); the dual
-// kernel is one thread per row over the inequality rows and, if present, the
-// equality rows (taps of A over x3).  The launch boundary is the global
-// barrier that the TPU kernel obtained from recomputing a halo.  The host
-// loop below launches all 2 * nsteps kernels onto one stream, so Python pays
-// one call per chunk.
+// Potts-300 shape (13 + 13 planes of 360k) that is ~59 MB on float32
+// planes, ~40 MB on bfloat16 planes, close to the 50 MB L2.  Design: each
+// iteration is two launches with no halo.  The primal kernel is one thread per
+// column (taps of A^T over y); the dual kernel is one thread per row over the
+// inequality rows and, if present, the equality rows (taps of A over x3).  The
+// launch boundary is the global barrier that the TPU kernel obtained from
+// recomputing a halo.  The host loop below launches all 2 * nsteps kernels onto
+// one stream, so Python pays one call per chunk.
 //
 // The shard entry (pslp_cp_dia_shard_step_*) runs one such iteration on one
 // rank's slice of the position space, the counterpart of K3 run per shard
@@ -45,23 +49,23 @@ namespace {
 
 using pslp::dia_row;
 
-template <typename T>
+template <typename T, typename P>
 __global__ void cp_primal_kernel(int n, const T* __restrict__ c,
                                  const T* __restrict__ t,
                                  const T* __restrict__ lb,
                                  const T* __restrict__ ub,
-                                 const T* __restrict__ vte,
+                                 const P* __restrict__ vte,
                                  const int* __restrict__ offte, int ndte,
                                  const T* ye, int me,
-                                 const T* __restrict__ vt,
+                                 const P* __restrict__ vt,
                                  const int* __restrict__ offt, int ndt,
                                  const T* y, int m, T theta, T* x, T* x3,
                                  T* sx) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   T d = c[j];
-  if (me > 0) d = d + dia_row<T>(vte, offte, ndte, n, ye, me, j);
-  if (m > 0) d = d + dia_row<T>(vt, offt, ndt, n, y, m, j);
+  if (me > 0) d = d + dia_row<T, P>(vte, offte, ndte, n, ye, me, j);
+  if (m > 0) d = d + dia_row<T, P>(vt, offt, ndt, n, y, m, j);
   const T xo = x[j];
   const T x2 = pslp::clamp<T>(xo - t[j] * d, lb[j], ub[j]);
   x3[j] = (T(1) + theta) * x2 - theta * xo;
@@ -69,26 +73,26 @@ __global__ void cp_primal_kernel(int n, const T* __restrict__ c,
   if (sx != nullptr) sx[j] = sx[j] + x2;
 }
 
-template <typename T>
+template <typename T, typename P>
 __global__ void cp_dual_kernel(int rows, const T* x3, int n,
-                               const T* __restrict__ ve,
+                               const P* __restrict__ ve,
                                const int* __restrict__ offe, int nde,
                                const T* __restrict__ be,
                                const T* __restrict__ se, T* ye, T* sye, int me,
-                               const T* __restrict__ v,
+                               const P* __restrict__ v,
                                const int* __restrict__ off, int nd,
                                const T* __restrict__ b,
                                const T* __restrict__ s, T* y, T* sy, int m) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rows) return;
   if (i < me) {
-    const T r = dia_row<T>(ve, offe, nde, me, x3, n, i) - be[i];
+    const T r = dia_row<T, P>(ve, offe, nde, me, x3, n, i) - be[i];
     const T yn = ye[i] + se[i] * r;
     ye[i] = yn;
     if (sye != nullptr) sye[i] = sye[i] + yn;
   }
   if (i < m) {
-    const T r = dia_row<T>(v, off, nd, m, x3, n, i) - b[i];
+    const T r = dia_row<T, P>(v, off, nd, m, x3, n, i) - b[i];
     T yn = y[i] + s[i] * r;
     yn = pslp::clamp_min0<T>(yn);
     y[i] = yn;
@@ -96,11 +100,11 @@ __global__ void cp_dual_kernel(int rows, const T* x3, int n,
   }
 }
 
-template <typename T>
+template <typename T, typename P>
 int chunk(int n, int m, int me, const T* c, const T* t, const T* lb,
-          const T* ub, const T* vt, const int* offt, int ndt, const T* v,
-          const int* off, int nd, const T* b, const T* s, const T* vte,
-          const int* offte, int ndte, const T* ve, const int* offe, int nde,
+          const T* ub, const P* vt, const int* offt, int ndt, const P* v,
+          const int* off, int nd, const T* b, const T* s, const P* vte,
+          const int* offte, int ndte, const P* ve, const int* offe, int nde,
           const T* be, const T* se, T* x, T* x3, T* y, T* ye, T* sx, T* sy,
           T* sye, T theta, int nsteps, int with_sums, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -108,12 +112,12 @@ int chunk(int n, int m, int me, const T* c, const T* t, const T* lb,
   const int rows = m > me ? m : me;
   for (int it = 0; it < nsteps; ++it) {
     if (n > 0) {
-      cp_primal_kernel<T><<<pslp::grid_for(n), pslp::kBlock, 0, st>>>(
+      cp_primal_kernel<T, P><<<pslp::grid_for(n), pslp::kBlock, 0, st>>>(
           n, c, t, lb, ub, vte, offte, ndte, ye, me, vt, offt, ndt, y, m,
           theta, x, x3, sx);
     }
     if (rows > 0) {
-      cp_dual_kernel<T><<<pslp::grid_for(rows), pslp::kBlock, 0, st>>>(
+      cp_dual_kernel<T, P><<<pslp::grid_for(rows), pslp::kBlock, 0, st>>>(
           rows, x3, n, ve, offe, nde, be, se, ye, sye, me, v, off, nd, b, s,
           y, sy, m);
     }
@@ -127,8 +131,8 @@ int chunk(int n, int m, int me, const T* c, const T* t, const T* lb,
 // position g; tap k reads v at local index jl + offs[k] when its global
 // position lies in [0, nv), else zero (dia_row's arithmetic, with the
 // planes and v indexed locally, the bounds globally).
-template <typename T>
-__device__ __forceinline__ T dia_row_local(const T* __restrict__ vals,
+template <typename T, typename P>
+__device__ __forceinline__ T dia_row_local(const P* __restrict__ vals,
                                            const int* __restrict__ offs,
                                            int ndiag, int stride, const T* v,
                                            int nv, long long g, int jl) {
@@ -137,18 +141,19 @@ __device__ __forceinline__ T dia_row_local(const T* __restrict__ vals,
     const int o = offs[k];
     const long long c = g + o;
     const T xv = (c >= 0 && c < nv) ? v[jl + o] : T(0);
-    acc = acc + vals[static_cast<long long>(k) * stride + jl] * xv;
+    const P a = vals[static_cast<long long>(k) * stride + jl];
+    acc = acc + pslp::widen<T>(a) * xv;
   }
   return acc;
 }
 
-template <typename T>
+template <typename T, typename P>
 __global__ void cp_shard_primal_kernel(
     int len, int g0, int p0, int p1, int i0, int i1, int n,
     const T* __restrict__ c, const T* __restrict__ t,
     const T* __restrict__ lb, const T* __restrict__ ub,
-    const T* __restrict__ vte, const int* __restrict__ offte, int ndte,
-    const T* ye, int me, const T* __restrict__ vt,
+    const P* __restrict__ vte, const int* __restrict__ offte, int ndte,
+    const T* ye, int me, const P* __restrict__ vt,
     const int* __restrict__ offt, int ndt, const T* y, int m, T theta, T* x,
     T* x3, T* sx) {
   const int jl = p0 + blockIdx.x * blockDim.x + threadIdx.x;
@@ -156,8 +161,9 @@ __global__ void cp_shard_primal_kernel(
   const long long g = static_cast<long long>(g0) + jl;
   if (g < 0 || g >= n) return;
   T d = c[jl];
-  if (me > 0) d = d + dia_row_local<T>(vte, offte, ndte, len, ye, me, g, jl);
-  if (m > 0) d = d + dia_row_local<T>(vt, offt, ndt, len, y, m, g, jl);
+  if (me > 0)
+    d = d + dia_row_local<T, P>(vte, offte, ndte, len, ye, me, g, jl);
+  if (m > 0) d = d + dia_row_local<T, P>(vt, offt, ndt, len, y, m, g, jl);
   const T xo = x[jl];
   const T x2 = pslp::clamp<T>(xo - t[jl] * d, lb[jl], ub[jl]);
   x3[jl] = (T(1) + theta) * x2 - theta * xo;
@@ -165,25 +171,26 @@ __global__ void cp_shard_primal_kernel(
   if (sx != nullptr && jl >= i0 && jl < i1) sx[jl] = sx[jl] + x2;
 }
 
-template <typename T>
+template <typename T, typename P>
 __global__ void cp_shard_dual_kernel(
     int len, int g0, int i0, int i1, int n, const T* x3,
-    const T* __restrict__ ve, const int* __restrict__ offe, int nde,
+    const P* __restrict__ ve, const int* __restrict__ offe, int nde,
     const T* __restrict__ be, const T* __restrict__ se, T* ye, T* sye, int me,
-    const T* __restrict__ v, const int* __restrict__ off, int nd,
+    const P* __restrict__ v, const int* __restrict__ off, int nd,
     const T* __restrict__ b, const T* __restrict__ s, T* y, T* sy, int m) {
   const int il = i0 + blockIdx.x * blockDim.x + threadIdx.x;
   if (il >= i1) return;
   const long long g = static_cast<long long>(g0) + il;
   if (g < 0) return;
   if (g < me) {
-    const T r = dia_row_local<T>(ve, offe, nde, len, x3, n, g, il) - be[il];
+    const T r =
+        dia_row_local<T, P>(ve, offe, nde, len, x3, n, g, il) - be[il];
     const T yn = ye[il] + se[il] * r;
     ye[il] = yn;
     if (sye != nullptr) sye[il] = sye[il] + yn;
   }
   if (g < m) {
-    const T r = dia_row_local<T>(v, off, nd, len, x3, n, g, il) - b[il];
+    const T r = dia_row_local<T, P>(v, off, nd, len, x3, n, g, il) - b[il];
     T yn = y[il] + s[il] * r;
     yn = pslp::clamp_min0<T>(yn);
     y[il] = yn;
@@ -191,60 +198,63 @@ __global__ void cp_shard_dual_kernel(
   }
 }
 
-template <typename T>
+template <typename T, typename P>
 int shard_step(int len, int g0, int p0, int p1, int i0, int i1, int n, int m,
-               int me, const T* c, const T* lb, const T* ub, const T* vt,
-               const int* offt, int ndt, const T* v, const int* off, int nd,
-               const T* b, const T* vte, const int* offte, int ndte,
-               const T* ve, const int* offe, int nde, const T* be, const T* t,
+               int me, const T* c, const T* lb, const T* ub, const P* vt,
+               const int* offt, int ndt, const P* v, const int* off, int nd,
+               const T* b, const P* vte, const int* offte, int ndte,
+               const P* ve, const int* offe, int nde, const T* be, const T* t,
                const T* s, const T* se, T* x, T* x3, T* y, T* ye, T* sx,
                T* sy, T* sye, T theta, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (p1 > p0) {
-    cp_shard_primal_kernel<T>
+    cp_shard_primal_kernel<T, P>
         <<<pslp::grid_for(p1 - p0), pslp::kBlock, 0, st>>>(
             len, g0, p0, p1, i0, i1, n, c, t, lb, ub, vte, offte, ndte, ye,
             me, vt, offt, ndt, y, m, theta, x, x3, sx);
   }
   if (i1 > i0) {
-    cp_shard_dual_kernel<T><<<pslp::grid_for(i1 - i0), pslp::kBlock, 0, st>>>(
-        len, g0, i0, i1, n, x3, ve, offe, nde, be, se, ye, sye, me, v, off,
-        nd, b, s, y, sy, m);
+    cp_shard_dual_kernel<T, P>
+        <<<pslp::grid_for(i1 - i0), pslp::kBlock, 0, st>>>(
+            len, g0, i0, i1, n, x3, ve, offe, nde, be, se, ye, sye, me, v,
+            off, nd, b, s, y, sy, m);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-#define PSLP_CP_DIA_SHARD(SUFFIX, T)                                          \
+#define PSLP_CP_DIA_SHARD(SUFFIX, T, P)                                       \
   PSLP_EXPORT int pslp_cp_dia_shard_step_##SUFFIX(                            \
       int len, int g0, int p0, int p1, int i0, int i1, int n, int m, int me,  \
-      const T* c, const T* lb, const T* ub, const T* vt, const int* offt,     \
-      int ndt, const T* v, const int* off, int nd, const T* b, const T* vte,  \
-      const int* offte, int ndte, const T* ve, const int* offe, int nde,      \
+      const T* c, const T* lb, const T* ub, const P* vt, const int* offt,     \
+      int ndt, const P* v, const int* off, int nd, const T* b, const P* vte,  \
+      const int* offte, int ndte, const P* ve, const int* offe, int nde,      \
       const T* be, const T* t, const T* s, const T* se, T* x, T* x3, T* y,    \
       T* ye, T* sx, T* sy, T* sye, T theta, void* stream) {                   \
-    return shard_step<T>(len, g0, p0, p1, i0, i1, n, m, me, c, lb, ub, vt,    \
-                         offt, ndt, v, off, nd, b, vte, offte, ndte, ve,      \
-                         offe, nde, be, t, s, se, x, x3, y, ye, sx, sy, sye,  \
-                         theta, stream);                                      \
+    return shard_step<T, P>(len, g0, p0, p1, i0, i1, n, m, me, c, lb, ub,    \
+                            vt, offt, ndt, v, off, nd, b, vte, offte, ndte,   \
+                            ve, offe, nde, be, t, s, se, x, x3, y, ye, sx,    \
+                            sy, sye, theta, stream);                          \
   }
 
-PSLP_CP_DIA_SHARD(f32, float)
-PSLP_CP_DIA_SHARD(f64, double)
+PSLP_CP_DIA_SHARD(f32, float, float)
+PSLP_CP_DIA_SHARD(f64, double, double)
+PSLP_CP_DIA_SHARD(f32_bf16, float, __nv_bfloat16)
 
-#define PSLP_CP_DIA(SUFFIX, T)                                               \
+#define PSLP_CP_DIA(SUFFIX, T, P)                                            \
   PSLP_EXPORT int pslp_cp_dia_chunk_##SUFFIX(                                \
       int n, int m, int me, const T* c, const T* t, const T* lb,             \
-      const T* ub, const T* vt, const int* offt, int ndt, const T* v,        \
-      const int* off, int nd, const T* b, const T* s, const T* vte,          \
-      const int* offte, int ndte, const T* ve, const int* offe, int nde,     \
+      const T* ub, const P* vt, const int* offt, int ndt, const P* v,        \
+      const int* off, int nd, const T* b, const T* s, const P* vte,          \
+      const int* offte, int ndte, const P* ve, const int* offe, int nde,     \
       const T* be, const T* se, T* x, T* x3, T* y, T* ye, T* sx, T* sy,      \
       T* sye, T theta, int nsteps, int with_sums, void* stream) {            \
-    return chunk<T>(n, m, me, c, t, lb, ub, vt, offt, ndt, v, off, nd, b, s, \
-                    vte, offte, ndte, ve, offe, nde, be, se, x, x3, y, ye,   \
-                    sx, sy, sye, theta, nsteps, with_sums, stream);          \
+    return chunk<T, P>(n, m, me, c, t, lb, ub, vt, offt, ndt, v, off, nd, b, \
+                       s, vte, offte, ndte, ve, offe, nde, be, se, x, x3, y, \
+                       ye, sx, sy, sye, theta, nsteps, with_sums, stream);   \
   }
 
-PSLP_CP_DIA(f32, float)
-PSLP_CP_DIA(f64, double)
+PSLP_CP_DIA(f32, float, float)
+PSLP_CP_DIA(f64, double, double)
+PSLP_CP_DIA(f32_bf16, float, __nv_bfloat16)

@@ -69,6 +69,9 @@
 //   bit-identical to both.
 // * No wgmma or TMA: the planes are a gather-free stream from shared memory;
 //   the offsets travel in the kernel's parameters (constant space).
+// * Planes stored in bfloat16 (a float32 solve whose values are exact
+//   there) are widened exactly as they are staged, so the shared-memory
+//   layout is the same on either storage and so is every output.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -88,14 +91,16 @@ constexpr int kMaxDiag = 32;
 // four mbarriers ahead of the arrays: x3's and y's, for each buffer
 constexpr int kBarrierBytes = 32;
 
-template <typename T>
+template <typename T, typename P>
 struct ResidentArgs {
   int n, m, me;               // columns, inequality rows, equality rows
   int ndt, nd, ndte, nde;     // diagonals of A_i^T, A_i, A_e^T, A_e
   int width, reach;           // W positions per CTA, R halo positions
   const T *c, *t, *lb, *ub;
-  const T *vt, *v, *b, *s;    // inequality system
-  const T *vte, *ve, *be, *se;  // equality system
+  const P *vt, *v;            // inequality system: planes as stored,
+  const T *b, *s;             // b and sigma
+  const P *vte, *ve;          // equality system
+  const T *be, *se;
   const T *x_in, *y_in, *ye_in;
   T *x, *x3, *y, *ye, *sx, *sy, *sye;
   T theta;
@@ -123,15 +128,18 @@ __device__ __forceinline__ T taps(const T* vals, const int* offs, int ndiag,
   return acc;
 }
 
-template <typename T>
-__device__ __forceinline__ void load_planes(T* dst, const T* src, int nd,
+// A slab of each plane into shared memory, widened exactly to T as it is
+// staged (planes stored in bfloat16 take the same layout as in T).
+template <typename T, typename P>
+__device__ __forceinline__ void load_planes(T* dst, const P* src, int nd,
                                             int stride, int width, int lo,
                                             int len) {
   for (int k = 0; k < nd; ++k) {
     for (int l = threadIdx.x; l < width; l += blockDim.x) {
       const int p = lo + l;
       dst[k * width + l] =
-          p < len ? src[static_cast<long long>(k) * stride + p] : T(0);
+          p < len ? pslp::widen<T>(src[static_cast<long long>(k) * stride + p])
+                  : T(0);
     }
   }
 }
@@ -272,9 +280,9 @@ __device__ __forceinline__ void pass_barrier(uint32_t bar, uint32_t parity) {
   mbar_wait(bar, parity);
 }
 
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(kMaxThreads)
-    cp_dia_resident_kernel(const __grid_constant__ ResidentArgs<T> a) {
+    cp_dia_resident_kernel(const __grid_constant__ ResidentArgs<T, P> a) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int last = static_cast<int>(cluster.num_blocks()) - 1;
@@ -339,10 +347,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   if (m > 0) load_ext<T>(y_b + E, a.y_in, W, R, lo, m);
   if (me > 0) load_ext<T>(ye_b + E, a.ye_in, W, R, lo, me);
-  load_planes<T>(vt_s, a.vt, a.ndt, n, W, lo, n);
-  load_planes<T>(vte_s, a.vte, a.ndte, n, W, lo, n);
-  if (m > 0) load_planes<T>(v_s, a.v, a.nd, m, W, lo, m);
-  if (me > 0) load_planes<T>(ve_s, a.ve, a.nde, me, W, lo, me);
+  load_planes<T, P>(vt_s, a.vt, a.ndt, n, W, lo, n);
+  load_planes<T, P>(vte_s, a.vte, a.ndte, n, W, lo, n);
+  if (m > 0) load_planes<T, P>(v_s, a.v, a.nd, m, W, lo, m);
+  if (me > 0) load_planes<T, P>(ve_s, a.ve, a.nde, me, W, lo, me);
   if (threadIdx.x == 0) {
     for (int k = 0; k < 4; ++k) mbar_init(bar_x3 + 8 * k, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -454,9 +462,9 @@ cudaLaunchConfig_t cluster_config(int cluster, int threads, int smem_bytes,
 // Once per plan, before its first launch: allow the non-portable cluster
 // size and the shared memory, then ask how many such clusters the card can
 // hold at once (0: the plan cannot launch; the wrapper raises).
-template <typename T>
+template <typename T, typename P>
 int prepare(int cluster, int threads, int smem_bytes, int* clusters) {
-  auto kernel = cp_dia_resident_kernel<T>;
+  auto kernel = cp_dia_resident_kernel<T, P>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -470,28 +478,28 @@ int prepare(int cluster, int threads, int smem_bytes, int* clusters) {
   return static_cast<int>(err);
 }
 
-template <typename T>
-int launch(const ResidentArgs<T>& args, int cluster, int threads,
+template <typename T, typename P>
+int launch(const ResidentArgs<T, P>& args, int cluster, int threads,
            int smem_bytes, void* stream) {
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg =
       cluster_config(cluster, threads, smem_bytes,
                      static_cast<cudaStream_t>(stream), &attr);
   cudaError_t err =
-      cudaLaunchKernelEx(&cfg, cp_dia_resident_kernel<T>, args);
+      cudaLaunchKernelEx(&cfg, cp_dia_resident_kernel<T, P>, args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int entry(ResidentArgs<T> args, const int* offs, int cluster, int threads,
+template <typename T, typename P>
+int entry(ResidentArgs<T, P> args, const int* offs, int cluster, int threads,
           int smem_bytes, void* stream) {
   const int counts[4] = {args.ndt, args.nd, args.ndte, args.nde};
   for (int s = 0, at = 0; s < 4; at += counts[s], ++s) {
     if (counts[s] > kMaxDiag) return static_cast<int>(cudaErrorInvalidValue);
     for (int k = 0; k < counts[s]; ++k) args.offs[s][k] = offs[at + k];
   }
-  return launch<T>(args, cluster, threads, smem_bytes, stream);
+  return launch<T, P>(args, cluster, threads, smem_bytes, stream);
 }
 
 // The cost of a barrier alone (chip_smoke.py's barrier_times): nsyncs
@@ -521,29 +529,31 @@ __global__ void cluster_sync_loop_kernel(int nsyncs, int mode) {
 
 }  // namespace
 
-#define PSLP_CP_DIA_RESIDENT(SUFFIX, T)                                       \
+#define PSLP_CP_DIA_RESIDENT(SUFFIX, T, P)                                    \
   PSLP_EXPORT int pslp_cp_dia_resident_prepare_##SUFFIX(                      \
       int cluster, int threads, int smem_bytes, int* clusters) {              \
-    return prepare<T>(cluster, threads, smem_bytes, clusters);                \
+    return prepare<T, P>(cluster, threads, smem_bytes, clusters);             \
   }                                                                           \
   PSLP_EXPORT int pslp_cp_dia_resident_##SUFFIX(                              \
       int n, int m, int me, int ndt, int nd, int ndte, int nde, int width,    \
       int reach, const int* offs, const T* c, const T* t, const T* lb,        \
-      const T* ub, const T* vt, const T* v, const T* b, const T* s,           \
-      const T* vte, const T* ve, const T* be, const T* se, const T* x_in,     \
+      const T* ub, const P* vt, const P* v, const T* b, const T* s,           \
+      const P* vte, const P* ve, const T* be, const T* se, const T* x_in,     \
       const T* y_in, const T* ye_in, T* x, T* x3, T* y, T* ye, T* sx, T* sy,  \
       T* sye, T theta, int nsteps, int with_sums, int cluster, int threads,   \
       int smem_bytes, void* stream) {                                         \
-    ResidentArgs<T> args{n,  m,  me,    ndt,   nd,    ndte,  nde,   width,    \
-                         reach, c, t,   lb,    ub,    vt,    v,     b,        \
-                         s,  vte, ve,   be,    se,    x_in,  y_in,  ye_in,    \
-                         x,  x3, y,     ye,    sx,    sy,    sye,   theta,    \
-                         nsteps, with_sums, {}};                              \
-    return entry<T>(args, offs, cluster, threads, smem_bytes, stream);        \
+    ResidentArgs<T, P> args{n,     m,     me,    ndt,   nd,    ndte,  nde,  \
+                            width, reach, c,     t,     lb,    ub,    vt,   \
+                            v,     b,     s,     vte,   ve,    be,    se,   \
+                            x_in,  y_in,  ye_in, x,     x3,    y,     ye,   \
+                            sx,    sy,    sye,   theta, nsteps, with_sums,  \
+                            {}};                                            \
+    return entry<T, P>(args, offs, cluster, threads, smem_bytes, stream);     \
   }
 
-PSLP_CP_DIA_RESIDENT(f32, float)
-PSLP_CP_DIA_RESIDENT(f64, double)
+PSLP_CP_DIA_RESIDENT(f32, float, float)
+PSLP_CP_DIA_RESIDENT(f64, double, double)
+PSLP_CP_DIA_RESIDENT(f32_bf16, float, __nv_bfloat16)
 
 PSLP_EXPORT int pslp_cluster_sync_loop(int cluster, int threads, int nsyncs,
                                        int mode, void* stream) {

@@ -6,6 +6,9 @@
 //
 // Bound on the H100: memory.  A call moves ndiag * n_out * itemsize bytes of
 // values, plus |x| and |y|; the arithmetic is one multiply-add per value.
+// The planes are read as stored: in the compute type, or in bfloat16 for a
+// float32 product whose every value is exact in bfloat16 (2 bytes a value,
+// widened exactly in registers: pslp::widen).
 // Design: one thread per output row walks the diagonals in ascending-offset
 // order, so for every diagonal neighbouring threads read neighbouring values
 // and neighbouring x entries (one coalesced stream per diagonal, x reused
@@ -70,14 +73,14 @@ namespace {
 
 constexpr int kThreads = pslp::kBlock;
 
-template <typename T>
-__global__ void dia_spmv_kernel(const T* __restrict__ vals,
+template <typename T, typename P>
+__global__ void dia_spmv_kernel(const P* __restrict__ vals,
                                 const int* __restrict__ offs, int ndiag,
                                 const T* __restrict__ x, int n_in,
                                 T* __restrict__ y, int n_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_out) return;
-  y[r] = pslp::dia_row<T>(vals, offs, ndiag, n_out, x, n_in, r);
+  y[r] = pslp::dia_row<T, P>(vals, offs, ndiag, n_out, x, n_in, r);
 }
 
 template <typename T, int N>
@@ -360,12 +363,12 @@ int launch_batch(const DiaBPlan* plan, const T* x, int n_in, T* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const T* vals, const int* offs, int ndiag, const T* x, int n_in,
+template <typename T, typename P>
+int launch(const P* vals, const int* offs, int ndiag, const T* x, int n_in,
            T* y, int n_out, void* stream) {
   if (n_out > 0) {
-    dia_spmv_kernel<T><<<pslp::grid_for(n_out), pslp::kBlock, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+    dia_spmv_kernel<T, P><<<pslp::grid_for(n_out), pslp::kBlock, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
         vals, offs, ndiag, x, n_in, y, n_out);
   }
   return static_cast<int>(cudaGetLastError());
@@ -373,17 +376,18 @@ int launch(const T* vals, const int* offs, int ndiag, const T* x, int n_in,
 
 }  // namespace
 
-PSLP_EXPORT int pslp_dia_spmv_f32(const float* vals, const int* offs,
-                                  int ndiag, const float* x, int n_in,
-                                  float* y, int n_out, void* stream) {
-  return launch<float>(vals, offs, ndiag, x, n_in, y, n_out, stream);
-}
+#define PSLP_DIA_SPMV(SUFFIX, T, P)                                         \
+  PSLP_EXPORT int pslp_dia_spmv_##SUFFIX(const P* vals, const int* offs,   \
+                                         int ndiag, const T* x, int n_in,  \
+                                         T* y, int n_out, void* stream) {  \
+    return launch<T, P>(vals, offs, ndiag, x, n_in, y, n_out, stream);     \
+  }
 
-PSLP_EXPORT int pslp_dia_spmv_f64(const double* vals, const int* offs,
-                                  int ndiag, const double* x, int n_in,
-                                  double* y, int n_out, void* stream) {
-  return launch<double>(vals, offs, ndiag, x, n_in, y, n_out, stream);
-}
+PSLP_DIA_SPMV(f32, float, float)
+PSLP_DIA_SPMV(f64, double, double)
+// float32 products on planes stored in bfloat16 (exact values), the JAX
+// package's allow_bf16="exact" storage: half the plane bytes
+PSLP_DIA_SPMV(f32_bf16, float, __nv_bfloat16)
 
 PSLP_EXPORT int pslp_dia_spmm_f32(const DiaBPlan* plan, const float* x,
                                   int n_in, float* y, void* stream) {

@@ -183,6 +183,35 @@ def suffix(dtype) -> str:
     raise TypeError(f"kernels take float32 or float64, got {dtype}")
 
 
+def plane_suffix(dtype, plane_dtype) -> str:
+    """The C entry suffix of a kernel computing in ``dtype`` on planes
+    stored as ``plane_dtype``: ``f32``, ``f64`` or ``f32_bf16``."""
+    if plane_dtype == dtype:
+        return suffix(dtype)
+    if plane_dtype == torch.bfloat16 and dtype == torch.float32:
+        return "f32_bf16"
+    raise TypeError(f"kernels take {dtype} planes, or bfloat16 planes for "
+                    f"float32, got {plane_dtype}")
+
+
+def check_planes(*planes, dtype, device):
+    """Every plane tensor on ``device``, contiguous, all stored in one
+    dtype that :func:`plane_suffix` takes with ``dtype``; returns it."""
+    planes = [t for t in planes if t is not None]
+    kinds = {t.dtype for t in planes}
+    if len(kinds) > 1:
+        raise TypeError("planes stored in several dtypes: "
+                        f"{sorted(map(str, kinds))}")
+    plane_dtype = kinds.pop() if kinds else dtype
+    plane_suffix(dtype, plane_dtype)
+    for t in planes:
+        if t.device != device:
+            raise ValueError(f"tensor on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError("kernel arguments must be contiguous")
+    return plane_dtype
+
+
 def scalar(dtype):
     """The ctypes type of a kernel scalar of the tensors' dtype."""
     return ctypes.c_float if dtype == torch.float32 else ctypes.c_double

@@ -1,16 +1,28 @@
 """H-CPDIA: ``nsteps`` whole Chambolle-Pock iterations on DIA operators,
-equality and inequality systems alike, in two tiers chosen from the shapes
-by :func:`cp_dia_plan`:
+equality and inequality systems alike, in three tiers chosen from the
+shapes by :func:`cp_dia_plan`:
 
 * ``"resident"`` (H-CPDIA-R, ``csrc/cp_dia_resident.cu``): one launch per
   chunk, the whole state held in the shared memory of one thread-block
   cluster; replaces ``pysparselp_tpu/ops/cp_fused.py::_cp_fused_call`` (K2)
   at its shapes, small aligned grids such as Potts-50;
+* ``"grid"`` (H-CPDIA-G, ``csrc/cp_dia_grid.cu``): one cooperative launch
+  per chunk on a persistent grid, a CTA an SM, each CTA's slab of every
+  plane held in its shared memory for the chunk, x3 and y exchanged
+  through L2 between two grid barriers an iteration; replaces
+  ``pysparselp_tpu/ops/cp_windowed.py::build_windowed_call`` (K3) where a
+  slab's planes fit (Potts-100, and Potts-300 and the multi-label grids in
+  float32 on bfloat16 planes);
 * ``"two_launch"`` (``csrc/cp_dia.cu``): two launches per iteration, for
-  everything that does not fit; replaces
-  ``pysparselp_tpu/ops/cp_windowed.py::build_windowed_call`` (K3).
+  everything else (K3's other shapes: Potts-300 in float64, Potts-500 and
+  up).
 
-Both have the call contract of ``cp_windowed._cp_windowed_call_full``:
+The planes are read as the operator stores them (bfloat16 for a float32
+solve whose values are exact in it, ``problem.DiaMatrix``), widened
+exactly to the solve dtype: every tier computes bit for bit what it
+computes on the float32 planes.
+
+All have the call contract of ``cp_windowed._cp_windowed_call_full``:
 ``(x, x3, y_eq, y[, sum_x, sum_y_eq, sum_y])``.  :func:`cp_dia_chunk`
 launches the planned tier for CUDA tensors and runs
 :func:`cp_dia_chunk_reference`, its plain PyTorch twin, for CPU tensors.
@@ -34,7 +46,7 @@ import functools
 import torch
 
 from . import _build
-from .dia_spmv import dia_spmv_reference
+from .dia_spmv import dia_spmv_reference, widen
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -44,6 +56,19 @@ SMEM_PER_CTA = 232_448
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 MAX_THREADS = 1024
 MAX_DIAG = 32   # diagonals a tap set may have (csrc: kMaxDiag)
+# H-CPDIA-G's grid: a CTA an SM of the H100 SXM (the plan of a problem on
+# a card takes the card's own count), at least GRID_MIN_WIDTH positions a
+# CTA
+GRID_SMS = 132
+GRID_MIN_WIDTH = 32
+# H-CPDIA-G's static shared memory (its table of vector slabs), beside the
+# dynamic shared memory grid_smem_bytes counts
+GRID_STATIC_SMEM = 128
+# the vectors H-CPDIA-G keeps a slab of in shared memory where they fit,
+# in this order (csrc/cp_dia_grid.cu's kVector order): the ones it reads
+# and writes every iteration first, then the constants
+GRID_VECTORS = ("x", "sx", "sy", "sye", "c", "t", "lb", "ub", "b", "s",
+                "be", "se")
 
 
 def cp_dia_eligible(prob) -> bool:
@@ -57,12 +82,16 @@ def cp_dia_eligible(prob) -> bool:
 @dataclasses.dataclass(frozen=True)
 class CpDiaPlan:
     """How :func:`cp_dia_chunk` runs a DIA problem: ``tier`` is
-    ``"resident"`` or ``"two_launch"``; for the resident tier, ``cluster``
-    CTAs (C) of ``threads`` threads, CTA r owning positions ``[slabs[r],
-    slabs[r + 1])`` of ``[0, positions)`` (``width`` = W each but the
-    last), ``smem_bytes`` of shared memory per CTA, ``reach``, the largest
-    |offset| of any tap (at most W: a tap reads its own slab or a
-    neighbour's; the halo each slab holds of x3 and y)."""
+    ``"resident"``, ``"grid"`` or ``"two_launch"``.  For the resident tier,
+    ``cluster`` CTAs (C) of ``threads`` threads, CTA r owning positions
+    ``[slabs[r], slabs[r + 1])`` of ``[0, positions)`` (``width`` = W each
+    but the last), ``smem_bytes`` of shared memory per CTA, ``reach``, the
+    largest |offset| of any tap (at most W: a tap reads its own slab or a
+    neighbour's; the halo each slab holds of x3 and y).  For the grid tier
+    (:func:`grid_plan`) the same ``width``, ``slabs``, ``threads``,
+    ``smem_bytes`` and ``positions`` over ``ctas`` CTAs; ``halos`` ``(left,
+    right)`` of x3 (A's taps) and of y and y_e (Aᵀ's); ``vectors``, the
+    names of :data:`GRID_VECTORS` whose slab stays in shared memory."""
 
     tier: str
     cluster: int = 0
@@ -72,6 +101,9 @@ class CpDiaPlan:
     reach: int = 0
     threads: int = 0
     positions: int = 0
+    ctas: int = 0
+    halos: tuple = ()
+    vectors: tuple = ()
 
 
 TWO_LAUNCH = CpDiaPlan("two_launch")
@@ -96,7 +128,8 @@ def resident_smem_bytes(width, reach, ndiags, m, me, itemsize) -> int:
 
 def _shape(prob, dtype):
     """The arguments of :func:`_plan`: a problem's shapes, its four offset
-    tuples (A_i^T, A_i, A_e^T, A_e) and the item size of ``dtype``."""
+    tuples (A_i^T, A_i, A_e^T, A_e), the item size of ``dtype`` and that
+    of the planes as stored."""
     ae, ai = prob.a_eq, prob.a_ineq
     offsets = (tuple(ai.offsets_t) if ai is not None else (),
                tuple(ai.offsets) if ai is not None else (),
@@ -104,13 +137,87 @@ def _shape(prob, dtype):
                tuple(ae.offsets) if ae is not None else ())
     m = prob.m_ineq if ai is not None else 0
     me = prob.m_eq if ae is not None else 0
-    return prob.n, m, me, offsets, torch.finfo(dtype).bits // 8
+    return (prob.n, m, me, offsets, torch.finfo(dtype).bits // 8,
+            _plane_itemsize(prob, dtype))
+
+
+def _plane_itemsize(prob, dtype):
+    """The item size of the planes as a launch reads them: as stored, or
+    ``dtype``'s where the systems store theirs in different dtypes (read
+    in the solve dtype once :func:`~..problem.one_plane_storage` has
+    re-stored them)."""
+    kinds = {op.vals.dtype for op in (prob.a_ineq, prob.a_eq)
+             if op is not None}
+    return torch.finfo(kinds.pop() if len(kinds) == 1 else dtype).bits // 8
+
+
+def _planes(prob):
+    """``(vt, v, vte, ve)``: the planes of A_iᵀ, A_i, A_eᵀ, A_e as stored
+    (None where a system is absent).  A launch takes them in one storage
+    dtype (``_build.check_planes``; the lowering gives one,
+    :func:`~..problem.one_plane_storage`)."""
+    ai, ae = prob.a_ineq, prob.a_eq
+    return (ai.vals_t if ai is not None else None,
+            ai.vals if ai is not None else None,
+            ae.vals_t if ae is not None else None,
+            ae.vals if ae is not None else None)
+
+
+def _halo(offsets):
+    """``(left, right)`` reach of a set of taps: the entries a slab's
+    taps read before its first position and past its last."""
+    return max([0] + [-o for o in offsets]), max([0, *offsets])
+
+
+def grid_smem_bytes(width, halos, ndiags, m, me, itemsize, plane_itemsize,
+                    vectors=()):
+    """Shared memory of one H-CPDIA-G CTA (the layout of
+    ``csrc/cp_dia_grid.cu``): the slab of every plane as stored (rounded
+    up to 16 bytes), x3 with A's halos, y and y_e (each present system)
+    with Aᵀ's, then a slab of each of ``vectors``."""
+    (hlx, hrx), (hly, hry) = halos
+    planes = -(-plane_itemsize * width * sum(ndiags) // 16) * 16
+    ext = (width + hlx + hrx) + (width + hly + hry) * (
+        (m > 0) + (me > 0))
+    return planes + itemsize * (ext + width * len(vectors))
 
 
 @functools.lru_cache(maxsize=64)
-def _plan(n, m, me, offsets, itemsize, cluster=None):
+def _grid(n, m, me, offsets, itemsize, plane_itemsize, sms, ctas=None):
+    """H-CPDIA-G's plan (:func:`grid_plan`), or None."""
+    positions = max(n, m, me)
+    ndiags = tuple(map(len, offsets))
+    if max(ndiags) > MAX_DIAG or positions == 0:
+        return None
+    if ctas is None:
+        ctas = max(1, min(sms, positions // GRID_MIN_WIDTH))
+    width = -(-positions // ctas)
+    halos = (_halo(offsets[1] + offsets[3]), _halo(offsets[0] + offsets[2]))
+    budget = SMEM_PER_CTA - GRID_STATIC_SMEM
+    smem = grid_smem_bytes(width, halos, ndiags, m, me, itemsize,
+                           plane_itemsize)
+    if smem > budget:
+        return None
+    present = {"sy": m > 0, "b": m > 0, "s": m > 0, "sye": me > 0,
+               "be": me > 0, "se": me > 0}
+    vectors = []
+    for name in GRID_VECTORS:
+        if present.get(name, True) and smem + itemsize * width <= budget:
+            vectors.append(name)
+            smem += itemsize * width
+    slabs = tuple(min(r * width, positions) for r in range(ctas + 1))
+    threads = min(MAX_THREADS, -(-width // 32) * 32)
+    return CpDiaPlan("grid", width=width, slabs=slabs, smem_bytes=smem,
+                     threads=threads, positions=positions, ctas=ctas,
+                     halos=halos, vectors=tuple(vectors))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(n, m, me, offsets, itemsize, plane_itemsize=None, cluster=None,
+          sms=GRID_SMS):
     """:func:`cp_dia_plan` on the shapes of :func:`_shape`; ``cluster``
-    forces one cluster size (the tests and the probe's sweep)."""
+    forces the resident tier at one cluster size, or the two-launch tier
+    where that does not fit (the tests and the probe's sweep)."""
     positions = max(n, m, me)
     reach = max((abs(o) for offs in offsets for o in offs), default=0)
     ndiags = tuple(map(len, offsets))
@@ -126,18 +233,58 @@ def _plan(n, m, me, offsets, itemsize, cluster=None):
         threads = min(MAX_THREADS, -(-width // 32) * 32)
         return CpDiaPlan("resident", c, width, slabs, smem, reach, threads,
                          positions)
+    if cluster is None:
+        grid = _grid(n, m, me, offsets, itemsize, plane_itemsize or itemsize,
+                     sms)
+        if grid is not None:
+            return grid
     return TWO_LAUNCH
+
+
+def _sms(prob):
+    """The SM count the grid tier plans with: the card's, for a problem on
+    one, else the H100 SXM's."""
+    dev = prob.c.device
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).multi_processor_count
+    return GRID_SMS
 
 
 def cp_dia_plan(prob, dtype):
     """The tier of a DIA problem, from its shapes alone (the card's
     counterpart of JAX's ``fused_vmem_bytes`` / ``FUSED_VMEM_BUDGET`` rule,
-    in shared-memory terms): ``"resident"`` at the largest cluster size C
-    (the fastest at every size measured, PERF.md) whose slab of
-    ``ceil(positions / C)`` positions, with its halos, fits one CTA's
-    shared memory and is at least as wide as the farthest tap, with at most
-    ``MAX_DIAG`` diagonals a tap set; else ``"two_launch"``."""
-    return _plan(*_shape(prob, dtype))
+    in shared-memory terms), with at most ``MAX_DIAG`` diagonals a tap
+    set: ``"resident"`` at the largest cluster size C (the fastest at every
+    size measured, PERF.md) whose slab of ``ceil(positions / C)``
+    positions, with its halos, fits one CTA's shared memory and is at
+    least as wide as the farthest tap; else ``"grid"`` where a slab of
+    every plane as stored and of x3 and y with their halos fits one CTA
+    of a CTA-an-SM grid (:func:`grid_plan`); else ``"two_launch"``."""
+    return _plan(*_shape(prob, dtype), sms=_sms(prob))
+
+
+def grid_plan(prob, dtype, ctas=None):
+    """H-CPDIA-G's plan for a problem, or None where a slab does not fit.
+    CTA r of ``ctas`` (default: one an SM, ``_sms``, with at least
+    ``GRID_MIN_WIDTH`` positions each) owns positions ``[r W, (r + 1) W)``
+    (W = ``ceil(positions / ctas)``) for the whole chunk.
+
+    Where it all lives, per CTA (``threads`` = W rounded up to a warp, at
+    most 1,024, so at most 64 registers a thread; ``csrc/cp_dia_grid.cu``):
+
+    * shared memory: the slab of every plane (A_iᵀ, A_i, A_eᵀ, A_e) as
+      stored, staged once a chunk; x3 with A's halo and y, y_e with Aᵀ's
+      (``halos``: the taps' reach, which may span several slabs), the slab
+      written by this CTA and the halos read from L2 after each grid
+      barrier; then the slabs of as many of ``GRID_VECTORS`` as fit
+      (``vectors``), in that order;
+    * device memory (L2-resident): x3 and y, written by their owner each
+      iteration, read as halos by the others; every vector left out of
+      ``vectors``, read (and x and the sums written) in place each
+      iteration;
+    * registers: one position's arithmetic at a time."""
+    shape = _shape(prob, dtype)
+    return _grid(*shape, _sms(prob), ctas)
 
 
 def _empty(x):
@@ -175,13 +322,36 @@ def cp_dia_chunk_reference(prob, pre, x, y_eq, y, nsteps, theta,
     return out + (sx, se, si) if with_sums else out
 
 
+def _check(prob, pre, x, y_eq, y):
+    """The chunk's tensors on x's device: the vectors in x's dtype, the
+    planes (:func:`_planes`) in one storage dtype the kernels take with it;
+    returns the planes, that dtype's C entry suffix and ``(m, me)``."""
+    ae, ai = prob.a_eq, prob.a_ineq
+    dt, dev = x.dtype, x.device
+    vecs = [prob.c, pre["diag_t"], prob.lb, prob.ub, x]
+    offs = [op.offs for op in (ai, ae) if op is not None] + [
+        op.offs_t for op in (ai, ae) if op is not None]
+    if ai is not None:
+        vecs += [y, prob.b_upper, pre["sigma_ineq"]]
+    if ae is not None:
+        vecs += [y_eq, prob.b_eq, pre["sigma_eq"]]
+    _build.check_cuda(*vecs, *offs, dtype=dt, device=dev)
+    planes = _planes(prob)
+    sfx = _build.plane_suffix(dt, _build.check_planes(*planes, dtype=dt,
+                                                       device=dev))
+    m = prob.m_ineq if ai is not None else 0
+    me = prob.m_eq if ae is not None else 0
+    return planes, sfx, m, me
+
+
 def cp_dia_chunk(prob, pre, x, y_eq, y, nsteps, theta, with_sums=False,
                  plan=None):
     """Run ``nsteps`` CP iterations; returns ``(x, x3, y_eq, y[, sx, se,
     sy])`` (the eq outputs are empty when ``prob.a_eq`` is None).  On CUDA
     the tier of ``plan`` (default: :func:`cp_dia_plan`) runs; its
     resident tier counts in :func:`cp_dia_resident_chunk`'s ``launches``,
-    the two-launch tier in this function's."""
+    its grid tier in :func:`cp_dia_grid_chunk`'s, the two-launch tier in
+    this function's."""
     if x.device.type == "cpu":
         return cp_dia_chunk_reference(prob, pre, x, y_eq, y, nsteps, theta,
                                       with_sums)
@@ -192,33 +362,27 @@ def cp_dia_chunk(prob, pre, x, y_eq, y, nsteps, theta, with_sums=False,
     if plan.tier == "resident":
         return cp_dia_resident_chunk(prob, pre, x, y_eq, y, nsteps, theta,
                                      with_sums, plan)
+    if plan.tier == "grid":
+        return cp_dia_grid_chunk(prob, pre, x, y_eq, y, nsteps, theta,
+                                 with_sums, plan)
     ae, ai = prob.a_eq, prob.a_ineq
     dt, dev = x.dtype, x.device
+    (vt, v, vte, ve), sfx, m, me = _check(prob, pre, x, y_eq, y)
     x = x.clone()
     x3 = x.clone()
     ye = y_eq.clone() if ae is not None else _empty(x)
     yi = y.clone() if ai is not None else _empty(x)
     sums = (tuple(torch.zeros_like(v) for v in (x, ye, yi)) if with_sums
             else (None, None, None))
-    args = [prob.c, pre["diag_t"], prob.lb, prob.ub]
-    if ai is not None:
-        args += [ai.vals_t, ai.offs_t, ai.vals, ai.offs, prob.b_upper,
-                 pre["sigma_ineq"]]
-    if ae is not None:
-        args += [ae.vals_t, ae.offs_t, ae.vals, ae.offs, prob.b_eq,
-                 pre["sigma_eq"]]
-    _build.check_cuda(*args, x, ye, yi, dtype=dt, device=dev)
 
-    def sys_args(op, b, sigma):
+    def sys_args(op, vt, v, b, sigma):
         if op is None:
             return [None, None, 0, None, None, 0, None, None]
-        return [op.vals_t, op.offs_t, len(op.offsets_t), op.vals, op.offs,
+        return [vt, op.offs_t, len(op.offsets_t), v, op.offs,
                 len(op.offsets), b, sigma]
 
-    a_in = sys_args(ai, prob.b_upper, pre.get("sigma_ineq"))
-    a_eq = sys_args(ae, prob.b_eq, pre.get("sigma_eq"))
-    m = prob.m_ineq if ai is not None else 0
-    me = prob.m_eq if ae is not None else 0
+    a_in = sys_args(ai, vt, v, prob.b_upper, pre.get("sigma_ineq"))
+    a_eq = sys_args(ae, vte, ve, prob.b_eq, pre.get("sigma_eq"))
     vec = [prob.c, pre["diag_t"], prob.lb, prob.ub]
     raw = ([prob.n, m, me] + vec + a_in + a_eq
            + [x, x3, yi, ye, sums[0], sums[2], sums[1]])
@@ -226,7 +390,7 @@ def cp_dia_chunk(prob, pre, x, y_eq, y, nsteps, theta, with_sums=False,
              else v.data_ptr() for v in raw]
     argtypes = ([_I] * 3 + [_P] * 4 + [_P, _P, _I, _P, _P, _I, _P, _P] * 2
                 + [_P] * 7 + [_build.scalar(dt), _I, _I, _P])
-    _build.entry(f"pslp_cp_dia_chunk_{_build.suffix(dt)}", argtypes)(
+    _build.entry(f"pslp_cp_dia_chunk_{sfx}", argtypes)(
         *cargs, theta, int(nsteps), int(bool(with_sums)),
         _build.stream(_build.device_index(dev)))
     cp_dia_chunk.launches += 1
@@ -237,16 +401,16 @@ def cp_dia_chunk(prob, pre, x, y_eq, y, nsteps, theta, with_sums=False,
 cp_dia_chunk.launches = 0
 
 
-_clusters: dict = {}   # (device, dtype, cluster, threads, bytes) -> count
+_clusters: dict = {}   # (device, entry, cluster, threads, bytes) -> count
 
 
-def _check_clusters(plan, dt, dev):
+def _check_clusters(plan, sfx, dev):
     """Before a plan's first launch: ``cudaOccupancyMaxActiveClusters``;
     raises when the card cannot hold one such cluster."""
-    key = (dev, dt, plan.cluster, plan.threads, plan.smem_bytes)
+    key = (dev, sfx, plan.cluster, plan.threads, plan.smem_bytes)
     if key not in _clusters:
         out = ctypes.c_int(0)
-        _build.entry(f"pslp_cp_dia_resident_prepare_{_build.suffix(dt)}",
+        _build.entry(f"pslp_cp_dia_resident_prepare_{sfx}",
                      [_I, _I, _I, _P])(
             plan.cluster, plan.threads, plan.smem_bytes, ctypes.byref(out))
         _clusters[key] = out.value
@@ -256,12 +420,24 @@ def _check_clusters(plan, dt, dev):
             f"with {plan.smem_bytes} bytes of shared memory each")
 
 
+def _counts(prob):
+    """The diagonal counts of A_iᵀ, A_i, A_eᵀ, A_e (0 where absent) and
+    the offsets of those present, in that order, as one ctypes array."""
+    taps = [(op.offsets_t, op.offsets) if op is not None else ((), ())
+            for op in (prob.a_ineq, prob.a_eq)]
+    counts = [len(offs) for pair in taps for offs in pair]
+    offsets = [o for pair in taps for offs in pair for o in offs]
+    return counts, (ctypes.c_int * max(len(offsets), 1))(*offsets)
+
+
 def cp_dia_resident_chunk(prob, pre, x, y_eq, y, nsteps, theta,
                           with_sums=False, plan=None):
     """H-CPDIA-R: the chunk of :func:`cp_dia_chunk` in one launch of one
     cluster (``plan``: a resident :func:`cp_dia_plan`, by default this
     problem's).  The outputs are new tensors the kernel writes whole; the
-    offsets travel in the kernel's parameters, from the host tuples."""
+    offsets travel in the kernel's parameters, from the host tuples.  The
+    planes are widened to the solve dtype as they are staged (the layout
+    of :func:`resident_smem_bytes` holds them so)."""
     if x.device.type == "cpu":
         return cp_dia_chunk_reference(prob, pre, x, y_eq, y, nsteps, theta,
                                       with_sums)
@@ -271,46 +447,33 @@ def cp_dia_resident_chunk(prob, pre, x, y_eq, y, nsteps, theta,
         raise ValueError(f"H-CPDIA-R needs a resident plan, got {plan.tier}")
     ae, ai = prob.a_eq, prob.a_ineq
     dt, dev = x.dtype, x.device
-    m = prob.m_ineq if ai is not None else 0
-    me = prob.m_eq if ae is not None else 0
     ye_in = y_eq if ae is not None else _empty(x)
     yi_in = y if ai is not None else _empty(x)
-    args = [prob.c, pre["diag_t"], prob.lb, prob.ub, x, ye_in, yi_in]
-    if ai is not None:
-        args += [ai.vals_t, ai.vals, prob.b_upper, pre["sigma_ineq"]]
-    if ae is not None:
-        args += [ae.vals_t, ae.vals, prob.b_eq, pre["sigma_eq"]]
-    _build.check_cuda(*args, dtype=dt, device=dev)
+    (vt, v, vte, ve), sfx, m, me = _check(prob, pre, x, ye_in, yi_in)
     if max(prob.n, m, me) != plan.positions:
         raise ValueError("the plan was made for another problem")
-    _check_clusters(plan, dt, dev)
+    _check_clusters(plan, sfx, dev)
     out = [torch.empty_like(x), torch.empty_like(x),
            torch.empty_like(ye_in), torch.empty_like(yi_in)]
     sums = ([torch.empty_like(v) for v in (x, ye_in, yi_in)] if with_sums
             else [None, None, None])
 
-    def sys_args(op, b, sigma):
+    def sys_args(op, vt, v, b, sigma):
         if op is None:
             return [None, None, None, None]
-        return [op.vals_t, op.vals, b, sigma]
+        return [vt, v, b, sigma]
 
-    offsets = [o for op in (ai, ae) if op is not None
-               for o in (*op.offsets_t, *op.offsets)]
-    raw = ([prob.n, m, me,
-            len(ai.offsets_t) if ai is not None else 0,
-            len(ai.offsets) if ai is not None else 0,
-            len(ae.offsets_t) if ae is not None else 0,
-            len(ae.offsets) if ae is not None else 0, plan.width, plan.reach,
-            (ctypes.c_int * max(len(offsets), 1))(*offsets),
+    counts, offsets = _counts(prob)
+    raw = ([prob.n, m, me, *counts, plan.width, plan.reach, offsets,
             prob.c, pre["diag_t"], prob.lb, prob.ub]
-           + sys_args(ai, prob.b_upper, pre.get("sigma_ineq"))
-           + sys_args(ae, prob.b_eq, pre.get("sigma_eq"))
+           + sys_args(ai, vt, v, prob.b_upper, pre.get("sigma_ineq"))
+           + sys_args(ae, vte, ve, prob.b_eq, pre.get("sigma_eq"))
            + [x, yi_in, ye_in, out[0], out[1], out[3], out[2], sums[0],
               sums[2], sums[1]])
     cargs = [v.data_ptr() if torch.is_tensor(v) else v for v in raw]
     argtypes = ([_I] * 9 + [_P] * 23 + [_build.scalar(dt)] + [_I] * 5
                 + [_P])
-    _build.entry(f"pslp_cp_dia_resident_{_build.suffix(dt)}", argtypes)(
+    _build.entry(f"pslp_cp_dia_resident_{sfx}", argtypes)(
         *cargs, theta, int(nsteps), int(bool(with_sums)), plan.cluster,
         plan.threads, plan.smem_bytes,
         _build.stream(_build.device_index(dev)))
@@ -319,6 +482,53 @@ def cp_dia_resident_chunk(prob, pre, x, y_eq, y, nsteps, theta,
 
 
 cp_dia_resident_chunk.launches = 0
+
+
+def cp_dia_grid_chunk(prob, pre, x, y_eq, y, nsteps, theta, with_sums=False,
+                      plan=None):
+    """H-CPDIA-G: the chunk of :func:`cp_dia_chunk` in one cooperative
+    launch of ``plan.ctas`` CTAs (``plan``: a :func:`grid_plan`, by default
+    this problem's :func:`cp_dia_plan`).  The outputs are new tensors the
+    kernel writes whole.  A launch the card refuses (fewer resident CTAs
+    than the plan's) raises; nothing falls back to another tier."""
+    if x.device.type == "cpu":
+        return cp_dia_chunk_reference(prob, pre, x, y_eq, y, nsteps, theta,
+                                      with_sums)
+    if plan is None:
+        plan = cp_dia_plan(prob, x.dtype)
+    if plan.tier != "grid":
+        raise ValueError(f"H-CPDIA-G needs a grid plan, got {plan.tier}")
+    ae, ai = prob.a_eq, prob.a_ineq
+    dt, dev = x.dtype, x.device
+    ye_in = y_eq if ae is not None else _empty(x)
+    yi_in = y if ai is not None else _empty(x)
+    (vt, v, vte, ve), sfx, m, me = _check(prob, pre, x, ye_in, yi_in)
+    if max(prob.n, m, me) != plan.positions:
+        raise ValueError("the plan was made for another problem")
+    out = [torch.empty_like(x), torch.empty_like(x),
+           torch.empty_like(ye_in), torch.empty_like(yi_in)]
+    sums = ([torch.empty_like(v) for v in (x, ye_in, yi_in)] if with_sums
+            else [None, None, None])
+    counts, offsets = _counts(prob)
+    in_smem = sum(1 << GRID_VECTORS.index(name) for name in plan.vectors)
+    (hlx, hrx), (hly, hry) = plan.halos
+    raw = ([prob.n, m, me, *counts, plan.width, hlx, hrx, hly, hry, in_smem,
+            offsets, prob.c, pre["diag_t"], prob.lb, prob.ub, prob.b_upper,
+            pre.get("sigma_ineq"), prob.b_eq, pre.get("sigma_eq"), vt, v, vte,
+            ve, x, yi_in, ye_in, out[0], out[1], out[3], out[2], sums[0],
+            sums[2], sums[1]])
+    cargs = [v.data_ptr() if torch.is_tensor(v) else v for v in raw]
+    argtypes = ([_I] * 13 + [_P] * 23 + [_build.scalar(dt)] + [_I] * 5
+                + [_P])
+    _build.entry(f"pslp_cp_dia_grid_{sfx}", argtypes)(
+        *cargs, theta, int(nsteps), int(bool(with_sums)), plan.ctas,
+        plan.threads, plan.smem_bytes,
+        _build.stream(_build.device_index(dev)))
+    cp_dia_grid_chunk.launches += 1
+    return tuple(out) + tuple(sums) if with_sums else tuple(out)
+
+
+cp_dia_grid_chunk.launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -375,8 +585,10 @@ SHARD_LAUNCHES = 2
 def _local_taps(vals, offsets, v, g0, nv, lo, hi):
     """``Σ_k vals[k, lo:hi] · v[lo + o_k : hi + o_k]`` (local indices),
     a tap whose global position ``g0 + j + o_k`` lies outside ``[0, nv)``
-    reading zero; H-CPDIA's ``dia_row_local`` order."""
+    reading zero; H-CPDIA's ``dia_row_local`` order (bfloat16 planes
+    widened exactly)."""
     g = torch.arange(g0 + lo, g0 + hi, device=v.device)
+    vals = widen(vals)
     acc = torch.zeros(hi - lo, dtype=vals.dtype, device=vals.device)
     zero = torch.zeros((), dtype=v.dtype, device=v.device)
     for k, o in enumerate(offsets):
@@ -432,20 +644,23 @@ def cp_dia_shard_step_reference(sh: CpDiaShard, pre, x, x3, y_eq, y, theta,
 
 def _shard_entry(sh: CpDiaShard, dt):
     """The C shard entry with ``sh``'s constant arguments bound."""
-    def sys_args(op, b):
+    vt, v, vte, ve = _planes(sh)
+    sfx = _build.plane_suffix(dt, _build.check_planes(
+        vt, v, vte, ve, dtype=dt, device=sh.c.device))
+
+    def sys_args(op, vt, v, b):
         if op is None:
             return [None, None, 0, None, None, 0, None]
-        return [op.vals_t, op.offs_t, len(op.offsets_t), op.vals, op.offs,
+        return [vt, op.offs_t, len(op.offsets_t), v, op.offs,
                 len(op.offsets), b]
 
     (p0, p1), (i0, i1) = sh.primal, sh.interior
     head = ([sh.length, sh.g0, p0, p1, i0, i1, sh.n, sh.m, sh.me, sh.c,
-             sh.lb, sh.ub] + sys_args(sh.a_ineq, sh.b_ineq)
-            + sys_args(sh.a_eq, sh.b_eq))
+             sh.lb, sh.ub] + sys_args(sh.a_ineq, vt, v, sh.b_ineq)
+            + sys_args(sh.a_eq, vte, ve, sh.b_eq))
     argtypes = ([_I] * 9 + [_P] * 3 + [_P, _P, _I, _P, _P, _I, _P] * 2
                 + [_P] * 10 + [_build.scalar(dt), _P])
-    return _build.Entry(f"pslp_cp_dia_shard_step_{_build.suffix(dt)}",
-                        argtypes, *head)
+    return _build.Entry(f"pslp_cp_dia_shard_step_{sfx}", argtypes, *head)
 
 
 def cp_dia_shard_stepper(sh: CpDiaShard, pre, x, x3, y_eq, y, theta,

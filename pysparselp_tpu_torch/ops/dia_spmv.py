@@ -275,10 +275,18 @@ def _max_ctas(op, plan):
     return blocks.value * props.multi_processor_count
 
 
+def widen(vals):
+    """Planes in the dtype their products run in: bfloat16 planes (which
+    serve float32 solves) widened exactly to float32, others as they
+    are."""
+    return vals.float() if vals.dtype == torch.bfloat16 else vals
+
+
 def dia_spmv_reference(vals, offs, x, n_out):
     """Plain twin: diagonals in ascending-offset order, reads outside ``x``
-    contribute zero."""
+    contribute zero; bfloat16 planes widened exactly to float32."""
     offsets = [int(o) for o in offs.tolist()]
+    vals = widen(vals)
     y = torch.zeros(n_out, dtype=vals.dtype, device=vals.device)
     if not offsets:
         return y
@@ -295,6 +303,7 @@ def dia_spmm_reference(vals, offs, x, n_out):
     """Plain twin of H-DIA-B: :func:`dia_spmv_reference`'s shift loop with
     a trailing batch axis, ``x`` (n_in, B) -> (n_out, B)."""
     offsets = [int(o) for o in offs.tolist()]
+    vals = widen(vals)
     y = torch.zeros((n_out, x.shape[1]), dtype=vals.dtype, device=vals.device)
     if not offsets:
         return y
@@ -310,7 +319,10 @@ def dia_spmm_reference(vals, offs, x, n_out):
 class DiaOperand:
     """One orientation of a DIA operator on its device, ready to launch:
     ``vals`` (ndiag, n_out), ``offs`` int32 (ndiag,) and the kernel's bound
-    C entry.  Checked once here; :func:`dia_apply` checks only ``x``."""
+    C entry.  ``vals`` is float32 or float64, or bfloat16 for a float32
+    product (``dtype``, the product's, is then float32: H-DIA widens each
+    value exactly as it reads it).  Checked once here; :func:`dia_apply`
+    checks only ``x``."""
 
     __slots__ = ("vals", "offs", "n_out", "device", "dtype", "device_index",
                  "entry", "entry_b", "offsets", "_launches")
@@ -320,24 +332,27 @@ class DiaOperand:
         if offs.dtype != torch.int32 or vals.shape != (offs.shape[0], n_out):
             raise ValueError("dia_spmv: vals must be (ndiag, n_out), offs "
                              "int32")
-        if vals.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"kernels take float32 or float64, got "
-                            f"{vals.dtype}")
+        if vals.dtype not in (torch.float32, torch.float64, torch.bfloat16):
+            raise TypeError(f"kernels take float32, float64 or bfloat16 "
+                            f"planes, got {vals.dtype}")
         for t in (vals, offs):
             if t.device != dev:
                 raise ValueError(f"tensor on {t.device}, expected {dev}")
             if dev.type == "cuda" and not t.is_contiguous():
                 raise ValueError("kernel arguments must be contiguous")
         self.vals, self.offs, self.n_out = vals, offs, int(n_out)
-        self.device, self.dtype = dev, vals.dtype
+        self.device = dev
+        self.dtype = (torch.float32 if vals.dtype == torch.bfloat16
+                      else vals.dtype)
         self.device_index = self.entry = self.entry_b = None
         self.offsets, self._launches = None, {}
         if dev.type == "cuda":
             self.device_index = _build.device_index(dev)
-            sfx = _build.suffix(vals.dtype)
-            self.entry = _build.Entry(f"pslp_dia_spmv_{sfx}", _ARGTYPES,
-                                      vals, offs, offs.shape[0])
-            self.entry_b = _build.Entry(f"pslp_dia_spmm_{sfx}", _ARGTYPES_B)
+            self.entry = _build.Entry(
+                f"pslp_dia_spmv_{_build.plane_suffix(self.dtype, vals.dtype)}",
+                _ARGTYPES, vals, offs, offs.shape[0])
+            self.entry_b = _build.Entry(
+                f"pslp_dia_spmm_{_build.suffix(self.dtype)}", _ARGTYPES_B)
 
 
     def batch_launch(self, nb, aligned=True, plan=None):
@@ -391,6 +406,9 @@ def dia_spmm(op: DiaOperand, x, plan=None):
         raise ValueError(f"dia_spmm: x must be a contiguous (n_in, B) "
                          f"{op.dtype} tensor on {op.device}, got "
                          f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if op.vals.dtype != op.dtype:
+        raise TypeError("dia_spmm: H-DIA-B reads planes stored in the "
+                        f"product's dtype ({op.dtype}), got {op.vals.dtype}")
     nb = x.shape[1]
     aligned = x.data_ptr() % 16 == 0
     if plan is not None and (plan.nb != nb or plan.n_out != op.n_out or (

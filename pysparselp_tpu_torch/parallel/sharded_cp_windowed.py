@@ -49,7 +49,8 @@ import torch
 
 from ..ops.cp_dia import CpDiaShard, cp_dia_shard_stepper
 from ..ops.dia_spmv import DiaOperand, dia_apply
-from ..problem import DIA_AUTO_MAX_OFFSETS, DiaMatrix, _diagonal_count
+from ..problem import (DIA_AUTO_MAX_OFFSETS, DiaMatrix, _diagonal_count,
+                       dia_plane_dtype, one_plane_storage)
 from .mesh import check_mesh
 
 # what the last run_position_sharded call on this process ran: the regime,
@@ -71,7 +72,9 @@ def _is_float32(dtype) -> bool:
 def _host_dia(csr):
     """Host planes of a scipy matrix: ``offsets``/``vals`` (``(ndiag,
     m)``) and ``offsets_t``/``vals_t`` (``(ndiag_t, n)``), as
-    ``DiaMatrix.from_scipy`` stores them; None for a matrix without
+    ``DiaMatrix.from_scipy`` stores them, and ``plane_dtype``, the dtype
+    it stores them in for float32 (bfloat16 where every value is exact
+    there, as JAX's position-sharded planes); None for a matrix without
     entries (no tap set)."""
     coo = scipy.sparse.coo_matrix(csr)
     coo.sum_duplicates()
@@ -81,7 +84,8 @@ def _host_dia(csr):
     vals, offsets = DiaMatrix._planes(coo, m)
     vals_t, offsets_t = DiaMatrix._planes(coo.T.tocoo(), n)
     return dict(offsets=tuple(int(o) for o in offsets), vals=vals,
-                offsets_t=tuple(int(o) for o in offsets_t), vals_t=vals_t)
+                offsets_t=tuple(int(o) for o in offsets_t), vals_t=vals_t,
+                plane_dtype=dia_plane_dtype(coo.data, torch.float32))
 
 
 def halo_plan(systems, n, m, m_eq, ndev):
@@ -215,13 +219,14 @@ def place_position_shard(glob, ndev, rank, dtype=torch.float32,
         return torch.as_tensor(cut_host(v, size), dtype=dtype, device=dev)
 
     def local_dia(s, rows):
+        planes = s.get("plane_dtype") if dtype == torch.float32 else None
         return DiaMatrix.from_planes(cut_host(s["vals"], rows), s["offsets"],
                                      cut_host(s["vals_t"], n),
                                      s["offsets_t"], length, length, dtype,
-                                     dev)
+                                     dev, planes)
 
-    a_in = local_dia(di, m)
-    a_eq = local_dia(de, m_eq) if de is not None else None
+    a_in, a_eq = one_plane_storage([
+        local_dia(di, m), local_dia(de, m_eq) if de is not None else None])
     shard = CpDiaShard(g0=g0, length=length, primal=(p0, p1),
                        interior=(i0, i1), n=n, m=m, me=m_eq,
                        c=cut(glob["c"], n), lb=cut(glob["lb"], n),
@@ -582,6 +587,7 @@ def run_position_sharded(sys_d, mesh, info, nb_max_iter=1000,
                          positions=plan["positions"],
                          positions_per_rank=plan["width"],
                          x_halo=plan["x_halo"], y_halo=plan["y_halo"],
+                         planes=str(data["shard"].a_ineq.vals.dtype)[6:],
                          restart=restart,
                          build_s=time.perf_counter() - t0)
     n = data["n"]

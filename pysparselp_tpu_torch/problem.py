@@ -51,7 +51,7 @@ import torch.nn.functional as F
 from .ops import bsr_spmv as _bsr
 from .ops import csr_spmv as _csr
 from .ops.cp_dense import DENSE_FUSED_BUDGET, _pad128
-from .ops.dia_spmv import DiaOperand, dia_apply, dia_spmm
+from .ops.dia_spmv import DiaOperand, dia_apply, dia_spmm, widen
 
 # The layout chooser (estimate_stream_bytes) prices each candidate by the
 # bytes one SpMV pair (A x and Aᵀ y) moves, counted from the shapes: each
@@ -214,6 +214,13 @@ class DiaMatrix:
     (host logic, the plain twins) and as int32 device tensors ``offs`` /
     ``offs_t`` (the kernels' argument).  No kernel-layout padding: the
     H-DIA kernel bounds-checks each read instead.
+
+    The planes are stored in bfloat16 where the JAX package stores them so
+    (:meth:`from_scipy`'s ``allow_bf16``): a float32 operator whose every
+    value is exact in bfloat16 streams half the plane bytes.  Products and
+    sums run in the solve dtype (``dtype``): every kernel and twin widens a
+    plane value exactly as it reads it, so a bfloat16 operator computes
+    bit for bit what its float32 copy computes.
     """
 
     vals: torch.Tensor     # (ndiag, nrows)
@@ -248,6 +255,11 @@ class DiaMatrix:
     def ndiag(self):
         return len(self.offsets)
 
+    @property
+    def dtype(self):
+        """The solve dtype: the planes' own, float32 for bfloat16 planes."""
+        return self.fwd.dtype
+
     def matvec(self, x):
         if x.dim() == 1:
             return dia_apply(self.fwd, x)
@@ -259,28 +271,42 @@ class DiaMatrix:
         return dia_spmm(self.bwd, y)
 
     def abs_power_rowsum(self, p):
-        return abs_pow0(self.vals, p).sum(dim=0)
+        return abs_pow0(widen(self.vals), p).sum(dim=0)
 
     def abs_power_colsum(self, p):
-        return abs_pow0(self.vals_t, p).sum(dim=0)
+        return abs_pow0(widen(self.vals_t), p).sum(dim=0)
 
     def sq_rowsum_weighted(self, d):
-        """H-DIA on the squared value planes (built once)."""
-        return dia_apply(_squared(self, lambda: DiaOperand(
-            self.vals * self.vals, self.offs, self.nrows)), d)
+        """H-DIA on the squared value planes (built once, squared in the
+        solve dtype: a bfloat16 square is not exact in general)."""
+        def make():
+            v = widen(self.vals)
+            return DiaOperand(v * v, self.offs, self.nrows)
+
+        return dia_apply(_squared(self, make), d)
 
     @staticmethod
     def from_planes(vals, offsets, vals_t, offsets_t, nrows, ncols, dtype,
-                    device) -> "DiaMatrix":
-        """From host ``(ndiag, nrows)`` / ``(ndiag_t, ncols)`` planes."""
+                    device, plane_dtype=None) -> "DiaMatrix":
+        """From ``(ndiag, nrows)`` / ``(ndiag_t, ncols)`` planes, stored as
+        ``plane_dtype`` (default ``dtype``; bfloat16 only with float32): a
+        torch tensor keeps its own dtype, host arrays are rounded to it."""
         def i32(o):
             return torch.as_tensor(np.asarray(o, np.int32).reshape(-1),
                                    device=device)
 
+        def planes(v, rows, cols):
+            v = (v.to(device) if torch.is_tensor(v)
+                 else _tensor(v, plane_dtype or dtype, device))
+            if v.dtype != dtype and (v.dtype, dtype) != (torch.bfloat16,
+                                                         torch.float32):
+                raise TypeError(f"DiaMatrix: {v.dtype} planes for a {dtype} "
+                                "solve (bfloat16 planes serve float32 only)")
+            return v.reshape(rows, cols)
+
         return DiaMatrix(
-            vals=_tensor(vals, dtype, device).reshape(len(offsets), nrows),
-            vals_t=_tensor(vals_t, dtype, device).reshape(len(offsets_t),
-                                                          ncols),
+            vals=planes(vals, len(offsets), nrows),
+            vals_t=planes(vals_t, len(offsets_t), ncols),
             offsets=tuple(int(o) for o in offsets),
             offsets_t=tuple(int(o) for o in offsets_t),
             offs=i32(offsets), offs_t=i32(offsets_t),
@@ -295,14 +321,57 @@ class DiaMatrix:
         return vals, offsets
 
     @staticmethod
-    def from_scipy(a, dtype, device) -> "DiaMatrix":
+    def from_scipy(a, dtype, device, allow_bf16="exact") -> "DiaMatrix":
+        """The DIA operator of a scipy matrix, its planes stored as the
+        JAX package's ``DiaMatrix.from_scipy`` stores them
+        (:func:`dia_plane_dtype`)."""
         coo = scipy.sparse.coo_matrix(a)
         coo.sum_duplicates()
         m, n = coo.shape
         vals, offsets = DiaMatrix._planes(coo, m)
         vals_t, offsets_t = DiaMatrix._planes(coo.T.tocoo(), n)
-        return DiaMatrix.from_planes(vals, offsets, vals_t, offsets_t, m, n,
-                                     dtype, device)
+        return DiaMatrix.from_planes(
+            vals, offsets, vals_t, offsets_t, m, n, dtype, device,
+            dia_plane_dtype(coo.data, dtype, allow_bf16))
+
+    def widened(self) -> "DiaMatrix":
+        """This operator with its planes stored in the solve dtype: a copy
+        of bfloat16 planes, widened exactly; ``self`` where they are
+        already."""
+        if self.vals.dtype == self.dtype:
+            return self
+        return dataclasses.replace(self, vals=widen(self.vals),
+                                   vals_t=widen(self.vals_t))
+
+
+def one_plane_storage(ops):
+    """``ops``, one problem's constraint systems (``None`` kept), as
+    H-CPDIA reads them: where every present system is a DiaMatrix and
+    their planes are stored in different dtypes (one exact in bfloat16,
+    another not), each re-stored in the solve dtype
+    (:meth:`DiaMatrix.widened`), since a launch reads every plane in one
+    storage dtype.  Widening is exact: every product is unchanged."""
+    present = [op for op in ops if op is not None]
+    if (not all(isinstance(op, DiaMatrix) for op in present)
+            or len({op.vals.dtype for op in present}) <= 1):
+        return list(ops)
+    return [None if op is None else op.widened() for op in ops]
+
+
+def dia_plane_dtype(values, dtype, allow_bf16="exact") -> torch.dtype:
+    """The dtype JAX's ``DiaMatrix.from_scipy(a, dtype, allow_bf16)``
+    stores the planes of a matrix holding ``values`` in: bfloat16 for a
+    float32 ``dtype`` where ``allow_bf16`` is ``"always"`` (rounded), or
+    ``"exact"`` and every value survives bfloat16 unchanged; else
+    ``dtype`` (``allow_bf16=False``, float64, no entries)."""
+    values = np.asarray(values)
+    if dtype != torch.float32 or not allow_bf16 or values.size == 0:
+        return dtype
+    if allow_bf16 == "always":
+        return torch.bfloat16
+    v = torch.as_tensor(values.astype(np.float32))
+    exact = bool((v.to(torch.bfloat16).float() == v).all())
+    return torch.bfloat16 if exact else dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -952,15 +1021,16 @@ def lower_systems(mats, dtype, device, layouts=None):
     DIA pays for every present system (:func:`fused_dia_pays`), all are
     DIA and H-CPDIA runs the whole iteration; otherwise each system gets
     its :func:`choose_layout` result, from ``layouts`` (one per system, as
-    the layout presolve priced them) or chosen here."""
+    the layout presolve priced them) or chosen here.  DIA planes come in
+    one storage dtype (:func:`one_plane_storage`)."""
     present = [a for a in mats if a is not None]
     if present and all(fused_dia_pays(a) for a in present):
         layouts = [("dia", None, None)] * len(mats)
     elif layouts is None:
         layouts = [(None, None, None)] * len(mats)
-    return [None if a is None
-            else ell_from_scipy(a, dtype, device, prefer, cuts)
-            for a, (prefer, cuts, _) in zip(mats, layouts)]
+    return one_plane_storage([
+        None if a is None else ell_from_scipy(a, dtype, device, prefer, cuts)
+        for a, (prefer, cuts, _) in zip(mats, layouts)])
 
 
 @dataclasses.dataclass(frozen=True)

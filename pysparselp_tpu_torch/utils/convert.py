@@ -38,12 +38,21 @@ import scipy.sparse
 import torch
 
 from ..problem import (BsrMatrix, ColBlockMatrix, CsrMatrix, DenseMatrix,
-                       DiaMatrix, LPProblem, PartitionMatrix, resolve_device,
-                       resolve_dtype)
+                       DiaMatrix, LPProblem, PartitionMatrix,
+                       one_plane_storage, resolve_device, resolve_dtype)
 
 
 def _np(a):
     return np.asarray(a).astype(np.float64)
+
+
+def _plane_dtype(planes, dtype):
+    """The port's storage of JAX planes for a ``dtype`` solve: JAX's
+    bfloat16 stays bfloat16 (its values are exact there) for float32;
+    anything else is stored in ``dtype``."""
+    if str(planes.dtype) == "bfloat16" and dtype == torch.float32:
+        return torch.bfloat16
+    return dtype
 
 
 def _ell_entries(vals, cols):
@@ -83,7 +92,7 @@ def operator_from_jax(op, dtype, device):
         return DiaMatrix.from_planes(
             _np(op.vals)[:nd, :op.nrows], op.offsets,
             _np(op.vals_t)[:ndt, :op.ncols], op.offsets_t,
-            op.nrows, op.ncols, dtype, device)
+            op.nrows, op.ncols, dtype, device, _plane_dtype(op.vals, dtype))
     if kind == "DenseMatrix":
         return DenseMatrix(a=torch.as_tensor(_np(op.a), dtype=dtype,
                                              device=device),
@@ -123,7 +132,8 @@ def operator_from_jax(op, dtype, device):
 
 
 def problem_from_jax_arrays(jprob, dtype=None, device="cpu") -> LPProblem:
-    """The port's LPProblem with the JAX problem's arrays and operators."""
+    """The port's LPProblem with the JAX problem's arrays and operators
+    (DIA planes in one storage dtype, :func:`~..problem.one_plane_storage`)."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype, dev)
 
@@ -131,10 +141,12 @@ def problem_from_jax_arrays(jprob, dtype=None, device="cpu") -> LPProblem:
         return None if v is None else torch.as_tensor(_np(v), dtype=dt,
                                                       device=dev)
 
+    a_eq, a_ineq = one_plane_storage([operator_from_jax(jprob.a_eq, dt, dev),
+                                      operator_from_jax(jprob.a_ineq, dt,
+                                                        dev)])
     return LPProblem(
         c=vec(jprob.c), lb=vec(jprob.lb), ub=vec(jprob.ub),
-        a_eq=operator_from_jax(jprob.a_eq, dt, dev), b_eq=vec(jprob.b_eq),
-        a_ineq=operator_from_jax(jprob.a_ineq, dt, dev),
+        a_eq=a_eq, b_eq=vec(jprob.b_eq), a_ineq=a_ineq,
         b_lower=vec(jprob.b_lower), b_upper=vec(jprob.b_upper),
         n=int(jprob.n), m_eq=int(jprob.m_eq), m_ineq=int(jprob.m_ineq))
 
@@ -257,7 +269,8 @@ def _position_from_jax(data, state, ndev, rank, dtype, device):
         return dict(offsets=tuple(int(o) for o in offsets),
                     vals=planes(v_tiles, rows),
                     offsets_t=tuple(int(o) for o in offsets_t),
-                    vals_t=planes(vt_tiles, n))
+                    vals_t=planes(vt_tiles, n),
+                    plane_dtype=_plane_dtype(v_tiles, torch.float32))
 
     consts, tiles = data["consts"], data["planes"]
     glob = dict(n=n, m=m, m_eq=m_eq, theta=float(data["theta"]),

@@ -19,7 +19,11 @@ one call.  Times, in float32, through the operators' own entry points:
 * H-DIA on the aligned Potts-300 system (``A x``) and on its 4 row shards
   (forward and window, K5's function), beside cuSPARSE;
 * H-CPDIA (``cp_dia_chunk``, chunks with sums, per iteration) at Potts-50
-  (H-CPDIA-R where the checkout plans it) and Potts-300, and Potts-50's
+  (H-CPDIA-R where the checkout plans it), Potts-100, Potts-300 and the
+  multi-label 64 grid (H-CPDIA-G where the checkout plans it; the
+  two-launch kernel forced beside it), the planes as the checkout stores
+  them; Potts-300's main-path solve (2,000 float32 iterations,
+  ``light_metrics``) twice, its steady iterations/s; and Potts-50's
   steady run and restart solve: iterations/s, seconds to the graph cut
   and the device's busy share (:func:`time_cpdia`);
 * H-CPDENSE, 1,000 iterations with sums, per iteration: on SC105, on
@@ -280,33 +284,62 @@ def time_cpdense(smoke, torch, emit, dt, dev, cp_dense):
 def time_cpdia(smoke, torch, emit, rng, dt, dev, repo, smi):
     """H-CPDIA through ``cp_dia_chunk`` per iteration, chunks with sums: at
     Potts-50 (K2's shape; H-CPDIA-R where the checkout plans it, else the
-    two-launch kernel) and Potts-300 (K3's). Then Potts-50's solves:
-    ``bench.py::measure_potts``'s steady run (200,000 iterations, a
-    checkpoint every 50,000, ``light_metrics``) twice, its steady
-    iterations/s and distance to the graph cut, and 20,000 iterations of it
-    under the profiler (the busy share); the restart solve of
-    ``chip_smoke.py``'s converge_potts50 (36,000 iterations, restart to
-    average every 4,000) twice, its seconds to the graph cut (mean
-    distance < 1e-2), and once under the profiler."""
+    two-launch kernel), Potts-100, Potts-300 and the multi-label 64 grid
+    (K3's; H-CPDIA-G where the checkout plans it, and the two-launch kernel
+    forced beside any other tier).  Potts-300's main-path solve twice
+    (2,000 float32 iterations, ``light_metrics``): its steady
+    iterations/s.  Then Potts-50's solves: ``bench.py::measure_potts``'s
+    steady run (200,000 iterations, a checkpoint every 50,000,
+    ``light_metrics``) twice, its steady iterations/s and distance to the
+    graph cut, and 20,000 iterations of it under the profiler (the busy
+    share); the restart solve of ``chip_smoke.py``'s converge_potts50
+    (36,000 iterations, restart to average every 4,000) twice, its seconds
+    to the graph cut (mean distance < 1e-2), and once under the
+    profiler."""
     import numpy as np
 
-    from pysparselp_tpu_torch.examples.potts import build_linear_program
+    from pysparselp_tpu_torch.examples.potts import (
+        build_linear_program, build_multilabel_linear_program)
     from pysparselp_tpu_torch.ops import cp_dia
 
-    for size, nsteps in ((50, 200), (300, 100)):
-        prob, pre = smoke.lowered(build_linear_program(size, 0.5, 500)[0],
-                                  dt, dev)
+    grids = (("potts50", lambda: build_linear_program(50, 0.5, 500)[0], 200),
+             ("potts100", lambda: build_linear_program(100, 0.5, 500)[0],
+              100),
+             ("potts300", lambda: build_linear_program(300, 0.5, 500)[0],
+              100),
+             ("multilabel64",
+              lambda: build_multilabel_linear_program(64, 4)[0], 100))
+    for key, make, nsteps in grids:
+        prob, pre = smoke.lowered(make(), dt, dev)
         x0 = torch.as_tensor(rng.rand(prob.n), dtype=dt, device=dev)
-        ye0 = torch.zeros(0, dtype=dt, device=dev)
+        ye0 = torch.as_tensor(rng.rand(prob.m_eq) * 0.1, dtype=dt,
+                              device=dev)
         yi0 = torch.as_tensor(rng.rand(prob.m_ineq) * 0.1, dtype=dt,
                               device=dev)
         tier = (cp_dia.cp_dia_plan(prob, dt).tier
                 if hasattr(cp_dia, "cp_dia_plan") else "two_launch")
-        emit("H-CPDIA", f"potts{size}", f"chunk of {nsteps}, {tier}",
-             lambda prob=prob, pre=pre, x0=x0, yi0=yi0, nsteps=nsteps:
-             cp_dia.cp_dia_chunk(prob, pre, x0, ye0, yi0, nsteps, 1.0,
-                                 with_sums=True),
-             per=nsteps, reps=20)
+        planes = str(prob.a_ineq.vals.dtype).split(".")[1]
+        plans = [(tier, None)]
+        if tier != "two_launch":
+            plans.append(("two_launch", cp_dia.TWO_LAUNCH))
+        for name, plan in plans:
+            emit("H-CPDIA", key, f"chunk of {nsteps}, {name}, {planes} "
+                 "planes",
+                 lambda prob=prob, pre=pre, x0=x0, ye0=ye0, yi0=yi0,
+                 nsteps=nsteps, plan=plan:
+                 cp_dia.cp_dia_chunk(prob, pre, x0, ye0, yi0, nsteps, 1.0,
+                                     with_sums=True, plan=plan),
+                 per=nsteps, reps=20)
+
+    lp300 = build_linear_program(300, 0.5, 500)[0]
+    rates = []
+    for _ in range(2):
+        lp300.solve(method="chambolle_pock_ppd", nb_iter=2000,
+                    nb_iter_plot=1000, light_metrics=True, dtype=np.float32,
+                    device="cuda")
+        rates.append(smoke.steady_rate(lp300))
+    print(json.dumps(dict(repo=repo, nvidia_smi=smi, solve="potts300",
+                          iters_per_s_steady=rates)), flush=True)
 
     lp, gt, idx, _ = build_linear_program(50, 0.5, 500)
     steady = dict(method="chambolle_pock_ppd", nb_iter=200_000,

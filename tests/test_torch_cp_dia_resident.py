@@ -69,11 +69,12 @@ def _offsets(prob):
     ("potts50", torch.float32, "resident"),
     ("potts50", torch.float64, "resident"),
     ("multilabel16", torch.float64, "resident"),
-    ("potts100", torch.float32, "two_launch"),
-    ("potts100", torch.float64, "two_launch"),
-    ("potts300", torch.float32, "two_launch"),
-    ("multilabel64", torch.float32, "two_launch"),
-    ("multilabel64", torch.float64, "two_launch"),
+    ("potts100", torch.float32, "grid"),
+    ("potts100", torch.float64, "grid"),
+    ("potts300", torch.float32, "grid"),
+    ("potts300", torch.float64, "two_launch"),
+    ("multilabel64", torch.float32, "grid"),
+    ("multilabel64", torch.float64, "grid"),
 ])
 def test_plan_tier_and_slabs(key, dtype, tier):
     prob, _ = _problem(key, dtype)
@@ -84,6 +85,9 @@ def test_plan_tier_and_slabs(key, dtype, tier):
         return
     positions = max(prob.n, prob.m_ineq, prob.m_eq)
     assert plan.positions == positions
+    if tier == "grid":
+        _check_grid_plan(prob, dtype, plan)
+        return
     # the slabs tile [0, positions) exactly: no gap, no overlap
     assert len(plan.slabs) == plan.cluster + 1
     assert plan.slabs[0] == 0 and plan.slabs[-1] == positions
@@ -97,6 +101,37 @@ def test_plan_tier_and_slabs(key, dtype, tier):
     assert plan.reach <= plan.width
     assert plan.threads % 32 == 0 and plan.threads <= cp_dia.MAX_THREADS
     assert plan.threads >= min(plan.width, cp_dia.MAX_THREADS)
+
+
+def _check_grid_plan(prob, dtype, plan):
+    """H-CPDIA-G's plan: a CTA an SM (132), slabs that tile the positions,
+    the halos of x3 (A's taps) and y (Aᵀ's), the layout within the budget
+    with every plane as stored, and the vectors it keeps in order."""
+    positions = plan.positions
+    assert plan.ctas == min(cp_dia.GRID_SMS,
+                            positions // cp_dia.GRID_MIN_WIDTH)
+    assert len(plan.slabs) == plan.ctas + 1
+    assert plan.slabs[0] == 0 and plan.slabs[-1] == positions
+    assert plan.width == -(-positions // plan.ctas)
+    ops = [op for op in (prob.a_ineq, prob.a_eq) if op is not None]
+    fwd = [o for op in ops for o in op.offsets]
+    assert plan.halos == ((max(0, -min(fwd)), max(0, max(fwd))),
+                          (max(0, max(fwd)), max(0, -min(fwd))))
+    itemsize = torch.finfo(dtype).bits // 8
+    planes = ops[0].vals.element_size()
+    assert planes == (2 if dtype == torch.float32 else 8)
+    ndiags = [len(o) for op in (prob.a_ineq, prob.a_eq) if op is not None
+              for o in (op.offsets_t, op.offsets)]
+    m = prob.m_ineq if prob.a_ineq is not None else 0
+    me = prob.m_eq if prob.a_eq is not None else 0
+    assert plan.smem_bytes == cp_dia.grid_smem_bytes(
+        plan.width, plan.halos, ndiags, m, me, itemsize, planes,
+        plan.vectors)
+    assert plan.smem_bytes <= cp_dia.SMEM_PER_CTA - cp_dia.GRID_STATIC_SMEM
+    order = [cp_dia.GRID_VECTORS.index(v) for v in plan.vectors]
+    assert order == sorted(order) and "x" in plan.vectors
+    assert plan.threads % 32 == 0
+    assert plan.threads == min(cp_dia.MAX_THREADS, -(-plan.width // 32) * 32)
 
 
 def test_plan_takes_the_largest_cluster_that_fits():
