@@ -80,6 +80,15 @@ float64 on the card (the two-launch H-CPDIA), held against the same CPU
 run within F64_MAIN_RTOL; ``main_path_potts50``, ``converge_potts50`` and
 ``main_path_mesh1`` print theirs.
 
+CSR values and partition tables are stored the same way (the JAX package's
+routed ELL and ``PartitionMatrix`` storage): phase 2 runs H-CSR on the
+transport equalities and the k-medians block (both exact in bfloat16) on
+bfloat16 and on float32 values, bit for bit alike, each held against the
+twin and timed (``values`` in each ``kernels`` line); phase 4's
+``main_path_{name}`` lines and ``main_path_admm_kmedians`` print each
+operator's value storage, and transport's and k-medians' CSR and partition
+operators must store bfloat16.
+
 The mesh solve (``lp.solve(mesh=...)``, ``parallel/sharded_cp.py``;
 float32 aligned DIA systems in the position-sharded regime,
 ``parallel/sharded_cp_windowed.py``, everything else row-sharded) adds:
@@ -1500,6 +1509,21 @@ def csr_extra_matrices():
             "no_entries": scipy.sparse.csr_matrix((1000, 500))}
 
 
+# the H-CSR systems whose values are exact in bfloat16 (the transport
+# equalities' ones, the k-medians block's ±1): the main path stores them in
+# bfloat16 for float32 (the JAX package's routed ELL storage)
+BF16_CSR = ("transport", "kmedians_block")
+
+
+def csr_bytes(operand):
+    """Bytes one H-CSR product moves: the values at their stored size and
+    the int32 indices, the row pointers, the output, and x read once."""
+    nnz = operand.vals.numel()
+    item = operand.carries.element_size()   # the product's dtype
+    return (nnz * (operand.vals.element_size() + 4)
+            + (operand.n_out + 1) * 4 + (operand.n_out + operand.n_in) * item)
+
+
 def phase_csr(torch, matrices, table):
     """Phase 2 for H-CSR: both orientations of each matrix (and of
     :func:`csr_extra_matrices`) against the twin, per row within RTOL *
@@ -1507,7 +1531,12 @@ def phase_csr(torch, matrices, table):
     bits; on the main path's matrices in float32 the kernel, the twin and
     the library call (cuSPARSE through ``torch.mv``) timed by events,
     device time, host time per call and kernels per call (one for H-CSR,
-    and no copy to the host)."""
+    and no copy to the host).  The systems of ``BF16_CSR`` run in float32
+    on both value storages: the values in bfloat16 (as the main path
+    stores them; ``values`` in each line) give the bits of the float32
+    values' kernel on the same plan, and are held and timed the same way.
+    The summary line's H-CSR numbers are transport A x on bfloat16 values,
+    the storage its solve runs."""
     import numpy as np
 
     from pysparselp_tpu_torch.ops import csr_spmv as ops
@@ -1518,69 +1547,93 @@ def phase_csr(torch, matrices, table):
     for dt in (torch.float32, torch.float64):
         name = str(dt).split(".")[1]
         for key, a in {**matrices, **csr_extra_matrices()}.items():
-            op = CsrMatrix.from_scipy(a, dt, dev)
-            for side, (operand, host) in (("A", (op.csr, a)),
-                                          ("At", (op.csr_t, None))):
-                x = torch.as_tensor(rng.randn(operand.n_in), dtype=dt,
-                                    device=dev)
-
-                def kern(operand=operand, x=x):
-                    return ops.csr_spmv(operand, x)
-
-                def plain(operand=operand, x=x):
-                    return ops.csr_spmv_reference(
-                        operand.indptr, operand.indices, operand.vals, x,
-                        operand.n_out)
-
-                got, want = kern(), plain()
-                scale = ops.csr_spmv_reference(
-                    operand.indptr, operand.indices, operand.vals.abs(),
-                    x.abs(), operand.n_out)
-                err = (got - want).abs()
-                if not bool((err <= RTOL[name] * scale).all()):
-                    raise AssertionError(
-                        f"H-CSR {key} {side} ({name}): |kernel - twin| past "
-                        f"{RTOL[name]:.0e} * (|A||x|)_row, max "
-                        f"{float(err.max()):.3e}")
-                if not torch.equal(kern(), got):
-                    raise AssertionError(f"H-CSR {key} {side} ({name}): "
-                                         "two calls differ")
-                nnz = operand.vals.numel()
-                rec = dict(kernel="H-CSR", problem=key, side=side,
-                           dtype=name, shape=[operand.n_out, operand.n_in],
-                           nnz=nnz, width=operand.plan.width,
-                           blocks=operand.plan.row_blocks
-                           + operand.plan.n_chunks,
-                           long_rows=operand.plan.n_tasks,
-                           max_abs_err=float((got - want).abs().max()))
-                if dt == torch.float32 and key in matrices:
-                    rec.update(timings(torch, kern, plain, 50))
-                    host = host if host is not None else a.T.tocsr()
-                    lib = sparse_tensor(torch, host, dt, dev)
-                    rec["library_ms"] = cuda_ms(
-                        torch, lambda lib=lib, x=x: torch.mv(lib, x), 50)
-                    rec["kernel_us"] = call_times(torch, kern)
-                    rec["library_us"] = call_times(
-                        torch, lambda lib=lib, x=x: torch.mv(lib, x))
-                    nbytes = nnz * 8 + (operand.n_out + 1) * 4 \
-                        + operand.n_out * 4 + operand.n_in * 4
-                    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * nnz)
-                    rec["achieved_tb_s"] = nbytes / (
-                        rec["kernel_us"]["device_us"] * 1e-6) / 1e12
-                    calls = rec["kernel_us"]
-                    if round(calls["kernels_per_call"]) != 1 or len(
-                            calls["kernel_names"]) != 1 or "Memcpy" in \
-                            calls["kernel_names"][0]:
+            ops_by_values = {name: CsrMatrix.from_scipy(a, dt, dev)}
+            if dt == torch.float32 and key in BF16_CSR:
+                narrow = CsrMatrix.from_scipy(a, dt, dev, allow_bf16="exact")
+                if narrow.vals.dtype != torch.bfloat16:
+                    raise AssertionError(f"H-CSR {key}: values stored in "
+                                         f"{narrow.vals.dtype}, not bfloat16")
+                ops_by_values["bfloat16"] = narrow
+            for side in ("A", "At"):
+                x, wide_out = None, None
+                for values, op in ops_by_values.items():
+                    operand = op.csr if side == "A" else op.csr_t
+                    if x is None:
+                        x = torch.as_tensor(rng.randn(operand.n_in),
+                                            dtype=dt, device=dev)
+                    rec, got = csr_case(torch, ops, key, side, name, values,
+                                        operand, x, a if key in matrices
+                                        else None)
+                    if wide_out is None:
+                        wide_out = got
+                    elif not same_bits(torch, [got], [wide_out]):
                         raise AssertionError(
-                            f"H-CSR {key} {side}: {calls['kernels_per_call']}"
-                            f" device events per call, {calls['kernel_names']}")
-                    if (key, side) == ("transport", "A"):
+                            f"H-CSR {key} {side}: bfloat16 values differ "
+                            "from float32 values, max "
+                            f"{float((got - wide_out).abs().max()):.3e}")
+                    else:
+                        rec["bit_equal_to_float32_values"] = True
+                    if (key, side, values) == ("transport", "A", "bfloat16"):
                         table["H-CSR"].update({k: rec[k] for k in (
                             "ms", "plain_ms", "library_ms", "bound_ms",
-                            "bound_by")})
-                table["H-CSR"]["max_abs_err"] = max(
-                    table["H-CSR"]["max_abs_err"], rec["max_abs_err"])
-                emit("kernels", **rec)
+                            "bound_by")}, values=values)
+                    table["H-CSR"]["max_abs_err"] = max(
+                        table["H-CSR"]["max_abs_err"], rec["max_abs_err"])
+                    emit("kernels", **rec)
+
+
+def csr_case(torch, ops, key, side, name, values, operand, x, timed_host):
+    """One H-CSR case of :func:`phase_csr`: the kernel against the twin
+    per row, a second call's bits, and where ``timed_host`` (the host
+    matrix of a main-path system, or None) the timings, the library call
+    and the bound.  Returns the record and the kernel's output."""
+    def kern():
+        return ops.csr_spmv(operand, x)
+
+    def plain():
+        return ops.csr_spmv_reference(operand.indptr, operand.indices,
+                                      operand.vals, x, operand.n_out)
+
+    got, want = kern(), plain()
+    scale = ops.csr_spmv_reference(operand.indptr, operand.indices,
+                                   operand.vals.abs(), x.abs(), operand.n_out)
+    err = (got - want).abs()
+    if not bool((err <= RTOL[name] * scale).all()):
+        raise AssertionError(
+            f"H-CSR {key} {side} ({name}, {values} values): |kernel - twin| "
+            f"past {RTOL[name]:.0e} * (|A||x|)_row, max "
+            f"{float(err.max()):.3e}")
+    if not torch.equal(kern(), got):
+        raise AssertionError(f"H-CSR {key} {side} ({name}, {values} "
+                             "values): two calls differ")
+    nnz = operand.vals.numel()
+    rec = dict(kernel="H-CSR", problem=key, side=side, dtype=name,
+               values=values, shape=[operand.n_out, operand.n_in], nnz=nnz,
+               width=operand.plan.width,
+               blocks=operand.plan.row_blocks + operand.plan.n_chunks,
+               long_rows=operand.plan.n_tasks,
+               max_abs_err=float(err.max()))
+    if operand.dtype == torch.float32 and timed_host is not None:
+        rec.update(timings(torch, kern, plain, 50))
+        host = timed_host if side == "A" else timed_host.T.tocsr()
+        lib = sparse_tensor(torch, host, operand.dtype, operand.device)
+        rec["library_ms"] = cuda_ms(
+            torch, lambda lib=lib: torch.mv(lib, x), 50)
+        rec["kernel_us"] = call_times(torch, kern)
+        rec["library_us"] = call_times(torch, lambda lib=lib: torch.mv(lib, x))
+        nbytes = csr_bytes(operand)
+        rec["bytes"] = nbytes
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * nnz)
+        rec["achieved_tb_s"] = nbytes / (
+            rec["kernel_us"]["device_us"] * 1e-6) / 1e12
+        calls = rec["kernel_us"]
+        if round(calls["kernels_per_call"]) != 1 or len(
+                calls["kernel_names"]) != 1 or "Memcpy" in \
+                calls["kernel_names"][0]:
+            raise AssertionError(
+                f"H-CSR {key} {side}: {calls['kernels_per_call']} device "
+                f"events per call, {calls['kernel_names']}")
+    return rec, got
 
 
 def batch_operator(lp, dtype, device):
@@ -2153,6 +2206,37 @@ def steady_rate(lp):
             / (lp.opttime_curve[-1] - lp.opttime_curve[0]))
 
 
+def value_storage(op):
+    """The dtype each operator stores its values in, by name: a column-
+    block composite lists its blocks."""
+    from pysparselp_tpu_torch.problem import (BsrMatrix, ColBlockMatrix,
+                                              DenseMatrix)
+
+    if op is None:
+        return None
+    if isinstance(op, ColBlockMatrix):
+        return [value_storage(b) for b in op.blocks]
+    vals = (op.a if isinstance(op, DenseMatrix)
+            else op.op.tiles if isinstance(op, BsrMatrix) else op.vals)
+    return str(vals.dtype).split(".")[1]
+
+
+def blocks_of(op):
+    """The operators of ``op``: its blocks, or itself."""
+    from pysparselp_tpu_torch.problem import ColBlockMatrix
+
+    if op is None:
+        return []
+    if isinstance(op, ColBlockMatrix):
+        return [x for b in op.blocks for x in blocks_of(b)]
+    return [op]
+
+
+# the non-grid workloads whose CSR and partition values are exact in
+# bfloat16 (ones and ±1), which the lowering stores so in float32
+BF16_WORKLOADS = ("transport", "kmedians")
+
+
 def count_ops(op, kind):
     """How many operators of ``kind`` ``op`` holds (blocks included)."""
     from pysparselp_tpu_torch.problem import ColBlockMatrix
@@ -2169,7 +2253,7 @@ def phase_nongrid(torch, name, lp, counted_solve):
     import numpy as np
 
     from pysparselp_tpu_torch.problem import (CsrMatrix, DiaMatrix,
-                                              lower_systems,
+                                              PartitionMatrix, lower_systems,
                                               operator_cost_bytes)
     from pysparselp_tpu_torch.solvers.chambolle_pock import _choose_layout
 
@@ -2184,6 +2268,13 @@ def phase_nongrid(torch, name, lp, counted_solve):
     ops = lower_systems(mats, torch.float32, "cuda", layouts=layouts)
     torch.cuda.synchronize()
     lower_s = time.perf_counter() - t0
+    values = {"a_eq": value_storage(ops[0]), "a_ineq": value_storage(ops[1])}
+    if name in BF16_WORKLOADS and any(
+            op.vals.dtype != torch.bfloat16
+            for o in ops for op in blocks_of(o)
+            if isinstance(op, (CsrMatrix, PartitionMatrix))):
+        raise AssertionError(f"{name}: CSR / partition values stored as "
+                             f"{values}, not bfloat16")
     run = dict(method="chambolle_pock_ppd", nb_iter=200, nb_iter_plot=100)
     lp.solve(dtype=np.float32, device="cuda", **run)
     got, itrn = curves(lp), list(lp.itrn_curve)
@@ -2206,6 +2297,7 @@ def phase_nongrid(torch, name, lp, counted_solve):
     emit(f"main_path_{name}", n=len(sys_["c"]),
          nnz=[None if a is None else int(a.nnz) for a in mats],
          lowered={"a_eq": describe(ops[0]), "a_ineq": describe(ops[1])},
+         values=values,
          permutation=choice, auto_layout_s=choose_s, lower_s=lower_s,
          bytes_per_spmv_pair=sum(operator_cost_bytes(o) for o in ops),
          itrn=itrn, f32_cuda=got, f64_cpu=want, worst_rel_diff=worst,
@@ -3618,7 +3710,8 @@ def phase_admm_kmedians(torch, counted_solve):
             iters_per_s_steady=sorted(rates)[1], launches=launches)
         methods[method] = dict(
             standard_form=list(host.shape), nnz=int(host.nnz),
-            lowered=describe(op), itrn=itrn, cuda=got, f64_cpu=want,
+            lowered=describe(op), values=value_storage(op), itrn=itrn,
+            cuda=got, f64_cpu=want,
             rel_diff=diffs, held=cfg["held"], rel_limit=NONGRID_RTOL,
             cpu_wall_s=cpu_wall, nb_iter=nb_iter,
             iters_per_s_steady=sorted(rates)[1], iters_per_s_runs=rates,

@@ -13,7 +13,8 @@
 // (the CSC of A) for A^T y.
 //
 // Bound on the H100 (3.35 TB/s HBM at 700 W): memory.  One call moves
-//   nnz * (itemsize + 4)            values and column indices,
+//   nnz * (value itemsize + 4)      values (2 bytes in bfloat16) and
+//                                   column indices,
 //   (n_out + 1) * 4                 row pointers,
 //   n_out * itemsize                the output,
 // plus the gathered x: n_in * itemsize when x stays in the 50 MB L2 (the
@@ -42,13 +43,19 @@
 // * x is read through the read-only data path (__ldg); indices and values
 //   by plain loads (the evict-first hint, __ldcs, measured slower on the
 //   main path's matrices: PERF.md, PR 5).
+// * the values are read as stored: in the compute type T, or in bfloat16
+//   (V) for a float32 product whose every value is exact in bfloat16 (the
+//   JAX package's routed ELL storage: 2 bytes a value, widened exactly in
+//   registers by pslp::widen), so the product is bit for bit the float32
+//   values' on the same plan.
 // No floating-point atomics: every sum has a fixed order, so the same
 // inputs give the same bits (the tests emulate the order).  A plan's carries
 // and counters serve one call at a time (calls on one stream).
 //
 // H-CSR-B, the same product over B right-hand sides stored batch-last,
 //   Y[r, b] = sum_k vals[k] * X[indices[k], b],   X (n_in, B), Y (n_out, B),
-// serves the batched CP iteration (batch.py).  It replaces the vmapped
+// serves the batched CP iteration (batch.py), on values stored in T (the
+// batch path keeps the dtype, as JAX's does).  It replaces the vmapped
 // gather-ELL product of pysparselp_tpu/batch.py:147 (EllMatrix under
 // jax.vmap; no pallas_call stands behind it).  Bounds: memory, each entry's
 // value and index read once for all B columns, plus X and Y; and the
@@ -121,23 +128,24 @@ __device__ __forceinline__ void acquire_fence() {
   asm volatile("fence.acq_rel.gpu;" ::: "memory");
 }
 
-// sum over entries begin + lane, begin + lane + step, ... below end
-template <typename T>
+// sum over entries begin + lane, begin + lane + step, ... below end; the
+// values stored as V, widened exactly to T
+template <typename T, typename V>
 __device__ __forceinline__ T gather_dot(const int* __restrict__ indices,
-                                        const T* __restrict__ vals,
+                                        const V* __restrict__ vals,
                                         const T* __restrict__ x, int begin,
                                         int end, int lane, int step) {
   T acc = T(0);
   for (int k = begin + lane; k < end; k += step) {
-    acc = acc + vals[k] * __ldg(x + indices[k]);
+    acc = acc + pslp::widen<T>(vals[k]) * __ldg(x + indices[k]);
   }
   return acc;
 }
 
-template <typename T, int W>
+template <typename T, typename V, int W>
 __global__ void __launch_bounds__(kThreads)
 csr_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
-           const T* __restrict__ vals, int* plan_raw, int n_out,
+           const V* __restrict__ vals, int* plan_raw, int n_out,
            int row_blocks, int n_chunks, int n_tasks, T* carries,
            const T* __restrict__ x, T* __restrict__ y) {
   __shared__ T partial[kWarps];
@@ -300,8 +308,8 @@ int launch_batch(const int* indptr, const int* indices, const T* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const int* indptr, const int* indices, const T* vals, int* plan,
+template <typename T, typename V>
+int launch(const int* indptr, const int* indices, const V* vals, int* plan,
            int n_out, int width, int n_chunks, int n_tasks, T* carries,
            const T* x, T* y, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -311,7 +319,8 @@ int launch(const int* indptr, const int* indices, const T* vals, int* plan,
   if (blocks == 0) return static_cast<int>(cudaSuccess);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
 #define PSLP_CSR_LAUNCH(W)                                                  \
-  csr_kernel<T, W><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>( \
+  csr_kernel<T, V, W><<<static_cast<unsigned>(blocks), kThreads, 0,        \
+                        stream>>>(                                          \
       indptr, indices, vals, plan, n_out, static_cast<int>(row_blocks),     \
       n_chunks, n_tasks, carries, x, y)
   switch (width) {
@@ -328,17 +337,20 @@ int launch(const int* indptr, const int* indices, const T* vals, int* plan,
 
 }  // namespace
 
-#define PSLP_CSR(SUFFIX, T)                                                  \
+#define PSLP_CSR(SUFFIX, T, V)                                               \
   PSLP_EXPORT int pslp_csr_spmv_##SUFFIX(                                    \
-      const int* indptr, const int* indices, const T* vals, int* plan,       \
+      const int* indptr, const int* indices, const V* vals, int* plan,       \
       int n_out, int width, int n_chunks, int n_tasks, T* carries,           \
       const T* x, T* y, void* stream) {                                      \
-    return launch<T>(indptr, indices, vals, plan, n_out, width, n_chunks,    \
-                     n_tasks, carries, x, y, stream);                        \
+    return launch<T, V>(indptr, indices, vals, plan, n_out, width,           \
+                        n_chunks, n_tasks, carries, x, y, stream);           \
   }
 
-PSLP_CSR(f32, float)
-PSLP_CSR(f64, double)
+PSLP_CSR(f32, float, float)
+PSLP_CSR(f64, double, double)
+// float32 products on values stored in bfloat16 (exact values), the JAX
+// package's routed ELL storage: half the value bytes
+PSLP_CSR(f32_bf16, float, __nv_bfloat16)
 
 #define PSLP_CSR_BATCH(SUFFIX, T)                                            \
   PSLP_EXPORT int pslp_csr_spmm_##SUFFIX(                                    \

@@ -22,6 +22,13 @@ module's second kernel entry, on the same plan: :func:`csr_spmm` launches it
 for CUDA tensors and runs :func:`csr_spmm_reference` for CPU tensors.  Its
 chunk carries (``n_chunks × B``) and arrival counters are its own, one set
 per batch size (:meth:`CsrOperand.batch_scratch`), never the 1-D entry's.
+
+The values are stored in the product's dtype, or in bfloat16 for a float32
+product whose every value is exact there (the JAX package's routed ELL
+storage): H-CSR and the twins widen each value exactly as they read it, so
+the result is bit for bit the float32 values' on the same plan.  H-CSR-B
+takes values in the product's dtype only (the batch path stores them so)
+and raises on bfloat16 ones.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .dia_spmv import widen
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P)
@@ -141,7 +149,9 @@ class CsrOperand:
     tensor, the chunks' ``carries`` and the kernel's bound C entry.
     Checked once here; :func:`csr_spmv` checks only ``x``.  ``plan`` is
     :func:`split_plan` of ``indptr`` (computed here when None, which reads
-    ``indptr`` back to the host once)."""
+    ``indptr`` back to the host once).  ``vals`` is float32 or float64,
+    or bfloat16 for a float32 product: ``dtype``, the product's (of ``x``,
+    the output and the carries), is then float32."""
 
     __slots__ = ("indptr", "indices", "vals", "n_in", "n_out", "plan",
                  "plan_dev", "carries", "device", "dtype", "x_shape",
@@ -158,9 +168,9 @@ class CsrOperand:
                 or indices.shape != (nnz,) or vals.dim() != 1):
             raise ValueError("csr_spmv: indptr (n_out + 1,) and indices "
                              "(nnz,) must be int32, vals (nnz,)")
-        if vals.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"csr_spmv takes float32 or float64, got "
-                            f"{vals.dtype}")
+        if vals.dtype not in (torch.float32, torch.float64, torch.bfloat16):
+            raise TypeError(f"csr_spmv takes float32, float64 or bfloat16 "
+                            f"values, got {vals.dtype}")
         dev = vals.device
         for t in (indptr, indices, vals):
             if t.device != dev or (dev.type == "cuda"
@@ -172,9 +182,11 @@ class CsrOperand:
         self.plan = plan if plan is not None else split_plan(
             indptr.cpu().numpy())
         self.plan_dev = torch.as_tensor(self.plan.packed(), device=dev)
-        self.carries = torch.zeros(self.plan.n_chunks, dtype=vals.dtype,
+        self.dtype = (torch.float32 if vals.dtype == torch.bfloat16
+                      else vals.dtype)
+        self.carries = torch.zeros(self.plan.n_chunks, dtype=self.dtype,
                                    device=dev)
-        self.device, self.dtype = dev, vals.dtype
+        self.device = dev
         self.x_shape = (self.n_in,)
         self.device_index = self.entry = self.entry_b = None
         self._scratch = {}
@@ -183,13 +195,15 @@ class CsrOperand:
         self.fused, self._slots = bool(fused), None
         if dev.type == "cuda":
             self.device_index = _build.device_index(dev)
-            sfx = _build.suffix(vals.dtype)
             head = (indptr, indices, vals, self.plan_dev, n_out,
                     self.plan.width, self.plan.n_chunks, self.plan.n_tasks)
-            self.entry = _build.Entry(f"pslp_csr_spmv_{sfx}", _ARGTYPES,
-                                      *head, self.carries)
-            self.entry_b = _build.Entry(f"pslp_csr_spmm_{sfx}", _ARGTYPES_B,
-                                        *head)
+            self.entry = _build.Entry(
+                f"pslp_csr_spmv_{_build.plane_suffix(self.dtype, vals.dtype)}",
+                _ARGTYPES, *head, self.carries)
+            if vals.dtype == self.dtype:
+                self.entry_b = _build.Entry(
+                    f"pslp_csr_spmm_{_build.suffix(self.dtype)}",
+                    _ARGTYPES_B, *head)
 
     def batch_scratch(self, nb):
         """``(carries, counters)`` of the batched entry at batch size
@@ -205,14 +219,22 @@ class CsrOperand:
         return found
 
     @staticmethod
-    def from_host(indptr, indices, data, n_in, dtype, device, fused=False):
-        """From host CSR arrays (the plan from the host ``indptr``)."""
+    def from_host(indptr, indices, data, n_in, dtype, device, fused=False,
+                  value_dtype=None):
+        """From host CSR arrays (the plan from the host ``indptr``), the
+        values stored as ``value_dtype`` (default ``dtype``; bfloat16
+        only with float32)."""
         def i32(v):
             return torch.as_tensor(np.asarray(v, np.int32), device=device)
 
+        value_dtype = value_dtype or dtype
+        if value_dtype != dtype and (value_dtype, dtype) != (torch.bfloat16,
+                                                             torch.float32):
+            raise TypeError(f"CsrOperand: {value_dtype} values for a {dtype} "
+                            "product (bfloat16 values serve float32 only)")
         return CsrOperand(
             i32(indptr), i32(indices),
-            torch.as_tensor(np.asarray(data, np.float64), dtype=dtype,
+            torch.as_tensor(np.asarray(data, np.float64), dtype=value_dtype,
                             device=device), n_in, split_plan(indptr),
             fused=fused)
 
@@ -231,7 +253,9 @@ class CsrOperand:
 
 def csr_spmv_reference(indptr, indices, vals, x, n_out):
     """Plain twin: a gather of ``x`` and an ``index_add_`` into the rows
-    (on the CPU it adds in entry order)."""
+    (on the CPU it adds in entry order); bfloat16 values widened exactly
+    to float32."""
+    vals = widen(vals)
     rows = torch.repeat_interleave(
         torch.arange(n_out, device=vals.device), indptr.diff().long())
     y = torch.zeros(n_out, dtype=vals.dtype, device=vals.device)
@@ -248,12 +272,13 @@ def csr_spmv_fused_reference(op, x, base=None):
     has two entries (a padded width of 1, whose reduction XLA removes):
     there the product fuses into the addition, ``fma(v_0, x_0, base)``."""
     slots = op.row_slots()
-    y = torch.zeros(op.n_out, dtype=op.vals.dtype, device=op.vals.device)
+    vals = widen(op.vals)
+    y = torch.zeros(op.n_out, dtype=vals.dtype, device=vals.device)
     if base is not None and len(slots) <= 1:
         y, base = base.clone(), None
     idx = op.indices.long()
     for entries, rows in slots:
-        y[rows] = torch.addcmul(y[rows], op.vals[entries], x[idx[entries]])
+        y[rows] = torch.addcmul(y[rows], vals[entries], x[idx[entries]])
     return y if base is None else base + y
 
 
@@ -269,6 +294,7 @@ def csr_spmv_plus(op: "CsrOperand", x, base):
 def csr_spmm_reference(indptr, indices, vals, x, n_out):
     """Plain twin of H-CSR-B: :func:`csr_spmv_reference` with a trailing
     batch axis, ``x`` (n_in, B) -> (n_out, B)."""
+    vals = widen(vals)
     rows = torch.repeat_interleave(
         torch.arange(n_out, device=vals.device), indptr.diff().long())
     y = torch.zeros((n_out, x.shape[1]), dtype=vals.dtype, device=vals.device)
@@ -289,6 +315,9 @@ def csr_spmm(op: CsrOperand, x):
             f"csr_spmm: x must be a contiguous ({op.n_in}, B) {op.dtype} "
             f"tensor on {op.device}, got {tuple(x.shape)} {x.dtype} on "
             f"{x.device}")
+    if op.entry_b is None:
+        raise TypeError(f"csr_spmm: H-CSR-B reads values stored in the "
+                        f"product's dtype ({op.dtype}), got {op.vals.dtype}")
     nb = x.shape[1]
     y = torch.empty((op.n_out, nb), dtype=op.dtype, device=op.device)
     if nb and op.n_out * nb + op.plan.n_chunks:

@@ -363,7 +363,10 @@ def dia_plane_dtype(values, dtype, allow_bf16="exact") -> torch.dtype:
     stores the planes of a matrix holding ``values`` in: bfloat16 for a
     float32 ``dtype`` where ``allow_bf16`` is ``"always"`` (rounded), or
     ``"exact"`` and every value survives bfloat16 unchanged; else
-    ``dtype`` (``allow_bf16=False``, float64, no entries)."""
+    ``dtype`` (``allow_bf16=False``, float64, no entries).  With
+    ``"exact"`` this is also the rule of JAX's ``RoutedEllMatrix.
+    from_scipy`` (``pysparselp_tpu/ops/ell_routed.py:1421-1429``) and
+    ``PartitionMatrix.from_scipy`` (``_bf16_exact``)."""
     values = np.asarray(values)
     if dtype != torch.float32 or not allow_bf16 or values.size == 0:
         return dtype
@@ -374,13 +377,25 @@ def dia_plane_dtype(values, dtype, allow_bf16="exact") -> torch.dtype:
     return torch.bfloat16 if exact else dtype
 
 
+# the storage of CSR values and of a partition's value table: the DIA rule
+csr_value_dtype = dia_plane_dtype
+
+
 @dataclasses.dataclass(frozen=True)
 class CsrMatrix:
     """Unstructured operator: the CSR of ``A`` (``csr``) serves ``A @ x``
     and the CSR of ``Aᵀ`` (``csr_t``, the CSC of ``A``) serves ``Aᵀ @ y``,
     both through :func:`~pysparselp_tpu_torch.ops.csr_spmv.csr_spmv`
     (H-CSR on CUDA).  Each orientation carries its launch plan (lanes per
-    row, long rows cut into chunks), built once here."""
+    row, long rows cut into chunks), built once here.
+
+    The values are stored in bfloat16 where the JAX operator this one
+    mirrors stores them so (:meth:`from_scipy`'s ``allow_bf16``): a
+    float32 operator whose every value is exact in bfloat16 streams half
+    the value bytes.  Products and sums run in the solve dtype (each
+    orientation's ``dtype``): H-CSR and the twins widen each value exactly
+    as they read it, so a bfloat16 operator computes bit for bit what its
+    float32 copy computes."""
 
     csr: _csr.CsrOperand
     csr_t: _csr.CsrOperand
@@ -429,37 +444,55 @@ class CsrMatrix:
         return torch.zeros(n, dtype=v.dtype, device=v.device).index_add_(
             0, rows, v)
 
+    # the reductions widen bfloat16 values first: a bfloat16 power or sum
+    # would round
     def abs_power_rowsum(self, p):
-        return self._row_sum(self.indptr, abs_pow0(self.vals, p), self.nrows)
+        return self._row_sum(self.indptr, abs_pow0(widen(self.vals), p),
+                             self.nrows)
 
     def abs_power_colsum(self, p):
-        return self._row_sum(self.indptr_t, abs_pow0(self.vals_t, p),
+        return self._row_sum(self.indptr_t, abs_pow0(widen(self.vals_t), p),
                              self.ncols)
 
     def sq_rowsum_weighted(self, d):
-        """H-CSR on the squared values, over A's plan (built once)."""
+        """H-CSR on the squared values, over A's plan (built once; squared
+        in the solve dtype: a bfloat16 square is not exact in general)."""
         c = self.csr
-        return _csr.csr_spmv(_squared(self, lambda: _csr.CsrOperand(
-            c.indptr, c.indices, c.vals * c.vals, c.n_in, c.plan)), d)
+
+        def make():
+            v = widen(c.vals)
+            return _csr.CsrOperand(c.indptr, c.indices, v * v, c.n_in,
+                                   c.plan)
+
+        return _csr.csr_spmv(_squared(self, make), d)
 
     @staticmethod
-    def from_scipy(a, dtype, device, fused=False) -> "CsrMatrix":
-        """``fused=True``: on the CPU, both products round each row as a
-        fused multiply-add chain, as the JAX package's gather products do
-        there (the dual ascent solvers, whose exact comparisons of reduced
-        costs need that rounding)."""
+    def from_scipy(a, dtype, device, fused=False,
+                   allow_bf16=False) -> "CsrMatrix":
+        """The CSR operator of a scipy matrix, computing in ``dtype``.
+        ``allow_bf16`` stores the values as :func:`csr_value_dtype` says:
+        ``False`` (the default) keeps ``dtype``, as JAX's gather layouts
+        (``EllMatrix``, ``SegmentedEllMatrix``, the batch path's and the
+        shards' operators) do; ``"exact"`` stores bfloat16 for float32
+        where every value is exact there, as JAX's ``RoutedEllMatrix``
+        does (the lowering, :func:`ell_from_scipy`, passes it);
+        ``"always"`` rounds them to bfloat16.  ``fused=True``: on the CPU,
+        both products round each row as a fused multiply-add chain, as the
+        JAX package's gather products do there (the dual ascent solvers,
+        whose exact comparisons of reduced costs need that rounding)."""
         csr = scipy.sparse.csr_matrix(a, dtype=np.float64)
         csr.sum_duplicates()
         if csr.nnz > _csr.MAX_NNZ:
             raise ValueError(f"{csr.nnz} entries do not fit int32 indices")
         csc = csr.tocsc()
         m, n = csr.shape
+        store = csr_value_dtype(csr.data, dtype, allow_bf16)
         return CsrMatrix(
             csr=_csr.CsrOperand.from_host(csr.indptr, csr.indices, csr.data,
-                                          n, dtype, device, fused),
+                                          n, dtype, device, fused, store),
             csr_t=_csr.CsrOperand.from_host(csc.indptr, csc.indices,
                                             csc.data, m, dtype, device,
-                                            fused),
+                                            fused, store),
             nrows=m, ncols=n)
 
 
@@ -558,9 +591,17 @@ class PartitionMatrix:
     same reshape run backwards (every slot owns a distinct column, so the
     scatter is a flatten).  No TPU kernel stands behind it in the JAX
     package; plain torch serves both directions here too.
+
+    The value table is stored as JAX stores it (:meth:`from_scipy`'s
+    ``allow_bf16``): bfloat16 for a float32 operator whose every value is
+    exact there.  Every product and sum runs in the solve dtype:
+    ``matvec`` and ``rmatvec`` multiply the table by a
+    vector (or a batch-last ``(m, width, B)`` window) of the solve dtype,
+    which promotes each value exactly, as JAX's ``vals.astype(x.dtype)``;
+    the reductions widen the table first.
     """
 
-    vals: torch.Tensor   # (nrows, width)
+    vals: torch.Tensor   # (nrows, width); bfloat16 when exact for float32
     col0: int
     stride: int
     width: int
@@ -613,16 +654,21 @@ class PartitionMatrix:
         return self._scatter(self.vals[:, :, None] * y[:, None, :])
 
     def abs_power_rowsum(self, p):
-        return torch.sum(abs_pow0(self.vals, p), dim=1)
+        return torch.sum(abs_pow0(widen(self.vals), p), dim=1)
 
     def abs_power_colsum(self, p):
-        return self._scatter(abs_pow0(self.vals, p))
+        return self._scatter(abs_pow0(widen(self.vals), p))
 
     def sq_rowsum_weighted(self, d):
-        return torch.sum(self.vals * self.vals * self._window(d), dim=1)
+        v = widen(self.vals)
+        return torch.sum(v * v * self._window(d), dim=1)
 
     @staticmethod
-    def from_scipy(a, dtype, device) -> "PartitionMatrix":
+    def from_scipy(a, dtype, device, allow_bf16="exact") -> "PartitionMatrix":
+        """The partition operator of a scipy matrix, its value table
+        stored as JAX's ``PartitionMatrix.from_scipy`` stores it
+        (:func:`csr_value_dtype`; ``"exact"``, JAX's only rule, by
+        default)."""
         csr = scipy.sparse.csr_matrix(a)
         if not csr.has_sorted_indices:
             csr = csr.sorted_indices()
@@ -631,8 +677,9 @@ class PartitionMatrix:
             raise ValueError("matrix rows are not a fixed-width "
                              "contiguous-column partition pattern")
         col0, stride, w = geo
+        store = csr_value_dtype(csr.data, dtype, allow_bf16)
         return PartitionMatrix(
-            vals=_tensor(csr.data.reshape(csr.shape[0], w), dtype, device),
+            vals=_tensor(csr.data.reshape(csr.shape[0], w), store, device),
             col0=col0, stride=stride, width=w, nrows=csr.shape[0],
             ncols=csr.shape[1])
 
@@ -821,7 +868,8 @@ def estimate_stream_bytes(csr, dtype=None):
 
 def operator_cost_bytes(op) -> int:
     """Bytes per SpMV pair of a LOWERED operator, by the chooser's model at
-    the operator's own dtype."""
+    the item size its values are stored in (bfloat16 DIA planes, CSR
+    values and partition tables at 2 bytes)."""
     if op is None:
         return 0
     if isinstance(op, ColBlockMatrix):
@@ -941,7 +989,9 @@ def choose_layout(csr, bsr_line_price=None):
     return best, (), cost
 
 
-_GATHER_LAYOUTS = ("ell", "segmented", "routed")
+# the JAX package's gather layouts that keep the dtype (EllMatrix,
+# SegmentedEllMatrix); its routed ELL stores exact values in bfloat16
+_DTYPE_GATHER_LAYOUTS = ("ell", "segmented")
 
 
 def ell_from_scipy(a, dtype, device, prefer=None, cuts=None):
@@ -952,9 +1002,18 @@ def ell_from_scipy(a, dtype, device, prefer=None, cuts=None):
     "dense", "dia", "partition", "bsr", "split" (at ``cuts``, searched when
     ``None``) or "csr"; the JAX package's gather layouts ("ell",
     "segmented", "routed") map to "csr".
+
+    Values are stored as the JAX operator stores them: DIA planes, a
+    partition's table and CSR values (for ``None``, "csr" and "routed",
+    JAX's TPU lowering's ``RoutedEllMatrix``) in bfloat16 for float32
+    where every value is exact there; "ell" and "segmented" (JAX's
+    ``EllMatrix``, ``SegmentedEllMatrix``) and dense in the dtype.
     """
     csr = scipy.sparse.csr_matrix(a)
-    if prefer in _GATHER_LAYOUTS:
+    allow_bf16 = "exact"
+    if prefer in _DTYPE_GATHER_LAYOUTS:
+        prefer, allow_bf16 = "csr", False
+    elif prefer == "routed":
         prefer = "csr"
     if prefer is None:
         prefer, cuts, _ = choose_layout(csr)
@@ -967,7 +1026,8 @@ def ell_from_scipy(a, dtype, device, prefer=None, cuts=None):
     if prefer == "partition":
         return PartitionMatrix.from_scipy(csr, dtype, device)
     if prefer == "csr":
-        return CsrMatrix.from_scipy(csr, dtype, device)
+        return CsrMatrix.from_scipy(csr, dtype, device,
+                                    allow_bf16=allow_bf16)
     if prefer == "bsr":
         return BsrMatrix.from_scipy(csr, dtype, device)
     if prefer == "split":

@@ -12,7 +12,9 @@ from the entries of its block-ELL tiles (bf16 tiles widened, which is
 exact; the padding slots and the TPU grid's padding tile-rows hold zeros
 and are dropped), a ``ColBlockMatrix`` block by
 block, and the gather layouts (``EllMatrix``, ``SegmentedEllMatrix``,
-``RoutedEllMatrix``) through their entries as a ``CsrMatrix``.
+``RoutedEllMatrix``) through their entries as a ``CsrMatrix``.  Values JAX
+stores in bfloat16 (DIA planes, a partition's table, routed ELL values)
+stay bfloat16 for float32; the rest are stored in the dtype.
 :func:`state_from_numpy` carries the ``(x, x3, y_eq, y_ineq)`` state and the
 restart controller's ``rstate``; :func:`state_to_numpy` goes back.  Together
 they let both packages run on the same lowered problem.
@@ -47,9 +49,9 @@ def _np(a):
 
 
 def _plane_dtype(planes, dtype):
-    """The port's storage of JAX planes for a ``dtype`` solve: JAX's
-    bfloat16 stays bfloat16 (its values are exact there) for float32;
-    anything else is stored in ``dtype``."""
+    """The port's storage of JAX planes (or values, or a value table) for
+    a ``dtype`` solve: JAX's bfloat16 stays bfloat16 (its values are exact
+    there) for float32; anything else is stored in ``dtype``."""
     if str(planes.dtype) == "bfloat16" and dtype == torch.float32:
         return torch.bfloat16
     return dtype
@@ -99,7 +101,9 @@ def operator_from_jax(op, dtype, device):
                            nrows=op.nrows, ncols=op.ncols)
     if kind == "PartitionMatrix":
         return PartitionMatrix(
-            vals=torch.as_tensor(_np(op.vals), dtype=dtype, device=device),
+            vals=torch.as_tensor(_np(op.vals),
+                                 dtype=_plane_dtype(op.vals, dtype),
+                                 device=device),
             col0=op.col0, stride=op.stride, width=op.width, nrows=op.nrows,
             ncols=op.ncols)
     if kind == "BsrMatrix":
@@ -125,7 +129,10 @@ def operator_from_jax(op, dtype, device):
         csr = _csr(np.concatenate(rows), np.concatenate(cols),
                    np.concatenate(vals), shape)
     elif kind == "RoutedEllMatrix":
-        csr = op.to_scipy()
+        # its values stay bfloat16 where JAX stores them so (exact there)
+        bf16 = _plane_dtype(op.v, dtype) == torch.bfloat16
+        return CsrMatrix.from_scipy(op.to_scipy(), dtype, device,
+                                    allow_bf16="always" if bf16 else False)
     else:
         raise TypeError(f"no port counterpart for a JAX {kind}")
     return CsrMatrix.from_scipy(csr, dtype, device)

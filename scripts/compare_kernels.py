@@ -12,7 +12,10 @@ one call.  Times, in float32, through the operators' own entry points:
 
 * H-CSR on ``chip_smoke.csr_matrices`` (transport, unstructured, the
   k-medians CSR block; ``A x`` and ``Aᵀ y``), beside cuSPARSE
-  (``torch.mv`` of a ``torch.sparse_csr_tensor``);
+  (``torch.mv`` of a ``torch.sparse_csr_tensor``); the transport and
+  k-medians systems, whose values are exact in bfloat16, also on values
+  stored in bfloat16, in turns with float32 values, where the checkout
+  stores them so (``values`` in each line);
 * H-BSR on the RCM-permuted CLIME system at p = 150 through
   ``BsrMatrix.from_scipy(a, ...)`` at the checkout's default tiles
   (``matvec``, ``rmatvec``, and the pair in turns, ``chip_smoke.pair_times``);
@@ -133,9 +136,10 @@ def main() -> int:
     dt = torch.float32
     rng = np.random.RandomState(0)
 
-    def emit(kernel, problem, side, kern, lib=None, per=1, reps=200):
+    def emit(kernel, problem, side, kern, lib=None, per=1, reps=200,
+             **extra):
         rec = dict(repo=repo, nvidia_smi=smi, kernel=kernel,
-                   problem=problem, side=side,
+                   problem=problem, side=side, **extra,
                    kernel_us=smoke.call_times(torch, kern, reps=reps,
                                               host_reps=max(reps, 3)))
         if per != 1:
@@ -168,18 +172,30 @@ def main() -> int:
 
 
 def time_csr(smoke, torch, emit, rng, dt, dev, CsrMatrix):
-    # H-CSR on the main path's unstructured systems
+    # H-CSR on the main path's unstructured systems; where the checkout
+    # stores exact values in bfloat16 (CsrMatrix.from_scipy's allow_bf16),
+    # the systems of chip_smoke.BF16_CSR on both storages, in turns
+    # (float32, bfloat16, bfloat16, float32 values)
     workloads = {k: smoke.folded(make())
                  for k, make in smoke.WORKLOADS.items() if k != "l1svm"}
+    bf16 = "allow_bf16" in inspect.signature(CsrMatrix.from_scipy).parameters
     for key, a in smoke.csr_matrices(workloads).items():
-        op = CsrMatrix.from_scipy(a, dt, dev)
-        for side, host, fn, n_in in (("A", a, op.matvec, a.shape[1]),
-                                     ("At", a.T.tocsr(), op.rmatvec,
-                                      a.shape[0])):
+        stores = {"float32": CsrMatrix.from_scipy(a, dt, dev)}
+        if bf16 and key in smoke.BF16_CSR:
+            stores["bfloat16"] = CsrMatrix.from_scipy(a, dt, dev,
+                                                      allow_bf16="exact")
+        order = (["float32", "bfloat16", "bfloat16", "float32"]
+                 if len(stores) > 1 else ["float32"])
+        for side, host, n_in in (("A", a, a.shape[1]),
+                                 ("At", a.T.tocsr(), a.shape[0])):
             x = torch.as_tensor(rng.randn(n_in), dtype=dt, device=dev)
             lib = smoke.sparse_tensor(torch, host, dt, dev)
-            emit("H-CSR", key, side, lambda fn=fn, x=x: fn(x),
-                 lambda lib=lib, x=x: torch.mv(lib, x))
+            for values in order:
+                op = stores[values]
+                fn = op.matvec if side == "A" else op.rmatvec
+                emit("H-CSR", key, side, lambda fn=fn, x=x: fn(x),
+                     lambda lib=lib, x=x: torch.mv(lib, x),
+                     values=str(op.vals.dtype).split(".")[1])
 
 
 def time_bsr(smoke, torch, emit, rng, dt, dev, repo, smi, BsrMatrix, bsr_spmv,
