@@ -32,6 +32,7 @@ from ..ops.linesearch import exact_dual_line_search
 from ..problem import resolve_dtype
 from ..solvers.dual_ascent import (_dga_ties, _dual_energy, _optim_x,
                                    _safe_mid)
+from ..utils.xla_order import dot
 from .mesh import check_mesh
 from .sharded_admm import shard_operator
 from .sharded_cp import (_local_matvec, _local_rmatvec,
@@ -111,7 +112,7 @@ def sharded_dga_chunk(data, state, mesh, ties):
     lin = mesh.psum(lin)
     maxes = mesh.pmax(torch.stack(maxes))
     metrics = dict(
-        x=x, energy=_dual_energy(c_bar, lb, ub, lin), primal=torch.dot(c, x),
+        x=x, energy=_dual_energy(c_bar, lb, ub, lin), primal=dot(c, x),
         max_violated_equality=maxes[0] if eq_l is not None else zero,
         max_violated_inequality=maxes[-1] if in_l is not None else zero)
     return (y_eq, y_in), metrics

@@ -50,6 +50,7 @@ from ..ops.linesearch import exact_dual_line_search
 from ..problem import (CsrMatrix, ell_from_scipy, resolve_device,
                        resolve_dtype)
 from ..utils.jax_prng import prng_key, split, uniform, uniform_scalar
+from ..utils.xla_order import dot, total
 from .base import HostLoop, ToleranceStop, chunk_schedule, emit_callback, to_np
 
 # ----------------------------------------------------------------------
@@ -77,7 +78,7 @@ def _dual_energy(c_bar, lb, ub, lin_term):
     """Dual objective: Σ_k min(c̄_k l_k, c̄_k u_k) − yᵀb  (``DualGradientAscent.py:121-133``)."""
     contrib = torch.where(c_bar > 0, c_bar * lb,
                           torch.where(c_bar < 0, c_bar * ub, 0.0))
-    return torch.sum(contrib) + lin_term
+    return total(contrib) + lin_term
 
 
 def _vec(v, dtype, device):
@@ -173,16 +174,16 @@ def _dga_chunk(data, state, ties):
     lin = torch.zeros((), dtype=c.dtype, device=c.device)
     if a_eq is not None:
         c_bar = c_bar + a_eq.rmatvec(y_eq)
-        lin = lin - torch.dot(y_eq, b_eq)
+        lin = lin - dot(y_eq, b_eq)
     if a_in is not None:
         c_bar = c_bar + a_in.rmatvec(y_ineq)
-        lin = lin - torch.dot(y_ineq, b_in)
+        lin = lin - dot(y_ineq, b_in)
     x = _optim_x(c_bar, lb, ub, mid)
     zero = torch.zeros((), dtype=c.dtype, device=c.device)
     metrics = dict(
         x=x,
         energy=_dual_energy(c_bar, lb, ub, lin),
-        primal=torch.dot(c, x),
+        primal=dot(c, x),
         max_violated_equality=(torch.max(torch.abs(a_eq.matvec(x) - b_eq))
                                if a_eq is not None else zero),
         max_violated_inequality=(torch.max(a_in.matvec(x) - b_in)
@@ -401,12 +402,12 @@ def _dca_outer(data, y_eq, y_ineq, key):
     lin = torch.zeros((), dtype=c.dtype, device=c.device)
     zero = lin
     if a_eq is not None:
-        lin = lin - torch.dot(y_eq, b_eq)
+        lin = lin - dot(y_eq, b_eq)
     if a_in is not None:
-        lin = lin - torch.dot(y_ineq, b_in)
+        lin = lin - dot(y_ineq, b_in)
     metrics = dict(
         x=x, c_bar=c_bar, energy=_dual_energy(c_bar, lb, ub, lin),
-        primal=torch.dot(c, x),
+        primal=dot(c, x),
         max_violated_equality=(torch.max(torch.abs(a_eq.matvec_plus(
             x, -b_eq))) if a_eq is not None else zero),
         max_violated_inequality=(torch.max(a_in.matvec_plus(x, -b_in))
