@@ -96,18 +96,23 @@ float32 aligned DIA systems in the position-sharded regime,
 * in phase 2, H-DIA on each of the 4 row shards of the aligned Potts-300
   system (``parallel/sharded_dia.py``: K5's function), forward and
   transpose window, float32 and float64, timed beside cuSPARSE; and
-  H-CPDIA's shard entry (:func:`phase_shard_kernels`: K3 per shard) in
-  this process, the halos copied by hand, over 4 position shards of the
-  same system, over the whole system as one shard and over 4 shards of
-  the multi-label 64 x 64, K = 4 grid's (eq + ineq), 100 iterations each
-  bit-equal to the two-launch chunk entry and within RTOL of the twin,
-  float32 and float64, timed on Potts-300 as one shard and on a quarter
-  shard;
+  H-CPDIA's shard entry (:func:`phase_shard_kernels`: K3 per shard, one
+  cooperative launch a call) in this process, the halos copied by hand,
+  over 4 position shards of the same system, over the whole system as one
+  shard and over 4 shards of the multi-label 64 x 64, K = 4 grid's (eq +
+  ineq), 100 iterations each bit-equal to the two-launch chunk entry, to
+  the two-launch shard entry and to float32 planes and within RTOL of the
+  twin, float32 and float64, timed on Potts-300 as one shard and on a
+  quarter shard in turns with the two-launch shard entry; and, in the
+  float64 products' phase, H-CPDIA-G with its planes read in place on
+  Potts-300 in float64 (:func:`in_place_chunk`) against the twin and the
+  two-launch kernel, timed in turns with it;
 * ``main_path_mesh1``, after phase 3: the Potts-300 solve on one device
   and then with ``mesh=`` a one-rank NCCL group in this process (the
   position-sharded regime: ``bench.py``'s ``measure_sharded_overhead``),
   held against phase 3's float64 run, its shard entry and H-DIA launches
-  and its collectives (none an iteration) against the prediction; then
+  and its collectives (none an iteration) against the prediction, with
+  the launches and collectives an iteration; then
   ``main_path_mesh1_rows``: the float64 solve on the same rank, which both
   packages send to the row-sharded path (H-DIA with shard offsets),
   held against the same run;
@@ -116,7 +121,8 @@ float32 aligned DIA systems in the position-sharded regime,
   ineq) position-sharded, Potts-300 in float64 row-sharded on DIA (H-DIA
   with nonzero shard offsets) and the unstructured LP on per-shard CSR,
   200 iterations each, held against the same solves on one device, halo
-  exchanges and all-reduces against the prediction;
+  exchanges, halo placements and all-reduces against the prediction (a
+  position-sharded iteration: one all-gather, two launches);
   then ``main_path_mesh4_methods``: the other mesh methods (``mehrotra``,
   ``admm``, ``admm2``, DGA, DCA, ``admm_blocks``) at small sizes in
   float64 on the 4 ranks, each held against the same solve on a one-rank
@@ -297,8 +303,10 @@ KERNELS = {
                     tpu_kernels={"K3": "ported"},
                     launches_run="main_path_potts300_f64"),
     # H-CPDIA's shard entry: K3 as the position-sharded mesh solve runs it
-    # per shard (pysparselp_tpu/parallel/sharded_cp_windowed.py:493, :811)
-    "H-CPDIA (shard)": dict(source="pysparselp_tpu_torch/csrc/cp_dia.cu",
+    # per shard (pysparselp_tpu/parallel/sharded_cp_windowed.py:493, :811),
+    # H-CPDIA-G's iteration body in one cooperative launch a call (the
+    # two-launch shard entry of csrc/cp_dia.cu is its reference)
+    "H-CPDIA (shard)": dict(source="pysparselp_tpu_torch/csrc/cp_dia_grid.cu",
                             replaces="pysparselp_tpu/ops/cp_windowed.py:392",
                             tpu_kernels={"K3": "ported"},
                             launches_run="main_path_mesh1"),
@@ -2693,18 +2701,23 @@ def shard_system(lp, seed=7):
     return sys_, info
 
 
-def run_shards(torch, glob, ndev, dtype, nsteps, twin=False, wide=False):
-    """``nsteps`` iterations of H-CPDIA's shard entry (or its twin) on each
-    of ``ndev`` ranks' slices in this process, the halos copied between
-    them by hand (``Mesh.halo_exchange``'s packets); the whole ``(x, x3,
-    y_eq, y)`` from the interiors (no ``y_eq`` without equalities).
-    ``wide``: the slices' planes stored in float32, not as cut."""
+def run_shards(torch, glob, ndev, dtype, nsteps, twin=False, wide=False,
+               two_launch=False):
+    """``nsteps`` iterations of H-CPDIA's shard entry (or its twin, or
+    with ``two_launch`` the two-launch shard entry) on each of ``ndev``
+    ranks' slices in this process, the halos copied between them by hand
+    (``Mesh.halo_exchange``'s packets); the whole ``(x, x3, y_eq, y)`` from
+    the interiors (no ``y_eq`` without equalities).  ``wide``: the slices'
+    planes stored in float32, not as cut."""
+    import functools
+
     from pysparselp_tpu_torch.ops import cp_dia
     from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
     from pysparselp_tpu_torch.parallel.mesh import halo_pack, halo_unpack
 
     step = (cp_dia.cp_dia_shard_step_reference if twin
-            else cp_dia.cp_dia_shard_step)
+            else functools.partial(cp_dia.cp_dia_shard_step,
+                                   two_launch=two_launch))
     ranks = [scw.place_position_shard(glob, ndev, r, dtype, "cuda")
              for r in range(ndev)]
     if wide:
@@ -2793,14 +2806,16 @@ SHARD_CASES = (("potts300", MESH_RANKS), ("potts300", 1),
 
 def phase_shard_kernels(torch, problems, table):
     """Phase 2 for H-CPDIA's shard entry (``cp_dia.cp_dia_shard_step``, K3
-    per shard in the position-sharded mesh solve) on the aligned systems
-    of SHARD_CASES: 100 iterations over the case's shards in this process,
-    the halos copied by hand, bit-equal to the two-launch chunk entry on
-    the whole system and within RTOL of the twin on the same inputs,
-    float32 and float64; then, in float32 on Potts-300, one call (one
-    iteration, two launches) timed on the whole system as one shard (the
-    one-rank mesh solve's shape) and on an inner quarter shard, by events
-    and profiler device time, beside the twin, the two-launch chunk per
+    per shard in the position-sharded mesh solve: one cooperative launch a
+    call) on the aligned systems of SHARD_CASES: 100 iterations over the
+    case's shards in this process, the halos copied by hand, one launch a
+    call, bit-equal to the two-launch chunk entry on the whole system, to
+    the two-launch shard entry and to float32 planes, and within RTOL of
+    the twin on the same inputs, float32 and float64; then, in float32 on
+    Potts-300, one call (one iteration) timed on the whole system as one
+    shard (the one-rank mesh solve's shape) and on an inner quarter shard,
+    in turns with the two-launch shard entry, by events, profiler device
+    time and host time, beside the twin, the two-launch chunk per
     iteration and the bound (:func:`shard_bound`)."""
     from pysparselp_tpu_torch.ops import cp_dia
     from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
@@ -2815,7 +2830,12 @@ def phase_shard_kernels(torch, problems, table):
         timed = key == "potts300" and ndev == MESH_RANKS
         for dt in (torch.float32, torch.float64):
             name = str(dt).split(".")[1]
+            before = cp_dia.cp_dia_shard_step.launches
             got = run_shards(torch, glob, ndev, dt, nsteps)
+            launched = cp_dia.cp_dia_shard_step.launches - before
+            if launched != ndev * nsteps * cp_dia.SHARD_LAUNCHES:
+                raise AssertionError(f"H-CPDIA (shard) {key}: {launched} "
+                                     f"launches for {ndev * nsteps} calls")
             prob, pre, x0, ye0, y0 = whole_problem(torch, glob, dt)
             out = cp_dia.cp_dia_chunk(prob, pre, x0, ye0, y0, nsteps, 1.0,
                                       plan=cp_dia.TWO_LAUNCH)
@@ -2825,6 +2845,8 @@ def phase_shard_kernels(torch, problems, table):
                        and torch.equal(g[~torch.isnan(g)], w[~torch.isnan(w)])
                        and torch.equal(torch.signbit(g), torch.signbit(w))
                        for g, w in zip(got, want))
+            same_two = same_bits(torch, got, run_shards(
+                torch, glob, ndev, dt, nsteps, two_launch=True))
             twin = run_shards(torch, glob, ndev, dt, nsteps, twin=True)
             err = compare(torch, got, twin, name,
                           f"H-CPDIA (shard) {key} over {ndev}")
@@ -2834,7 +2856,11 @@ def phase_shard_kernels(torch, problems, table):
                        plan=scw.shard_width(info["plan"], ndev),
                        planes=str(glob["dia"]["plane_dtype"]).split(".")[1]
                        if dt == torch.float32 else name,
-                       bit_equal_to_chunk=same, max_abs_err=err)
+                       bit_equal_to_chunk=same,
+                       bit_equal_to_two_launch_entry=same_two,
+                       launches_per_call=launched / (ndev * nsteps),
+                       max_abs_err=err)
+            same = same and same_two
             if dt == torch.float32:
                 # the slices' bfloat16 planes against float32 planes
                 same = same and same_bits(torch, got, run_shards(
@@ -2846,23 +2872,32 @@ def phase_shard_kernels(torch, problems, table):
                 emit("kernels", **rec)
                 raise AssertionError(f"H-CPDIA (shard) {key} over {ndev} "
                                      f"shards ({name}) differs from the "
-                                     "chunk entry or from float32 planes")
+                                     "chunk entry, the two-launch shard "
+                                     "entry or float32 planes")
             if timed and dt == torch.float32:
                 shard_times(torch, glob, rec, x0)
                 rec["chunk_ms_per_iteration"] = cuda_ms(
                     torch, lambda: cp_dia.cp_dia_chunk(
                         prob, pre, x0, ye0, y0, nsteps, 1.0,
                         plan=cp_dia.TWO_LAUNCH), 3) / nsteps
-                whole = rec["whole"]
+                whole, quarter = rec["whole"], rec["quarter"]
                 table["H-CPDIA (shard)"].update(
                     ms=whole["ms"], plain_ms=whole["plain_ms"],
-                    bound_ms=whole["bound_ms"], bound_by=whole["bound_by"])
+                    bound_ms=whole["bound_ms"], bound_by=whole["bound_by"],
+                    two_launch_ms=whole["pair_ms"]["two_launch"],
+                    quarter_ms=quarter["ms"],
+                    quarter_bound_ms=quarter["bound_ms"],
+                    quarter_two_launch_ms=quarter["pair_ms"]["two_launch"])
             emit("kernels", **rec)
 
 
 def shard_times(torch, glob, rec, x0):
     """Time one shard entry call (float32) on the whole system as one
-    shard and on an inner quarter shard into ``rec``."""
+    shard and on an inner quarter shard into ``rec``: its call times, and
+    CUDA events in turns with the two-launch shard entry (two_launch,
+    one-launch, one-launch, two_launch), each on its own copy of the
+    state; the one-launch entry writes the rank's outgoing packet, as the
+    mesh solve calls it on more than one rank."""
     from pysparselp_tpu_torch.ops import cp_dia
     from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
 
@@ -2871,10 +2906,16 @@ def shard_times(torch, glob, rec, x0):
         data, st = scw.place_position_shard(glob, ndev, rank, dt, "cuda")
         sh, empty = data["shard"], x0.new_zeros(0)
         tw = {k: v.clone() for k, v in st.items()}
+        old = {k: v.clone() for k, v in st.items()}
+        packet = torch.empty(sh.packet_size, dtype=dt, device="cuda")
 
         # the mesh solve's call: the stepper, checked once
         kern = cp_dia.cp_dia_shard_stepper(
-            sh, data["pre"], st["x"], st["x3"], empty, st["y_ineq"], 1.0)
+            sh, data["pre"], st["x"], st["x3"], empty, st["y_ineq"], 1.0,
+            packet=packet if ndev > 1 else None)
+        two = cp_dia.cp_dia_shard_stepper(
+            sh, data["pre"], old["x"], old["x3"], empty, old["y_ineq"], 1.0,
+            two_launch=True)
 
         def plain(sh=sh, data=data, tw=tw):
             cp_dia.cp_dia_shard_step_reference(
@@ -2882,8 +2923,21 @@ def shard_times(torch, glob, rec, x0):
 
         times = timings(torch, kern, plain, 200)
         times.update(call_times(torch, kern))
+        names = times["kernel_names"]
+        if (round(times["kernels_per_call"]) != 1 or len(names) != 1
+                or "cp_dia_shard_grid_kernel" not in names[0]):
+            raise AssertionError(f"H-CPDIA (shard) {shard}: not one kernel "
+                                 f"a call: {times}")
+        # events only for the reference: every profiler capture of the
+        # script risks a lossy one (traced), so it takes no more of them
+        pair = [cuda_ms(torch, f, 200) for f in (two, kern, kern, two)]
+        plan = cp_dia.shard_plan(sh)
         rec[shard] = dict(times, positions=sh.length,
-                          interior=list(sh.interior), primal=list(sh.primal))
+                          interior=list(sh.interior), primal=list(sh.primal),
+                          ctas=plan.ctas, threads=plan.threads,
+                          width=plan.width, packet=ndev > 1,
+                          pair_ms=dict(one_launch=(pair[1] + pair[2]) / 2,
+                                       two_launch=(pair[0] + pair[3]) / 2))
         rec[shard]["bound_ms"], rec[shard]["bound_by"] = shard_bound(data, 4)
 
 
@@ -2953,7 +3007,9 @@ def phase_mesh1(torch, lp, want, counted_solve):
     Returns the two mesh solves' launch counts."""
     import numpy as np
 
+    from pysparselp_tpu_torch.ops import cp_dia
     from pysparselp_tpu_torch.parallel import sharded_cp
+    from pysparselp_tpu_torch.parallel.mesh import HaloRoute
 
     run = dict(method="chambolle_pock_ppd", nb_iter=2000, nb_iter_plot=1000,
                light_metrics=True, dtype=np.float32, device="cuda")
@@ -2962,9 +3018,11 @@ def phase_mesh1(torch, lp, want, counted_solve):
         wall_1, n_1 = counted_solve(lp, **run)
         its_1 = steady_rate(lp)
         mesh.calls.clear()
+        HaloRoute.launches = 0
         wall_m, n_m = counted_solve(lp, mesh=mesh, **run)
         its_m = steady_rate(lp)
         calls = dict(mesh.calls)
+        placed = HaloRoute.launches
         got = curves(lp)
         itrn = list(lp.itrn_curve)
         info = dict(sharded_cp.last_run_info)
@@ -2977,23 +3035,25 @@ def phase_mesh1(torch, lp, want, counted_solve):
     if itrn != [1000, 2000]:
         raise AssertionError(f"mesh1 checkpoints {itrn}")
     worst = checkpoint_diffs(got, want)
-    # per iteration one shard entry call (two launches) and no collective
-    # on one rank; per checkpoint four interior products (Aᵀ y over the
-    # primal range, A x, A x4, A round(x)), one psum and one pmax of
-    # packed scalars
-    predicted = {"H-CPDIA (shard)": 2 * 2000, "H-CPDIA": 0, "H-CPDIA-G": 0,
-                 "H-DIA": 4 * 2,
+    # per iteration one shard entry call (one launch) and no collective
+    # and no halo placement on one rank; per checkpoint four interior
+    # products (Aᵀ y over the primal range, A x, A x4, A round(x)), one
+    # psum and one pmax of packed scalars
+    predicted = {"H-CPDIA (shard)": cp_dia.SHARD_LAUNCHES * 2000,
+                 "H-CPDIA": 0, "H-CPDIA-G": 0, "H-DIA": 4 * 2,
+                 "halo placements": 0,
                  "halo": 0, "vector_allreduces": 0,
                  "scalar_allreduces": 2 * 2, "gather": 0}
     counted = dict(collectives(calls), **{
         k: n_m[k] for k in ("H-CPDIA (shard)", "H-CPDIA", "H-CPDIA-G",
-                            "H-DIA")})
+                            "H-DIA")}, **{"halo placements": placed})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
     emit("main_path_mesh1", n=lp.nb_variables,
-         regime=info["regime"], tier="shard entry (two launches a call)",
+         regime=info["regime"],
+         tier="shard entry (one cooperative launch a call)",
          planes=info["planes"], backend="nccl", ranks=1,
          positions=info["positions"],
          positions_per_rank=info["positions_per_rank"],
@@ -3005,6 +3065,8 @@ def phase_mesh1(torch, lp, want, counted_solve):
          single_launches=n_1, launches=n_m, allreduces=allreduces(calls),
          counted=counted, predicted=predicted,
          per_iteration={"H-CPDIA (shard)": n_m["H-CPDIA (shard)"] / 2000,
+                        "launches": (n_m["H-CPDIA (shard)"] + placed)
+                        / 2000,
                         "collectives": (sum(calls.values())
                                         - predicted["scalar_allreduces"])
                         / 2000},
@@ -3139,6 +3201,7 @@ def mesh4_rank(mesh, names):
 
     from pysparselp_tpu_torch.ops import cp_dia, csr_spmv, dia_spmv
     from pysparselp_tpu_torch.parallel import sharded_cp
+    from pysparselp_tpu_torch.parallel.mesh import HaloRoute
 
     torch.set_num_threads(2)
     out = {}
@@ -3147,7 +3210,7 @@ def mesh4_rank(mesh, names):
         lp = mesh4_lp(name)
         model_s = time.perf_counter() - t0
         for fn in (dia_spmv.dia_spmv, csr_spmv.csr_spmv,
-                   cp_dia.cp_dia_shard_step):
+                   cp_dia.cp_dia_shard_step, HaloRoute):
             fn.launches = 0
         mesh.calls.clear()
         t0 = time.perf_counter()
@@ -3166,7 +3229,8 @@ def mesh4_rank(mesh, names):
             iters_per_s_steady=steady_rate(lp), info=info,
             launches={"H-DIA": dia_spmv.dia_spmv.launches,
                       "H-CSR": csr_spmv.csr_spmv.launches,
-                      "H-CPDIA (shard)": cp_dia.cp_dia_shard_step.launches},
+                      "H-CPDIA (shard)": cp_dia.cp_dia_shard_step.launches,
+                      "halo placements": HaloRoute.launches},
             allreduces=allreduces(calls), collectives=collectives(calls),
             host_s_per_rank={k: per_rank[:, i].tolist() for i, k in
                              enumerate(("model", "presolve", "build",
@@ -3205,13 +3269,15 @@ def phase_mesh4(torch):
         worst = checkpoint_diffs(got["curves"], want)
         regime, kernel = MESH4_REGIME[name]
         if regime == "position-sharded":
-            # per iteration one shard entry call (two launches) and one
-            # halo exchange; per checkpoint one more exchange, four
-            # interior products per system, one psum and one pmax, and an
-            # all-gather of x for the recording callback (it wants the
-            # solution), one more at the end
+            # per iteration one halo exchange (one all-gather of the packet
+            # the entry wrote, one launch placing the halos) and one shard
+            # entry call (one launch); per checkpoint one more exchange,
+            # four interior products per system, one psum and one pmax,
+            # and an all-gather of x for the recording callback (it wants
+            # the solution), one more at the end
             systems = 2 if name == "multilabel64" else 1
-            predicted = {kernel: 2 * 200, "H-DIA": 4 * systems * 2,
+            predicted = {kernel: 200, "halo placements": 200,
+                         "H-DIA": 4 * systems * 2,
                          "halo": 200 + 2, "vector_allreduces": 0,
                          "scalar_allreduces": 2 * 2, "gather": 2 + 1}
         else:
@@ -3219,11 +3285,20 @@ def phase_mesh4(torch):
             # per checkpoint four products and one n-vector all-reduce,
             # its scalars packed into one sum and one max
             predicted = {kernel: 2 * 200 + 4 * 2, "halo": 0,
+                         "halo placements": 0,
                          "vector_allreduces": 200 + 2,
                          "scalar_allreduces": 2 * 2, "gather": 0}
         counted = dict(got["collectives"],
                        **{k: got["launches"][k] for k in predicted
                           if k in got["launches"]})
+        # an iteration's launches and collectives (the checkpoints' apart)
+        per_iteration = dict(
+            launches=(got["launches"]["H-CPDIA (shard)"]
+                      + got["launches"]["halo placements"]) / 200
+            if regime == "position-sharded" else None,
+            collectives=(got["collectives"]["halo"] - 2) / 200
+            if regime == "position-sharded"
+            else (got["collectives"]["vector_allreduces"] - 2) / 200)
         emit("main_path_mesh4", problem=name, ranks=MESH_RANKS,
              backend="gloo", device="cuda (one card, every rank)",
              note="collectives go through host memory (gloo's staging of "
@@ -3236,7 +3311,8 @@ def phase_mesh4(torch):
              iters_per_s_steady=got["iters_per_s_steady"],
              single_device_iters_per_s_steady=steady_rate(lp),
              launches_rank0=got["launches"], counted=counted,
-             predicted=predicted, allreduces_rank0=got["allreduces"],
+             predicted=predicted, per_iteration=per_iteration,
+             allreduces_rank0=got["allreduces"],
              dtype=mesh4_run(name)["dtype"], itrn=got["itrn"],
              mesh4=got["curves"], single_device=want, worst_rel_diff=worst,
              rel_limit=MAIN_RTOL)
@@ -3393,14 +3469,16 @@ def operator_products(op):
     return out
 
 
-def phase_f64_kernels(torch, systems, table):
+def phase_f64_kernels(torch, systems, table, potts300=None):
     """The products of the interior point and ADMM paths in float64 on the
     card: the operator of each of ``systems`` (``{name: host matrix or
     (host matrix, prefer)}``, lowered by ``ell_from_scipy``: DIA, CSR or
     BSR), A x, Aᵀ y and ``sq_rowsum_weighted`` (through the operator)
     against the twins per row within RTOL * (|A| |x|)_row, with the
     kernel's call times, its bound (bytes at the HBM rate) and cuSPARSE
-    ``torch.mv`` in float64 on the same matrix."""
+    ``torch.mv`` in float64 on the same matrix.  Then, given the
+    ``potts300`` LP, H-CPDIA-G with its planes in place on Potts-300 in
+    float64 (:func:`in_place_chunk`)."""
     import numpy as np
 
     from pysparselp_tpu_torch.problem import ell_from_scipy
@@ -3459,6 +3537,79 @@ def phase_f64_kernels(torch, systems, table):
                 system=key, side=side, device_us=rec["kernel_us"]["device_us"],
                 bound_us=rec["bound_us"],
                 library_device_us=rec["library_us"]["device_us"]))
+    if potts300 is not None:
+        in_place_chunk(torch, potts300, table)
+
+
+# the in-place chunk's check: iterations of a chunk with sums
+IN_PLACE_STEPS = 100
+
+
+def in_place_chunk(torch, lp, table):
+    """H-CPDIA-G with its planes read in place (``grid_plan(...,
+    in_place=True)``) on Potts-300 in float64, whose planes do not fit a
+    slab: a chunk of IN_PLACE_STEPS iterations with sums bit for bit
+    against the twin and the two-launch kernel, NaN kept (one NaN cost),
+    in one launch; then its time per iteration in turns with the
+    two-launch kernel beside the streaming bound both share (each plane
+    and vector once an iteration)."""
+    import numpy as np
+
+    from pysparselp_tpu_torch.ops import cp_dia
+
+    dt, dev = torch.float64, torch.device("cuda")
+    prob, pre = lowered(lp, dt, dev)
+    plan = cp_dia.grid_plan(prob, dt, in_place=True)
+    rng = np.random.RandomState(6)
+    x0 = torch.as_tensor(rng.rand(prob.n), dtype=dt, device=dev)
+    ye0 = torch.as_tensor(rng.rand(prob.m_eq) * 0.1, dtype=dt, device=dev)
+    yi0 = torch.as_tensor(rng.rand(prob.m_ineq) * 0.1, dtype=dt, device=dev)
+    nan_c = prob.c.clone()
+    nan_c[7] = float("nan")
+    checks = {}
+    for label, p in (("plain", prob), ("nan", dataclasses.replace(
+            prob, c=nan_c))):
+        args = (p, pre, x0, ye0, yi0, IN_PLACE_STEPS, 1.0, True)
+        before = cp_dia.cp_dia_grid_chunk.launches
+        got = cp_dia.cp_dia_chunk(*args, plan=plan)
+        checks[label] = dict(
+            launches=cp_dia.cp_dia_grid_chunk.launches - before,
+            twin=same_bits(torch, got, cp_dia.cp_dia_chunk_reference(*args)),
+            two_launch=same_bits(torch, got, cp_dia.cp_dia_chunk(
+                *args, plan=cp_dia.TWO_LAUNCH)))
+
+    def one(plan_):
+        return lambda: cp_dia.cp_dia_chunk(prob, pre, x0, ye0, yi0,
+                                           IN_PLACE_STEPS, 1.0, True,
+                                           plan=plan_)
+
+    pair = [cuda_ms(torch, f, 5) / IN_PLACE_STEPS
+            for f in (one(cp_dia.TWO_LAUNCH), one(plan), one(plan),
+                      one(cp_dia.TWO_LAUNCH))]
+    planes = sum(o.vals.numel() + o.vals_t.numel()
+                 for o in (prob.a_eq, prob.a_ineq) if o is not None)
+    # chunk_bound's bytes and operations in float64: every plane entry and
+    # the 9 n + 6 rows vector entries of 8 bytes, at the float64 peak
+    nbytes = 8 * (planes + 9 * prob.n + 6 * (prob.m_eq + prob.m_ineq))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = chunk_ops(prob, planes) / F64_OPS_PER_S * 1e3
+    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                          else (t_ops, "operations"))
+    rec = dict(kernel="H-CPDIA-G", problem="potts300", dtype="float64",
+               planes_in_place=True, ctas=plan.ctas, width=plan.width,
+               threads=plan.threads, smem_bytes=plan.smem_bytes,
+               vectors=plan.vectors, checks=checks,
+               in_place_ms=(pair[1] + pair[2]) / 2,
+               two_launch_ms=(pair[0] + pair[3]) / 2,
+               bound_stream_ms=bound_ms, bound_by=bound_by,
+               tier_planned=cp_dia.cp_dia_plan(prob, dt).tier)
+    emit("kernels", **rec)
+    if not all(c["launches"] == 1 and c["twin"] and c["two_launch"]
+               for c in checks.values()):
+        raise AssertionError(f"H-CPDIA-G in place, Potts-300 f64: {checks}")
+    table["H-CPDIA"]["potts300_f64"] = dict(
+        two_launch_ms=rec["two_launch_ms"], in_place_ms=rec["in_place_ms"],
+        bound_ms=bound_ms)
 
 
 def profile_window(torch, fn):
@@ -5088,7 +5239,7 @@ def main() -> int:
         "potts300_aligned": (aligned_potts(problems["potts300"])["a_ineq"],
                              "dia"),
         "clime_rcm": (apply_rcm_permutation(folded(clime))[0]["a_ineq"],
-                      "bsr")}, table)
+                      "bsr")}, table, potts300=problems["potts300"])
     phase_dca_kernels(torch, table, sm_mhz)
     lap("2_kernels")
 

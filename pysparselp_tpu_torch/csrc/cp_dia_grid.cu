@@ -52,6 +52,26 @@
 //   cp_dual_kernel's (--fmad=false: the same taps in dia_row's order, the
 //   same clamp, NaN and signed zeros kept), so the outputs equal the
 //   two-launch kernel's and the PyTorch twin's bit for bit.
+// * Planes in place (the plan's in_place bit, for planes whose slab does
+//   not fit a CTA's shared memory): nothing is staged; each tap reads its
+//   plane entry as stored from device memory (stride: the plane's length),
+//   and the shared memory holds x3 and y with their halos, then as many
+//   vector slabs as fit.
+//
+// The shard entry (pslp_cp_dia_shard_grid_*) is the same iteration body
+// run ONCE on one rank's halo-padded slice of the position-sharded mesh
+// solver (parallel/sharded_cp_windowed.py), where JAX runs K3 per shard,
+// in one cooperative launch a call: the primal pass over the CTA's slab of
+// the widened range [p0, p1), a grid barrier, the dual pass and the
+// running sums over the slab's part of the interior [i0, i1).  The planes
+// are read in place (they cannot stay in shared memory from one call to
+// the next; a quarter shard's stay in L2), y and x3 through L1 (the grid
+// barrier orders every x3 write before any read of it).  A tap whose
+// global position lies outside the matrix adds vals * 0, as the two-launch
+// shard entry's dia_row_local does, so a call equals one iteration of the
+// chunk entry on the whole system bit for bit.  As it writes x and y it
+// writes the rank's outgoing halo packet (parallel/mesh.py::halo_pack's
+// layout), so the mesh issues no packing launch.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -73,6 +93,7 @@ struct GridArgs {
   int width;                    // W positions per CTA
   int hlx, hrx, hly, hry;       // halos of x3 and of y, y_e
   int in_smem;                  // bit v: vector v's slab in shared memory
+  int in_place;                 // planes read in place from device memory
   const T *c, *t, *lb, *ub, *b, *s, *be, *se;
   const P *vt, *v, *vte, *ve;   // planes as stored
   const T *x_in, *y_in, *ye_in;  // the chunk's start
@@ -82,16 +103,56 @@ struct GridArgs {
   int offs[4][kMaxDiag];        // of A_i^T, A_i, A_e^T, A_e
 };
 
-// One tap set of local position l: sum_k vals[k W + l] * ext[l + offs[k]],
-// in dia_row's order; ``ext`` points at the slab's first entry of a vector
-// held with its halos (zeros outside the vector).
+// One tap set of local position l: sum_k vals[k stride + l] *
+// ext[l + offs[k]], in dia_row's order; ``vals`` points at the slab's
+// first entry of the first plane (in shared memory, stride W, or in place,
+// stride the plane's length), ``ext`` at the slab's first entry of a
+// vector held with its halos (zeros outside the vector).
 template <typename T, typename P>
 __device__ __forceinline__ T taps(const P* vals, const int* offs, int nd,
-                                  int width, int l, const T* ext) {
+                                  int stride, int l, const T* ext) {
   T acc = T(0);
 #pragma unroll 4
   for (int k = 0; k < nd; ++k) {
-    acc = acc + pslp::widen<T>(vals[k * width + l]) * ext[l + offs[k]];
+    acc = acc + pslp::widen<T>(vals[k * stride + l]) * ext[l + offs[k]];
+  }
+  return acc;
+}
+
+// Taps read in place from device memory issue their loads in batches
+// before the first of a batch is used, so that their round trips overlap
+// (a tap loop unrolled by 4 waits for one round trip every 4 taps); the
+// sum keeps dia_row's order.  The chunk's in-place taps stream planes
+// that may not fit L2 and batch 16 float32 loads (8 float64 ones keep 64
+// registers); the shard entry's taps, which read y through L1 with a
+// bounds check each, batch 8 (kTapBatch): its larger batch cost more
+// time than it hid.
+template <typename T>
+constexpr int kPlaneBatch = sizeof(T) == 8 ? 8 : 16;
+constexpr int kTapBatch = 8;
+
+// :func:`taps` with the plane entries read in place (``vals`` in device
+// memory, stride the plane's length), ``ext`` in shared memory.
+template <typename T, typename P>
+__device__ __forceinline__ T taps_in_place(const P* vals, const int* offs,
+                                           int nd, int stride, int l,
+                                           const T* ext) {
+  constexpr int B = kPlaneBatch<T>;
+  T acc = T(0);
+  for (int k0 = 0; k0 < nd; k0 += B) {
+    P pv[B];
+    T xv[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      if (k0 + u < nd) {
+        pv[u] = vals[(k0 + u) * stride + l];
+        xv[u] = ext[l + offs[k0 + u]];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      if (k0 + u < nd) acc = acc + pslp::widen<T>(pv[u]) * xv[u];
+    }
   }
   return acc;
 }
@@ -146,12 +207,20 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   // (ops/cp_dia.py GRID_STATIC_SMEM holds this array)
   __shared__ T* vec[kVectors];
 
-  // the layout of ops/cp_dia.py::grid_smem_bytes
+  // the layout of ops/cp_dia.py::grid_smem_bytes; in place, the taps
+  // read each plane from the slab's first entry with the plane's stride
+  const bool in_place = a.in_place != 0;
   P* vt_s = reinterpret_cast<P*>(smem_raw);
   P* v_s = vt_s + a.ndt * W;
   P* vte_s = v_s + a.nd * W;
   P* ve_s = vte_s + a.ndte * W;
-  const int nplanes = a.ndt + a.nd + a.ndte + a.nde;
+  const int nplanes = in_place ? 0 : a.ndt + a.nd + a.ndte + a.nde;
+  const P* const vt_t = !in_place ? vt_s : a.vt ? a.vt + lo : nullptr;
+  const P* const v_t = !in_place ? v_s : a.v ? a.v + lo : nullptr;
+  const P* const vte_t = !in_place ? vte_s : a.vte ? a.vte + lo : nullptr;
+  const P* const ve_t = !in_place ? ve_s : a.ve ? a.ve + lo : nullptr;
+  const int st_n = in_place ? n : W, st_m = in_place ? m : W;
+  const int st_me = in_place ? me : W;
   unsigned char* p = smem_raw + (sizeof(P) * W * nplanes + 15) / 16 * 16;
   T* x3_e = reinterpret_cast<T*>(p) + a.hlx;
   p += sizeof(T) * (W + a.hlx + a.hrx);
@@ -182,10 +251,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   // zero (its slab is written before it is read, its halos after each
   // primal pass) and its output x (the chunk's x3 after no iteration);
   // y's and y_e's copies with their halos
-  stage_planes<P>(vt_s, a.vt, a.ndt, W, lo, n);
-  stage_planes<P>(v_s, a.v, a.nd, W, lo, m);
-  stage_planes<P>(vte_s, a.vte, a.ndte, W, lo, n);
-  stage_planes<P>(ve_s, a.ve, a.nde, W, lo, me);
+  if (!in_place) {
+    stage_planes<P>(vt_s, a.vt, a.ndt, W, lo, n);
+    stage_planes<P>(v_s, a.v, a.nd, W, lo, m);
+    stage_planes<P>(vte_s, a.vte, a.ndte, W, lo, n);
+    stage_planes<P>(ve_s, a.ve, a.nde, W, lo, me);
+  }
   const int lens[kVectors] = {n, n, m, me, n, n, n, n, m, m, me, me};
   const T* const src[kVectors] = {a.x_in, nullptr, nullptr, nullptr,
                                   a.c,    a.t,     a.lb,    a.ub,
@@ -247,8 +318,16 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       // flight while the taps run
       const T cj = c[l], tj = t[l], lj = lb[l], uj = ub[l], xo = x[l];
       T d = cj;
-      if (me > 0) d = d + taps<T, P>(vte_s, a.offs[2], a.ndte, W, l, ye_e);
-      if (m > 0) d = d + taps<T, P>(vt_s, a.offs[0], a.ndt, W, l, y_e);
+      if (me > 0)
+        d = d + (in_place ? taps_in_place<T, P>(vte_t, a.offs[2], a.ndte,
+                                                st_n, l, ye_e)
+                          : taps<T, P>(vte_t, a.offs[2], a.ndte, st_n, l,
+                                       ye_e));
+      if (m > 0)
+        d = d + (in_place ? taps_in_place<T, P>(vt_t, a.offs[0], a.ndt, st_n,
+                                                l, y_e)
+                          : taps<T, P>(vt_t, a.offs[0], a.ndt, st_n, l,
+                                       y_e));
       const T x2 = pslp::clamp<T>(xo - tj * d, lj, uj);
       const T x3v = (T(1) + theta) * x2 - theta * xo;
       x3_e[l] = x3v;
@@ -265,7 +344,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       if (i >= rows) break;
       if (i < me) {
         const T bi = be[l], si = se[l];
-        const T r = taps<T, P>(ve_s, a.offs[3], a.nde, W, l, x3_e) - bi;
+        const T r = (in_place ? taps_in_place<T, P>(ve_t, a.offs[3], a.nde,
+                                                    st_me, l, x3_e)
+                              : taps<T, P>(ve_t, a.offs[3], a.nde, st_me, l,
+                                           x3_e)) - bi;
         const T yn = ye_e[l] + si * r;
         ye_e[l] = yn;
         a.ye[i] = yn;
@@ -273,7 +355,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       }
       if (i < m) {
         const T bi = b[l], si = s[l];
-        const T r = taps<T, P>(v_s, a.offs[1], a.nd, W, l, x3_e) - bi;
+        const T r = (in_place ? taps_in_place<T, P>(v_t, a.offs[1], a.nd,
+                                                    st_m, l, x3_e)
+                              : taps<T, P>(v_t, a.offs[1], a.nd, st_m, l,
+                                           x3_e)) - bi;
         T yn = y_e[l] + si * r;
         yn = pslp::clamp_min0<T>(yn);
         y_e[l] = yn;
@@ -300,30 +385,170 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
 }
 
-// The chunk's one launch: ``ctas`` CTAs of ``threads`` threads, all
-// resident at once (a cooperative launch, refused otherwise).
+// The arguments of a shard entry call (one iteration on a rank's slice):
+// local index k holds global position g0 + k, k in [0, len); the primal
+// runs over [p0, p1), the dual and the sums over [i0, i1); CTA r owns
+// positions [p0 + r W, p0 + (r + 1) W) of [p0, p1).
 template <typename T, typename P>
-int launch(GridArgs<T, P> args, const int* offs, int ctas, int threads,
-           int smem_bytes, void* stream) {
-  const int counts[4] = {args.ndt, args.nd, args.ndte, args.nde};
-  for (int q = 0, at = 0; q < 4; at += counts[q], ++q) {
-    if (counts[q] > kMaxDiag) return static_cast<int>(cudaErrorInvalidValue);
-    for (int k = 0; k < counts[q]; ++k) args.offs[q][k] = offs[at + k];
+struct ShardArgs {
+  int len, g0, p0, p1, i0, i1, n, m, me;
+  int ndt, nd, ndte, nde;       // diagonals of A_i^T, A_i, A_e^T, A_e
+  int width;                    // W positions per CTA
+  int xl, xr, yl, yr;           // the packet's edges of x, and of y, y_e
+  const T *c, *t, *lb, *ub, *b, *s, *be, *se;
+  const P *vt, *v, *vte, *ve;   // local planes as stored, read in place
+  T *x, *x3, *y, *ye, *sx, *sy, *sye;   // the state, updated in place
+  T* packet;                    // the outgoing halo packet, or nullptr
+  T theta;
+  int offs[4][kMaxDiag];        // of A_i^T, A_i, A_e^T, A_e
+};
+
+// One tap set of local position l (global g) on a slice, in place:
+// dia_row_local's arithmetic (cp_dia.cu), a tap whose global position lies
+// outside [0, nv) reading zero; the loads in batches of kTapBatch.
+template <typename T, typename P>
+__device__ __forceinline__ T taps_local(const P* vals, const int* offs,
+                                        int nd, int len, const T* v, int nv,
+                                        long long g, int l) {
+  constexpr int B = kTapBatch;
+  T acc = T(0);
+  for (int k0 = 0; k0 < nd; k0 += B) {
+    P pv[B];
+    T xv[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int k = k0 + u;
+      if (k < nd) {
+        const int o = offs[k];
+        const long long c = g + o;
+        xv[u] = (c >= 0 && c < nv) ? v[l + o] : T(0);
+        pv[u] = vals[static_cast<long long>(k) * len + l];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      if (k0 + u < nd) acc = acc + pslp::widen<T>(pv[u]) * xv[u];
+    }
   }
-  auto kernel = cp_dia_grid_kernel<T, P>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
+  return acc;
+}
+
+template <typename T, typename P>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    cp_dia_shard_grid_kernel(const __grid_constant__ ShardArgs<T, P> a) {
+  cg::grid_group grid = cg::this_grid();
+  const int lo = a.p0 + static_cast<int>(blockIdx.x) * a.width;
+  const int hi = min(lo + a.width, a.p1);
+  const int n = a.n, m = a.m, me = a.me, len = a.len;
+  const int i0 = a.i0, i1 = a.i1;
+  T* const pk = a.packet;
+  // the packet (mesh.py::halo_pack): each item's right edge, then each
+  // item's left edge, items x, y, then y_e where present; r*: where an
+  // item's right edge ends, l*: where its left edge starts
+  const int rx = a.xl, ry = a.xl + a.yl, rye = ry + a.yl;
+  const int lx = a.xl + a.yl * (me > 0 ? 2 : 1);
+  const int ly = lx + a.xr, lye = ly + a.yr;
+  const T theta = a.theta;
+
+  // primal pass over the slab: y (the caller's halos included) -> x, x3
+  for (int jl = lo + static_cast<int>(threadIdx.x); jl < hi;
+       jl += blockDim.x) {
+    const long long g = static_cast<long long>(a.g0) + jl;
+    T xn = a.x[jl];
+    if (g >= 0 && g < n) {
+      // the position's vectors first: in flight while the taps load
+      const T cj = a.c[jl], tj = a.t[jl], lj = a.lb[jl], uj = a.ub[jl];
+      T d = cj;
+      if (me > 0)
+        d = d + taps_local<T, P>(a.vte, a.offs[2], a.ndte, len, a.ye, me, g,
+                                 jl);
+      if (m > 0)
+        d = d + taps_local<T, P>(a.vt, a.offs[0], a.ndt, len, a.y, m, g, jl);
+      const T xo = xn;
+      const T x2 = pslp::clamp<T>(xo - tj * d, lj, uj);
+      a.x3[jl] = (T(1) + theta) * x2 - theta * xo;
+      a.x[jl] = x2;
+      xn = x2;
+      if (a.sx != nullptr && jl >= i0 && jl < i1) a.sx[jl] = a.sx[jl] + x2;
+    }
+    if (pk != nullptr) {
+      if (jl >= i1 - a.xl && jl < i1) pk[rx - (i1 - jl)] = xn;
+      if (jl >= i0 && jl < i0 + a.xr) pk[lx + (jl - i0)] = xn;
+    }
+  }
+  grid.sync();
+  // dual pass over the slab's part of the interior: x3 -> y, y_e
+  const int d0 = max(lo, i0), d1 = min(hi, i1);
+  for (int il = d0 + static_cast<int>(threadIdx.x); il < d1;
+       il += blockDim.x) {
+    const long long g = static_cast<long long>(a.g0) + il;
+    if (me > 0) {
+      T yn = a.ye[il];
+      if (g >= 0 && g < me) {
+        const T bi = a.be[il], si = a.se[il];
+        const T r = taps_local<T, P>(a.ve, a.offs[3], a.nde, len, a.x3, n, g,
+                                     il) - bi;
+        yn = yn + si * r;
+        a.ye[il] = yn;
+        if (a.sye != nullptr) a.sye[il] = a.sye[il] + yn;
+      }
+      if (pk != nullptr) {
+        if (il >= i1 - a.yl) pk[rye - (i1 - il)] = yn;
+        if (il < i0 + a.yr) pk[lye + (il - i0)] = yn;
+      }
+    }
+    if (m > 0) {
+      T yn = a.y[il];
+      if (g >= 0 && g < m) {
+        const T bi = a.b[il], si = a.s[il];
+        const T r = taps_local<T, P>(a.v, a.offs[1], a.nd, len, a.x3, n, g,
+                                     il) - bi;
+        yn = yn + si * r;
+        yn = pslp::clamp_min0<T>(yn);
+        a.y[il] = yn;
+        if (a.sy != nullptr) a.sy[il] = a.sy[il] + yn;
+      }
+      if (pk != nullptr) {
+        if (il >= i1 - a.yl) pk[ry - (i1 - il)] = yn;
+        if (il < i0 + a.yr) pk[ly + (il - i0)] = yn;
+      }
+    }
+  }
+}
+
+// Before a plan's first launch (ops/cp_dia.py caches the answer per plan):
+// lets ``kernel`` take every byte of dynamic shared memory the card allows
+// a block, and returns in *ctas the CTAs of ``threads`` threads and
+// ``smem_bytes`` the card holds resident at once (a cooperative launch of
+// more is refused).
+template <typename K>
+int prepare(K kernel, int threads, int smem_bytes, int* ctas) {
+  int dev = 0, sms = 0, per_sm = 0, optin = 0;
+  cudaFuncAttributes attrs;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attrs, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        optin - static_cast<int>(attrs.sharedSizeBytes));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         threads, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm * sms < ctas)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  *ctas = per_sm * sms;
+  return 0;
+}
+
+// One cooperative launch of ``ctas`` CTAs of ``threads`` threads (refused
+// by the driver when they cannot all be resident; prepare checks first).
+template <typename K, typename A>
+int launch(K kernel, const A& args, int ctas, int threads, int smem_bytes,
+           void* stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas);
   cfg.blockDim = dim3(threads);
@@ -334,9 +559,20 @@ int launch(GridArgs<T, P> args, const int* offs, int ctas, int threads,
   attr.val.cooperative = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The offsets of the four tap sets (A_i^T, A_i, A_e^T, A_e, in that order,
+// ``counts`` of each) into a kernel's parameters.
+inline int set_offsets(int (*dst)[kMaxDiag], const int* counts,
+                       const int* offs) {
+  for (int q = 0, at = 0; q < 4; at += counts[q], ++q) {
+    if (counts[q] > kMaxDiag) return static_cast<int>(cudaErrorInvalidValue);
+    for (int k = 0; k < counts[q]; ++k) dst[q][k] = offs[at + k];
+  }
+  return 0;
 }
 
 // The cost of a grid barrier alone (chip_smoke.py's phase_grid): nsyncs
@@ -350,40 +586,71 @@ __global__ void grid_sync_loop_kernel(int nsyncs) {
 
 PSLP_EXPORT int pslp_grid_sync_loop(int ctas, int threads, int nsyncs,
                                     void* stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas);
-  cfg.blockDim = dim3(threads);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeCooperative;
-  attr.val.cooperative = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, grid_sync_loop_kernel, nsyncs);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch(grid_sync_loop_kernel, nsyncs, ctas, threads, 0, stream);
 }
 
 #define PSLP_CP_DIA_GRID(SUFFIX, T, P)                                       \
   PSLP_EXPORT int pslp_cp_dia_grid_##SUFFIX(                                 \
       int n, int m, int me, int ndt, int nd, int ndte, int nde, int width,   \
-      int hlx, int hrx, int hly, int hry, int in_smem, const int* offs,      \
-      const T* c, const T* t, const T* lb, const T* ub, const T* b,          \
-      const T* s, const T* be, const T* se, const P* vt, const P* v,         \
-      const P* vte, const P* ve, const T* x_in, const T* y_in,               \
+      int hlx, int hrx, int hly, int hry, int in_smem, int in_place,         \
+      const int* offs, const T* c, const T* t, const T* lb, const T* ub,     \
+      const T* b, const T* s, const T* be, const T* se, const P* vt,         \
+      const P* v, const P* vte, const P* ve, const T* x_in, const T* y_in,   \
       const T* ye_in, T* x, T* x3, T* y, T* ye, T* sx, T* sy, T* sye,        \
       T theta, int nsteps, int with_sums, int ctas, int threads,             \
       int smem_bytes, void* stream) {                                        \
-    GridArgs<T, P> args{n,     m,     me,    ndt,   nd,    ndte,   nde,      \
-                        width, hlx,   hrx,   hly,   hry,   in_smem, c,       \
-                        t,     lb,    ub,    b,     s,     be,     se,       \
-                        vt,    v,     vte,   ve,    x_in,  y_in,   ye_in,    \
-                        x,     x3,    y,     ye,    sx,    sy,     sye,      \
-                        theta, nsteps, with_sums, {}};                       \
+    GridArgs<T, P> args{n,     m,      me,    ndt,   nd,    ndte,    nde,    \
+                        width, hlx,    hrx,   hly,   hry,   in_smem,         \
+                        in_place,                                            \
+                        c,     t,      lb,    ub,    b,     s,       be,     \
+                        se,    vt,     v,     vte,   ve,    x_in,    y_in,   \
+                        ye_in, x,      x3,    y,     ye,    sx,      sy,     \
+                        sye,   theta,  nsteps, with_sums, {}};               \
     if (!with_sums) args.sx = args.sy = args.sye = nullptr;                  \
-    return launch<T, P>(args, offs, ctas, threads, smem_bytes, stream);      \
+    const int counts[4] = {ndt, nd, ndte, nde};                              \
+    const int rc = set_offsets(args.offs, counts, offs);                     \
+    if (rc) return rc;                                                       \
+    return launch(cp_dia_grid_kernel<T, P>, args, ctas, threads,             \
+                  smem_bytes, stream);                                       \
+  }                                                                          \
+  PSLP_EXPORT int pslp_cp_dia_grid_prepare_##SUFFIX(int threads,             \
+                                                    int smem_bytes,          \
+                                                    int* ctas) {             \
+    return prepare(cp_dia_grid_kernel<T, P>, threads, smem_bytes, ctas);     \
   }
 
 PSLP_CP_DIA_GRID(f32, float, float)
 PSLP_CP_DIA_GRID(f64, double, double)
 PSLP_CP_DIA_GRID(f32_bf16, float, __nv_bfloat16)
+
+// The shard entry: one iteration on a rank's slice in one cooperative
+// launch.  ``packet`` (nullptr: none) receives the rank's outgoing halo
+// packet; ``xl, xr`` are the widths of x's edges in it, ``yl, yr`` y's.
+#define PSLP_CP_DIA_SHARD_GRID(SUFFIX, T, P)                                  \
+  PSLP_EXPORT int pslp_cp_dia_shard_grid_##SUFFIX(                            \
+      int len, int g0, int p0, int p1, int i0, int i1, int n, int m, int me,  \
+      int ndt, int nd, int ndte, int nde, int width, int xl, int xr, int yl,  \
+      int yr, const int* offs, const T* c, const T* lb, const T* ub,          \
+      const T* b, const T* be, const P* vt, const P* v, const P* vte,         \
+      const P* ve, const T* t, const T* s, const T* se, T* x, T* x3, T* y,    \
+      T* ye, T* sx, T* sy, T* sye, T* packet, T theta, int ctas, int threads, \
+      void* stream) {                                                         \
+    ShardArgs<T, P> args{len, g0,  p0,  p1,  i0,  i1,  n,   m,     me,        \
+                         ndt, nd,  ndte, nde, width, xl, xr, yl,   yr,        \
+                         c,   t,   lb,  ub,  b,   s,   be,  se,    vt,        \
+                         v,   vte, ve,  x,   x3,  y,   ye,  sx,    sy,        \
+                         sye, packet, theta, {}};                             \
+    const int counts[4] = {ndt, nd, ndte, nde};                               \
+    const int rc = set_offsets(args.offs, counts, offs);                      \
+    if (rc) return rc;                                                        \
+    return launch(cp_dia_shard_grid_kernel<T, P>, args, ctas, threads, 0,     \
+                  stream);                                                    \
+  }                                                                           \
+  PSLP_EXPORT int pslp_cp_dia_shard_grid_prepare_##SUFFIX(int threads,        \
+                                                          int* ctas) {        \
+    return prepare(cp_dia_shard_grid_kernel<T, P>, threads, 0, ctas);         \
+  }
+
+PSLP_CP_DIA_SHARD_GRID(f32, float, float)
+PSLP_CP_DIA_SHARD_GRID(f64, double, double)
+PSLP_CP_DIA_SHARD_GRID(f32_bf16, float, __nv_bfloat16)

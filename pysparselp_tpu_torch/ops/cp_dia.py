@@ -28,13 +28,20 @@ launches the planned tier for CUDA tensors and runs
 :func:`cp_dia_chunk_reference`, its plain PyTorch twin, for CPU tensors.
 Inputs are never modified.
 
-The two-launch tier has a second entry for the position-sharded mesh
-solver (``parallel/sharded_cp_windowed.py``, where JAX runs K3 per shard):
-:func:`cp_dia_shard_step` runs one iteration on one rank's
+H-CPDIA-G's planes-in-place mode (:func:`grid_plan` with ``in_place``)
+reads each plane entry as stored from device memory instead of staging
+the slabs, for planes past shared memory.
+
+The position-sharded mesh solver (``parallel/sharded_cp_windowed.py``,
+where JAX runs K3 per shard) runs one iteration a call on one rank's
 :class:`CpDiaShard`, a halo-padded slice of the position space, updating
-the rank's state in place; :func:`cp_dia_shard_step_reference` is its
-twin.  On every rank count it equals :func:`cp_dia_chunk` on the whole
-system bit for bit (``csrc/cp_dia.cu``).
+the rank's state in place: :func:`cp_dia_shard_step`, H-CPDIA-G's
+iteration body in one cooperative launch a call, planes in place
+(``csrc/cp_dia_grid.cu``; :func:`shard_plan` sizes its grid), which also
+writes the rank's outgoing halo packet; the two-launch shard entry
+(``csrc/cp_dia.cu``, ``two_launch=True``) stays as its reference;
+:func:`cp_dia_shard_step_reference` is their twin.  On every rank count
+each equals :func:`cp_dia_chunk` on the whole system bit for bit.
 """
 
 from __future__ import annotations
@@ -91,7 +98,11 @@ class CpDiaPlan:
     (:func:`grid_plan`) the same ``width``, ``slabs``, ``threads``,
     ``smem_bytes`` and ``positions`` over ``ctas`` CTAs; ``halos`` ``(left,
     right)`` of x3 (A's taps) and of y and y_e (Aᵀ's); ``vectors``, the
-    names of :data:`GRID_VECTORS` whose slab stays in shared memory."""
+    names of :data:`GRID_VECTORS` whose slab stays in shared memory;
+    ``in_place``: the planes are read in place, not staged.  For the
+    shard entry (``"shard"``, :func:`shard_plan`), ``ctas`` CTAs of
+    ``threads`` threads, each owning ``width`` of the slice's
+    ``positions`` widened positions."""
 
     tier: str
     cluster: int = 0
@@ -104,6 +115,7 @@ class CpDiaPlan:
     ctas: int = 0
     halos: tuple = ()
     vectors: tuple = ()
+    in_place: bool = False
 
 
 TWO_LAUNCH = CpDiaPlan("two_launch")
@@ -170,32 +182,44 @@ def _halo(offsets):
 
 
 def grid_smem_bytes(width, halos, ndiags, m, me, itemsize, plane_itemsize,
-                    vectors=()):
+                    vectors=(), in_place=False):
     """Shared memory of one H-CPDIA-G CTA (the layout of
     ``csrc/cp_dia_grid.cu``): the slab of every plane as stored (rounded
-    up to 16 bytes), x3 with A's halos, y and y_e (each present system)
-    with Aᵀ's, then a slab of each of ``vectors``."""
+    up to 16 bytes; none when ``in_place``), x3 with A's halos, y and y_e
+    (each present system) with Aᵀ's, then a slab of each of
+    ``vectors``."""
     (hlx, hrx), (hly, hry) = halos
-    planes = -(-plane_itemsize * width * sum(ndiags) // 16) * 16
+    planes = 0 if in_place else -(-plane_itemsize * width * sum(ndiags)
+                                  // 16) * 16
     ext = (width + hlx + hrx) + (width + hly + hry) * (
         (m > 0) + (me > 0))
     return planes + itemsize * (ext + width * len(vectors))
 
 
+def _grid_width(positions, sms, ctas=None):
+    """``(ctas, width, threads)`` of a CTA-an-SM grid over ``positions``:
+    at most one CTA an SM and at least ``GRID_MIN_WIDTH`` positions a CTA
+    (unless ``ctas`` is given), ``width`` positions each, ``threads`` the
+    width rounded up to a warp, at most ``MAX_THREADS``."""
+    if ctas is None:
+        ctas = max(1, min(sms, positions // GRID_MIN_WIDTH))
+    width = -(-positions // ctas)
+    return ctas, width, min(MAX_THREADS, -(-width // 32) * 32)
+
+
 @functools.lru_cache(maxsize=64)
-def _grid(n, m, me, offsets, itemsize, plane_itemsize, sms, ctas=None):
+def _grid(n, m, me, offsets, itemsize, plane_itemsize, sms, ctas=None,
+          in_place=False):
     """H-CPDIA-G's plan (:func:`grid_plan`), or None."""
     positions = max(n, m, me)
     ndiags = tuple(map(len, offsets))
     if max(ndiags) > MAX_DIAG or positions == 0:
         return None
-    if ctas is None:
-        ctas = max(1, min(sms, positions // GRID_MIN_WIDTH))
-    width = -(-positions // ctas)
+    ctas, width, threads = _grid_width(positions, sms, ctas)
     halos = (_halo(offsets[1] + offsets[3]), _halo(offsets[0] + offsets[2]))
     budget = SMEM_PER_CTA - GRID_STATIC_SMEM
     smem = grid_smem_bytes(width, halos, ndiags, m, me, itemsize,
-                           plane_itemsize)
+                           plane_itemsize, in_place=in_place)
     if smem > budget:
         return None
     present = {"sy": m > 0, "b": m > 0, "s": m > 0, "sye": me > 0,
@@ -206,10 +230,9 @@ def _grid(n, m, me, offsets, itemsize, plane_itemsize, sms, ctas=None):
             vectors.append(name)
             smem += itemsize * width
     slabs = tuple(min(r * width, positions) for r in range(ctas + 1))
-    threads = min(MAX_THREADS, -(-width // 32) * 32)
     return CpDiaPlan("grid", width=width, slabs=slabs, smem_bytes=smem,
                      threads=threads, positions=positions, ctas=ctas,
-                     halos=halos, vectors=tuple(vectors))
+                     halos=halos, vectors=tuple(vectors), in_place=in_place)
 
 
 @functools.lru_cache(maxsize=64)
@@ -263,11 +286,14 @@ def cp_dia_plan(prob, dtype):
     return _plan(*_shape(prob, dtype), sms=_sms(prob))
 
 
-def grid_plan(prob, dtype, ctas=None):
+def grid_plan(prob, dtype, ctas=None, in_place=False):
     """H-CPDIA-G's plan for a problem, or None where a slab does not fit.
     CTA r of ``ctas`` (default: one an SM, ``_sms``, with at least
     ``GRID_MIN_WIDTH`` positions each) owns positions ``[r W, (r + 1) W)``
-    (W = ``ceil(positions / ctas)``) for the whole chunk.
+    (W = ``ceil(positions / ctas)``) for the whole chunk.  ``in_place``
+    reads the planes in place from device memory (L2 or HBM) each
+    iteration instead of staging the slabs: the shared memory then holds
+    x3, y and the vector slabs alone.
 
     Where it all lives, per CTA (``threads`` = W rounded up to a warp, at
     most 1,024, so at most 64 registers a thread; ``csrc/cp_dia_grid.cu``):
@@ -284,7 +310,7 @@ def grid_plan(prob, dtype, ctas=None):
       iteration;
     * registers: one position's arithmetic at a time."""
     shape = _shape(prob, dtype)
-    return _grid(*shape, _sms(prob), ctas)
+    return _grid(*shape, _sms(prob), ctas, in_place)
 
 
 def _empty(x):
@@ -484,13 +510,36 @@ def cp_dia_resident_chunk(prob, pre, x, y_eq, y, nsteps, theta,
 cp_dia_resident_chunk.launches = 0
 
 
+_grids: dict = {}   # (device, kind, suffix, threads, bytes) -> CTAs
+
+
+def _check_grid(plan, kind, sfx, dev, smem=True):
+    """Before a plan's first cooperative launch, once a plan: the C entry
+    ``pslp_{kind}_prepare_{sfx}`` (the kernel's dynamic shared memory
+    allowed, its occupancy read); raises when the card cannot hold
+    ``plan.ctas`` CTAs at once."""
+    key = (dev, kind, sfx, plan.threads, plan.smem_bytes)
+    if key not in _grids:
+        out = ctypes.c_int(0)
+        args = [plan.threads, plan.smem_bytes] if smem else [plan.threads]
+        _build.entry(f"pslp_{kind}_prepare_{sfx}", [_I] * len(args) + [_P])(
+            *args, ctypes.byref(out))
+        _grids[key] = out.value
+    if _grids[key] < plan.ctas:
+        raise RuntimeError(
+            f"pslp_{kind}_{sfx}: the card holds {_grids[key]} CTAs of "
+            f"{plan.threads} threads and {plan.smem_bytes} bytes of shared "
+            f"memory at once, the plan {plan.ctas}")
+
+
 def cp_dia_grid_chunk(prob, pre, x, y_eq, y, nsteps, theta, with_sums=False,
                       plan=None):
     """H-CPDIA-G: the chunk of :func:`cp_dia_chunk` in one cooperative
-    launch of ``plan.ctas`` CTAs (``plan``: a :func:`grid_plan`, by default
-    this problem's :func:`cp_dia_plan`).  The outputs are new tensors the
-    kernel writes whole.  A launch the card refuses (fewer resident CTAs
-    than the plan's) raises; nothing falls back to another tier."""
+    launch of ``plan.ctas`` CTAs (``plan``: a :func:`grid_plan`, planes in
+    shared memory or in place, by default this problem's
+    :func:`cp_dia_plan`).  The outputs are new tensors the kernel writes
+    whole.  A launch the card refuses (fewer resident CTAs than the
+    plan's) raises; nothing falls back to another tier."""
     if x.device.type == "cpu":
         return cp_dia_chunk_reference(prob, pre, x, y_eq, y, nsteps, theta,
                                       with_sums)
@@ -509,16 +558,17 @@ def cp_dia_grid_chunk(prob, pre, x, y_eq, y, nsteps, theta, with_sums=False,
            torch.empty_like(ye_in), torch.empty_like(yi_in)]
     sums = ([torch.empty_like(v) for v in (x, ye_in, yi_in)] if with_sums
             else [None, None, None])
+    _check_grid(plan, "cp_dia_grid", sfx, dev)
     counts, offsets = _counts(prob)
     in_smem = sum(1 << GRID_VECTORS.index(name) for name in plan.vectors)
     (hlx, hrx), (hly, hry) = plan.halos
     raw = ([prob.n, m, me, *counts, plan.width, hlx, hrx, hly, hry, in_smem,
-            offsets, prob.c, pre["diag_t"], prob.lb, prob.ub, prob.b_upper,
-            pre.get("sigma_ineq"), prob.b_eq, pre.get("sigma_eq"), vt, v, vte,
-            ve, x, yi_in, ye_in, out[0], out[1], out[3], out[2], sums[0],
-            sums[2], sums[1]])
+            int(plan.in_place), offsets, prob.c, pre["diag_t"], prob.lb,
+            prob.ub, prob.b_upper, pre.get("sigma_ineq"), prob.b_eq,
+            pre.get("sigma_eq"), vt, v, vte, ve, x, yi_in, ye_in, out[0],
+            out[1], out[3], out[2], sums[0], sums[2], sums[1]])
     cargs = [v.data_ptr() if torch.is_tensor(v) else v for v in raw]
-    argtypes = ([_I] * 13 + [_P] * 23 + [_build.scalar(dt)] + [_I] * 5
+    argtypes = ([_I] * 14 + [_P] * 23 + [_build.scalar(dt)] + [_I] * 5
                 + [_P])
     _build.entry(f"pslp_cp_dia_grid_{sfx}", argtypes)(
         *cargs, theta, int(nsteps), int(bool(with_sums)), plan.ctas,
@@ -561,9 +611,12 @@ class CpDiaShard:
     b_ineq: torch.Tensor
     a_eq: object = None
     b_eq: torch.Tensor = None
-    # the C entry with this shard's constant arguments bound (first launch)
+    # the C entries with this shard's constant arguments bound (first
+    # launch): the two-launch entry, and the one-launch entry with its plan
     entry: object = dataclasses.field(default=None, init=False, repr=False,
                                       compare=False)
+    grid: object = dataclasses.field(default=None, init=False, repr=False,
+                                     compare=False)
 
     def __post_init__(self):
         (p0, p1), (i0, i1) = self.primal, self.interior
@@ -577,9 +630,35 @@ class CpDiaShard:
                 f"{self.interior} do not hold the taps' reach in "
                 f"{self.length} positions")
 
+    @property
+    def packet_edges(self):
+        """``((xl, xr), (yl, yr))``: the rank's edges in its outgoing halo
+        packet (``parallel/mesh.py::halo_pack`` of x with A's reach, then y
+        and y_eq with the slice's halos): x's last ``xl`` and first ``xr``
+        interior entries, each y's last ``yl`` and first ``yr``."""
+        (p0, p1), (i0, i1) = self.primal, self.interior
+        return (i0 - p0, p1 - i1), (i0, self.length - i1)
 
-# kernels one cp_dia_shard_step launches: the primal and the dual
-SHARD_LAUNCHES = 2
+    @property
+    def packet_size(self):
+        (xl, xr), (yl, yr) = self.packet_edges
+        return xl + xr + (yl + yr) * (2 if self.me > 0 else 1)
+
+
+# kernels one cp_dia_shard_step launches (the two-launch reference: 2)
+SHARD_LAUNCHES = 1
+
+
+def shard_plan(sh: CpDiaShard, sms=None):
+    """The shard entry's grid (``"shard"``, planes in place): CTA r of
+    ``ctas`` (one an SM at most, at least ``GRID_MIN_WIDTH`` positions
+    each) owns ``width`` positions of the widened range ``sh.primal``, of
+    ``threads`` threads (the width rounded up to a warp, at most 1,024):
+    the grid is sized to the shard, not to the card."""
+    positions = sh.primal[1] - sh.primal[0]
+    ctas, width, threads = _grid_width(positions, sms or _sms(sh))
+    return CpDiaPlan("shard", width=width, threads=threads,
+                     positions=positions, ctas=ctas, in_place=True)
 
 
 def _local_taps(vals, offsets, v, g0, nv, lo, hi):
@@ -598,10 +677,24 @@ def _local_taps(vals, offsets, v, g0, nv, lo, hi):
     return acc
 
 
+def shard_packet(sh: CpDiaShard, x, y_eq, y):
+    """The rank's outgoing halo packet of its state: ``parallel/mesh.py::
+    halo_pack`` of the items x, y and, where present, y_eq, with the
+    widths of :attr:`CpDiaShard.packet_edges`."""
+    from ..parallel.mesh import halo_pack
+
+    (xl, xr), (yl, yr) = sh.packet_edges
+    i0, i1 = sh.interior
+    ys = (y, y_eq) if sh.me > 0 else (y,)
+    return halo_pack([(x, i0, i1, xl, xr)]
+                     + [(t, i0, i1, yl, yr) for t in ys])
+
+
 def cp_dia_shard_step_reference(sh: CpDiaShard, pre, x, x3, y_eq, y, theta,
-                                sums=None):
+                                sums=None, packet=None):
     """Plain twin of :func:`cp_dia_shard_step`, in the kernel's operation
-    order; updates ``x``, ``x3``, ``y_eq``, ``y`` and ``sums`` in place."""
+    order; updates ``x``, ``x3``, ``y_eq``, ``y``, ``sums`` and ``packet``
+    (:func:`shard_packet` of the new state) in place."""
     (p0, p1), (i0, i1) = sh.primal, sh.interior
     ae, ai = sh.a_eq, sh.a_ineq
     g = torch.arange(sh.g0 + p0, sh.g0 + p1, device=x.device)
@@ -640,37 +733,64 @@ def cp_dia_shard_step_reference(sh: CpDiaShard, pre, x, x3, y_eq, y, theta,
                                   0.0), y[i0:i1])
         if si is not None:
             si[i0:i1] = torch.where(rows, si[i0:i1] + y[i0:i1], si[i0:i1])
+    if packet is not None:
+        packet.copy_(shard_packet(sh, x, y_eq, y))
+
+
+def _sys_args(op, planes, b):
+    """A system's C arguments, or the absent system's."""
+    if op is None:
+        return [None, None, 0, None, None, 0, None]
+    vt, v = planes
+    return [vt, op.offs_t, len(op.offsets_t), v, op.offs, len(op.offsets), b]
 
 
 def _shard_entry(sh: CpDiaShard, dt):
-    """The C shard entry with ``sh``'s constant arguments bound."""
+    """The two-launch C shard entry with ``sh``'s constant arguments
+    bound."""
     vt, v, vte, ve = _planes(sh)
     sfx = _build.plane_suffix(dt, _build.check_planes(
         vt, v, vte, ve, dtype=dt, device=sh.c.device))
-
-    def sys_args(op, vt, v, b):
-        if op is None:
-            return [None, None, 0, None, None, 0, None]
-        return [vt, op.offs_t, len(op.offsets_t), v, op.offs,
-                len(op.offsets), b]
-
     (p0, p1), (i0, i1) = sh.primal, sh.interior
     head = ([sh.length, sh.g0, p0, p1, i0, i1, sh.n, sh.m, sh.me, sh.c,
-             sh.lb, sh.ub] + sys_args(sh.a_ineq, vt, v, sh.b_ineq)
-            + sys_args(sh.a_eq, vte, ve, sh.b_eq))
+             sh.lb, sh.ub] + _sys_args(sh.a_ineq, (vt, v), sh.b_ineq)
+            + _sys_args(sh.a_eq, (vte, ve), sh.b_eq))
     argtypes = ([_I] * 9 + [_P] * 3 + [_P, _P, _I, _P, _P, _I, _P] * 2
                 + [_P] * 10 + [_build.scalar(dt), _P])
     return _build.Entry(f"pslp_cp_dia_shard_step_{sfx}", argtypes, *head)
 
 
+def _shard_grid_entry(sh: CpDiaShard, dt):
+    """``(plan, entry, offsets)``: the one-launch shard entry's plan
+    (:func:`shard_plan`, checked against the card once) and its C entry
+    with ``sh``'s constant arguments bound (``offsets``: the host table
+    the entry copies into the kernel's parameters, held with it)."""
+    vt, v, vte, ve = _planes(sh)
+    sfx = _build.plane_suffix(dt, _build.check_planes(
+        vt, v, vte, ve, dtype=dt, device=sh.c.device))
+    plan = shard_plan(sh)
+    _check_grid(plan, "cp_dia_shard_grid", sfx, sh.c.device, smem=False)
+    counts, offsets = _counts(sh)
+    offsets = torch.tensor(list(offsets), dtype=torch.int32)
+    (p0, p1), (i0, i1) = sh.primal, sh.interior
+    (xl, xr), (yl, yr) = sh.packet_edges
+    head = [sh.length, sh.g0, p0, p1, i0, i1, sh.n, sh.m, sh.me, *counts,
+            plan.width, xl, xr, yl, yr, offsets, sh.c, sh.lb, sh.ub,
+            sh.b_ineq, sh.b_eq, vt, v, vte, ve]
+    argtypes = ([_I] * 18 + [_P] * 10 + [_P] * 3 + [_P] * 8
+                + [_build.scalar(dt), _I, _I, _P])
+    return (plan, _build.Entry(f"pslp_cp_dia_shard_grid_{sfx}", argtypes,
+                               *head), offsets)
+
+
 def cp_dia_shard_stepper(sh: CpDiaShard, pre, x, x3, y_eq, y, theta,
-                         sums=None):
+                         sums=None, packet=None, two_launch=False):
     """:func:`cp_dia_shard_step` on these tensors, checked once: a callable
     whose every call runs one iteration in place (so repeated calls
     advance the state; a loop pays no per-iteration checks)."""
     if x.device.type == "cpu":
         return lambda: cp_dia_shard_step_reference(sh, pre, x, x3, y_eq, y,
-                                                   theta, sums)
+                                                   theta, sums, packet)
     if x.device.type != "cuda":
         raise ValueError(f"cp_dia_shard_step runs on CUDA or the CPU, not "
                          f"{x.device}")
@@ -689,17 +809,36 @@ def cp_dia_shard_stepper(sh: CpDiaShard, pre, x, x3, y_eq, y, theta,
     if any(v.shape != (sh.length,) for v in state):
         raise ValueError(f"cp_dia_shard_step: every vector must have "
                          f"{sh.length} entries")
-    if sh.entry is None:
-        _build.check_cuda(sh.c, sh.lb, sh.ub, sh.b_ineq, sh.b_eq,
-                          dtype=sh.c.dtype, device=sh.c.device)
-        object.__setattr__(sh, "entry", _shard_entry(sh, sh.c.dtype))
-    ptrs = tuple(None if v is None else v.data_ptr()
-                 for v in (t, s, s_eq, x, x3, yi, ye, sx, si, se))
+    if packet is not None:
+        _build.check_cuda(packet, dtype=sh.c.dtype, device=sh.c.device)
+        if two_launch or packet.shape != (sh.packet_size,):
+            raise ValueError(f"cp_dia_shard_step: a packet of "
+                             f"{sh.packet_size} entries, one-launch entry "
+                             f"only")
+        state.append(packet)
+    _build.check_cuda(sh.c, sh.lb, sh.ub, sh.b_ineq, sh.b_eq,
+                      dtype=sh.c.dtype, device=sh.c.device)
     index = _build.device_index(x.device)
+    if two_launch:
+        if sh.entry is None:
+            object.__setattr__(sh, "entry", _shard_entry(sh, sh.c.dtype))
+        entry, launches = sh.entry, 2
+        tail = tuple(None if v is None else v.data_ptr()
+                     for v in (t, s, s_eq, x, x3, yi, ye, sx, si, se))
+        tail += (theta,)
+    else:
+        if sh.grid is None:
+            object.__setattr__(sh, "grid", _shard_grid_entry(sh, sh.c.dtype))
+        plan, entry, _offsets = sh.grid
+        launches = SHARD_LAUNCHES
+        tail = tuple(None if v is None else v.data_ptr()
+                     for v in (t, s, s_eq, x, x3, yi, ye, sx, si, se,
+                               packet))
+        tail += (theta, plan.ctas, plan.threads)
 
     def step():
-        sh.entry(*ptrs, theta, _build.stream(index))
-        cp_dia_shard_step.launches += SHARD_LAUNCHES
+        entry(*tail, _build.stream(index))
+        cp_dia_shard_step.launches += launches
 
     # the launches read these tensors' memory by address: hold them
     step.tensors = state
@@ -707,17 +846,22 @@ def cp_dia_shard_stepper(sh: CpDiaShard, pre, x, x3, y_eq, y, theta,
 
 
 def cp_dia_shard_step(sh: CpDiaShard, pre, x, x3, y_eq, y, theta,
-                      sums=None):
-    """One CP iteration on a rank's slice (H-CPDIA's shard entry, two
-    launches), in place: x and x3 over ``sh.primal``, ``y_eq`` / ``y`` and
-    the running ``sums`` ``(sx, s_eq, s_ineq)`` over ``sh.interior``.
-    ``pre`` holds the local step vectors ``diag_t``, ``sigma_ineq`` and
-    ``sigma_eq`` (for a present system).  Every tensor has ``sh.length``
-    entries; an absent system's dual (and its sum) may be any tensor of
-    the dtype.  CPU tensors run :func:`cp_dia_shard_step_reference`; CUDA
-    tensors launch the kernel or raise (:func:`cp_dia_shard_stepper`
-    checks once for a loop of iterations)."""
-    cp_dia_shard_stepper(sh, pre, x, x3, y_eq, y, theta, sums)()
+                      sums=None, packet=None, two_launch=False):
+    """One CP iteration on a rank's slice, in place: x and x3 over
+    ``sh.primal``, ``y_eq`` / ``y`` and the running ``sums`` ``(sx, s_eq,
+    s_ineq)`` over ``sh.interior``, and ``packet`` (``sh.packet_size``
+    entries, or None) set to the rank's outgoing halo packet
+    (:func:`shard_packet`).  ``pre`` holds the local step vectors
+    ``diag_t``, ``sigma_ineq`` and ``sigma_eq`` (for a present system).
+    Every tensor has ``sh.length`` entries; an absent system's dual (and
+    its sum) may be any tensor of the dtype.  CPU tensors run
+    :func:`cp_dia_shard_step_reference`; CUDA tensors launch H-CPDIA-G's
+    shard entry (one cooperative launch; ``two_launch``: the two-launch
+    entry, the tests' reference, which writes no packet) or raise
+    (:func:`cp_dia_shard_stepper` checks once for a loop of iterations).
+    ``launches`` counts the kernels launched."""
+    cp_dia_shard_stepper(sh, pre, x, x3, y_eq, y, theta, sums, packet,
+                         two_launch)()
 
 
 cp_dia_shard_step.launches = 0

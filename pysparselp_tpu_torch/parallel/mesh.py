@@ -10,7 +10,8 @@ solvers use: :meth:`Mesh.psum`, :meth:`Mesh.pmax` and :meth:`Mesh.pmin`
 (``dist.all_gather``, the JAX ``all_gather(..., tiled=True)``) and
 :meth:`Mesh.halo_exchange`, the neighbour exchange of the position-sharded
 solver (JAX's two ``lax.ppermute`` per array), every array's edges packed
-into one ``dist.all_gather``.
+into one ``dist.all_gather``; :class:`HaloRoute` is the same exchange
+with its buffers and placement built once, for the solver's iterations.
 
 The backend is always the caller's choice; nothing here switches one for
 another.  NCCL takes one GPU per rank.  Several ranks on one GPU need
@@ -126,12 +127,14 @@ class Mesh:
                     parts[self.rank + 1] if self.rank < last else None)
 
 
-def halo_pack(items):
+def halo_pack(items, out=None):
     """One rank's packet for :meth:`Mesh.halo_exchange`: each item's
     right edge ``t[hi - left:hi]`` (rank + 1's left halo), then each
-    item's left edge ``t[lo:lo + right]`` (rank - 1's right halo)."""
+    item's left edge ``t[lo:lo + right]`` (rank - 1's right halo); into
+    ``out`` where given."""
     return torch.cat([t[hi - left:hi] for t, _lo, hi, left, _r in items]
-                     + [t[lo:lo + right] for t, lo, _hi, _l, right in items])
+                     + [t[lo:lo + right] for t, lo, _hi, _l, right in items],
+                     out=out)
 
 
 def halo_unpack(items, from_prev, from_next):
@@ -147,6 +150,78 @@ def halo_unpack(items, from_prev, from_next):
         if from_next is not None:
             t[hi:hi + right] = from_next[k:k + right]
         k += right
+
+
+class HaloRoute:
+    """:meth:`Mesh.halo_exchange` of a fixed set of items, its buffers and
+    placement built once: a call is one all-gather of :attr:`packet` into
+    :attr:`recv` and ONE ``index_copy_`` that writes rank - 1's right edges
+    and rank + 1's left edges into the halos.  The items' arrays are
+    copied into views of one flat buffer (:attr:`views`, in the order of
+    ``arrays``; the buffer's tail takes the received entries no halo
+    needs), and the caller refreshes :attr:`packet` (:func:`halo_pack`'s
+    layout) before each call: :meth:`pack` from the views, or a kernel
+    that writes it as it updates them (H-CPDIA's shard entry).  ``items``
+    are ``(t, lo, hi, left, right)`` with ``t`` one of ``arrays``.  Each
+    placement adds one to ``HaloRoute.launches``."""
+
+    launches = 0
+
+    def __init__(self, mesh, arrays, items):
+        self.mesh = mesh
+        rank, size = mesh.rank, mesh.size
+        k = sum(left + right for _t, _lo, _hi, left, right in items)
+        starts = np.cumsum([0] + [a.numel() for a in arrays])
+        where = {id(a): int(at) for a, at in zip(arrays, starts)}
+        # rank - 1's packet to rank + 1's, the part of recv a rank reads
+        first, last = max(rank - 1, 0), min(rank + 1, size - 1)
+        region = (last + 1 - first) * k
+        dst = np.arange(starts[-1], starts[-1] + region)
+        split, left_at, right_at = sum(it[3] for it in items), 0, 0
+        for t, lo, hi, left, right in items:
+            at = where[id(t)]
+            if rank > 0:
+                q = (rank - 1 - first) * k + left_at
+                dst[q:q + left] = at + np.arange(lo - left, lo)
+            if rank < size - 1:
+                q = (rank + 1 - first) * k + split + right_at
+                dst[q:q + right] = at + np.arange(hi, hi + right)
+            left_at, right_at = left_at + left, right_at + right
+        ref = arrays[0]
+        self.flat = ref.new_empty(int(starts[-1]) + region)
+        self.views = [self.flat[int(a):int(b)]
+                      for a, b in zip(starts[:-1], starts[1:])]
+        for view, a in zip(self.views, arrays):
+            view.copy_(a)
+        self.items = [(self.views[[id(a) for a in arrays].index(id(t))], lo,
+                       hi, left, right) for t, lo, hi, left, right in items]
+        self.index = torch.as_tensor(dst, device=ref.device)
+        self.src = slice(first * k, first * k + region)
+        self.packet = ref.new_empty(k)
+        self.recv = ref.new_empty(size * k)
+        self.parts = list(self.recv.view(size, k).unbind(0))
+
+    def pack(self):
+        """:attr:`packet` from the views (one launch)."""
+        halo_pack(self.items, out=self.packet)
+
+    def __call__(self):
+        """Every rank's packet into :attr:`recv` (one all-gather), then
+        :meth:`place`."""
+        mesh = self.mesh
+        if mesh.backend == "nccl":
+            dist.all_gather_into_tensor(self.recv, self.packet,
+                                        group=mesh.group)
+        else:
+            dist.all_gather(self.parts, self.packet, group=mesh.group)
+        mesh.calls[("halo", self.packet.numel())] += 1
+        self.place()
+
+    def place(self):
+        """The neighbours' edges from :attr:`recv` (rank r's packet at
+        ``[r k, (r + 1) k)``) into the halos: one ``index_copy_``."""
+        self.flat.index_copy_(0, self.index, self.recv[self.src])
+        HaloRoute.launches += 1
 
 
 def pad_gather_width(mats_v, mats_i, k_max=None):

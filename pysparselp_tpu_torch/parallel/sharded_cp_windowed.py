@@ -11,15 +11,17 @@ stencil computation instead:
   with a halo on each side, in one local layout for every vector and
   plane (:class:`~pysparselp_tpu_torch.ops.cp_dia.CpDiaShard`);
 * each iteration refreshes the halos of x, y and y_eq from the two
-  neighbours (:meth:`~.mesh.Mesh.halo_exchange`: one collective, none on
-  one rank), then runs one iteration of H-CPDIA's shard entry
-  (:func:`~pysparselp_tpu_torch.ops.cp_dia.cp_dia_shard_step`, two
-  launches), where JAX runs its windowed kernel (K3) per shard;
+  neighbours (:class:`~.mesh.HaloRoute`: one collective and one launch
+  that places the halos, none on one rank), then runs one iteration of
+  H-CPDIA's shard entry
+  (:func:`~pysparselp_tpu_torch.ops.cp_dia.cp_dia_shard_step`, one
+  cooperative launch, which also writes the next exchange's packet), where
+  JAX runs its windowed kernel (K3) per shard;
 * the halos are wide enough for the primal to be recomputed over the
   dual's reach (JAX's ``h = hq + gq``): x over the reach of A's taps, y
   over that plus the reach of Aᵀ's, so one exchange an iteration serves
-  both launches and the result equals the one-device two-launch chunk
-  bit for bit;
+  both passes and the result equals the one-device two-launch chunk bit
+  for bit;
 * the ranks at the mesh edges face positions outside the problem, which
   hold zeros, the global layout's neutral padding.
 
@@ -51,7 +53,7 @@ from ..ops.cp_dia import CpDiaShard, cp_dia_shard_stepper
 from ..ops.dia_spmv import DiaOperand, dia_apply
 from ..problem import (DIA_AUTO_MAX_OFFSETS, DiaMatrix, _diagonal_count,
                        dia_plane_dtype, one_plane_storage)
-from .mesh import check_mesh
+from .mesh import HaloRoute, check_mesh
 
 # what the last run_position_sharded call on this process ran: the regime,
 # the ranks, the positions per rank, the halo widths, the build's host
@@ -343,15 +345,31 @@ def state_halo_items(data, state):
 
 
 def _iterate(data, mesh, pre, x, x3, y, ye, nsteps, sums=None):
-    """``nsteps`` iterations in place, each the halo exchange of x, y and
-    y_eq (none on one rank), then one call of the shard entry."""
-    items = state_halo_items(data, _pack(data, x, x3, y, ye))
+    """``nsteps`` iterations from ``(x, x3, y, ye)`` (left as they are;
+    ``sums`` are updated in place); returns the new ``(x, x3, y, ye)``.
+    Each iteration: on more than one rank the halo exchange of x, y and
+    y_eq (:class:`~.mesh.HaloRoute`: one all-gather of the packet the
+    previous call wrote, one launch to place the halos), then one call of
+    the shard entry (one launch), which also writes the next packet."""
+    x3 = x3.clone()
+    route, packet = None, None
+    if mesh.size > 1:
+        arrays = (x, y, ye) if data["has_eq"] else (x, y)
+        route = HaloRoute(mesh, arrays, state_halo_items(
+            data, _pack(data, x, x3, y, ye)))
+        route.pack()
+        x, y = route.views[:2]
+        ye = route.views[2] if data["has_eq"] else ye
+        packet = route.packet
+    else:
+        x, y, ye = x.clone(), y.clone(), ye.clone()
     step = cp_dia_shard_stepper(data["shard"], pre, x, x3, ye, y,
-                                data["theta"], sums)
+                                data["theta"], sums, packet)
     for _ in range(nsteps):
-        if mesh.size > 1:
-            mesh.halo_exchange(items)
+        if route is not None:
+            route()
         step()
+    return x, x3, y, ye
 
 
 def _scaled(pre, omega):
@@ -426,8 +444,7 @@ def sharded_windowed_chunk(data, state, mesh, nsteps: int):
     H-CPDIA's shard entry."""
     assert nsteps >= 1
     mesh = check_mesh(mesh)
-    x, x3, y, ye = (t.clone() for t in _unpack(state))
-    _iterate(data, mesh, data["pre"], x, x3, y, ye, nsteps)
+    x, x3, y, ye = _iterate(data, mesh, data["pre"], *_unpack(state), nsteps)
     return _pack(data, x, x3, y, ye)
 
 
@@ -450,7 +467,7 @@ def sharded_windowed_chunk_restart(data, rstate, mesh, nsteps: int,
     mesh = check_mesh(mesh)
     has_eq = data["has_eq"]
     nblocks, rem = divmod(nsteps, period)
-    x, x3, y, ye = (t.clone() for t in _unpack(rstate["state"]))
+    x, x3, y, ye = _unpack(rstate["state"])
     rs = dict(rstate, zeq=rstate.get("zeq"))
     if rs["zeq"] is None:
         rs["zeq"] = ye
@@ -462,7 +479,7 @@ def sharded_windowed_chunk_restart(data, rstate, mesh, nsteps: int,
         pre = _scaled(data["pre"], rs["omega"])
         sums = (torch.zeros_like(x), torch.zeros_like(ye),
                 torch.zeros_like(y))
-        _iterate(data, mesh, pre, x, x3, y, ye, period, sums)
+        x, x3, y, ye = _iterate(data, mesh, pre, x, x3, y, ye, period, sums)
         inv = 1.0 / period
         ax, aye, ay = (s * inv for s in sums)
         mesh.halo_exchange(halo_items(
@@ -493,8 +510,8 @@ def sharded_windowed_chunk_restart(data, rstate, mesh, nsteps: int,
             zeq=torch.where(do, zeq, rs["zeq"]) if has_eq else rs["zeq"],
             zineq=torch.where(do, zineq, rs["zineq"]))
     if rem:
-        _iterate(data, mesh, _scaled(data["pre"], rs["omega"]), x, x3, y,
-                 ye, rem)
+        x, x3, y, ye = _iterate(data, mesh, _scaled(data["pre"], rs["omega"]),
+                                x, x3, y, ye, rem)
     return dict(state=_pack(data, x, x3, y, ye), omega=rs["omega"],
                 mu_restart=rs["mu_restart"], mu_last=rs["mu_last"],
                 zx=rs["zx"], zeq=rs["zeq"] if has_eq else None,

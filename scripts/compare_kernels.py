@@ -29,6 +29,14 @@ one call.  Times, in float32, through the operators' own entry points:
   ``light_metrics``) twice, its steady iterations/s; and Potts-50's
   steady run and restart solve: iterations/s, seconds to the graph cut
   and the device's busy share (:func:`time_cpdia`);
+* H-CPDIA's shard entry, one call, on Potts-300 as one shard and on a
+  quarter shard, the two-launch shard entry beside it where the checkout
+  keeps it (:func:`time_cpdia_shard`); the chunk tier of planes past
+  shared memory at Potts-300 in float64 and Potts-500 in float32,
+  H-CPDIA-G with its planes in place in turns with the two-launch kernel,
+  with Potts-500's host build seconds and device memory
+  (:func:`time_in_place`); ``--sections cpdia_shard`` runs these two
+  alone;
 * H-CPDENSE, 1,000 iterations with sums, per iteration: on SC105, on
   ``chip_smoke.dense_system`` (operators past shared memory) and on square
   random systems of ``SQUARE_SIZES`` rows and columns; where the checkout
@@ -65,8 +73,8 @@ then the banded and unstructured ``solve_cp_batch`` runs profiled as
 ``scripts/profile_port.py --runs batch_banded batch_unstructured``
 profiles them, with their problem-iterations/s and busy share
 (:func:`time_batch`).
-``--sections`` picks a subset (``csr bsr dia cpdense cpdia solves dca
-batch``).
+``--sections`` picks a subset (``csr bsr dia cpdense cpdia cpdia_shard
+solves dca batch``).
 Prints one JSON line per measurement (with the card's name and power limit
 and the repository path); exits nonzero without CUDA.
 """
@@ -88,8 +96,12 @@ ROOT = Path(__file__).resolve().parent.parent
 SQUARE_SIZES = (16, 48, 104, 152)
 LANES = (1, 2, 4, 8, 16)
 SOLVE_ITERS = 2000
-SECTIONS = ("csr", "bsr", "dia", "cpdense", "cpdia", "solves", "dca",
-            "batch")
+SECTIONS = ("csr", "bsr", "dia", "cpdense", "cpdia", "cpdia_shard",
+            "solves", "dca", "batch")
+# the in-place chunk's shapes: (name, grid size, dtype name), and its
+# iterations a timed chunk (with sums)
+IN_PLACE_CASES = (("potts300", 300, "float64"), ("potts500", 500, "float32"))
+IN_PLACE_STEPS = 100
 
 
 def main() -> int:
@@ -160,6 +172,9 @@ def main() -> int:
                  dia_spmv, build_system_dia)
     if "cpdense" in sections:
         time_cpdense(smoke, torch, emit, dt, dev, cp_dense)
+    if sections & {"cpdia", "cpdia_shard"}:
+        time_cpdia_shard(smoke, torch, emit, dt)
+        time_in_place(smoke, torch, rng, dev, repo, smi)
     if "cpdia" in sections:
         time_cpdia(smoke, torch, emit, rng, dt, dev, repo, smi)
     if "solves" in sections:
@@ -386,6 +401,122 @@ def time_cpdia(smoke, torch, emit, rng, dt, dev, repo, smi):
                           profiled_20k=window,
                           restart_seconds_to_graph_cut=to_cut,
                           restart_profiled=restart_window)), flush=True)
+
+
+def time_cpdia_shard(smoke, torch, emit, dt):
+    """H-CPDIA's shard entry, one call (one iteration) through the
+    checkout's ``cp_dia_shard_stepper`` as the mesh solve calls it, on
+    Potts-300's aligned system as one shard (the one-rank mesh) and on an
+    inner quarter shard (rank 1 of 4), float32: the checkout's entry (one
+    cooperative launch writing the packet on the quarter shard where it
+    has one; two launches before), and where the checkout keeps it the
+    two-launch entry beside it, with ``chip_smoke.shard_bound``."""
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+    from pysparselp_tpu_torch.ops import cp_dia
+    from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
+
+    params = inspect.signature(cp_dia.cp_dia_shard_stepper).parameters
+    sys_, info = smoke.shard_system(build_linear_program(300, 0.5, 500)[0])
+    glob = scw.position_system(sys_, info)
+    for shape, ndev, rank in (("whole", 1, 0),
+                              ("quarter", smoke.MESH_RANKS, 1)):
+        data, st = scw.place_position_shard(glob, ndev, rank, dt, "cuda")
+        sh, empty = data["shard"], st["x"].new_zeros(0)
+        extra = {}
+        if "packet" in params and ndev > 1:
+            extra["packet"] = torch.empty(sh.packet_size, dtype=dt,
+                                          device="cuda")
+        entries = [("checkout", extra)]
+        if "two_launch" in params:
+            entries.append(("two_launch", dict(two_launch=True)))
+        bound_ms, bound_by = smoke.shard_bound(data, 4)
+        for name, kwargs in entries:
+            state = {k: v.clone() for k, v in st.items()}
+            step = cp_dia.cp_dia_shard_stepper(
+                sh, data["pre"], state["x"], state["x3"], empty,
+                state["y_ineq"], 1.0, **kwargs)
+            emit("H-CPDIA (shard)", f"potts300_{shape}", f"one call, {name}",
+                 step, reps=200, positions=sh.length,
+                 primal=list(sh.primal), interior=list(sh.interior),
+                 packet="packet" in kwargs, bound_ms=bound_ms,
+                 bound_by=bound_by)
+
+
+def time_in_place(smoke, torch, rng, dev, repo, smi):
+    """The chunk tier of the planes past shared memory: H-CPDIA-G with its
+    planes read in place (where the checkout has the mode) in turns with
+    the two-launch kernel (two-launch, in place, in place, two-launch),
+    per iteration of a chunk of IN_PLACE_STEPS with sums, on
+    IN_PLACE_CASES (Potts-300 in float64, Potts-500 in float32 on its
+    bfloat16 planes), each with the checkout's planned tier, both
+    kernels' call times, the streaming bound (each plane and vector once
+    an iteration) and, for the LP, the host seconds to build and lower it
+    and the device memory it takes."""
+    import time
+
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+    from pysparselp_tpu_torch.ops import cp_dia
+
+    in_place = "in_place" in inspect.signature(cp_dia.grid_plan).parameters
+    for key, size, name in IN_PLACE_CASES:
+        dt = getattr(torch, name)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        lp = build_linear_program(size, 0.5, 500)[0]
+        build_s = time.perf_counter() - t0
+        prob, pre = smoke.lowered(lp, dt, dev)
+        torch.cuda.synchronize()
+        lower_s = time.perf_counter() - t0 - build_s
+        held = torch.cuda.memory_allocated() - base
+        x0 = torch.as_tensor(rng.rand(prob.n), dtype=dt, device=dev)
+        ye0 = torch.as_tensor(rng.rand(prob.m_eq) * 0.1, dtype=dt,
+                              device=dev)
+        yi0 = torch.as_tensor(rng.rand(prob.m_ineq) * 0.1, dtype=dt,
+                              device=dev)
+        plans = {"two_launch": cp_dia.TWO_LAUNCH}
+        if in_place:
+            plans["in_place"] = cp_dia.grid_plan(prob, dt, in_place=True)
+
+        def run(plan):
+            return lambda: cp_dia.cp_dia_chunk(prob, pre, x0, ye0, yi0,
+                                               IN_PLACE_STEPS, 1.0, True,
+                                               plan=plan)
+
+        planes = sum(o.vals.numel() + o.vals_t.numel()
+                     for o in (prob.a_eq, prob.a_ineq) if o is not None)
+        item, plane = x0.element_size(), prob.a_ineq.vals.element_size()
+        nbytes = plane * planes + item * (9 * prob.n + 6 * (
+            prob.m_eq + prob.m_ineq))
+        rec = dict(repo=repo, nvidia_smi=smi, kernel="H-CPDIA chunk tier",
+                   problem=key, dtype=name,
+                   planes=str(prob.a_ineq.vals.dtype).split(".")[1],
+                   positions=max(prob.n, prob.m_eq, prob.m_ineq),
+                   build_s=build_s, lower_s=lower_s, device_bytes=held,
+                   planned=cp_dia.cp_dia_plan(prob, dt).tier,
+                   bound_stream_us=nbytes / smoke.HBM_BYTES_PER_S * 1e6,
+                   bytes_per_iteration=nbytes)
+        if in_place:
+            plan = plans["in_place"]
+            rec["in_place_plan"] = dict(
+                ctas=plan.ctas, width=plan.width, threads=plan.threads,
+                smem_bytes=plan.smem_bytes, vectors=plan.vectors)
+            got = run(plan)()
+            rec["in_place_bit_equal"] = smoke.same_bits(
+                torch, got, run(cp_dia.TWO_LAUNCH)())
+            pair = [smoke.cuda_ms(torch, f, 5) * 1e3 / IN_PLACE_STEPS
+                    for f in (run(cp_dia.TWO_LAUNCH), run(plan), run(plan),
+                              run(cp_dia.TWO_LAUNCH))]
+            rec["in_turns_us"] = dict(two_launch=[pair[0], pair[3]],
+                                      in_place=[pair[1], pair[2]])
+        for label, plan in plans.items():
+            times = smoke.call_times(torch, run(plan), reps=5, host_reps=5)
+            rec[f"{label}_us"] = {
+                k: v / IN_PLACE_STEPS if k.endswith("_us") else v
+                for k, v in times.items()}
+        print(json.dumps(rec), flush=True)
+        del prob, pre, x0, ye0, yi0, lp
+        torch.cuda.empty_cache()
 
 
 def time_solves(smoke, np, repo, smi, chambolle_pock, _choose_layout):

@@ -560,6 +560,7 @@ def test_shard_entry_bit_equal_on_bf16_and_f32_planes_on_cuda(key):
                 cp_dia_shard_step(shard, data["pre"], s["x"], s["x3"],
                                   s.get("y_eq", s["x"][:0]), s["y_ineq"],
                                   data["theta"], sums)
-            assert cp_dia_shard_step.launches == before + 5 * 2
+            assert cp_dia_shard_step.launches == (
+                before + 5 * cp_dia.SHARD_LAUNCHES)
             outs.append([s[k] for k in sorted(s)] + list(sums))
         assert_same_bits(*outs, what=key)

@@ -26,7 +26,8 @@ import scipy.sparse
 import torch
 
 import torch_sharded_workers as workers
-from pysparselp_tpu_torch.ops.cp_dia import (TWO_LAUNCH, cp_dia_chunk,
+from pysparselp_tpu_torch.ops.cp_dia import (SHARD_LAUNCHES, TWO_LAUNCH,
+                                             cp_dia_chunk,
                                              cp_dia_chunk_reference,
                                              cp_dia_shard_step,
                                              cp_dia_shard_step_reference)
@@ -487,7 +488,7 @@ def test_shard_kernel_on_cuda(dtype, eq, nan_case):
     glob = _glob(eq, nan_case, 4)
     before = cp_dia_shard_step.launches
     got = _run_shards(glob, 4, dtype, dev, 20, _shard_step(False))
-    assert cp_dia_shard_step.launches - before == 4 * 20 * 2
+    assert cp_dia_shard_step.launches - before == 4 * 20 * SHARD_LAUNCHES
     twin = _run_shards(glob, 4, dtype, dev, 20, _shard_step(True))
     prob, pre, (x, ye, yi) = _global_problem(glob, dtype, dev)
     out = cp_dia_chunk(prob, pre, x, ye, yi, 20, 1.0, plan=TWO_LAUNCH)

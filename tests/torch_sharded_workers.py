@@ -232,6 +232,41 @@ def _pos_chunk(mesh, jdata, jstate, nsteps):
                     scw.unshard_state(data, state, mesh)), calls=calls)
 
 
+def _pos_counts(mesh, sys_d, nsteps):
+    """``sharded_windowed_chunk`` of an aligned system (built here, the
+    plan's CPU gate open): the global state and, an iteration, the halo
+    all-gathers, the halo placements and the shard entry's calls."""
+    from pysparselp_tpu_torch.parallel import mesh as pmesh
+    from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
+
+    scw._FORCE_CPU = mesh.device.type == "cpu"
+    data, state = scw.build_position_sharded(sys_d, mesh)
+    stepper, calls = scw.cp_dia_shard_stepper, [0]
+
+    def counting(*args, **kwargs):
+        step = stepper(*args, **kwargs)
+
+        def counted():
+            calls[0] += 1
+            step()
+        return counted
+
+    scw.cp_dia_shard_stepper = counting
+    mesh.calls.clear()
+    placed = pmesh.HaloRoute.launches
+    try:
+        state = scw.sharded_windowed_chunk(data, state, mesh, nsteps)
+    finally:
+        scw.cp_dia_shard_stepper = stepper
+    halo = sum(v for (op, _k), v in mesh.calls.items() if op == "halo")
+    return dict(state=[v for v in scw.unshard_state(data, state, mesh)
+                       if v.size or data["has_eq"]],
+                per_iteration=dict(
+                    halo=halo / nsteps,
+                    placements=(pmesh.HaloRoute.launches - placed) / nsteps,
+                    entry_calls=calls[0] / nsteps))
+
+
 def _pos_restart(mesh, jdata, jstate, mu0, nsteps, period):
     """``sharded_windowed_chunk_restart`` from a JAX state at ω = 1."""
     from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
@@ -310,7 +345,8 @@ def _dca_merge(mesh, host, dtype, project, seed):
 RUNNERS = {"solve": _solve, "dispatch": _dispatch, "resume": _resume,
            "mesh_checks": _mesh_checks, "lp_solve": _lp_solve, "mpc": _mpc,
            "dga_dia": _dga_dia, "admm_layouts": _admm_layouts,
-           "pos_chunk": _pos_chunk, "pos_restart": _pos_restart,
+           "pos_chunk": _pos_chunk, "pos_counts": _pos_counts,
+           "pos_restart": _pos_restart,
            "pos_metrics": _pos_metrics, "pos_solve": _pos_solve,
            "dca_merge": _dca_merge}
 
