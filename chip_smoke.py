@@ -103,10 +103,7 @@ float32 aligned DIA systems in the position-sharded regime,
   ineq), 100 iterations each bit-equal to the two-launch chunk entry, to
   the two-launch shard entry and to float32 planes and within RTOL of the
   twin, float32 and float64, timed on Potts-300 as one shard and on a
-  quarter shard in turns with the two-launch shard entry; and, in the
-  float64 products' phase, H-CPDIA-G with its planes read in place on
-  Potts-300 in float64 (:func:`in_place_chunk`) against the twin and the
-  two-launch kernel, timed in turns with it;
+  quarter shard in turns with the two-launch shard entry;
 * ``main_path_mesh1``, after phase 3: the Potts-300 solve on one device
   and then with ``mesh=`` a one-rank NCCL group in this process (the
   position-sharded regime: ``bench.py``'s ``measure_sharded_overhead``),
@@ -1335,6 +1332,14 @@ def grid_bound(prob, plan, itemsize, sm_mhz, l2_rate):
                 smem_bytes=shared, l2_bytes=l2)
 
 
+def l2_read_rates(torch):
+    """``{MiB: bytes/s}``: the L2-resident read rate (:func:`read_rates`)
+    of a buffer of each of GRID_L2_PROBE_MIB."""
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+    return {mib: read_rates(torch, mib * 1024 * 1024, flush)["l2"]
+            for mib in GRID_L2_PROBE_MIB}
+
+
 def grid_barrier_us(torch, nsyncs=400, reps=10):
     """Microseconds per grid barrier of ``pslp_grid_sync_loop``: one
     cooperative launch of H100_SMS CTAs running ``nsyncs`` grid.sync(), at
@@ -1365,18 +1370,16 @@ def phase_grid(torch, problems, table, sm_mhz):
     streaming bound on these planes and on float32 planes, and the tier's
     own (:func:`grid_bound`); first the grid barrier's own cost
     (:func:`grid_barrier_us`) and the L2 read rate the own bound uses (the
-    fastest over GRID_L2_PROBE_MIB)."""
+    fastest over GRID_L2_PROBE_MIB).  Returns the L2 read rates by probe
+    size, ``{MiB: bytes/s}``."""
     import numpy as np
 
     from pysparselp_tpu_torch.ops import cp_dia
 
     rng = np.random.RandomState(2)
     dev = torch.device("cuda")
-    flush = torch.zeros(L2_FLUSH_BYTES // 4, device=dev)
-    l2_rates = {mib: read_rates(torch, mib * 1024 * 1024, flush)["l2"]
-                for mib in GRID_L2_PROBE_MIB}
+    l2_rates = l2_read_rates(torch)
     l2_rate = max(l2_rates.values())
-    del flush
     emit("kernels", kernel="H-CPDIA-G", l2_read_rate=l2_rate,
          l2_read_rate_by_mib=l2_rates, barrier_us=grid_barrier_us(torch))
     for key, dtypes in GRID_CASES:
@@ -1478,6 +1481,7 @@ def phase_grid(torch, problems, table, sm_mhz):
                         "bound_stream_f32_planes_ms"],
                     two_launch_ms=rec["pair_ms"]["two_launch"])
             emit("kernels", **rec)
+    return l2_rates
 
 
 def csr_matrices(workloads):
@@ -2772,15 +2776,19 @@ def whole_problem(torch, glob, dtype):
     return prob, pre, vec(glob["x"]), ye, vec(glob["y_ineq"])
 
 
-def shard_bound(data, itemsize):
-    """``(bound_ms, bound_by)`` of one shard entry call without sums: the
-    Aᵀ planes over the primal range's columns and the A planes over the
-    interior's rows; per column c, diag_t, lb, ub and x read, x and x3
-    written; y read once over the slice; per row b and sigma read, y
-    written.  Only positions inside the problem count.  Operations: two a
-    stored plane entry, and per column one add into d, T d, its
-    subtraction, the clip's two, x3's three; per row the residual's
-    subtraction, the product with sigma, the add, the max."""
+def shard_bound(data, itemsize, l2_rates):
+    """The least time of one shard entry call without sums, as ``dict(
+    bound_ms, bound_by, bound_bytes, bound_rate)``.  Bytes: the Aᵀ planes
+    over the primal range's columns and the A planes over the interior's
+    rows; per column c, diag_t, lb, ub and x read, x and x3 written; y read
+    once over the slice; per row b and sigma read, y written.  Only
+    positions inside the problem count.  Back-to-back calls keep these
+    bytes in L2 when they fit, so they are priced at the fastest L2 read
+    rate this run measured (``l2_rates``, ``{MiB: bytes/s}``, from
+    :func:`read_rates`) on a buffer at least as large, else at the HBM
+    rate.  Operations: two a stored plane entry, and per column one add
+    into d, T d, its subtraction, the clip's two, x3's three; per row the
+    residual's subtraction, the product with sigma, the add, the max."""
     sh = data["shard"]
     (p0, p1), (i0, i1) = sh.primal, sh.interior
 
@@ -2793,7 +2801,14 @@ def shard_bound(data, itemsize):
     nbytes = (sh.a_ineq.vals.element_size() * planes
               + itemsize * (7 * cols + inside(0, sh.length, sh.m)
                             + 3 * rows))
-    return bound(nbytes, 2 * planes + 8 * cols + 4 * rows)
+    resident = [rate for mib, rate in l2_rates.items()
+                if mib * 1024 * 1024 >= nbytes]
+    rate = max(resident) if resident else HBM_BYTES_PER_S
+    t_bytes = nbytes / rate * 1e3
+    t_ops = (2 * planes + 8 * cols + 4 * rows) / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=nbytes, bound_rate=rate)
 
 
 # the shard entry's check cases: (problem, ranks); Potts-300 (inequalities
@@ -2804,7 +2819,7 @@ SHARD_CASES = (("potts300", MESH_RANKS), ("potts300", 1),
                ("multilabel64", MESH_RANKS))
 
 
-def phase_shard_kernels(torch, problems, table):
+def phase_shard_kernels(torch, problems, table, l2_rates):
     """Phase 2 for H-CPDIA's shard entry (``cp_dia.cp_dia_shard_step``, K3
     per shard in the position-sharded mesh solve: one cooperative launch a
     call) on the aligned systems of SHARD_CASES: 100 iterations over the
@@ -2816,7 +2831,8 @@ def phase_shard_kernels(torch, problems, table):
     shard (the one-rank mesh solve's shape) and on an inner quarter shard,
     in turns with the two-launch shard entry, by events, profiler device
     time and host time, beside the twin, the two-launch chunk per
-    iteration and the bound (:func:`shard_bound`)."""
+    iteration and the bound (:func:`shard_bound`, at ``l2_rates``, phase
+    2's L2 read rates by probe size)."""
     from pysparselp_tpu_torch.ops import cp_dia
     from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
 
@@ -2875,7 +2891,7 @@ def phase_shard_kernels(torch, problems, table):
                                      "chunk entry, the two-launch shard "
                                      "entry or float32 planes")
             if timed and dt == torch.float32:
-                shard_times(torch, glob, rec, x0)
+                shard_times(torch, glob, rec, x0, l2_rates)
                 rec["chunk_ms_per_iteration"] = cuda_ms(
                     torch, lambda: cp_dia.cp_dia_chunk(
                         prob, pre, x0, ye0, y0, nsteps, 1.0,
@@ -2891,7 +2907,7 @@ def phase_shard_kernels(torch, problems, table):
             emit("kernels", **rec)
 
 
-def shard_times(torch, glob, rec, x0):
+def shard_times(torch, glob, rec, x0, l2_rates):
     """Time one shard entry call (float32) on the whole system as one
     shard and on an inner quarter shard into ``rec``: its call times, and
     CUDA events in turns with the two-launch shard entry (two_launch,
@@ -2938,7 +2954,7 @@ def shard_times(torch, glob, rec, x0):
                           width=plan.width, packet=ndev > 1,
                           pair_ms=dict(one_launch=(pair[1] + pair[2]) / 2,
                                        two_launch=(pair[0] + pair[3]) / 2))
-        rec[shard]["bound_ms"], rec[shard]["bound_by"] = shard_bound(data, 4)
+        rec[shard].update(shard_bound(data, 4, l2_rates))
 
 
 class one_rank_group:
@@ -3469,16 +3485,14 @@ def operator_products(op):
     return out
 
 
-def phase_f64_kernels(torch, systems, table, potts300=None):
+def phase_f64_kernels(torch, systems, table):
     """The products of the interior point and ADMM paths in float64 on the
     card: the operator of each of ``systems`` (``{name: host matrix or
     (host matrix, prefer)}``, lowered by ``ell_from_scipy``: DIA, CSR or
     BSR), A x, Aᵀ y and ``sq_rowsum_weighted`` (through the operator)
     against the twins per row within RTOL * (|A| |x|)_row, with the
     kernel's call times, its bound (bytes at the HBM rate) and cuSPARSE
-    ``torch.mv`` in float64 on the same matrix.  Then, given the
-    ``potts300`` LP, H-CPDIA-G with its planes in place on Potts-300 in
-    float64 (:func:`in_place_chunk`)."""
+    ``torch.mv`` in float64 on the same matrix."""
     import numpy as np
 
     from pysparselp_tpu_torch.problem import ell_from_scipy
@@ -3537,79 +3551,6 @@ def phase_f64_kernels(torch, systems, table, potts300=None):
                 system=key, side=side, device_us=rec["kernel_us"]["device_us"],
                 bound_us=rec["bound_us"],
                 library_device_us=rec["library_us"]["device_us"]))
-    if potts300 is not None:
-        in_place_chunk(torch, potts300, table)
-
-
-# the in-place chunk's check: iterations of a chunk with sums
-IN_PLACE_STEPS = 100
-
-
-def in_place_chunk(torch, lp, table):
-    """H-CPDIA-G with its planes read in place (``grid_plan(...,
-    in_place=True)``) on Potts-300 in float64, whose planes do not fit a
-    slab: a chunk of IN_PLACE_STEPS iterations with sums bit for bit
-    against the twin and the two-launch kernel, NaN kept (one NaN cost),
-    in one launch; then its time per iteration in turns with the
-    two-launch kernel beside the streaming bound both share (each plane
-    and vector once an iteration)."""
-    import numpy as np
-
-    from pysparselp_tpu_torch.ops import cp_dia
-
-    dt, dev = torch.float64, torch.device("cuda")
-    prob, pre = lowered(lp, dt, dev)
-    plan = cp_dia.grid_plan(prob, dt, in_place=True)
-    rng = np.random.RandomState(6)
-    x0 = torch.as_tensor(rng.rand(prob.n), dtype=dt, device=dev)
-    ye0 = torch.as_tensor(rng.rand(prob.m_eq) * 0.1, dtype=dt, device=dev)
-    yi0 = torch.as_tensor(rng.rand(prob.m_ineq) * 0.1, dtype=dt, device=dev)
-    nan_c = prob.c.clone()
-    nan_c[7] = float("nan")
-    checks = {}
-    for label, p in (("plain", prob), ("nan", dataclasses.replace(
-            prob, c=nan_c))):
-        args = (p, pre, x0, ye0, yi0, IN_PLACE_STEPS, 1.0, True)
-        before = cp_dia.cp_dia_grid_chunk.launches
-        got = cp_dia.cp_dia_chunk(*args, plan=plan)
-        checks[label] = dict(
-            launches=cp_dia.cp_dia_grid_chunk.launches - before,
-            twin=same_bits(torch, got, cp_dia.cp_dia_chunk_reference(*args)),
-            two_launch=same_bits(torch, got, cp_dia.cp_dia_chunk(
-                *args, plan=cp_dia.TWO_LAUNCH)))
-
-    def one(plan_):
-        return lambda: cp_dia.cp_dia_chunk(prob, pre, x0, ye0, yi0,
-                                           IN_PLACE_STEPS, 1.0, True,
-                                           plan=plan_)
-
-    pair = [cuda_ms(torch, f, 5) / IN_PLACE_STEPS
-            for f in (one(cp_dia.TWO_LAUNCH), one(plan), one(plan),
-                      one(cp_dia.TWO_LAUNCH))]
-    planes = sum(o.vals.numel() + o.vals_t.numel()
-                 for o in (prob.a_eq, prob.a_ineq) if o is not None)
-    # chunk_bound's bytes and operations in float64: every plane entry and
-    # the 9 n + 6 rows vector entries of 8 bytes, at the float64 peak
-    nbytes = 8 * (planes + 9 * prob.n + 6 * (prob.m_eq + prob.m_ineq))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = chunk_ops(prob, planes) / F64_OPS_PER_S * 1e3
-    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
-                          else (t_ops, "operations"))
-    rec = dict(kernel="H-CPDIA-G", problem="potts300", dtype="float64",
-               planes_in_place=True, ctas=plan.ctas, width=plan.width,
-               threads=plan.threads, smem_bytes=plan.smem_bytes,
-               vectors=plan.vectors, checks=checks,
-               in_place_ms=(pair[1] + pair[2]) / 2,
-               two_launch_ms=(pair[0] + pair[3]) / 2,
-               bound_stream_ms=bound_ms, bound_by=bound_by,
-               tier_planned=cp_dia.cp_dia_plan(prob, dt).tier)
-    emit("kernels", **rec)
-    if not all(c["launches"] == 1 and c["twin"] and c["two_launch"]
-               for c in checks.values()):
-        raise AssertionError(f"H-CPDIA-G in place, Potts-300 f64: {checks}")
-    table["H-CPDIA"]["potts300_f64"] = dict(
-        two_launch_ms=rec["two_launch_ms"], in_place_ms=rec["in_place_ms"],
-        bound_ms=bound_ms)
 
 
 def profile_window(torch, fn):
@@ -5223,14 +5164,14 @@ def main() -> int:
                      bound_by=None, library_ms=None)
              for k, v in KERNELS.items()}
     phase_kernels(torch, problems, table)
-    phase_grid(torch, problems, table, sm_mhz)
+    l2_rates = phase_grid(torch, problems, table, sm_mhz)
     phase_resident(torch, problems, table, sm_mhz)
     phase_csr(torch, csr_matrices({k: folded(lp)
                                    for k, lp in workloads.items()}), table)
     from pysparselp_tpu_torch.problem import apply_rcm_permutation
     phase_bsr(torch, apply_rcm_permutation(folded(clime))[0]["a_ineq"], table)
     phase_k5(torch, problems["potts300"], table)
-    phase_shard_kernels(torch, problems, table)
+    phase_shard_kernels(torch, problems, table, l2_rates)
     phase_batch_kernels(torch, batch_lps, table)
     phase_f64_kernels(torch, {
         "potts300_slack": mehrotra_slack(problems["potts300"])[0],
@@ -5239,7 +5180,7 @@ def main() -> int:
         "potts300_aligned": (aligned_potts(problems["potts300"])["a_ineq"],
                              "dia"),
         "clime_rcm": (apply_rcm_permutation(folded(clime))[0]["a_ineq"],
-                      "bsr")}, table, potts300=problems["potts300"])
+                      "bsr")}, table)
     phase_dca_kernels(torch, table, sm_mhz)
     lap("2_kernels")
 

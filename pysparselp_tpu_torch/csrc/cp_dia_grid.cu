@@ -52,26 +52,23 @@
 //   cp_dual_kernel's (--fmad=false: the same taps in dia_row's order, the
 //   same clamp, NaN and signed zeros kept), so the outputs equal the
 //   two-launch kernel's and the PyTorch twin's bit for bit.
-// * Planes in place (the plan's in_place bit, for planes whose slab does
-//   not fit a CTA's shared memory): nothing is staged; each tap reads its
-//   plane entry as stored from device memory (stride: the plane's length),
-//   and the shared memory holds x3 and y with their halos, then as many
-//   vector slabs as fit.
 //
-// The shard entry (pslp_cp_dia_shard_grid_*) is the same iteration body
-// run ONCE on one rank's halo-padded slice of the position-sharded mesh
-// solver (parallel/sharded_cp_windowed.py), where JAX runs K3 per shard,
-// in one cooperative launch a call: the primal pass over the CTA's slab of
-// the widened range [p0, p1), a grid barrier, the dual pass and the
-// running sums over the slab's part of the interior [i0, i1).  The planes
-// are read in place (they cannot stay in shared memory from one call to
-// the next; a quarter shard's stay in L2), y and x3 through L1 (the grid
-// barrier orders every x3 write before any read of it).  A tap whose
-// global position lies outside the matrix adds vals * 0, as the two-launch
-// shard entry's dia_row_local does, so a call equals one iteration of the
-// chunk entry on the whole system bit for bit.  As it writes x and y it
-// writes the rank's outgoing halo packet (parallel/mesh.py::halo_pack's
-// layout), so the mesh issues no packing launch.
+// The shard entry (pslp_cp_dia_shard_grid_*, cp_dia_shard_grid_kernel) is
+// a kernel of its own that runs the same iteration (the same taps in
+// dia_row's order, the same clamp) ONCE on one rank's halo-padded slice of
+// the position-sharded mesh solver (parallel/sharded_cp_windowed.py),
+// where JAX runs K3 per shard, in one cooperative launch a call: the
+// primal pass over the CTA's slab of the widened range [p0, p1), a grid
+// barrier, the dual pass and the running sums over the slab's part of the
+// interior [i0, i1).  The planes are read in place (they cannot stay in
+// shared memory from one call to the next; a quarter shard's stay in L2),
+// y and x3 through L1 (the grid barrier orders every x3 write before any
+// read of it).  A tap whose global position lies outside the matrix adds
+// vals * 0, as the two-launch shard entry's dia_row_local does, so a call
+// equals one iteration of the chunk entry on the whole system bit for
+// bit.  As it writes x and y it writes the rank's outgoing halo packet
+// (parallel/mesh.py::halo_pack's layout), so the mesh issues no packing
+// launch.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -93,7 +90,6 @@ struct GridArgs {
   int width;                    // W positions per CTA
   int hlx, hrx, hly, hry;       // halos of x3 and of y, y_e
   int in_smem;                  // bit v: vector v's slab in shared memory
-  int in_place;                 // planes read in place from device memory
   const T *c, *t, *lb, *ub, *b, *s, *be, *se;
   const P *vt, *v, *vte, *ve;   // planes as stored
   const T *x_in, *y_in, *ye_in;  // the chunk's start
@@ -103,56 +99,16 @@ struct GridArgs {
   int offs[4][kMaxDiag];        // of A_i^T, A_i, A_e^T, A_e
 };
 
-// One tap set of local position l: sum_k vals[k stride + l] *
-// ext[l + offs[k]], in dia_row's order; ``vals`` points at the slab's
-// first entry of the first plane (in shared memory, stride W, or in place,
-// stride the plane's length), ``ext`` at the slab's first entry of a
-// vector held with its halos (zeros outside the vector).
+// One tap set of local position l: sum_k vals[k W + l] * ext[l + offs[k]],
+// in dia_row's order; ``ext`` points at the slab's first entry of a vector
+// held with its halos (zeros outside the vector).
 template <typename T, typename P>
 __device__ __forceinline__ T taps(const P* vals, const int* offs, int nd,
-                                  int stride, int l, const T* ext) {
+                                  int width, int l, const T* ext) {
   T acc = T(0);
 #pragma unroll 4
   for (int k = 0; k < nd; ++k) {
-    acc = acc + pslp::widen<T>(vals[k * stride + l]) * ext[l + offs[k]];
-  }
-  return acc;
-}
-
-// Taps read in place from device memory issue their loads in batches
-// before the first of a batch is used, so that their round trips overlap
-// (a tap loop unrolled by 4 waits for one round trip every 4 taps); the
-// sum keeps dia_row's order.  The chunk's in-place taps stream planes
-// that may not fit L2 and batch 16 float32 loads (8 float64 ones keep 64
-// registers); the shard entry's taps, which read y through L1 with a
-// bounds check each, batch 8 (kTapBatch): its larger batch cost more
-// time than it hid.
-template <typename T>
-constexpr int kPlaneBatch = sizeof(T) == 8 ? 8 : 16;
-constexpr int kTapBatch = 8;
-
-// :func:`taps` with the plane entries read in place (``vals`` in device
-// memory, stride the plane's length), ``ext`` in shared memory.
-template <typename T, typename P>
-__device__ __forceinline__ T taps_in_place(const P* vals, const int* offs,
-                                           int nd, int stride, int l,
-                                           const T* ext) {
-  constexpr int B = kPlaneBatch<T>;
-  T acc = T(0);
-  for (int k0 = 0; k0 < nd; k0 += B) {
-    P pv[B];
-    T xv[B];
-#pragma unroll
-    for (int u = 0; u < B; ++u) {
-      if (k0 + u < nd) {
-        pv[u] = vals[(k0 + u) * stride + l];
-        xv[u] = ext[l + offs[k0 + u]];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < B; ++u) {
-      if (k0 + u < nd) acc = acc + pslp::widen<T>(pv[u]) * xv[u];
-    }
+    acc = acc + pslp::widen<T>(vals[k * width + l]) * ext[l + offs[k]];
   }
   return acc;
 }
@@ -207,20 +163,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   // (ops/cp_dia.py GRID_STATIC_SMEM holds this array)
   __shared__ T* vec[kVectors];
 
-  // the layout of ops/cp_dia.py::grid_smem_bytes; in place, the taps
-  // read each plane from the slab's first entry with the plane's stride
-  const bool in_place = a.in_place != 0;
+  // the layout of ops/cp_dia.py::grid_smem_bytes
   P* vt_s = reinterpret_cast<P*>(smem_raw);
   P* v_s = vt_s + a.ndt * W;
   P* vte_s = v_s + a.nd * W;
   P* ve_s = vte_s + a.ndte * W;
-  const int nplanes = in_place ? 0 : a.ndt + a.nd + a.ndte + a.nde;
-  const P* const vt_t = !in_place ? vt_s : a.vt ? a.vt + lo : nullptr;
-  const P* const v_t = !in_place ? v_s : a.v ? a.v + lo : nullptr;
-  const P* const vte_t = !in_place ? vte_s : a.vte ? a.vte + lo : nullptr;
-  const P* const ve_t = !in_place ? ve_s : a.ve ? a.ve + lo : nullptr;
-  const int st_n = in_place ? n : W, st_m = in_place ? m : W;
-  const int st_me = in_place ? me : W;
+  const int nplanes = a.ndt + a.nd + a.ndte + a.nde;
   unsigned char* p = smem_raw + (sizeof(P) * W * nplanes + 15) / 16 * 16;
   T* x3_e = reinterpret_cast<T*>(p) + a.hlx;
   p += sizeof(T) * (W + a.hlx + a.hrx);
@@ -251,12 +199,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   // zero (its slab is written before it is read, its halos after each
   // primal pass) and its output x (the chunk's x3 after no iteration);
   // y's and y_e's copies with their halos
-  if (!in_place) {
-    stage_planes<P>(vt_s, a.vt, a.ndt, W, lo, n);
-    stage_planes<P>(v_s, a.v, a.nd, W, lo, m);
-    stage_planes<P>(vte_s, a.vte, a.ndte, W, lo, n);
-    stage_planes<P>(ve_s, a.ve, a.nde, W, lo, me);
-  }
+  stage_planes<P>(vt_s, a.vt, a.ndt, W, lo, n);
+  stage_planes<P>(v_s, a.v, a.nd, W, lo, m);
+  stage_planes<P>(vte_s, a.vte, a.ndte, W, lo, n);
+  stage_planes<P>(ve_s, a.ve, a.nde, W, lo, me);
   const int lens[kVectors] = {n, n, m, me, n, n, n, n, m, m, me, me};
   const T* const src[kVectors] = {a.x_in, nullptr, nullptr, nullptr,
                                   a.c,    a.t,     a.lb,    a.ub,
@@ -318,16 +264,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       // flight while the taps run
       const T cj = c[l], tj = t[l], lj = lb[l], uj = ub[l], xo = x[l];
       T d = cj;
-      if (me > 0)
-        d = d + (in_place ? taps_in_place<T, P>(vte_t, a.offs[2], a.ndte,
-                                                st_n, l, ye_e)
-                          : taps<T, P>(vte_t, a.offs[2], a.ndte, st_n, l,
-                                       ye_e));
-      if (m > 0)
-        d = d + (in_place ? taps_in_place<T, P>(vt_t, a.offs[0], a.ndt, st_n,
-                                                l, y_e)
-                          : taps<T, P>(vt_t, a.offs[0], a.ndt, st_n, l,
-                                       y_e));
+      if (me > 0) d = d + taps<T, P>(vte_s, a.offs[2], a.ndte, W, l, ye_e);
+      if (m > 0) d = d + taps<T, P>(vt_s, a.offs[0], a.ndt, W, l, y_e);
       const T x2 = pslp::clamp<T>(xo - tj * d, lj, uj);
       const T x3v = (T(1) + theta) * x2 - theta * xo;
       x3_e[l] = x3v;
@@ -344,10 +282,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       if (i >= rows) break;
       if (i < me) {
         const T bi = be[l], si = se[l];
-        const T r = (in_place ? taps_in_place<T, P>(ve_t, a.offs[3], a.nde,
-                                                    st_me, l, x3_e)
-                              : taps<T, P>(ve_t, a.offs[3], a.nde, st_me, l,
-                                           x3_e)) - bi;
+        const T r = taps<T, P>(ve_s, a.offs[3], a.nde, W, l, x3_e) - bi;
         const T yn = ye_e[l] + si * r;
         ye_e[l] = yn;
         a.ye[i] = yn;
@@ -355,10 +290,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       }
       if (i < m) {
         const T bi = b[l], si = s[l];
-        const T r = (in_place ? taps_in_place<T, P>(v_t, a.offs[1], a.nd,
-                                                    st_m, l, x3_e)
-                              : taps<T, P>(v_t, a.offs[1], a.nd, st_m, l,
-                                           x3_e)) - bi;
+        const T r = taps<T, P>(v_s, a.offs[1], a.nd, W, l, x3_e) - bi;
         T yn = y_e[l] + si * r;
         yn = pslp::clamp_min0<T>(yn);
         y_e[l] = yn;
@@ -402,6 +334,12 @@ struct ShardArgs {
   T theta;
   int offs[4][kMaxDiag];        // of A_i^T, A_i, A_e^T, A_e
 };
+
+// The shard entry's taps issue their loads in batches of kTapBatch before
+// the first of a batch is used, so that their round trips overlap (a tap
+// loop unrolled by 4 waits for one round trip every 4 taps); the sum keeps
+// dia_row's order.  A larger batch cost more time than it hid.
+constexpr int kTapBatch = 8;
 
 // One tap set of local position l (global g) on a slice, in place:
 // dia_row_local's arithmetic (cp_dia.cu), a tap whose global position lies
@@ -592,20 +530,19 @@ PSLP_EXPORT int pslp_grid_sync_loop(int ctas, int threads, int nsyncs,
 #define PSLP_CP_DIA_GRID(SUFFIX, T, P)                                       \
   PSLP_EXPORT int pslp_cp_dia_grid_##SUFFIX(                                 \
       int n, int m, int me, int ndt, int nd, int ndte, int nde, int width,   \
-      int hlx, int hrx, int hly, int hry, int in_smem, int in_place,         \
-      const int* offs, const T* c, const T* t, const T* lb, const T* ub,     \
-      const T* b, const T* s, const T* be, const T* se, const P* vt,         \
-      const P* v, const P* vte, const P* ve, const T* x_in, const T* y_in,   \
+      int hlx, int hrx, int hly, int hry, int in_smem, const int* offs,      \
+      const T* c, const T* t, const T* lb, const T* ub, const T* b,          \
+      const T* s, const T* be, const T* se, const P* vt, const P* v,         \
+      const P* vte, const P* ve, const T* x_in, const T* y_in,               \
       const T* ye_in, T* x, T* x3, T* y, T* ye, T* sx, T* sy, T* sye,        \
       T theta, int nsteps, int with_sums, int ctas, int threads,             \
       int smem_bytes, void* stream) {                                        \
-    GridArgs<T, P> args{n,     m,      me,    ndt,   nd,    ndte,    nde,    \
-                        width, hlx,    hrx,   hly,   hry,   in_smem,         \
-                        in_place,                                            \
-                        c,     t,      lb,    ub,    b,     s,       be,     \
-                        se,    vt,     v,     vte,   ve,    x_in,    y_in,   \
-                        ye_in, x,      x3,    y,     ye,    sx,      sy,     \
-                        sye,   theta,  nsteps, with_sums, {}};               \
+    GridArgs<T, P> args{n,     m,     me,    ndt,   nd,    ndte,   nde,      \
+                        width, hlx,   hrx,   hly,   hry,   in_smem, c,       \
+                        t,     lb,    ub,    b,     s,     be,     se,       \
+                        vt,    v,     vte,   ve,    x_in,  y_in,   ye_in,    \
+                        x,     x3,    y,     ye,    sx,    sy,     sye,      \
+                        theta, nsteps, with_sums, {}};                       \
     if (!with_sums) args.sx = args.sy = args.sye = nullptr;                  \
     const int counts[4] = {ndt, nd, ndte, nde};                              \
     const int rc = set_offsets(args.offs, counts, offs);                     \

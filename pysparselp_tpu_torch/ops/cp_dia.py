@@ -28,15 +28,11 @@ launches the planned tier for CUDA tensors and runs
 :func:`cp_dia_chunk_reference`, its plain PyTorch twin, for CPU tensors.
 Inputs are never modified.
 
-H-CPDIA-G's planes-in-place mode (:func:`grid_plan` with ``in_place``)
-reads each plane entry as stored from device memory instead of staging
-the slabs, for planes past shared memory.
-
 The position-sharded mesh solver (``parallel/sharded_cp_windowed.py``,
 where JAX runs K3 per shard) runs one iteration a call on one rank's
 :class:`CpDiaShard`, a halo-padded slice of the position space, updating
-the rank's state in place: :func:`cp_dia_shard_step`, H-CPDIA-G's
-iteration body in one cooperative launch a call, planes in place
+the rank's state in place: :func:`cp_dia_shard_step`, H-CPDIA's
+iteration in one cooperative launch a call, planes read in place
 (``csrc/cp_dia_grid.cu``; :func:`shard_plan` sizes its grid), which also
 writes the rank's outgoing halo packet; the two-launch shard entry
 (``csrc/cp_dia.cu``, ``two_launch=True``) stays as its reference;
@@ -98,9 +94,8 @@ class CpDiaPlan:
     (:func:`grid_plan`) the same ``width``, ``slabs``, ``threads``,
     ``smem_bytes`` and ``positions`` over ``ctas`` CTAs; ``halos`` ``(left,
     right)`` of x3 (A's taps) and of y and y_e (Aᵀ's); ``vectors``, the
-    names of :data:`GRID_VECTORS` whose slab stays in shared memory;
-    ``in_place``: the planes are read in place, not staged.  For the
-    shard entry (``"shard"``, :func:`shard_plan`), ``ctas`` CTAs of
+    names of :data:`GRID_VECTORS` whose slab stays in shared memory.  For
+    the shard entry (``"shard"``, :func:`shard_plan`), ``ctas`` CTAs of
     ``threads`` threads, each owning ``width`` of the slice's
     ``positions`` widened positions."""
 
@@ -115,7 +110,6 @@ class CpDiaPlan:
     ctas: int = 0
     halos: tuple = ()
     vectors: tuple = ()
-    in_place: bool = False
 
 
 TWO_LAUNCH = CpDiaPlan("two_launch")
@@ -182,15 +176,13 @@ def _halo(offsets):
 
 
 def grid_smem_bytes(width, halos, ndiags, m, me, itemsize, plane_itemsize,
-                    vectors=(), in_place=False):
+                    vectors=()):
     """Shared memory of one H-CPDIA-G CTA (the layout of
     ``csrc/cp_dia_grid.cu``): the slab of every plane as stored (rounded
-    up to 16 bytes; none when ``in_place``), x3 with A's halos, y and y_e
-    (each present system) with Aᵀ's, then a slab of each of
-    ``vectors``."""
+    up to 16 bytes), x3 with A's halos, y and y_e (each present system)
+    with Aᵀ's, then a slab of each of ``vectors``."""
     (hlx, hrx), (hly, hry) = halos
-    planes = 0 if in_place else -(-plane_itemsize * width * sum(ndiags)
-                                  // 16) * 16
+    planes = -(-plane_itemsize * width * sum(ndiags) // 16) * 16
     ext = (width + hlx + hrx) + (width + hly + hry) * (
         (m > 0) + (me > 0))
     return planes + itemsize * (ext + width * len(vectors))
@@ -208,8 +200,7 @@ def _grid_width(positions, sms, ctas=None):
 
 
 @functools.lru_cache(maxsize=64)
-def _grid(n, m, me, offsets, itemsize, plane_itemsize, sms, ctas=None,
-          in_place=False):
+def _grid(n, m, me, offsets, itemsize, plane_itemsize, sms, ctas=None):
     """H-CPDIA-G's plan (:func:`grid_plan`), or None."""
     positions = max(n, m, me)
     ndiags = tuple(map(len, offsets))
@@ -219,7 +210,7 @@ def _grid(n, m, me, offsets, itemsize, plane_itemsize, sms, ctas=None,
     halos = (_halo(offsets[1] + offsets[3]), _halo(offsets[0] + offsets[2]))
     budget = SMEM_PER_CTA - GRID_STATIC_SMEM
     smem = grid_smem_bytes(width, halos, ndiags, m, me, itemsize,
-                           plane_itemsize, in_place=in_place)
+                           plane_itemsize)
     if smem > budget:
         return None
     present = {"sy": m > 0, "b": m > 0, "s": m > 0, "sye": me > 0,
@@ -232,7 +223,7 @@ def _grid(n, m, me, offsets, itemsize, plane_itemsize, sms, ctas=None,
     slabs = tuple(min(r * width, positions) for r in range(ctas + 1))
     return CpDiaPlan("grid", width=width, slabs=slabs, smem_bytes=smem,
                      threads=threads, positions=positions, ctas=ctas,
-                     halos=halos, vectors=tuple(vectors), in_place=in_place)
+                     halos=halos, vectors=tuple(vectors))
 
 
 @functools.lru_cache(maxsize=64)
@@ -286,14 +277,11 @@ def cp_dia_plan(prob, dtype):
     return _plan(*_shape(prob, dtype), sms=_sms(prob))
 
 
-def grid_plan(prob, dtype, ctas=None, in_place=False):
+def grid_plan(prob, dtype, ctas=None):
     """H-CPDIA-G's plan for a problem, or None where a slab does not fit.
     CTA r of ``ctas`` (default: one an SM, ``_sms``, with at least
     ``GRID_MIN_WIDTH`` positions each) owns positions ``[r W, (r + 1) W)``
-    (W = ``ceil(positions / ctas)``) for the whole chunk.  ``in_place``
-    reads the planes in place from device memory (L2 or HBM) each
-    iteration instead of staging the slabs: the shared memory then holds
-    x3, y and the vector slabs alone.
+    (W = ``ceil(positions / ctas)``) for the whole chunk.
 
     Where it all lives, per CTA (``threads`` = W rounded up to a warp, at
     most 1,024, so at most 64 registers a thread; ``csrc/cp_dia_grid.cu``):
@@ -310,7 +298,7 @@ def grid_plan(prob, dtype, ctas=None, in_place=False):
       iteration;
     * registers: one position's arithmetic at a time."""
     shape = _shape(prob, dtype)
-    return _grid(*shape, _sms(prob), ctas, in_place)
+    return _grid(*shape, _sms(prob), ctas)
 
 
 def _empty(x):
@@ -535,9 +523,8 @@ def _check_grid(plan, kind, sfx, dev, smem=True):
 def cp_dia_grid_chunk(prob, pre, x, y_eq, y, nsteps, theta, with_sums=False,
                       plan=None):
     """H-CPDIA-G: the chunk of :func:`cp_dia_chunk` in one cooperative
-    launch of ``plan.ctas`` CTAs (``plan``: a :func:`grid_plan`, planes in
-    shared memory or in place, by default this problem's
-    :func:`cp_dia_plan`).  The outputs are new tensors the kernel writes
+    launch of ``plan.ctas`` CTAs (``plan``: a :func:`grid_plan`, by default
+    this problem's :func:`cp_dia_plan`).  The outputs are new tensors the kernel writes
     whole.  A launch the card refuses (fewer resident CTAs than the
     plan's) raises; nothing falls back to another tier."""
     if x.device.type == "cpu":
@@ -563,12 +550,12 @@ def cp_dia_grid_chunk(prob, pre, x, y_eq, y, nsteps, theta, with_sums=False,
     in_smem = sum(1 << GRID_VECTORS.index(name) for name in plan.vectors)
     (hlx, hrx), (hly, hry) = plan.halos
     raw = ([prob.n, m, me, *counts, plan.width, hlx, hrx, hly, hry, in_smem,
-            int(plan.in_place), offsets, prob.c, pre["diag_t"], prob.lb,
-            prob.ub, prob.b_upper, pre.get("sigma_ineq"), prob.b_eq,
-            pre.get("sigma_eq"), vt, v, vte, ve, x, yi_in, ye_in, out[0],
-            out[1], out[3], out[2], sums[0], sums[2], sums[1]])
+            offsets, prob.c, pre["diag_t"], prob.lb, prob.ub, prob.b_upper,
+            pre.get("sigma_ineq"), prob.b_eq, pre.get("sigma_eq"), vt, v, vte,
+            ve, x, yi_in, ye_in, out[0], out[1], out[3], out[2], sums[0],
+            sums[2], sums[1]])
     cargs = [v.data_ptr() if torch.is_tensor(v) else v for v in raw]
-    argtypes = ([_I] * 14 + [_P] * 23 + [_build.scalar(dt)] + [_I] * 5
+    argtypes = ([_I] * 13 + [_P] * 23 + [_build.scalar(dt)] + [_I] * 5
                 + [_P])
     _build.entry(f"pslp_cp_dia_grid_{sfx}", argtypes)(
         *cargs, theta, int(nsteps), int(bool(with_sums)), plan.ctas,
@@ -658,7 +645,7 @@ def shard_plan(sh: CpDiaShard, sms=None):
     positions = sh.primal[1] - sh.primal[0]
     ctas, width, threads = _grid_width(positions, sms or _sms(sh))
     return CpDiaPlan("shard", width=width, threads=threads,
-                     positions=positions, ctas=ctas, in_place=True)
+                     positions=positions, ctas=ctas)
 
 
 def _local_taps(vals, offsets, v, g0, nv, lo, hi):

@@ -12,8 +12,7 @@ the port bit for bit (float32 and float64).
   fused multiply-add into the running sum (two entries: a product, then a
   fused multiply-add).  A sequential chain, so it runs in compiled C++
   (``native/_xla_dot.cpp``, built with ``g++`` on first use into the
-  repository's ``build/pysparselp_tpu_torch/``), else through libm's
-  ``fma`` one entry at a time.
+  repository's ``build/pysparselp_tpu_torch/``; a failed build raises).
 
 Both read the order from XLA's compiled code on an x86-64 CPU (the
 ``reduce-window`` of the optimized HLO, the ``col_major_gemv`` of its LLVM
@@ -27,14 +26,12 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import tempfile
 
 import torch
 
 WINDOW = 32
 
 _LIB = None
-_LIB_TRIED = False
 
 
 def xla_sum(v: torch.Tensor) -> torch.Tensor:
@@ -56,60 +53,35 @@ def xla_sum(v: torch.Tensor) -> torch.Tensor:
 
 
 def _load():
-    """The compiled dot (cached by a hash of its source), or None."""
-    global _LIB, _LIB_TRIED
-    if _LIB is not None or _LIB_TRIED:
+    """The compiled dot, built with ``g++`` on first use (cached by a hash
+    of its source); a failed build raises."""
+    global _LIB
+    if _LIB is not None:
         return _LIB
-    _LIB_TRIED = True
     from ..ops._build import BUILD_DIR
 
     src = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "native", "_xla_dot.cpp")
-    try:
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        try:
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            build_dir = str(BUILD_DIR)
-        except OSError:
-            build_dir = tempfile.mkdtemp()
-        path = os.path.join(build_dir, f"_xla_dot_{digest}.so")
-        if not os.path.isfile(path):
-            tmp = f"{path}.{os.getpid()}.tmp"
-            subprocess.run(["g++", "-O2", "-ffp-contract=off", "-shared",
-                            "-fPIC", "-std=c++17", "-o", tmp, src],
-                           check=True, capture_output=True)
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
-        for name, typ in (("pslp_xla_dot_f32", ctypes.c_float),
-                          ("pslp_xla_dot_f64", ctypes.c_double)):
-            fn = getattr(lib, name)
-            fn.restype = typ
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
-        _LIB = lib
-    except Exception:  # pragma: no cover - toolchain missing
-        _LIB = None
-    return _LIB
-
-
-def _dot_libm(a, b):
-    """:func:`xla_dot`'s chain one entry at a time through libm's fma."""
-    single = a.dtype == torch.float32
-    typ = ctypes.c_float if single else ctypes.c_double
-    libm = ctypes.CDLL("libm.so.6")
-    fma = libm.fmaf if single else libm.fma
-    fma.restype, fma.argtypes = typ, [typ] * 3
-    rnd = (lambda t: ctypes.c_float(t).value) if single else float
-    a, b = a.tolist(), b.tolist()
-    if not a:
-        return 0.0
-    plain = 1 if len(a) == 2 else min(len(a), 8)
-    acc = rnd(a[0] * b[0])
-    for c in range(1, plain):
-        acc = rnd(acc + rnd(a[c] * b[c]))
-    for c in range(plain, len(a)):
-        acc = fma(a[c], b[c], acc)
-    return acc
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"_xla_dot_{digest}.so")
+    if not os.path.isfile(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        done = subprocess.run(["g++", "-O2", "-ffp-contract=off", "-shared",
+                               "-fPIC", "-std=c++17", "-o", tmp, src],
+                              capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"g++ could not build {src}:\n{done.stderr}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(path)
+    for name, typ in (("pslp_xla_dot_f32", ctypes.c_float),
+                      ("pslp_xla_dot_f64", ctypes.c_double)):
+        fn = getattr(lib, name)
+        fn.restype = typ
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
+    _LIB = lib
+    return lib
 
 
 def xla_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -124,12 +96,9 @@ def xla_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.numel() != b.numel():
         raise ValueError(f"xla_dot: {a.numel()} against {b.numel()} entries")
     lib = _load()
-    if lib is None:
-        value = _dot_libm(a, b)
-    else:
-        fn = (lib.pslp_xla_dot_f32 if a.dtype == torch.float32
-              else lib.pslp_xla_dot_f64)
-        value = fn(a.data_ptr(), b.data_ptr(), a.numel())
+    fn = (lib.pslp_xla_dot_f32 if a.dtype == torch.float32
+          else lib.pslp_xla_dot_f64)
+    value = fn(a.data_ptr(), b.data_ptr(), a.numel())
     return torch.tensor(value, dtype=a.dtype)
 
 

@@ -31,12 +31,11 @@ one call.  Times, in float32, through the operators' own entry points:
   and the device's busy share (:func:`time_cpdia`);
 * H-CPDIA's shard entry, one call, on Potts-300 as one shard and on a
   quarter shard, the two-launch shard entry beside it where the checkout
-  keeps it (:func:`time_cpdia_shard`); the chunk tier of planes past
-  shared memory at Potts-300 in float64 and Potts-500 in float32,
-  H-CPDIA-G with its planes in place in turns with the two-launch kernel,
-  with Potts-500's host build seconds and device memory
-  (:func:`time_in_place`); ``--sections cpdia_shard`` runs these two
-  alone;
+  keeps it (:func:`time_cpdia_shard`); the two-launch chunk kernel, the
+  tier of planes past shared memory, at Potts-300 in float64 and Potts-500
+  in float32, with Potts-500's host build seconds and device memory
+  (:func:`time_two_launch_tier`); ``--sections cpdia_shard`` runs these
+  two alone;
 * H-CPDENSE, 1,000 iterations with sums, per iteration: on SC105, on
   ``chip_smoke.dense_system`` (operators past shared memory) and on square
   random systems of ``SQUARE_SIZES`` rows and columns; where the checkout
@@ -98,10 +97,10 @@ LANES = (1, 2, 4, 8, 16)
 SOLVE_ITERS = 2000
 SECTIONS = ("csr", "bsr", "dia", "cpdense", "cpdia", "cpdia_shard",
             "solves", "dca", "batch")
-# the in-place chunk's shapes: (name, grid size, dtype name), and its
-# iterations a timed chunk (with sums)
-IN_PLACE_CASES = (("potts300", 300, "float64"), ("potts500", 500, "float32"))
-IN_PLACE_STEPS = 100
+# the two-launch chunk tier's shapes: (name, grid size, dtype name), and
+# its iterations a timed chunk (with sums)
+TIER_CASES = (("potts300", 300, "float64"), ("potts500", 500, "float32"))
+TIER_STEPS = 100
 
 
 def main() -> int:
@@ -174,7 +173,7 @@ def main() -> int:
         time_cpdense(smoke, torch, emit, dt, dev, cp_dense)
     if sections & {"cpdia", "cpdia_shard"}:
         time_cpdia_shard(smoke, torch, emit, dt)
-        time_in_place(smoke, torch, rng, dev, repo, smi)
+        time_two_launch_tier(smoke, torch, rng, dev, repo, smi)
     if "cpdia" in sections:
         time_cpdia(smoke, torch, emit, rng, dt, dev, repo, smi)
     if "solves" in sections:
@@ -410,7 +409,8 @@ def time_cpdia_shard(smoke, torch, emit, dt):
     inner quarter shard (rank 1 of 4), float32: the checkout's entry (one
     cooperative launch writing the packet on the quarter shard where it
     has one; two launches before), and where the checkout keeps it the
-    two-launch entry beside it, with ``chip_smoke.shard_bound``."""
+    two-launch entry beside it, with ``chip_smoke.shard_bound`` at this
+    run's L2 read rates."""
     from pysparselp_tpu_torch.examples.potts import build_linear_program
     from pysparselp_tpu_torch.ops import cp_dia
     from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
@@ -418,6 +418,7 @@ def time_cpdia_shard(smoke, torch, emit, dt):
     params = inspect.signature(cp_dia.cp_dia_shard_stepper).parameters
     sys_, info = smoke.shard_system(build_linear_program(300, 0.5, 500)[0])
     glob = scw.position_system(sys_, info)
+    l2_rates = smoke.l2_read_rates(torch)
     for shape, ndev, rank in (("whole", 1, 0),
                               ("quarter", smoke.MESH_RANKS, 1)):
         data, st = scw.place_position_shard(glob, ndev, rank, dt, "cuda")
@@ -429,7 +430,7 @@ def time_cpdia_shard(smoke, torch, emit, dt):
         entries = [("checkout", extra)]
         if "two_launch" in params:
             entries.append(("two_launch", dict(two_launch=True)))
-        bound_ms, bound_by = smoke.shard_bound(data, 4)
+        bound = smoke.shard_bound(data, 4, l2_rates)
         for name, kwargs in entries:
             state = {k: v.clone() for k, v in st.items()}
             step = cp_dia.cp_dia_shard_stepper(
@@ -438,27 +439,24 @@ def time_cpdia_shard(smoke, torch, emit, dt):
             emit("H-CPDIA (shard)", f"potts300_{shape}", f"one call, {name}",
                  step, reps=200, positions=sh.length,
                  primal=list(sh.primal), interior=list(sh.interior),
-                 packet="packet" in kwargs, bound_ms=bound_ms,
-                 bound_by=bound_by)
+                 packet="packet" in kwargs, l2_read_rate_by_mib=l2_rates,
+                 **bound)
 
 
-def time_in_place(smoke, torch, rng, dev, repo, smi):
-    """The chunk tier of the planes past shared memory: H-CPDIA-G with its
-    planes read in place (where the checkout has the mode) in turns with
-    the two-launch kernel (two-launch, in place, in place, two-launch),
-    per iteration of a chunk of IN_PLACE_STEPS with sums, on
-    IN_PLACE_CASES (Potts-300 in float64, Potts-500 in float32 on its
-    bfloat16 planes), each with the checkout's planned tier, both
-    kernels' call times, the streaming bound (each plane and vector once
-    an iteration) and, for the LP, the host seconds to build and lower it
-    and the device memory it takes."""
+def time_two_launch_tier(smoke, torch, rng, dev, repo, smi):
+    """The chunk tier of the planes past shared memory, the two-launch
+    kernel, per iteration of a chunk of TIER_STEPS with sums, on
+    TIER_CASES (Potts-300 in float64, Potts-500 in float32 on its bfloat16
+    planes), each with the checkout's planned tier, the call times, the
+    streaming bound (each plane and vector once an iteration) and, for the
+    LP, the host seconds to build and lower it and the device memory it
+    takes."""
     import time
 
     from pysparselp_tpu_torch.examples.potts import build_linear_program
     from pysparselp_tpu_torch.ops import cp_dia
 
-    in_place = "in_place" in inspect.signature(cp_dia.grid_plan).parameters
-    for key, size, name in IN_PLACE_CASES:
+    for key, size, name in TIER_CASES:
         dt = getattr(torch, name)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -474,20 +472,17 @@ def time_in_place(smoke, torch, rng, dev, repo, smi):
                               device=dev)
         yi0 = torch.as_tensor(rng.rand(prob.m_ineq) * 0.1, dtype=dt,
                               device=dev)
-        plans = {"two_launch": cp_dia.TWO_LAUNCH}
-        if in_place:
-            plans["in_place"] = cp_dia.grid_plan(prob, dt, in_place=True)
 
-        def run(plan):
-            return lambda: cp_dia.cp_dia_chunk(prob, pre, x0, ye0, yi0,
-                                               IN_PLACE_STEPS, 1.0, True,
-                                               plan=plan)
+        def run():
+            return cp_dia.cp_dia_chunk(prob, pre, x0, ye0, yi0, TIER_STEPS,
+                                       1.0, True, plan=cp_dia.TWO_LAUNCH)
 
         planes = sum(o.vals.numel() + o.vals_t.numel()
                      for o in (prob.a_eq, prob.a_ineq) if o is not None)
         item, plane = x0.element_size(), prob.a_ineq.vals.element_size()
         nbytes = plane * planes + item * (9 * prob.n + 6 * (
             prob.m_eq + prob.m_ineq))
+        times = smoke.call_times(torch, run, reps=5, host_reps=5)
         rec = dict(repo=repo, nvidia_smi=smi, kernel="H-CPDIA chunk tier",
                    problem=key, dtype=name,
                    planes=str(prob.a_ineq.vals.dtype).split(".")[1],
@@ -495,25 +490,9 @@ def time_in_place(smoke, torch, rng, dev, repo, smi):
                    build_s=build_s, lower_s=lower_s, device_bytes=held,
                    planned=cp_dia.cp_dia_plan(prob, dt).tier,
                    bound_stream_us=nbytes / smoke.HBM_BYTES_PER_S * 1e6,
-                   bytes_per_iteration=nbytes)
-        if in_place:
-            plan = plans["in_place"]
-            rec["in_place_plan"] = dict(
-                ctas=plan.ctas, width=plan.width, threads=plan.threads,
-                smem_bytes=plan.smem_bytes, vectors=plan.vectors)
-            got = run(plan)()
-            rec["in_place_bit_equal"] = smoke.same_bits(
-                torch, got, run(cp_dia.TWO_LAUNCH)())
-            pair = [smoke.cuda_ms(torch, f, 5) * 1e3 / IN_PLACE_STEPS
-                    for f in (run(cp_dia.TWO_LAUNCH), run(plan), run(plan),
-                              run(cp_dia.TWO_LAUNCH))]
-            rec["in_turns_us"] = dict(two_launch=[pair[0], pair[3]],
-                                      in_place=[pair[1], pair[2]])
-        for label, plan in plans.items():
-            times = smoke.call_times(torch, run(plan), reps=5, host_reps=5)
-            rec[f"{label}_us"] = {
-                k: v / IN_PLACE_STEPS if k.endswith("_us") else v
-                for k, v in times.items()}
+                   bytes_per_iteration=nbytes,
+                   two_launch_us={k: v / TIER_STEPS if k.endswith("_us")
+                                  else v for k, v in times.items()})
         print(json.dumps(rec), flush=True)
         del prob, pre, x0, ye0, yi0, lp
         torch.cuda.empty_cache()

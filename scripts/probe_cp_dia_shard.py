@@ -58,6 +58,7 @@ def main() -> int:
                         [ctypes.c_int] * 3 + [ctypes.c_void_p])
     stream = _build.stream(_build.device_index("cuda"))
     dt, reps = torch.float32, args.reps
+    l2_rates = smoke.l2_read_rates(torch)
 
     def device_by_name(fn):
         """Device µs per call of each kernel name over ``reps`` calls."""
@@ -89,7 +90,8 @@ def main() -> int:
         rec = dict(nvidia_smi=smi, shape=shape, positions=sh.length,
                    primal=list(sh.primal), interior=list(sh.interior),
                    ctas=plan.ctas, threads=plan.threads,
-                   bound_us=smoke.shard_bound(data, 4)[0] * 1e3,
+                   bound_us=smoke.shard_bound(
+                       data, 4, l2_rates)["bound_ms"] * 1e3,
                    fixed=fixed)
         for label, fn in (("one_launch", one), ("two_launch", two)):
             rec[label] = dict(events_us=smoke.cuda_ms(torch, fn, reps) * 1e3,

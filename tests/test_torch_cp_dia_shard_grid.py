@@ -2,8 +2,7 @@
 (``ops/cp_dia.py::cp_dia_shard_step``, ``csrc/cp_dia_grid.cu``) and the
 halo route around it on a mesh (``parallel/mesh.py::HaloRoute``: one
 all-gather of the packet the entry writes, one ``index_copy_`` that places
-the halos), on the CPU through the twin; H-CPDIA-G's planes-in-place mode;
-and (``cuda``-marked) the kernels against the twin, the two-launch shard
+the halos), on the CPU through the twin; and (``cuda``-marked) the kernels against the twin, the two-launch shard
 entry and the chunk entry, bit for bit.
 
 The position-sharded solve against JAX's 4-device CPU mesh is held by
@@ -27,7 +26,7 @@ from pysparselp_tpu_torch.parallel import sharded_cp_windowed as scw
 from pysparselp_tpu_torch.parallel.mesh import (HaloRoute, halo_pack,
                                                 halo_unpack, spawn)
 from pysparselp_tpu_torch.problem import DiaMatrix, LPProblem
-from torch_port_helpers import (assert_same_bits, cuda_or_skip, host_system,
+from torch_port_helpers import (assert_same_bits, cuda_or_skip,
                                 nan_signed_zero_case, port_problem)
 
 torch.set_num_threads(1)
@@ -142,14 +141,14 @@ def test_shard_plan_fits_the_shard(key, ndev, rank, dtype):
     """The one-launch entry's grid: one CTA an SM at most and at least
     GRID_MIN_WIDTH positions a CTA over the widened range, slabs that
     cover it with no empty CTA, a warp-rounded block of at most 1,024
-    threads, no shared memory, the planes in place; a quarter shard does
+    threads, no shared memory; a quarter shard does
     not take 132 × 1,024 threads."""
     glob, _sys = _potts_glob(key)
     data, _state = scw.place_position_shard(glob, ndev, rank, dtype, "cpu")
     sh = data["shard"]
     plan = cp_dia.shard_plan(sh)
     positions = sh.primal[1] - sh.primal[0]
-    assert (plan.tier, plan.in_place, plan.smem_bytes) == ("shard", True, 0)
+    assert (plan.tier, plan.smem_bytes) == ("shard", 0)
     assert plan.positions == positions
     assert plan.ctas == max(1, min(cp_dia.GRID_SMS,
                                    positions // cp_dia.GRID_MIN_WIDTH))
@@ -169,33 +168,32 @@ def test_shard_plan_fits_the_shard(key, ndev, rank, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("key", ["potts300", "multilabel64"])
-def test_in_place_grid_plan_within_budget(key, dtype):
-    """H-CPDIA-G in place: no plane in shared memory, x3 and y with their
-    halos first, then GRID_VECTORS slabs in order while they fit, also
-    for Potts-300 in float64, whose planes do not fit a slab."""
+def test_chunk_tier_of_the_sharded_grids(key, dtype):
+    """The chunk tier the one-device solve takes on the systems the shard
+    entry is held against: H-CPDIA-G with every plane's slab staged, x3
+    and y with their halos, then GRID_VECTORS slabs in order while they
+    fit the budget; Potts-300 in float64, whose planes do not fit a slab,
+    the two-launch kernel."""
     _glob_, sys_ = _potts_glob(key)
     prob, _pre = port_problem(sys_, "dia", dtype)
-    plan = cp_dia.grid_plan(prob, dtype, in_place=True)
-    assert plan.tier == "grid" and plan.in_place
+    plan = cp_dia.grid_plan(prob, dtype)
+    if key == "potts300" and dtype == torch.float64:
+        assert plan is None
+        assert cp_dia.cp_dia_plan(prob, dtype) == cp_dia.TWO_LAUNCH
+        return
+    assert cp_dia.cp_dia_plan(prob, dtype) == plan
     itemsize = torch.finfo(dtype).bits // 8
-    ndiags = tuple(len(o) for o in cp_dia._shape(prob, dtype)[3])
+    shape = cp_dia._shape(prob, dtype)
+    ndiags = tuple(len(o) for o in shape[3])
     m = prob.m_ineq if prob.a_ineq is not None else 0
     me = prob.m_eq if prob.a_eq is not None else 0
     bare = cp_dia.grid_smem_bytes(plan.width, plan.halos, ndiags, m, me,
-                                  itemsize, 2, in_place=True)
+                                  itemsize, shape[5])
     assert plan.smem_bytes == bare + itemsize * plan.width * len(
         plan.vectors)
     assert plan.smem_bytes <= cp_dia.SMEM_PER_CTA - cp_dia.GRID_STATIC_SMEM
     order = [v for v in cp_dia.GRID_VECTORS if v in plan.vectors]
     assert list(plan.vectors) == order
-    staged = cp_dia.grid_plan(prob, dtype)
-    if key == "potts300" and dtype == torch.float64:
-        # the route stays with the two-launch kernel, which is not under
-        # half of its streaming bound there
-        assert staged is None
-        assert cp_dia.cp_dia_plan(prob, dtype) == cp_dia.TWO_LAUNCH
-    else:
-        assert len(plan.vectors) >= len(staged.vectors)
 
 
 # ----------------------------------------------------------------------
@@ -411,39 +409,3 @@ def test_one_launch_entry_packet_and_sums_on_cuda(dtype):
         outs.append([st["x"], st["x3"], st["y_eq"], st["y_ineq"], *sums,
                      packet])
     assert_same_bits(outs[0], outs[1], "entry with sums and packet")
-
-
-_GRIDS = {
-    "potts100": lambda: build_linear_program(100, 0.5, 500)[0],
-    "multilabel16": lambda: build_multilabel_linear_program(16, 3, seed=2)[0],
-}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("key", sorted(_GRIDS))
-@pytest.mark.parametrize("nan_case", [False, True], ids=["plain", "nan"])
-def test_in_place_chunk_on_cuda(key, dtype, nan_case):
-    """H-CPDIA-G with its planes read in place equals the two-launch chunk
-    kernel bit for bit over a 30-iteration chunk with sums."""
-    dev = cuda_or_skip()
-    sys_ = host_system(_GRIDS[key](), align=True)
-    rng = np.random.RandomState(5)
-    x0 = np.clip(rng.rand(len(sys_["c"])), sys_["lb"], sys_["ub"])
-    m_eq = sys_["a_eq"].shape[0] if sys_["a_eq"] is not None else 0
-    ye0, yi0 = rng.rand(m_eq) * 0.1, rng.rand(sys_["a_ineq"].shape[0]) * 0.1
-    if nan_case:
-        sys_, (x0, ye0, yi0) = nan_signed_zero_case(sys_, seed=4)
-    prob, pre = port_problem(sys_, "dia", dtype, dev)
-
-    def vec(v):
-        return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
-                               device=dev)
-    start = (vec(x0), vec(ye0), vec(yi0))
-    plan = cp_dia.grid_plan(prob, dtype, in_place=True)
-    before = cp_dia.cp_dia_grid_chunk.launches
-    got = cp_dia.cp_dia_chunk(prob, pre, *start, 30, 1.0, True, plan=plan)
-    assert cp_dia.cp_dia_grid_chunk.launches - before == 1
-    want = cp_dia.cp_dia_chunk(prob, pre, *start, 30, 1.0, True,
-                               plan=cp_dia.TWO_LAUNCH)
-    assert_same_bits(got, want, f"in-place chunk {key}")

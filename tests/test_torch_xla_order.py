@@ -35,16 +35,6 @@ def test_sum_and_dot_match_xla(n, dtype):
     np.testing.assert_array_equal(got_dot.numpy(), jax.jit(jnp.dot)(x, y))
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_libm_chain_equals_compiled(dtype):
-    """The fallback without a compiler computes the compiled chain."""
-    for n in (1, 2, 5, 8, 9, 40, 777):
-        x, y = _vectors(n, dtype, 100 + n)
-        tx, ty = torch.from_numpy(x), torch.from_numpy(y)
-        want = xla_order.xla_dot(tx, ty).item()
-        assert xla_order._dot_libm(tx, ty) == want
-
-
 def test_signed_zero_and_nan():
     """A sum of negative zeros is +0 (each reduction starts from +0), and
     a NaN entry gives NaN, as in XLA."""
@@ -65,3 +55,21 @@ def test_total_and_dot_dispatch_on_the_device():
     assert xla_order.dot(tx, ty).item() == xla_order.xla_dot(tx, ty).item()
     with pytest.raises(TypeError):
         xla_order.xla_dot(tx.double(), ty)
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    """Without a compiled chain the dot raises; nothing computes it
+    another way."""
+    import subprocess
+
+    from pysparselp_tpu_torch.ops import _build
+
+    def refuse(cmd, **kwargs):
+        return subprocess.CompletedProcess(cmd, 1, "", "no compiler")
+
+    monkeypatch.setattr(xla_order, "_LIB", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(xla_order.subprocess, "run", refuse)
+    x, y = _vectors(10, np.float32, 4)
+    with pytest.raises(RuntimeError, match="no compiler"):
+        xla_order.xla_dot(torch.from_numpy(x), torch.from_numpy(y))
