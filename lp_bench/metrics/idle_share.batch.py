@@ -1,0 +1,8 @@
+"""``idle_share.batch``: percent of the measured span in which no kernel, copy
+or fill ran on the card (batch runs)."""
+
+from lp_bench.lib import readers
+
+
+def read(ctx):
+    return readers.idle_share(ctx, "batch")
