@@ -35,8 +35,10 @@ from .problem import (DENSE_AUTO_MAX_ENTRIES, DIA_AUTO_MAX_OFFSETS,
                       col_split_plan, partition_geometry, resolve_device,
                       resolve_dtype)
 from .solvers import _csr
+from .solvers.base import to_np
 from .solvers.chambolle_pock import _fold_one_sided, host_preconditioners
 from .utils.debug import check_iterate
+from .utils.instrumentation import span
 
 CURVES = ("energy1", "energy2", "max_violated_equality",
           "max_violated_inequality")
@@ -131,30 +133,12 @@ def _batched_chunk(prob, pre, state, nsteps):
     return (x, x3, y_eq, y_ineq), metrics
 
 
-def solve_cp_batch(lp, costs=None, b_eq=None, b_lower=None, b_upper=None,
-                   lb=None, ub=None, nb_iter=1000, nb_iter_plot=None,
-                   dtype=None, alpha=1.0, theta=1.0, x0=None, device="cuda"):
-    """Solve ``B`` variants of ``lp`` that share its constraint MATRIX.
-
-    Any of ``costs``/``b_eq``/``b_lower``/``b_upper``/``lb``/``ub`` may be
-    a ``(B, ...)`` batch (the others default to the template values from
-    ``lp``); all provided batches must agree on ``B``.  Preconditioners
-    and operator lowering are computed once from the matrix; the batch
-    advances in lock-step CP-PPD iterations (each element's trajectory
-    follows the single-problem per-operator solver's on the same
-    operators).  Reference iteration being batched:
-    ``pysparselp/ChambollePockPPD.py:199-240``.  ``device`` names the torch
-    device (``"cuda"`` by default); ``dtype=None`` means float32 on CUDA and
-    float64 on the CPU.
-
-    Returns ``(X, info)``: ``X`` is the ``(B, n)`` solution array and
-    ``info`` a dict with the operator ``backend`` and per-checkpoint
-    batched curves (``itrn`` ``(P,)``; ``energy1``, ``energy2``,
-    ``max_violated_equality``, ``max_violated_inequality`` all ``(P, B)``),
-    and, beyond the JAX package's, ``opttime`` ``(P,)``: host seconds from
-    the call's start to each checkpoint's copy (lowering included).
-    """
-    start = time.perf_counter()
+def _batch_problem(lp, costs, b_eq, b_lower, b_upper, lb, ub, dtype, alpha,
+                   theta, x0, device):
+    """Everything :func:`solve_cp_batch` does before its loop: the batched
+    inputs checked and laid out batch-last, the shared matrix lowered
+    (:func:`_lower_batch`), its preconditioners and the initial state.
+    Returns ``(prob, pre, state, backend)``."""
     dev = resolve_device(device)
     dtype = resolve_dtype(dtype, dev)
     a_eq = _csr(lp.a_equalities)
@@ -264,26 +248,59 @@ def solve_cp_batch(lp, costs=None, b_eq=None, b_lower=None, b_upper=None,
     x = col(x_b, True)
     state = (x, x, torch.zeros((m_eq, bsz), dtype=dtype, device=dev),
              torch.zeros((m_in, bsz), dtype=dtype, device=dev))
+    return prob, pre, state, backend
 
-    nb_iter_plot = nb_iter_plot or nb_iter
-    curves = {k: [] for k in CURVES}
-    itrn, opttime = [], []
-    done = 0
-    while done < nb_iter:
-        nsteps = min(nb_iter_plot, nb_iter - done)
-        state, metrics = _batched_chunk(prob, pre, state, nsteps)
-        done += nsteps
-        itrn.append(done)
-        # ONE device-to-host copy per checkpoint: the four (B,) curves
-        stacked = torch.stack([metrics[k] for k in CURVES]).to(
-            device="cpu", dtype=torch.float64).numpy()
-        opttime.append(time.perf_counter() - start)
-        for i, k in enumerate(CURVES):
-            curves[k].append(stacked[i])
-        check_iterate("solve_cp_batch", done, x=state[0],
-                      **dict(zip(CURVES, stacked)))
-    info = {"backend": backend, "itrn": np.asarray(itrn),
-            "opttime": np.asarray(opttime)}
-    info.update({k: np.stack(v) for k, v in curves.items()})
-    x_out = state[0].to(device="cpu", dtype=torch.float64).numpy()
-    return np.ascontiguousarray(x_out.T), info
+
+def solve_cp_batch(lp, costs=None, b_eq=None, b_lower=None, b_upper=None,
+                   lb=None, ub=None, nb_iter=1000, nb_iter_plot=None,
+                   dtype=None, alpha=1.0, theta=1.0, x0=None, device="cuda"):
+    """Solve ``B`` variants of ``lp`` that share its constraint MATRIX.
+
+    Any of ``costs``/``b_eq``/``b_lower``/``b_upper``/``lb``/``ub`` may be
+    a ``(B, ...)`` batch (the others default to the template values from
+    ``lp``); all provided batches must agree on ``B``.  Preconditioners
+    and operator lowering are computed once from the matrix; the batch
+    advances in lock-step CP-PPD iterations (each element's trajectory
+    follows the single-problem per-operator solver's on the same
+    operators).  Reference iteration being batched:
+    ``pysparselp/ChambollePockPPD.py:199-240``.  ``device`` names the torch
+    device (``"cuda"`` by default); ``dtype=None`` means float32 on CUDA and
+    float64 on the CPU.
+
+    Returns ``(X, info)``: ``X`` is the ``(B, n)`` solution array and
+    ``info`` a dict with the operator ``backend`` and per-checkpoint
+    batched curves (``itrn`` ``(P,)``; ``energy1``, ``energy2``,
+    ``max_violated_equality``, ``max_violated_inequality`` all ``(P, B)``),
+    and, beyond the JAX package's, ``opttime`` ``(P,)``: host seconds from
+    the call's start to each checkpoint's copy (lowering included).
+    """
+    start = time.perf_counter()
+    with span("batch"):
+        with span("batch.lower"):
+            prob, pre, state, backend = _batch_problem(
+                lp, costs, b_eq, b_lower, b_upper, lb, ub, dtype, alpha,
+                theta, x0, device)
+        nb_iter_plot = nb_iter_plot or nb_iter
+        curves = {k: [] for k in CURVES}
+        itrn, opttime = [], []
+        done = 0
+        while done < nb_iter:
+            nsteps = min(nb_iter_plot, nb_iter - done)
+            with span("batch.chunk"):
+                state, metrics = _batched_chunk(prob, pre, state, nsteps)
+            done += nsteps
+            with span("batch.checkpoint"):
+                itrn.append(done)
+                # ONE device-to-host copy per checkpoint: the four (B,) curves
+                stacked = to_np(torch.stack([metrics[k] for k in CURVES]))
+                opttime.append(time.perf_counter() - start)
+                for i, k in enumerate(CURVES):
+                    curves[k].append(stacked[i])
+                check_iterate("solve_cp_batch", done, x=state[0],
+                              **dict(zip(CURVES, stacked)))
+        with span("postsolve"):
+            info = {"backend": backend, "itrn": np.asarray(itrn),
+                    "opttime": np.asarray(opttime)}
+            info.update({k: np.stack(v) for k, v in curves.items()})
+            x_out = to_np(state[0])
+            return np.ascontiguousarray(x_out.T), info

@@ -734,7 +734,10 @@ class SparseLP:
         keyword arguments win over config fields.  Unknown solver options
         raise ``TypeError`` listing the valid fields for the method.
         """
-        from .solvers import dispatch  # lazy: keeps pure modeling torch-free
+        # lazy: keeps pure modeling torch-free
+        from .solvers import dispatch
+        from .solvers.base import fetch
+        from .utils.instrumentation import span
 
         if config is not None:
             # typed configuration (pysparselp_tpu.config): the config names
@@ -886,32 +889,36 @@ class SparseLP:
 
         if light_metrics:
             solver_kwargs["light_metrics"] = True
-        x = dispatch(
-            self,
-            method=method,
-            x0=x0,
-            nb_iter=nb_iter,
-            max_time=max_time,
-            callback_func=recording_callback,
-            nb_iter_plot=nb_iter_plot,
-            start_time=start,
-            force_integer=force_integer,
-            dtype=dtype,
-            device=device,
-            **solver_kwargs,
-        )
-        elapsed = time.perf_counter() - start
-        if light_metrics:
-            # materialize the lazily-recorded device scalars (off the clock)
-            self.pobj_curve = [float(v) for v in self.pobj_curve]
-            self.dobj_curve = [float(v) for v in self.dobj_curve]
-            self.max_violated_equality = [
-                float(v) for v in self.max_violated_equality]
-            self.max_violated_inequality = [
-                float(v) for v in self.max_violated_inequality]
-            self.max_violated_constraint = [
-                max(a, b) for a, b in zip(self.max_violated_equality,
-                                          self.max_violated_inequality)]
+        with span("solve"):
+            x = dispatch(
+                self,
+                method=method,
+                x0=x0,
+                nb_iter=nb_iter,
+                max_time=max_time,
+                callback_func=recording_callback,
+                nb_iter_plot=nb_iter_plot,
+                start_time=start,
+                force_integer=force_integer,
+                dtype=dtype,
+                device=device,
+                **solver_kwargs,
+            )
+            elapsed = time.perf_counter() - start
+            if light_metrics:
+                # materialize the lazily-recorded device scalars (off the
+                # clock)
+                with span("postsolve"):
+                    self.pobj_curve = [fetch(v) for v in self.pobj_curve]
+                    self.dobj_curve = [fetch(v) for v in self.dobj_curve]
+                    self.max_violated_equality = [
+                        fetch(v) for v in self.max_violated_equality]
+                    self.max_violated_inequality = [
+                        fetch(v) for v in self.max_violated_inequality]
+                    self.max_violated_constraint = [
+                        max(a, b) for a, b in zip(
+                            self.max_violated_equality,
+                            self.max_violated_inequality)]
         if get_timing:
             return x, elapsed
         return x

@@ -40,6 +40,7 @@ import copy
 import numpy as np
 import torch
 
+from ..utils.instrumentation import span
 from .base import mirror_callback_attrs, to_np
 
 
@@ -200,14 +201,17 @@ def dispatch(
     # method == "chambolle_pock_ppd"
     from .chambolle_pock import chambolle_pock_ppd
 
-    lp_reduced = copy.deepcopy(lp)
-    m_change, shift = lp_reduced.remove_fixed_variables()
-    # warm start: map into the reduced space (inverse of
-    # ``x = m_change @ x_r + shift``; m_change columns are unit vectors)
-    x0_r = None if x0 is None else m_change.T @ (np.asarray(x0) - shift)
-    x30 = solver_kwargs.pop("x30", None)
-    if x30 is not None:
-        solver_kwargs["x30"] = m_change.T @ (np.asarray(x30) - shift)
+    with span("presolve.reduce"):
+        lp_reduced = copy.deepcopy(lp)
+        m_change, shift = lp_reduced.remove_fixed_variables()
+        # warm start: map into the reduced space (inverse of
+        # ``x = m_change @ x_r + shift``; m_change columns are unit vectors)
+        x0_r = None if x0 is None else m_change.T @ (np.asarray(x0) - shift)
+        x30 = solver_kwargs.pop("x30", None)
+        if x30 is not None:
+            solver_kwargs["x30"] = m_change.T @ (np.asarray(x30) - shift)
+        a_ineq_r = _csr(lp_reduced.a_inequalities)
+        a_eq_r = _csr(lp_reduced.a_equalities)
 
     def back(niter, sol, e1, e2, dur, mveq, mvineq, state=None):
         if state is not None:
@@ -233,8 +237,6 @@ def dispatch(
 
     mirror_callback_attrs(back, callback_func)
 
-    a_ineq_r = _csr(lp_reduced.a_inequalities)
-    a_eq_r = _csr(lp_reduced.a_equalities)
     if mesh is not None:
         # multi-device path: row-shard the constraint systems over the mesh
         from ..parallel.sharded_cp import chambolle_pock_ppd_sharded
@@ -282,7 +284,8 @@ def dispatch(
         # return the best feasible integer-rounded iterate the solver
         # tracked (``ChambollePockPPD.py:274-291``)
         x = _best
-    return m_change @ x + shift
+    with span("postsolve"):
+        return m_change @ x + shift
 
 
 def _dual_ascent(lp, method, x0, nb_iter, max_time, callback_func,

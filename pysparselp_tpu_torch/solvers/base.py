@@ -1,6 +1,7 @@
 # Copy of pysparselp_tpu/solvers/base.py (to_np, chunk_schedule, HostLoop,
 # ToleranceStop, mirror_callback_attrs, emit_callback); to_np also fetches
-# torch tensors, and emit_callback runs utils.debug's chunk-boundary check.
+# torch tensors, each device read goes through fetch (a span in a trace),
+# and emit_callback runs utils.debug's chunk-boundary check.
 """Shared solver-loop infrastructure.
 
 Every iterative solver follows the same shape: a *chunk* of ``nb_iter_plot``
@@ -21,12 +22,29 @@ import numpy as np
 import torch
 
 from ..utils.debug import check_iterate
+from ..utils.instrumentation import span
+
+
+def fetch(x, convert=float):
+    """``convert(x)``.  Where ``x`` is a tensor this is a blocking read of
+    the device (it waits for the work queued before it), and it runs in a
+    ``pslp.sync`` span (:func:`~..utils.instrumentation.span`): the solver
+    paths make each of their device reads here."""
+    if isinstance(x, torch.Tensor):
+        with span("sync"):
+            return convert(x)
+    return convert(x)
+
+
+def _host_f64(t):
+    return t.detach().to(device="cpu", dtype=torch.float64).numpy()
 
 
 def to_np(x):
-    """float64 numpy copy of an array, scalar or (device) tensor."""
+    """float64 numpy copy of an array, scalar or (device) tensor (a
+    tensor's through :func:`fetch`)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to(device="cpu", dtype=torch.float64).numpy()
+        return fetch(x, _host_f64)
     return np.asarray(x, dtype=np.float64)
 
 
@@ -133,7 +151,7 @@ def emit_callback(callback_func, niter, x, energy1, energy2, elapsed,
         args = (
             int(niter),
             x,
-            float(energy1),  # the single synchronizing fetch
+            fetch(energy1),  # the single synchronizing fetch
             energy2,
             float(elapsed()) if callable(elapsed) else float(elapsed),
             max_violated_eq,
@@ -145,8 +163,8 @@ def emit_callback(callback_func, niter, x, energy1, energy2, elapsed,
             callback_func(*args)
         return
     x_np = to_np(x)
-    metric_vals = (float(energy1), float(energy2))  # forces the sync
-    viol_vals = (float(max_violated_eq), float(max_violated_ineq))
+    metric_vals = (fetch(energy1), fetch(energy2))  # forces the sync
+    viol_vals = (fetch(max_violated_eq), fetch(max_violated_ineq))
     args = (
         int(niter),
         x_np,

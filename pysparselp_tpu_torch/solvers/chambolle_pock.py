@@ -36,7 +36,8 @@ from ..problem import (LPProblem, aligned_offset_count, anchor_align,
                        apply_align_embedding, apply_rcm_permutation,
                        choose_layout, lower_systems, lowers_to_dia,
                        rcm_permutation, resolve_device, resolve_dtype)
-from .base import HostLoop, chunk_schedule, emit_callback, to_np
+from ..utils.instrumentation import span
+from .base import HostLoop, chunk_schedule, emit_callback, fetch, to_np
 
 
 def _fold_one_sided(a_ineq, b_lower, b_upper):
@@ -153,6 +154,16 @@ def cp_chunk_impl(prob: LPProblem, pre, state, nsteps: int):
         rounded_feasible=rounded_feasible,
     )
     return state, metrics
+
+
+def _tolerance_met(metrics, stop_tol) -> bool:
+    """The stop test: the chunk metrics' worst violation and relative gap
+    both below ``stop_tol``."""
+    e1, e2 = fetch(metrics["energy1"]), fetch(metrics["energy2"])
+    gap = abs(e1 - e2) / (1.0 + abs(e1) + abs(e2))
+    feas = max(fetch(metrics["max_violated_equality"]),
+               fetch(metrics["max_violated_inequality"]))
+    return feas < stop_tol and gap < stop_tol
 
 
 def _scale_pre(pre, omega):
@@ -438,73 +449,75 @@ def chambolle_pock_ppd(
     if restart is not None and omega is None:
         omega = "auto"
     del save_problem  # repro dumps are handled by utils.save_arguments
-    dev = resolve_device(device)
-    dtype = resolve_dtype(dtype, dev)
-    c = np.asarray(c, np.float64)
-    n = c.size
+    with span("presolve.layout"):
+        dev = resolve_device(device)
+        dtype = resolve_dtype(dtype, dev)
+        c = np.asarray(c, np.float64)
+        n = c.size
 
-    if a_eq is not None and a_eq.shape[0] == 0:
-        a_eq, beq = None, None
-    a_one, b_ineq = _fold_one_sided(a_ineq, b_lower, b_upper)
-    if a_one is not None and a_one.shape[0] == 0:
-        a_one, b_ineq = None, None
+        if a_eq is not None and a_eq.shape[0] == 0:
+            a_eq, beq = None, None
+        a_one, b_ineq = _fold_one_sided(a_ineq, b_lower, b_upper)
+        if a_one is not None and a_one.shape[0] == 0:
+            a_one, b_ineq = None, None
 
-    lb = np.asarray(lb, np.float64)
-    ub = np.asarray(ub, np.float64)
+        lb = np.asarray(lb, np.float64)
+        ub = np.asarray(ub, np.float64)
 
-    # The primal-weight estimate uses the ORIGINAL rhs (the aligned
-    # embedding pads b with a large sentinel that must not enter medians).
-    if omega == "auto":
-        omega = estimate_omega(c, beq if a_eq is not None else None,
-                               b_ineq if a_one is not None else None)
-    if permute == "auto" and dev.type != "cuda":
-        permute = False
-    if permute is True:
-        permute = "rcm"
-    if permute not in (False, None, "auto", "align", "rcm"):
-        raise ValueError(f"permute={permute!r}: use 'auto', 'align', 'rcm', "
-                         "True or False")
-    inv_cols = None          # orig col -> solved position (gather for x)
-    pos_eq = pos_in = None   # orig row -> solved position (per system)
-    layouts = None           # the presolve's priced layouts, reused below
-    if permute and (a_eq is not None or a_one is not None):
-        mats = [a_eq, a_one]
-        choice, plan, layouts = ((permute, None, None) if permute != "auto"
-                                 else _choose_layout(mats))
-        col_pos = None
-        sys = dict(a_eq=a_eq, beq=beq, a_ineq=a_one, b_ineq=b_ineq,
-                   c=c, lb=lb, ub=ub, x0=x0, x30=x30,
-                   y_eq0=y_eq0, y_ineq0=y_ineq0)
-        if choice == "align":
-            sys, pos_eq, pos_in, col_pos = apply_align_embedding(
-                plan if plan is not None else anchor_align(mats), sys)
-        elif choice == "rcm":
-            sys, pos_eq, pos_in, col_pos = apply_rcm_permutation(sys)
-        if col_pos is not None:
-            a_eq, beq = sys["a_eq"], sys["beq"]
-            a_one, b_ineq = sys["a_ineq"], sys["b_ineq"]
-            c, lb, ub = sys["c"], sys["lb"], sys["ub"]
-            x0, x30 = sys["x0"], sys["x30"]
-            y_eq0, y_ineq0 = sys["y_eq0"], sys["y_ineq0"]
-            # x_orig[j] = x_solved[col_pos[j]]
-            inv_cols = col_pos
-            n = c.size
-            if callback_func is not None:
-                user_cb = callback_func
+        # The primal-weight estimate uses the ORIGINAL rhs (the aligned
+        # embedding pads b with a large sentinel that must not enter medians).
+        if omega == "auto":
+            omega = estimate_omega(c, beq if a_eq is not None else None,
+                                   b_ineq if a_one is not None else None)
+        if permute == "auto" and dev.type != "cuda":
+            permute = False
+        if permute is True:
+            permute = "rcm"
+        if permute not in (False, None, "auto", "align", "rcm"):
+            raise ValueError(f"permute={permute!r}: use 'auto', 'align', "
+                             "'rcm', True or False")
+        inv_cols = None          # orig col -> solved position (gather for x)
+        pos_eq = pos_in = None   # orig row -> solved position (per system)
+        layouts = None           # the presolve's priced layouts, reused below
+        if permute and (a_eq is not None or a_one is not None):
+            mats = [a_eq, a_one]
+            choice, plan, layouts = ((permute, None, None) if permute != "auto"
+                                     else _choose_layout(mats))
+            col_pos = None
+            sys = dict(a_eq=a_eq, beq=beq, a_ineq=a_one, b_ineq=b_ineq,
+                       c=c, lb=lb, ub=ub, x0=x0, x30=x30,
+                       y_eq0=y_eq0, y_ineq0=y_ineq0)
+            if choice == "align":
+                sys, pos_eq, pos_in, col_pos = apply_align_embedding(
+                    plan if plan is not None else anchor_align(mats), sys)
+            elif choice == "rcm":
+                sys, pos_eq, pos_in, col_pos = apply_rcm_permutation(sys)
+            if col_pos is not None:
+                a_eq, beq = sys["a_eq"], sys["beq"]
+                a_one, b_ineq = sys["a_ineq"], sys["b_ineq"]
+                c, lb, ub = sys["c"], sys["lb"], sys["ub"]
+                x0, x30 = sys["x0"], sys["x30"]
+                y_eq0, y_ineq0 = sys["y_eq0"], sys["y_ineq0"]
+                # x_orig[j] = x_solved[col_pos[j]]
+                inv_cols = col_pos
+                n = c.size
+                if callback_func is not None:
+                    user_cb = callback_func
 
-                if getattr(user_cb, "wants_solution", True):
-                    def callback_func(niter, xp, *rest, **kw):
-                        user_cb(niter, to_np(xp)[inv_cols], *rest, **kw)
-                else:
-                    # light-metrics recorder: never touches the solution —
-                    # skip the per-checkpoint device fetch + unpermute
-                    def callback_func(niter, xp, *rest, **kw):
-                        user_cb(niter, xp, *rest, **kw)
+                    if getattr(user_cb, "wants_solution", True):
+                        def callback_func(niter, xp, *rest, **kw):
+                            user_cb(niter, to_np(xp)[inv_cols], *rest, **kw)
+                    else:
+                        # light-metrics recorder: never touches the
+                        # solution — skip the per-checkpoint device fetch
+                        # + unpermute
+                        def callback_func(niter, xp, *rest, **kw):
+                            user_cb(niter, xp, *rest, **kw)
 
-                callback_func.wants_state = getattr(user_cb, "wants_state",
-                                                    False)
-                callback_func.wants_solution = getattr(
-                    user_cb, "wants_solution", True)
+                    callback_func.wants_state = getattr(user_cb, "wants_state",
+                                                        False)
+                    callback_func.wants_solution = getattr(
+                        user_cb, "wants_solution", True)
 
     if a_eq is None and a_one is None:
         # unconstrained: minimize cᵀx over the box (``ChambollePockPPD.py:147-151``)
@@ -513,56 +526,93 @@ def chambolle_pock_ppd(
         x[c < 0] = ub[c < 0]
         return x, None
 
-    def vec(v):
-        return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
-                               device=dev)
+    with span("presolve.lower"):
+        def vec(v):
+            return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
+                                   device=dev)
 
-    eq_m, in_m = lower_systems([a_eq, a_one], dtype, dev, layouts=layouts)
-    prob = LPProblem(
-        c=vec(c),
-        lb=vec(lb),
-        ub=vec(ub),
-        a_eq=eq_m,
-        b_eq=vec(beq) if a_eq is not None else None,
-        a_ineq=in_m,
-        b_lower=None,
-        b_upper=vec(b_ineq) if in_m is not None else None,
-        n=n,
-        m_eq=eq_m.nrows if eq_m is not None else 0,
-        m_ineq=in_m.nrows if in_m is not None else 0,
-    )
+        eq_m, in_m = lower_systems([a_eq, a_one], dtype, dev, layouts=layouts)
+        prob = LPProblem(
+            c=vec(c),
+            lb=vec(lb),
+            ub=vec(ub),
+            a_eq=eq_m,
+            b_eq=vec(beq) if a_eq is not None else None,
+            a_ineq=in_m,
+            b_lower=None,
+            b_upper=vec(b_ineq) if in_m is not None else None,
+            n=n,
+            m_eq=eq_m.nrows if eq_m is not None else 0,
+            m_ineq=in_m.nrows if in_m is not None else 0,
+        )
 
-    # diagonal preconditioners (``ChambollePockPPD.py:122-179``):
-    #   T_jj = 1 / sum_i |a_ij|^{2-alpha},  Σ_ii = 1 / sum_j |a_ij|^{alpha}
-    # (omega="auto" was resolved before the layout presolve)
-    omega = float(omega) if omega is not None else 1.0
+        # diagonal preconditioners (``ChambollePockPPD.py:122-179``):
+        #   T_jj = 1 / sum_i |a_ij|^{2-alpha},
+        #   Σ_ii = 1 / sum_j |a_ij|^{alpha}
+        # (omega="auto" was resolved before the layout presolve)
+        omega = float(omega) if omega is not None else 1.0
 
-    col_sum = torch.zeros(n, dtype=dtype, device=dev)
-    if eq_m is not None:
-        col_sum = col_sum + eq_m.abs_power_colsum(2.0 - alpha)
-    if in_m is not None:
-        col_sum = col_sum + in_m.abs_power_colsum(2.0 - alpha)
-    diag_t = 1.0 / torch.where(col_sum == 0, 1.0, col_sum)
-    pre = dict(diag_t=diag_t,
-               theta=torch.tensor(theta, dtype=dtype, device=dev))
-    if eq_m is not None:
-        rs = eq_m.abs_power_rowsum(alpha)
-        pre["sigma_eq"] = 1.0 / torch.where(rs == 0, 1.0, rs)
-    if in_m is not None:
-        rs = in_m.abs_power_rowsum(alpha)
-        pre["sigma_ineq"] = 1.0 / torch.where(rs == 0, 1.0, rs)
-    pre_eff = _scale_pre(pre, omega) if omega != 1.0 else pre
+        col_sum = torch.zeros(n, dtype=dtype, device=dev)
+        if eq_m is not None:
+            col_sum = col_sum + eq_m.abs_power_colsum(2.0 - alpha)
+        if in_m is not None:
+            col_sum = col_sum + in_m.abs_power_colsum(2.0 - alpha)
+        diag_t = 1.0 / torch.where(col_sum == 0, 1.0, col_sum)
+        pre = dict(diag_t=diag_t,
+                   theta=torch.tensor(theta, dtype=dtype, device=dev))
+        if eq_m is not None:
+            rs = eq_m.abs_power_rowsum(alpha)
+            pre["sigma_eq"] = 1.0 / torch.where(rs == 0, 1.0, rs)
+        if in_m is not None:
+            rs = in_m.abs_power_rowsum(alpha)
+            pre["sigma_ineq"] = 1.0 / torch.where(rs == 0, 1.0, rs)
+        pre_eff = _scale_pre(pre, omega) if omega != 1.0 else pre
 
-    x = vec(x0 if x0 is not None else np.zeros(n))
-    ye0 = np.zeros(prob.m_eq) if y_eq0 is None else np.asarray(y_eq0)
-    yi0 = np.zeros(prob.m_ineq) if y_ineq0 is None else np.asarray(y_ineq0)
-    empty = torch.zeros(0, dtype=dtype, device=dev)
-    state = (
-        x,
-        vec(x30) if x30 is not None else x,
-        vec(ye0) if eq_m is not None else empty,
-        vec(yi0) if in_m is not None else empty,
-    )
+        x = vec(x0 if x0 is not None else np.zeros(n))
+        ye0 = np.zeros(prob.m_eq) if y_eq0 is None else np.asarray(y_eq0)
+        yi0 = np.zeros(prob.m_ineq) if y_ineq0 is None else np.asarray(y_ineq0)
+        empty = torch.zeros(0, dtype=dtype, device=dev)
+        state = (
+            x,
+            vec(x30) if x30 is not None else x,
+            vec(ye0) if eq_m is not None else empty,
+            vec(yi0) if in_m is not None else empty,
+        )
+
+        # device-resident PDLP restart controller state (restart="average"):
+        # seeded with the KKT score of the initial point; checks run on device
+        # every restart_period iterations with no host synchronization
+        rstate = None
+        if restart == "average":
+            if restart_period is not None and restart_period > nb_iter_plot:
+                import warnings
+
+                warnings.warn(
+                    f"restart_period={restart_period} exceeds the metrics "
+                    f"chunk size nb_iter_plot={nb_iter_plot}; restart checks "
+                    "run at chunk boundaries, so the effective period is "
+                    "clamped to nb_iter_plot. Raise nb_iter_plot to check "
+                    "less often.",
+                    stacklevel=2,
+                )
+            period = int(min(restart_period or nb_iter_plot, nb_iter_plot))
+            rstate = {
+                "state": state,
+                "omega": torch.tensor(omega, dtype=dtype, device=dev),
+                "mu_restart": _kkt_score(prob, state[0], state[2], state[3]),
+                "mu_last": torch.tensor(np.inf, dtype=dtype, device=dev),
+                "zx": state[0],
+                "zeq": state[2],
+                "zineq": state[3],
+            }
+
+        # whole-iteration chunk kernels, chosen from the operators
+        if cp_dia_eligible(prob):
+            use_fused = "dia"
+        elif cp_dense_eligible(prob):
+            use_fused = "dense"
+        else:
+            use_fused = None
 
     def _callback_state():
         """Full solver state in original (un-permuted) coordinates."""
@@ -579,89 +629,52 @@ def chambolle_pock_ppd(
     best_integer_solution = None
     best_integer_energy = np.inf
     niter = 0
-    # device-resident PDLP restart controller state (restart="average"):
-    # seeded with the KKT score of the initial point; checks run on device
-    # every restart_period iterations with no host synchronization
-    rstate = None
-    if restart == "average":
-        if restart_period is not None and restart_period > nb_iter_plot:
-            import warnings
-
-            warnings.warn(
-                f"restart_period={restart_period} exceeds the metrics chunk "
-                f"size nb_iter_plot={nb_iter_plot}; restart checks run at "
-                "chunk boundaries, so the effective period is clamped to "
-                "nb_iter_plot. Raise nb_iter_plot to check less often.",
-                stacklevel=2,
-            )
-        period = int(min(restart_period or nb_iter_plot, nb_iter_plot))
-        rstate = {
-            "state": state,
-            "omega": torch.tensor(omega, dtype=dtype, device=dev),
-            "mu_restart": _kkt_score(prob, state[0], state[2], state[3]),
-            "mu_last": torch.tensor(np.inf, dtype=dtype, device=dev),
-            "zx": state[0],
-            "zeq": state[2],
-            "zineq": state[3],
-        }
-
-    # whole-iteration chunk kernels, chosen from the operators
-    if cp_dia_eligible(prob):
-        use_fused = "dia"
-    elif cp_dense_eligible(prob):
-        use_fused = "dense"
-    else:
-        use_fused = None
     for nsteps in chunk_schedule(nb_max_iter, nb_iter_plot):
-        if restart == "average":
-            rstate, metrics = _cp_chunk_restart_device(
-                prob, pre, rstate, nsteps, period,
-                use_fused=use_fused, theta_f=float(theta),
-            )
-            state = rstate["state"]
-        elif use_fused:
-            state = _fused_chunk(use_fused, prob, pre_eff, state, nsteps,
-                                 float(theta), False)
-            _, metrics = cp_chunk_impl(prob, pre_eff, state, 0)
-        else:
-            state, metrics = cp_chunk_impl(prob, pre_eff, state, nsteps)
+        with span("cp.chunk"):
+            if restart == "average":
+                rstate, metrics = _cp_chunk_restart_device(
+                    prob, pre, rstate, nsteps, period,
+                    use_fused=use_fused, theta_f=float(theta),
+                )
+                state = rstate["state"]
+            elif use_fused:
+                state = _fused_chunk(use_fused, prob, pre_eff, state, nsteps,
+                                     float(theta), False)
+                _, metrics = cp_chunk_impl(prob, pre_eff, state, 0)
+            else:
+                state, metrics = cp_chunk_impl(prob, pre_eff, state, nsteps)
         niter += nsteps
-        if force_integer and bool(metrics["rounded_feasible"]):
-            er = float(metrics["energy_rounded"])
-            if er < best_integer_energy:
-                best_integer_energy = er
-                best_integer_solution = np.round(to_np(state[0]))
-        emit_callback(
-            callback_func,
-            niter,
-            state[0],
-            metrics["energy1"],
-            metrics["energy2"],
-            lambda: loop.elapsed,
-            metrics["max_violated_equality"],
-            metrics["max_violated_inequality"],
-            state=(
-                _callback_state()
-                if getattr(callback_func, "wants_state", False)
-                else None
-            ),
-            light=light_metrics,
-        )
-        if loop.timed_out:
+        with span("cp.checkpoint"):
+            if force_integer and fetch(metrics["rounded_feasible"], bool):
+                er = fetch(metrics["energy_rounded"])
+                if er < best_integer_energy:
+                    best_integer_energy = er
+                    best_integer_solution = np.round(to_np(state[0]))
+            emit_callback(
+                callback_func,
+                niter,
+                state[0],
+                metrics["energy1"],
+                metrics["energy2"],
+                lambda: loop.elapsed,
+                metrics["max_violated_equality"],
+                metrics["max_violated_inequality"],
+                state=(
+                    _callback_state()
+                    if getattr(callback_func, "wants_state", False)
+                    else None
+                ),
+                light=light_metrics,
+            )
+            stop = loop.timed_out or (
+                stop_tol is not None and _tolerance_met(metrics, stop_tol))
+        if stop:
             break
-        if stop_tol is not None:
-            # tolerance termination: feasibility + relative gap of the
-            # chunk metrics below stop_tol
-            e1, e2 = float(metrics["energy1"]), float(metrics["energy2"])
-            gap = abs(e1 - e2) / (1.0 + abs(e1) + abs(e2))
-            feas = max(float(metrics["max_violated_equality"]),
-                       float(metrics["max_violated_inequality"]))
-            if feas < stop_tol and gap < stop_tol:
-                break
 
-    x_final = to_np(state[0])
-    if inv_cols is not None:
-        x_final = x_final[inv_cols]
-        if best_integer_solution is not None:
-            best_integer_solution = best_integer_solution[inv_cols]
-    return x_final, best_integer_solution
+    with span("postsolve"):
+        x_final = to_np(state[0])
+        if inv_cols is not None:
+            x_final = x_final[inv_cols]
+            if best_integer_solution is not None:
+                best_integer_solution = best_integer_solution[inv_cols]
+        return x_final, best_integer_solution

@@ -1,12 +1,14 @@
 # Copy of pysparselp_tpu/utils/instrumentation.py; SolutionStat, save_arguments
-# and load_arguments are verbatim, profile_trace runs torch.profiler.
+# and load_arguments are verbatim, profile_trace runs torch.profiler, and
+# span marks the solvers' stages in its traces.
 """Observability helpers: solution statistics, call capture, profiling.
 
 Equivalents of the reference's instrumentation layer
 (``pysparselp/tools.py:173-269`` — ``SolutionStat``, ``save_arguments`` —
 and the ad-hoc per-loop prints): a callback-protocol statistics tracker, a
-pickle-based repro capture, and a ``torch.profiler`` trace context for real
-device profiles instead of host tic/tocs.
+pickle-based repro capture, a ``torch.profiler`` trace context for real
+device profiles instead of host tic/tocs, and the program's spans
+(:func:`span`), which name its stages in any such trace.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import pickle
 import time
 
 import numpy as np
+import torch
 
 
 class SolutionStat:
@@ -197,8 +200,6 @@ def profile_trace(log_dir=None, enabled=True):
     if not enabled:
         yield None
         return
-    import torch
-
     log_dir = log_dir or os.path.join(
         os.getcwd(), f"torch_trace_{int(time.time())}"
     )
@@ -221,3 +222,29 @@ def profile_trace(log_dir=None, enabled=True):
         prof.export_chrome_trace(path)
         if warmup is not None:
             cut_warmup(path)
+
+
+SPAN_PREFIX = "pslp."
+_NO_SPAN = contextlib.nullcontext()
+_autograd_profiler = torch.autograd.profiler
+
+
+def span(name: str):
+    """A context that marks a stage of the program as the host span
+    ``pslp.<name>`` in the trace of a running ``torch.profiler`` (a
+    ``record_function`` range: it lands in the same trace as the kernels,
+    on the same clock, so a trace's idle gaps can be put down to a stage).
+    With no profiler recording it is a shared no-op context, and the call
+    costs one read of the profiler's flag: ``record_function`` itself costs
+    microseconds even when nothing records.
+
+    The solvers open spans at their stage boundaries, at most a few a
+    chunk, never an iteration or a launch: ``solve`` (``SparseLP.solve``,
+    the root), ``presolve.reduce``, ``presolve.layout``, ``presolve.lower``,
+    ``cp.chunk``, ``cp.checkpoint`` and ``postsolve`` (Chambolle-Pock);
+    ``batch`` (``solve_cp_batch``, a root), ``batch.lower``, ``batch.chunk``
+    and ``batch.checkpoint``; ``sync`` around each blocking read of a
+    device tensor (``solvers.base.fetch``)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN

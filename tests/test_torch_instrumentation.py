@@ -410,3 +410,142 @@ def test_cut_warmup(tmp_path, warmup_kernels):
         "cudaLaunchKernel", "run_kernel", "aten::add"]
     assert trace["deviceProperties"] == []
     assert cut_warmup(path) == 0  # no graph launch left: nothing to cut
+
+
+# ----------------------------------------------------------------------
+# the program's spans (utils.instrumentation.span) in a torch.profiler trace
+# ----------------------------------------------------------------------
+
+# the Chrome trace rounds times to nanoseconds; containment allows that
+SPAN_EPS_US = 0.01
+SPAN_SOLVE = dict(method=CP, nb_iter=400, nb_iter_plot=50, restart="average",
+                  restart_period=25, stop_tol=1e-6, permute="align", **CPU)
+PRESOLVE = ["presolve.reduce", "presolve.layout", "presolve.lower"]
+
+
+def _traced_spans(run, log_dir):
+    """``run()`` under ``profile_trace``: its result and the trace's
+    ``pslp.*`` spans, ``(start, end, name without the prefix)``, ordered
+    by start, an outer span before the spans it holds."""
+    with profile_trace(log_dir) as d:
+        out = run()
+    with open(os.path.join(d, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"][len("pslp."):])
+             for e in events if e.get("ph") == "X"
+             and e.get("name", "").startswith("pslp.")]
+    return out, sorted(spans, key=lambda s: (s[0], -s[1]))
+
+
+def _span_tree(spans):
+    """Each span's parent (an index into ``spans``, None for a root): the
+    innermost span that holds it; spans nest or follow one another."""
+    parent, open_ = [], []
+    for a, b, _ in spans:
+        while open_ and spans[open_[-1]][1] < b - SPAN_EPS_US:
+            assert spans[open_[-1]][1] <= a + SPAN_EPS_US, "spans overlap"
+            open_.pop()
+        parent.append(open_[-1] if open_ else None)
+        open_.append(len(parent) - 1)
+    return parent
+
+
+def _solve_case(light):
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+
+    lp = build_linear_program(8, 0.5, 500, seed=1)[0]
+
+    def run():
+        x, _ = lp.solve(light_metrics=light, **SPAN_SOLVE)
+        return x, {k: list(getattr(lp, k)) for k in (
+            "itrn_curve", "pobj_curve", "dobj_curve",
+            "max_violated_equality", "max_violated_inequality",
+            "max_violated_constraint")}
+
+    def expected(curves):
+        k = len(curves["itrn_curve"])
+        assert k >= 2
+        # a checkpoint reads energy1 (and in full metrics x, energy2 and
+        # both violations) for the callback, then the stop test's four;
+        # after the loop: the final x, the back map (no read) and, in
+        # light metrics, three device curves a checkpoint
+        per_checkpoint = 1 + 4 if light else 5 + 4
+        post = [("postsolve", 1), ("postsolve", 0)]
+        if light:
+            post.append(("postsolve", 3 * k))
+        return "solve", ([(s, 0) for s in PRESOLVE]
+                         + [("cp.chunk", 0),
+                            ("cp.checkpoint", per_checkpoint)] * k + post)
+
+    return run, expected
+
+
+def _batch_case():
+    from pysparselp_tpu_torch import solve_cp_batch
+    from pysparselp_tpu_torch.batch import CURVES
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+
+    lp = build_linear_program(6, 0.5, 500, seed=1)[0]
+    costs = np.tile(lp.costsvector, (3, 1))
+    costs[1] *= 0.5
+
+    def run():
+        x, info = solve_cp_batch(lp, costs=costs, nb_iter=60,
+                                 nb_iter_plot=20, device="cpu")
+        return x, {k: info[k].tolist() for k in CURVES + ("itrn",)}
+
+    def expected(curves):
+        # one stacked copy a checkpoint, the final x
+        return "batch", ([("batch.lower", 0)]
+                         + [("batch.chunk", 0), ("batch.checkpoint", 1)]
+                         * len(curves["itrn"]) + [("postsolve", 1)])
+
+    return run, expected
+
+
+@pytest.mark.parametrize("case", ["solve_light", "solve_full", "batch"])
+def test_spans_nest_in_stage_order(tmp_path, case):
+    """Under a profiler a solve emits its root span holding, in order,
+    its stages (the three presolve stages, a chunk and a checkpoint span a
+    checkpoint, postsolve); every ``pslp.sync`` lies inside one stage, as
+    many a stage as the code reads the device there; and the solution and
+    curves are bit-identical to an untraced run's."""
+    run, expected = (_batch_case() if case == "batch"
+                     else _solve_case(case == "solve_light"))
+    x_plain, curves_plain = run()
+    (x, curves), spans = _traced_spans(run, str(tmp_path / "trace"))
+    np.testing.assert_array_equal(x, x_plain)
+    assert curves == curves_plain
+    root_name, stages = expected(curves)
+
+    parent = _span_tree(spans)
+    roots = [i for i, p in enumerate(parent) if p is None]
+    assert [spans[i][2] for i in roots] == [root_name]
+    kids = [i for i, p in enumerate(parent) if p == roots[0]]
+    syncs = {i: 0 for i in kids}
+    for i, (_, _, name) in enumerate(spans):
+        if name == "sync":
+            assert parent[i] in syncs, spans[parent[i]]
+            syncs[parent[i]] += 1
+        else:
+            assert parent[i] is None or parent[i] == roots[0], name
+    assert [(spans[i][2], syncs[i]) for i in kids] == stages
+
+
+def test_span_without_profiler_enters_no_record_function(monkeypatch):
+    """With no profiler recording, ``span`` is one shared no-op context:
+    a solve and a batch never reach ``record_function``."""
+    from pysparselp_tpu_torch import solve_cp_batch
+    from pysparselp_tpu_torch.examples.potts import build_linear_program
+    from pysparselp_tpu_torch.utils.instrumentation import span
+
+    def refuse(*_a, **_k):
+        raise AssertionError("record_function with no profiler recording")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert span("solve") is span("sync")
+    lp = build_linear_program(6, 0.5, 500, seed=1)[0]
+    lp.solve(light_metrics=True, **SPAN_SOLVE)
+    lp.solve(**SPAN_SOLVE)
+    solve_cp_batch(lp, costs=lp.costsvector[None], nb_iter=40,
+                   nb_iter_plot=20, device="cpu")
